@@ -5,8 +5,10 @@ adaptive step size, step counters and status code.  The reference vmaps a
 ``lax.while_loop``; here the batch axis is explicit and the solve runs
 through ``kernels/dopri5_ensemble.py``: the plain PyTorch driver for CPU
 tensors, one fused CUDA kernel launch for CUDA tensors with a
-:class:`~ivp_tpu_torch.rhs.CudaRHS`.  The device is the device of
-``y0_batch`` (a numpy array or list means the CPU).
+:class:`~ivp_tpu_torch.rhs.CudaRHS`.  A torch tensor ``y0_batch`` keeps its
+device; anything else (a numpy array, a list) goes to the card
+(``torch.device("cuda")``) unless the caller passes ``device="cpu"``.  There
+is no fallback: with no CUDA device such a call raises.
 
 The RHS is batched: ``fun(t, y, *args)`` takes ``t`` of shape ``(B,)`` and
 ``y`` of shape ``(B, n)`` and returns ``(B, n)``.
@@ -90,10 +92,26 @@ def _lanes(v, B, dtype, device) -> torch.Tensor:
                               (B,)).contiguous()
 
 
-def _as_state(y0_batch, dtype) -> torch.Tensor:
+def _place(y0_batch, device) -> torch.device:
+    """The device a solve runs on: a tensor's own (``device`` is not read),
+    else ``device``, else the card.  Raises, naming the argument, when that
+    is a card and there is none: nothing falls back to the CPU."""
+    if isinstance(y0_batch, torch.Tensor):
+        return y0_batch.device
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "y0_batch is not a tensor, so the solve runs on the card "
+            "(torch.device('cuda')), and there is no CUDA device; pass "
+            "device='cpu' to run on the CPU")
+    return dev
+
+
+def _as_state(y0_batch, dtype, device) -> torch.Tensor:
     if isinstance(y0_batch, torch.Tensor):
         return y0_batch.to(dtype).contiguous()
-    return torch.as_tensor(np.asarray(y0_batch, dtype=float), dtype=dtype)
+    return torch.as_tensor(np.asarray(y0_batch, dtype=float), dtype=dtype,
+                           device=_place(y0_batch, device))
 
 
 def build_ensemble_solver(fun, method="RK45", *, n, dtype=None, args=(),
@@ -139,10 +157,12 @@ def build_ensemble_solver(fun, method="RK45", *, n, dtype=None, args=(),
     dtype = resolve_auto_dtype(dtype)
     args = tuple(args)
 
-    def solver(y0_batch, t0, tf, rtol, atol, batched_args=None):
+    def solver(y0_batch, t0, tf, rtol, atol, batched_args=None, device=None):
         """``batched_args`` overrides the builder's per-lane ``args``
-        (requires ``args_batched=True``)."""
-        y0 = _as_state(y0_batch, dtype)
+        (requires ``args_batched=True``).  ``device``: where a ``y0_batch``
+        that is not a tensor goes; the card by default, ``"cpu"`` for the
+        plain version.  A tensor keeps its own device."""
+        y0 = _as_state(y0_batch, dtype, device)
         if y0.ndim != 2 or y0.shape[1] != n:
             raise ValueError(f"y0_batch must have shape (B, {n}), "
                              f"got {tuple(y0.shape)}")
@@ -192,16 +212,18 @@ def solve_ivp_ensemble(fun, t_span, y0_batch, method="RK45", *, rtol=1e-3,
                        record_trajectories: bool = False,
                        rec_chunk: int = 1024,
                        lane_chunk="auto",
-                       time_dtype=None) -> EnsembleResult:
+                       time_dtype=None, device=None) -> EnsembleResult:
     """Batched solve of ``y0_batch (B, n)`` over ``t_span = (t0, tf)`` to
     each lane's final state.
 
     ``chunk_steps`` is accepted and has no effect (ivp_tpu bounds each
     device call to that many attempts; the kernel runs each lane to its
     end in one launch).  ``lane_chunk="auto"`` and ``None`` mean no
-    chunking.  ``dense_output``, ``record_trajectories``, an integer
-    ``lane_chunk`` and the options :func:`build_ensemble_solver` does not
-    run raise NotImplementedError naming their slice.
+    chunking.  ``device`` is as for :func:`build_ensemble_solver`'s solver:
+    a tensor ``y0_batch`` keeps its device, anything else goes to the card
+    unless ``device="cpu"``.  ``dense_output``, ``record_trajectories``, an
+    integer ``lane_chunk`` and the options :func:`build_ensemble_solver`
+    does not run raise NotImplementedError naming their slice.
     """
     del chunk_steps, rec_chunk
     _unported(dense_output=(dense_output, "item 6 (the recording tier)"),
@@ -209,14 +231,13 @@ def solve_ivp_ensemble(fun, t_span, y0_batch, method="RK45", *, rtol=1e-3,
                                    "item 6 (the recording tier)"),
               lane_chunk=(lane_chunk not in ("auto", None),
                           "item 6 (the resumable tier)"))
-    _check_method(method)
-    y0 = (y0_batch if isinstance(y0_batch, torch.Tensor)
-          else torch.as_tensor(np.atleast_2d(np.asarray(y0_batch, float))))
-    if y0.numel() and not bool(torch.isfinite(y0).all()):
-        raise ValueError("All components of the initial states `y0_batch` "
-                         "must be finite.")
-    if y0.ndim == 1:
-        y0 = y0[None, :]
+    # Every option is checked before anything is placed on a device.
+    if isinstance(y0_batch, torch.Tensor):
+        y0 = torch.atleast_2d(y0_batch)
+        finite = y0.numel() == 0 or bool(torch.isfinite(y0).all())
+    else:
+        y0 = np.atleast_2d(np.asarray(y0_batch, float))
+        finite = bool(np.isfinite(y0).all())
     B, n = y0.shape
     solver = build_ensemble_solver(
         fun, method, n=n, dtype=dtype, args=tuple(args), jac=jac,
@@ -224,12 +245,16 @@ def solve_ivp_ensemble(fun, t_span, y0_batch, method="RK45", *, rtol=1e-3,
         max_step=max_step, min_step=min_step, events=events, t_eval=t_eval,
         solver_options=solver_options, max_restarts=max_restarts,
         time_dtype=time_dtype)
+    if not finite:
+        raise ValueError("All components of the initial states `y0_batch` "
+                         "must be finite.")
     t0, tf = float(t_span[0]), float(t_span[1])
     if n == 0:
         # Empty system: nothing to integrate.
-        z = torch.zeros((B,), dtype=torch.int32, device=y0.device)
+        dev = _place(y0_batch, device)
+        z = torch.zeros((B,), dtype=torch.int32, device=dev)
         return EnsembleResult(
-            t=torch.full((B,), tf, dtype=torch.float64, device=y0.device),
-            y=y0.to(torch.float64), status=z, nfev=z, nstep=z, naccpt=z,
-            nrejct=z)
-    return solver(y0, t0, tf, rtol, atol)
+            t=torch.full((B,), tf, dtype=torch.float64, device=dev),
+            y=torch.as_tensor(y0, dtype=torch.float64, device=dev), status=z,
+            nfev=z, nstep=z, naccpt=z, nrejct=z)
+    return solver(y0, t0, tf, rtol, atol, device=device)

@@ -10,16 +10,36 @@
 // driver's counters and its status priority, per-lane t0/tf/hmax/first_step,
 // per-lane rtol/atol per component and per-lane RHS parameters.
 //
-// What bounds it on an H100: float64 arithmetic (six RHS evaluations and ~30
-// n-vector axpys per attempt) and divergence between lanes of a warp that need
-// different numbers of steps: a warp runs until its slowest lane is done.
-// Device memory is touched once per lane: the inputs are read at the start
-// and the final state and counters written at the end.
+// What bounds it on an H100: float64 operations.  A VdP attempt does 154
+// f64 flops (kernels/dopri5_ensemble.py::FLOPS_PER_ATTEMPT), so bench.py's
+// headline solve (B=524288, ~1112.5 attempts a lane) needs at least 2.64 ms
+// at the data sheet's 34 TFLOP/s; device memory (132 bytes a lane, read or
+// written once) needs 0.02 ms.  The kernel reaches about a third of that
+// bound (PERF.md).  What holds it back, from measure_kernel.py's loop SASS
+// count and sweeps: an attempt issues ~300 instructions on its fast path,
+// 107 of them f64 (214 cycles of the FP64 pipe), and one warp's attempt is a
+// dependent chain of ~1300 cycles: the stages, then the float32 controller's
+// IEEE division, sqrt, log, exp and division and the f64 division of h.  At
+// 79 registers an SM holds 24 warps, 6 a scheduler, and a warp-attempt takes
+// ~405 scheduler cycles: neither the issue slots nor the FP64 pipe are full.
+// Register caps that would give more warps spill and run slower.
 //
 // What the design does about it: one thread per lane, the whole carry (t, y,
 // h, k1, the controller memory and the counters) in registers, one launch per
-// solve and no host synchronisation per step.  Lane compaction and persistent
-// blocks, to cut the divergence, are later work.
+// solve and no host synchronisation per step.  Each attempt issues only what
+// it needs: the double constants come from the constant bank (an immediate
+// double costs two UMOVs an attempt), one exp and one f64 division serve
+// whichever of the accept and reject factors is used, the stiffness sums run
+// only when the test is due, |(float)y| is carried across a step, and NaN-
+// propagating min/max are single instructions.  Results are bit for bit
+// those of the straightforward version.
+//
+// What does not apply here: tensor cores (wgmma, f64 DMMA), since each
+// stage's sum needs the previous stage's RHS and the rows are n long, so no
+// product has a tile's shape; TMA and asynchronous copies, since each lane's
+// bytes cross memory once; persistent blocks and lane refill, which help
+// ensembles whose lanes take very different numbers of steps, where here a
+// warp's lanes take the same number to within 0.5% (warp efficiency 0.9955).
 //
 // Semantics kept line for line with methods/erk.py and core/driver.py (each
 // can change a step count):
@@ -69,10 +89,24 @@ constexpr double A71 = 35.0 / 384.0, A73 = 500.0 / 1113.0,
 constexpr double E1 = 71.0 / 57600.0, E3 = -71.0 / 16695.0,
                  E4 = 71.0 / 1920.0, E5 = -17253.0 / 339200.0,
                  E6 = 22.0 / 525.0, E7 = -1.0 / 40.0;
+constexpr double UROUND = 2.3e-16;
+
+// The loop reads its double constants from the constant bank: a DFMA or
+// DMUL takes c[bank][offset] as an operand, while an immediate double costs
+// two UMOVs into uniform registers, issued again on every attempt (73 of
+// the ~370 instructions of a VdP attempt).  Not const, so that nvcc cannot
+// fold them back into immediates.
+struct Dopri5Constants {
+  double a21, a31, a32, a41, a42, a43, a51, a52, a53, a54, a61, a62, a63,
+      a64, a65, a71, a73, a74, a75, a76, e1, e3, e4, e5, e6, e7, uround,
+      tenth, one01;
+};
+__constant__ Dopri5Constants K = {
+    A21, A31, A32, A41, A42, A43, A51, A52, A53, A54, A61, A62, A63, A64, A65,
+    A71, A73, A74, A75, A76, E1,  E3,  E4,  E5,  E6,  E7,  UROUND, 0.1, 1.01};
 
 // ERKParams defaults for DOPRI5 (methods/erk.py), as the float32 controller
 // sees them: Python floats rounded to float.
-constexpr double UROUND = 2.3e-16;
 constexpr float SAFETY = 0.9f;
 constexpr float FACC1 = (float)(1.0 / 0.2);
 constexpr float FACC2 = (float)(1.0 / 10.0);
@@ -89,11 +123,17 @@ __device__ __forceinline__ double nmax(double a, double b) {
 __device__ __forceinline__ double nmin(double a, double b) {
   return (a < b || a != a) ? a : b;
 }
+// PTX max.NaN/min.NaN (sm_80 and later): NaN if either input is NaN, in one
+// instruction where the compare-and-select takes three.
 __device__ __forceinline__ float nmaxf(float a, float b) {
-  return (a > b || a != a) ? a : b;
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 __device__ __forceinline__ float nminf(float a, float b) {
-  return (a < b || a != a) ? a : b;
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 // jnp.sign: -1, 0 or 1, NaN for NaN.
 __device__ __forceinline__ double sgn(double x) {
@@ -135,8 +175,8 @@ __device__ double hinit(const F& f, double t, const double* y, double posneg,
   return fabs(hf) * sgn(posneg);
 }
 
-template <class F>
-__global__ void __launch_bounds__(128) dopri5_ensemble_kernel(
+template <class F, int THREADS, int MIN_BLOCKS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) dopri5_ensemble_kernel(
     int B, const double* __restrict__ y0, const double* __restrict__ t0,
     const double* __restrict__ tf, const double* __restrict__ hmax_in,
     const double* __restrict__ first_step, const double* __restrict__ rtol,
@@ -186,95 +226,115 @@ __global__ void __launch_bounds__(128) dopri5_ensemble_kernel(
   bool reject = false;
   int iasti = 0, nonstiff = 0;
   int nstep = 0, naccpt = 0, nrejct = 0;
+  // Accepted attempts until the periodic stiffness test: 0 exactly when
+  // (naccpt + 1) % STIFF_TEST == 0.
+  int stiff_in = STIFF_TEST - 1;
+  // |(float)y|, carried across an accepted step (it is |(float)ynew| then).
+  float ayf[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) ayf[j] = fabsf((float)y[j]);
   int status = fabs(tend - t) < 1e-15 ? SUCCESS : RUNNING;
 
   while (status == RUNNING) {
     // ---- methods/erk.py::dopri5_attempt ----
-    const bool too_small = 0.1 * fabs(h) <= fabs(t) * UROUND;
-    const bool last = __dmul_rn(__dadd_rn(__dadd_rn(t, __dmul_rn(1.01, h)),
+    const bool too_small = K.tenth * fabs(h) <= fabs(t) * K.uround;
+    const bool last = __dmul_rn(__dadd_rn(__dadd_rn(t, __dmul_rn(K.one01, h)),
                                           -tend),
                                 posneg) > 0.0;
     if (last) h = tend - t;
+    // The stiffness test runs on this attempt if it is accepted.
+    const bool stiff_due = stiff_in == 0 || iasti > 0;
 
-    double k2[N], k3[N], k4[N], k5[N], k6[N], k7[N], ys[N], ysti[N], ynew[N];
+    double k2[N], k3[N], k4[N], k5[N], k6[N], k7[N], ys[N], ynew[N];
 #pragma unroll
-    for (int j = 0; j < N; ++j) ys[j] = y[j] + h * (A21 * k1[j]);
+    for (int j = 0; j < N; ++j) ys[j] = y[j] + h * (K.a21 * k1[j]);
     f(t + C2 * h, ys, k2, a);
 #pragma unroll
-    for (int j = 0; j < N; ++j) ys[j] = y[j] + h * (A31 * k1[j] + A32 * k2[j]);
+    for (int j = 0; j < N; ++j)
+      ys[j] = y[j] + h * (K.a31 * k1[j] + K.a32 * k2[j]);
     f(t + C3 * h, ys, k3, a);
 #pragma unroll
     for (int j = 0; j < N; ++j)
-      ys[j] = y[j] + h * (A41 * k1[j] + A42 * k2[j] + A43 * k3[j]);
+      ys[j] = y[j] + h * (K.a41 * k1[j] + K.a42 * k2[j] + K.a43 * k3[j]);
     f(t + C4 * h, ys, k4, a);
 #pragma unroll
     for (int j = 0; j < N; ++j)
-      ys[j] = y[j] + h * (A51 * k1[j] + A52 * k2[j] + A53 * k3[j] +
-                          A54 * k4[j]);
+      ys[j] = y[j] + h * (K.a51 * k1[j] + K.a52 * k2[j] + K.a53 * k3[j] +
+                          K.a54 * k4[j]);
     f(t + C5 * h, ys, k5, a);
 #pragma unroll
     for (int j = 0; j < N; ++j)
-      ysti[j] = y[j] + h * (A61 * k1[j] + A62 * k2[j] + A63 * k3[j] +
-                            A64 * k4[j] + A65 * k5[j]);
-    f(t + h, ysti, k6, a);
+      ys[j] = y[j] + h * (K.a61 * k1[j] + K.a62 * k2[j] + K.a63 * k3[j] +
+                          K.a64 * k4[j] + K.a65 * k5[j]);
+    f(t + h, ys, k6, a);
 #pragma unroll
     for (int j = 0; j < N; ++j)
-      ynew[j] = y[j] + h * (A71 * k1[j] + A73 * k3[j] + A74 * k4[j] +
-                            A75 * k5[j] + A76 * k6[j]);
+      ynew[j] = y[j] + h * (K.a71 * k1[j] + K.a73 * k3[j] + K.a74 * k4[j] +
+                            K.a75 * k5[j] + K.a76 * k6[j]);
+    // Stiffness denominator |ynew - ysti|^2, only where the test may run.
+    float stden = 0.0f;
+    if (stiff_due) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float dy = (float)(ynew[j] - ys[j]);
+        stden = __fadd_rn(stden, __fmul_rn(dy, dy));
+      }
+    }
     f(t + h, ynew, k7, a);
 
     // Error norm in float: err_vec in double, cast; sk and the mean in float.
-    float ssum = 0.0f, stnum = 0.0f, stden = 0.0f;
+    float ssum = 0.0f, aynew[N];
 #pragma unroll
     for (int j = 0; j < N; ++j) {
-      const double ev = h * (E1 * k1[j] + E3 * k3[j] + E4 * k4[j] +
-                             E5 * k5[j] + E6 * k6[j] + E7 * k7[j]);
-      const float sk = __fadd_rn(
-          atf[j], __fmul_rn(rtf[j], nmaxf(fabsf((float)y[j]),
-                                          fabsf((float)ynew[j]))));
+      const double ev = h * (K.e1 * k1[j] + K.e3 * k3[j] + K.e4 * k4[j] +
+                             K.e5 * k5[j] + K.e6 * k6[j] + K.e7 * k7[j]);
+      aynew[j] = fabsf((float)ynew[j]);
+      const float sk =
+          __fadd_rn(atf[j], __fmul_rn(rtf[j], nmaxf(ayf[j], aynew[j])));
       const float r = (float)ev / sk;
       ssum = __fadd_rn(ssum, __fmul_rn(r, r));
-      const float dk = (float)(k7[j] - k6[j]);
-      const float dy = (float)(ynew[j] - ysti[j]);
-      stnum = __fadd_rn(stnum, __fmul_rn(dk, dk));
-      stden = __fadd_rn(stden, __fmul_rn(dy, dy));
     }
     const float err = sqrtf(ssum / (float)N);
     const bool accepted = (err <= 1.0f) && !too_small;
 
     // Stiffness detection.
-    const bool do_stiff =
-        accepted && (((naccpt + 1) % STIFF_TEST == 0) || iasti > 0);
-    if (do_stiff && stden > 0.0f)
-      hlamb = __fmul_rn((float)fabs(h), sqrtf(stnum / stden));
-    const bool is_stiff = hlamb > STIFF_THRESHOLD;
-    if (do_stiff) {
-      if (is_stiff) {
+    bool stiff_fail = false;
+    if (accepted && stiff_due) {
+      float stnum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float dk = (float)(k7[j] - k6[j]);
+        stnum = __fadd_rn(stnum, __fmul_rn(dk, dk));
+      }
+      if (stden > 0.0f) hlamb = __fmul_rn((float)fabs(h), sqrtf(stnum / stden));
+      if (hlamb > STIFF_THRESHOLD) {
         iasti += 1;
         nonstiff = 0;
+        stiff_fail = iasti == 15;
       } else {
         nonstiff += 1;
+        if (nonstiff == 6) iasti = 0;
       }
     }
-    if (do_stiff && !is_stiff && nonstiff == 6) iasti = 0;
-    const bool stiff_fail = do_stiff && is_stiff && iasti == 15;
     const bool advance = accepted && !stiff_fail;
 
-    // Controller (Lund-stabilised PI on log(facold)), in float.
+    // Controller (Lund-stabilised PI on log(facold)), in float.  One
+    // exponential and one division of h: the PI factor if accepted, the
+    // plain factor if rejected.
     const float log_err = logf(nmaxf(err, 1e-35f));
-    const float fac11 = expf(__fmul_rn(EXPO1, log_err));
-    float fac = expf(__fsub_rn(__fmul_rn(EXPO1, log_err),
-                               __fmul_rn(BETA, facold)));
-    fac = nmaxf(FACC2, nminf(FACC1, fac / SAFETY));
-    double hnew_acc = h / (double)fac;
-    if (fabs(hnew_acc) > hmax) hnew_acc = posneg * hmax;
-    if (reject) hnew_acc = posneg * nmin(fabs(hnew_acc), fabs(h));
-    const double hnew_rej = h / (double)nminf(FACC1, fac11 / SAFETY);
-    const double h_next = accepted ? hnew_acc : hnew_rej;
-
+    const float e1 = __fmul_rn(EXPO1, log_err);
+    const float q =
+        expf(accepted ? __fsub_rn(e1, __fmul_rn(BETA, facold)) : e1) / SAFETY;
+    const float fac = accepted ? nmaxf(FACC2, nminf(FACC1, q)) : nminf(FACC1, q);
+    double h_next = h / (double)fac;
+    if (accepted) {
+      if (fabs(h_next) > hmax) h_next = posneg * hmax;
+      if (reject) h_next = posneg * nmin(fabs(h_next), fabs(h));
+      facold = nmaxf(log_err, LOG_FACOLD_FLOOR);
+      stiff_in = stiff_in == 0 ? STIFF_TEST - 1 : stiff_in - 1;
+    }
     int st = too_small ? STEP_SIZE_TOO_SMALL
                        : (stiff_fail ? PROBABLY_STIFF : RUNNING);
-    if (accepted) facold = nmaxf(log_err, LOG_FACOLD_FLOOR);
     reject = !accepted;
 
     // ---- core/driver.py: counters, then status priority ----
@@ -291,6 +351,7 @@ __global__ void __launch_bounds__(128) dopri5_ensemble_kernel(
       for (int j = 0; j < N; ++j) {
         y[j] = ynew[j];
         k1[j] = k7[j];
+        ayf[j] = aynew[j];
       }
     }
     h = h_next;
@@ -307,9 +368,7 @@ __global__ void __launch_bounds__(128) dopri5_ensemble_kernel(
   nrejct_out[i] = nrejct;
 }
 
-constexpr int THREADS = 128;
-
-template <class F>
+template <class F, int THREADS, int MIN_BLOCKS>
 int launch(int B, const double* y0, const double* t0, const double* tf,
            const double* hmax, const double* first_step, const double* rtol,
            const double* atol, const double* args, int max_steps,
@@ -317,9 +376,10 @@ int launch(int B, const double* y0, const double* t0, const double* tf,
            int* naccpt, int* nrejct, void* stream) {
   if (B <= 0) return 0;
   const int blocks = (B + THREADS - 1) / THREADS;
-  dopri5_ensemble_kernel<F><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      B, y0, t0, tf, hmax, first_step, rtol, atol, args, max_steps, t_out,
-      y_out, status, nfev, nstep, naccpt, nrejct);
+  dopri5_ensemble_kernel<F, THREADS, MIN_BLOCKS>
+      <<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+          B, y0, t0, tf, hmax, first_step, rtol, atol, args, max_steps,
+          t_out, y_out, status, nfev, nstep, naccpt, nrejct);
   return (int)cudaGetLastError();
 }
 
@@ -327,23 +387,40 @@ int launch(int B, const double* y0, const double* t0, const double* tf,
 
 // One C entry per RHS functor (rhs.py::CudaRHS of the same name), plus its
 // state size and parameter count so the wrapper can check its CudaRHS.
-#define IVP_DOPRI5_ENTRY(NAME, FUNCTOR)                                      \
+// THREADS and MIN_BLOCKS (threads a block, and blocks an SM that
+// __launch_bounds__ asks registers for) are chosen per functor from
+// measure_kernel.py's occupancy sweep, which builds one library per setting
+// by defining IVP_THREADS and IVP_MIN_BLOCKS for every functor at once.
+#ifdef IVP_THREADS
+#define IVP_LAUNCH_CONFIG(THREADS, MIN_BLOCKS) IVP_THREADS, IVP_MIN_BLOCKS
+#else
+#define IVP_LAUNCH_CONFIG(THREADS, MIN_BLOCKS) THREADS, MIN_BLOCKS
+#endif
+
+// One C entry per RHS functor (rhs.py::CudaRHS of the same name), plus its
+// state size and parameter count so the wrapper can check its CudaRHS.
+#define IVP_DOPRI5_ENTRY(NAME, FUNCTOR, THREADS, MIN_BLOCKS)                 \
   extern "C" int ivp_dopri5_##NAME(                                          \
       int B, const double* y0, const double* t0, const double* tf,           \
       const double* hmax, const double* first_step, const double* rtol,      \
       const double* atol, const double* args, int max_steps, double* t_out,  \
       double* y_out, int* status, int* nfev, int* nstep, int* naccpt,        \
       int* nrejct, void* stream) {                                           \
-    return launch<FUNCTOR>(B, y0, t0, tf, hmax, first_step, rtol, atol,      \
-                           args, max_steps, t_out, y_out, status, nfev,      \
-                           nstep, naccpt, nrejct, stream);                   \
+    return launch<FUNCTOR, IVP_LAUNCH_CONFIG(THREADS, MIN_BLOCKS)>(          \
+        B, y0, t0, tf, hmax, first_step, rtol, atol, args, max_steps, t_out, \
+        y_out, status, nfev, nstep, naccpt, nrejct, stream);                 \
   }                                                                          \
   extern "C" int ivp_rhs_n_##NAME() { return FUNCTOR::N; }                   \
   extern "C" int ivp_rhs_nargs_##NAME() { return FUNCTOR::NARGS; }
 
-IVP_DOPRI5_ENTRY(vdp, VdP)
-IVP_DOPRI5_ENTRY(decay, Decay)
-IVP_DOPRI5_ENTRY(lorenz, Lorenz)
+// measure_kernel.py's occupancy sweep on an H100 (PERF.md): every setting
+// that leaves VdP and Decay their registers compiles to the same code and
+// times within the noise; 64 x 8 was the fastest in one of two runs.  Lorenz
+// was fastest at 64 x 10 (96 registers, 24 bytes spilled) in both.  Tighter
+// register caps spill more and run slower for all three.
+IVP_DOPRI5_ENTRY(vdp, VdP, 64, 8)
+IVP_DOPRI5_ENTRY(decay, Decay, 64, 8)
+IVP_DOPRI5_ENTRY(lorenz, Lorenz, 64, 10)
 
 extern "C" const char* ivp_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -2,10 +2,13 @@
 
 ``nvcc`` compiles every ``csrc/*.cu`` (with the headers under ``csrc/``) into
 one shared library with a plain C interface, for Hopper (``sm_90a``), into
-``ivp_tpu_torch/_build/``.  The library's name carries a hash of the sources
-and flags, so an edit rebuilds it and an unchanged tree reuses it.  Nothing
-here runs at import time: a machine without nvcc or a GPU imports this module
-and fails only when it asks for the library.
+``ivp_tpu_torch/_build/``.  The library's name carries a hash of the sources,
+flags and defines, so an edit rebuilds it and an unchanged tree reuses it;
+nvcc's output (ptxas's registers and spills) is kept beside it as ``.log``.
+Another source tree or ``-D`` defines build another library beside the
+default one (measure_kernel.py's A/B and occupancy sweep).  Nothing here
+runs at import time: a machine without nvcc or a GPU imports this module and
+fails only when it asks for the library.
 """
 from __future__ import annotations
 
@@ -28,17 +31,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lib = None
 _entries: dict = {}
-build_log = ""   # nvcc's output of the build this process ran ("" if none)
 
 
-def _sources() -> list[Path]:
-    return sorted(p for p in SRC_DIR.rglob("*") if p.suffix in (".cu", ".cuh"))
+def _sources(src_dir: Path) -> list[Path]:
+    return sorted(p for p in src_dir.rglob("*") if p.suffix in (".cu", ".cuh"))
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in _sources():
-        h.update(str(p.relative_to(SRC_DIR)).encode())
+def library_path(src_dir: Path = SRC_DIR, defines=()) -> Path:
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    h = hashlib.sha256(" ".join(flags).encode())
+    for p in _sources(src_dir):
+        h.update(str(p.relative_to(src_dir)).encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"libivp_tpu_torch_{h.hexdigest()[:16]}.so"
 
@@ -55,24 +58,28 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def build() -> Path:
-    """Compile the library unless a build of these sources exists; return
-    its path.  Raises RuntimeError with nvcc's output if nvcc fails."""
-    global build_log
-    out = library_path()
+def build(src_dir: Path = SRC_DIR, defines=()) -> Path:
+    """Compile the library of ``src_dir`` with ``-D`` ``defines`` unless a
+    build of these sources exists; return its path.  nvcc's output goes to
+    the path with suffix ``.log``.  Raises RuntimeError with nvcc's output
+    if nvcc fails.  Safe to call from several threads at once."""
+    src_dir = Path(src_dir)
+    out = library_path(src_dir, defines)
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+    cu = [str(p) for p in _sources(src_dir) if p.suffix == ".cu"]
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+        cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", tmp,
+               *cu]
         r = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = r.stdout + r.stderr
+        log = r.stdout + r.stderr
         if r.returncode != 0:
             raise RuntimeError(f"nvcc failed (rc={r.returncode}):\n"
-                               f"{' '.join(cmd)}\n{build_log}")
+                               f"{' '.join(cmd)}\n{log}")
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)   # atomic: a concurrent build sees all or none
     finally:
         if os.path.exists(tmp):
@@ -80,30 +87,39 @@ def build() -> Path:
     return out
 
 
+def load(path: Path) -> ctypes.CDLL:
+    """Load a built library and declare its error-string entry."""
+    lib = ctypes.CDLL(str(path))
+    lib.ivp_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.ivp_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library of the package's sources (built on first
+    call)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        lib.ivp_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.ivp_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = load(build())
     return _lib
 
 
-def entry(name: str, argtypes: list, restype=ctypes.c_int):
-    """A C entry of the library with its argument types declared."""
-    fn = _entries.get(name)
+def entry(name: str, argtypes: list, restype=ctypes.c_int, lib=None):
+    """A C entry of ``lib`` (default: :func:`library`) with its argument
+    types declared."""
+    lib = library() if lib is None else lib
+    fn = _entries.get((id(lib), name))
     if fn is None:
-        fn = getattr(library(), name)
+        fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = restype
-        _entries[name] = fn
+        _entries[(id(lib), name)] = fn
     return fn
 
 
-def check(err: int, what: str) -> None:
-    """Raise if a C entry returned a CUDA error code."""
+def check(err: int, what: str, lib=None) -> None:
+    """Raise if a C entry of ``lib`` returned a CUDA error code."""
     if err != 0:
-        msg = library().ivp_cuda_error_string(err).decode()
+        lib = library() if lib is None else lib
+        msg = lib.ivp_cuda_error_string(err).decode()
         raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")

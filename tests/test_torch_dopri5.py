@@ -121,7 +121,7 @@ def test_vdp_lanes_match_ivp_tpu(name):
                                       args=port.get("args", ()),
                                       args_batched=port.get("args_batched",
                                                             False))
-    got = solver(*port["call"])
+    got = solver(*port["call"], device="cpu")
     assert_matches(j, got)
     if name == "stiff":
         assert set(got.status.tolist()) == {it.Status.PROBABLY_STIFF}
@@ -137,7 +137,7 @@ def test_decay_matches_ivp_tpu():
     j = jax.jit(jax_build(lambda t, y, k=1.0: -k * y, "RK45", n=1))(
         y0, 0.0, 5.0, 1e-8, 1e-10)
     got = it.build_ensemble_solver(it.rhs.decay, "RK45", n=1)(
-        y0, 0.0, 5.0, 1e-8, 1e-10)
+        y0, 0.0, 5.0, 1e-8, 1e-10, device="cpu")
     assert_matches(j, got)
     np.testing.assert_allclose(got.y.numpy()[:, 0], y0[:, 0] * np.exp(-5.0),
                                rtol=1e-6)
@@ -148,7 +148,7 @@ def test_max_step_and_first_step_match_ivp_tpu():
     kw = dict(max_step=0.05, first_step=1e-3)
     j = jax.jit(jax_build(jvdp, "RK45", n=2, **kw))(y0, 0.0, 4.0, 1e-6, 1e-8)
     got = it.build_ensemble_solver(it.rhs.vdp, "RK45", n=2, **kw)(
-        y0, 0.0, 4.0, 1e-6, 1e-8)
+        y0, 0.0, 4.0, 1e-6, 1e-8, device="cpu")
     assert_matches(j, got)
     assert int(got.nstep.min()) >= 80          # max_step bounds every step
     # first_step skips hinit: one RHS evaluation at init, then 6 per attempt.
@@ -176,7 +176,7 @@ def test_max_steps_gives_need_larger_nmax(pinned):
         kw.update(first_step=0.01, max_step=0.01)
     j = jax.jit(jax_build(jvdp, "RK45", n=2, **kw))(y0, 0.0, 100.0, 1e-6, 1e-8)
     got = it.build_ensemble_solver(it.rhs.vdp, "RK45", n=2, **kw)(
-        y0, 0.0, 100.0, 1e-6, 1e-8)
+        y0, 0.0, 100.0, 1e-6, 1e-8, device="cpu")
     if pinned:
         assert_matches(j, got)
         np.testing.assert_allclose(got.t.numpy(), 0.21, rtol=1e-12)
@@ -201,7 +201,7 @@ def test_blow_up_gives_step_size_too_small():
     j = jax.jit(jax_build(lambda t, y: y ** 2, "RK45", n=1))(
         y0, 0.0, 2.0, 1e-6, 1e-8)
     got = it.build_ensemble_solver(lambda t, y: y * y, "RK45", n=1)(
-        y0, 0.0, 2.0, 1e-6, 1e-8)
+        y0, 0.0, 2.0, 1e-6, 1e-8, device="cpu")
     for f in COUNTERS:
         np.testing.assert_array_equal(getattr(got, f).numpy(),
                                       np.asarray(getattr(j, f)), err_msg=f)
@@ -378,3 +378,44 @@ def test_plain_f32_matches_under_xla_rounding():
     assert res["attic_status"] == 1.0, res
     assert res["attic_nstep"] >= 0.9 and res["attic_nstep_gap"] <= 3, res
     assert res["attic_y"] <= 1e-4, res
+
+
+# ---------------------------------------------------------------------------
+# The kernel's bound (kernels/dopri5_ensemble.py::solve_bound)
+# ---------------------------------------------------------------------------
+
+# Hand count of one attempt's float64 operations, as csrc/dopri5_ensemble.cu
+# does them: per component the stage sums of stages 2-6 and ynew
+# (3+5+7+9+11+11) and the error vector (12); six RHS evaluations; too_small
+# and last (6), h / fac (1), t + h (1).
+@pytest.mark.parametrize("name, n, rhs_flops", [("vdp", 2, 5), ("decay", 1, 1),
+                                                 ("lorenz", 3, 8)])
+def test_flops_per_attempt_and_bound_match_the_hand_count(name, n, rhs_flops):
+    from ivp_tpu_torch.kernels import dopri5_ensemble as kmod
+
+    fun = getattr(it.rhs, name)
+    per_attempt = n * (3 + 5 + 7 + 9 + 11 + 11 + 12) + 6 * rhs_flops + 6 + 1 + 1
+    assert kmod.FLOPS_PER_ATTEMPT[name] == per_attempt
+    nstep = torch.tensor([1000, 1200, 0, 7], dtype=torch.int32).repeat(1024)
+    ms, by = kmod.solve_bound(fun, nstep)
+    assert by == "operations"
+    assert ms == pytest.approx(1e3 * per_attempt * 1024 * 2207 / 34e12,
+                               rel=1e-12)
+    # Few attempts a lane: the bytes bound it.  Read once: y0, rtol, atol
+    # (n each), t0, tf, hmax, first_step and the args; written once: t, y
+    # and five int32 counters.
+    lane_bytes = 8 * (3 * n + 4 + len(fun.defaults)) + 8 * (1 + n) + 20
+    ms, by = kmod.solve_bound(fun, torch.zeros(4096, dtype=torch.int32))
+    assert by == "bytes"
+    assert ms == pytest.approx(1e3 * 4096 * lane_bytes / 3.35e12, rel=1e-12)
+
+
+def test_bound_of_the_main_path():
+    """VdP at B=524288 with the measured mean of 1112.55 attempts a lane:
+    154 flops an attempt, 2.64 ms on an H100 SXM's 34 TFLOP/s; 132 bytes a
+    lane would take 0.021 ms at 3.35 TB/s."""
+    from ivp_tpu_torch.kernels import dopri5_ensemble as kmod
+
+    ms, by = kmod.solve_bound(it.rhs.vdp, torch.full((524288,), 1112.55,
+                                                     dtype=torch.float64))
+    assert by == "operations" and ms == pytest.approx(2.642, abs=5e-4)

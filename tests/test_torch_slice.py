@@ -79,7 +79,7 @@ def test_golden_file_is_current():
 def test_build_ensemble_solver_matches_ivp_tpu():
     ref = make_golden()
     got = it.build_ensemble_solver(it.rhs.vdp, "RK45", n=2)(
-        ref["y0"], 0.0, 100.0, 1e-6, 1e-8)
+        ref["y0"], 0.0, 100.0, 1e-6, 1e-8, device="cpu")
     assert isinstance(got, it.EnsembleResult)
     assert_matches(type(got)(**{f: ref[f] for f in got._fields}), got)
     assert got.y.dtype == torch.float64 and got.status.dtype == torch.int32
@@ -91,7 +91,7 @@ def test_solve_ivp_ensemble_matches_ivp_tpu():
     ref = ivp_tpu.solve_ivp_ensemble(jvdp, (0.0, 7.0), y0, method="RK45",
                                      lane_chunk=None, **TOL)
     got = it.solve_ivp_ensemble(it.rhs.vdp, (0.0, 7.0), y0, method="RK45",
-                                **TOL)
+                                device="cpu", **TOL)
     assert_matches(ref, got)
 
 
@@ -157,6 +157,51 @@ def test_cpu_tensors_take_the_plain_version():
     assert set(res.status.tolist()) == {0}
 
 
+@pytest.mark.parametrize("entry", ["solver", "solve_ivp_ensemble"])
+def test_device_cpu_takes_the_plain_version_with_numpy(entry):
+    before = kmod.LAUNCHES
+    y0 = np.array([[2.0, 0.0], [1.0, 0.5]])
+    if entry == "solver":
+        res = it.build_ensemble_solver(it.rhs.vdp, "RK45", n=2)(
+            y0, 0.0, 1.0, 1e-6, 1e-8, device="cpu")
+    else:
+        res = it.solve_ivp_ensemble(it.rhs.vdp, (0.0, 1.0), y0, rtol=1e-6,
+                                    atol=1e-8, device="cpu")
+    assert res.y.device.type == "cpu" and kmod.LAUNCHES == before
+    assert set(res.status.tolist()) == {0}
+
+
+@pytest.mark.parametrize("entry", ["solver", "solve_ivp_ensemble"])
+def test_non_tensor_input_goes_to_the_card(entry):
+    """A numpy y0_batch without ``device`` runs on the card; with no CUDA
+    device that raises, naming the argument, and nothing runs on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: chip_smoke.py checks this path")
+    before = kmod.LAUNCHES
+    y0 = np.ones((4, 2))
+    with pytest.raises(RuntimeError, match="y0_batch.*device='cpu'"):
+        if entry == "solver":
+            it.build_ensemble_solver(it.rhs.vdp, "RK45", n=2)(
+                y0, 0.0, 1.0, 1e-6, 1e-8)
+        else:
+            it.solve_ivp_ensemble(it.rhs.vdp, (0.0, 1.0), y0)
+    assert kmod.LAUNCHES == before
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_unported_option_raises_before_any_device(device, monkeypatch):
+    """The options are checked before y0_batch is placed: an unported one
+    raises NotImplementedError even where the card is asked for and the
+    placement would fail."""
+    def no_placement(*a, **k):
+        raise AssertionError("y0_batch was placed before the options were "
+                             "checked")
+    monkeypatch.setattr(it.batch, "_place", no_placement)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        it.solve_ivp_ensemble(it.rhs.vdp, (0.0, 1.0), np.ones((4, 2)),
+                              t_eval=[0.5], device=device)
+
+
 def test_no_route_for_other_devices():
     y0 = torch.zeros((4, 2), dtype=torch.float64, device="meta")
     with pytest.raises(NotImplementedError):
@@ -192,7 +237,7 @@ def test_unported_options_raise(opts):
 def test_f64_class_dtypes_resolve_to_float64(dtype):
     assert resolve_auto_dtype(dtype) == torch.float64
     res = it.solve_ivp_ensemble(it.rhs.decay, (0.0, 1.0), np.ones((2, 1)),
-                                dtype=dtype)
+                                dtype=dtype, device="cpu")
     assert res.y.dtype == torch.float64
 
 
