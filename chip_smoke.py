@@ -75,6 +75,45 @@ def lanes(B, v, dev):
     return torch.full((B,), float(v), dtype=torch.float64, device=dev)
 
 
+def edge_cases(B, dev):
+    """VdP lanes off the common path, each held to every counter and status:
+    ``(name, kernel args after fun, keyword args, statuses every run must
+    show)``.  ``vdp_stiff``: mu=1000 over [0, 3000], where the stiffness
+    detector ends every lane with PROBABLY_STIFF after ~1015 attempts.
+    ``vdp_limits``: max_steps=20 and a per-lane first_step; by lane mod 4,
+    a span of 100 with first_step = max_step = 0.01 (NEED_LARGER_NMAX at
+    t=0.21), a span of 0.5 with max_step 0.05, t0=1e6 with a first step of
+    1e-12 (STEP_SIZE_TOO_SMALL on the first attempt), and spans of 0.05-1.
+    A lane that stops mid-span ends at a t that carries the float32
+    controller's last bit on each step, where the plain version on the card
+    (torch's float32 kernels) and the kernel can round one step's factor
+    differently (on an H100, t differed by up to 6e-7 after 21 steps); so
+    the one such lane set here takes steps that max_step pins, as
+    tests/test_torch_dopri5.py does."""
+    from ivp_tpu_torch import Status
+
+    def T(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=dev).contiguous()
+
+    rng = np.random.default_rng(4)
+    y0 = vdp_y0(B, seed=4)
+    tol = (T(np.full((B, 2), RTOL)), T(np.full((B, 2), ATOL)))
+    stiff = ((T(y0), lanes(B, 0.0, dev), lanes(B, 3000.0, dev),
+              lanes(B, 3000.0, dev), None, *tol), dict(args=(1000.0,)))
+    lane = np.arange(B) % 4
+    t0 = np.where(lane == 2, 1e6, 0.0)
+    span = np.select([lane == 1, lane == 3], [0.5, rng.uniform(0.05, 1.0, B)],
+                     100.0)
+    hmax = np.select([lane == 0, lane == 1], [0.01, 0.05], span)
+    first = np.select([lane == 0, lane == 2], [0.01, 1e-12],
+                      10.0 ** rng.uniform(-4, -2, B))
+    limits = ((T(y0), T(t0), T(t0 + span), T(hmax), T(first), *tol),
+              dict(max_steps=20))
+    return [("vdp_stiff", *stiff, {Status.PROBABLY_STIFF}),
+            ("vdp_limits", *limits, {Status.SUCCESS, Status.NEED_LARGER_NMAX,
+                                     Status.STEP_SIZE_TOO_SMALL})]
+
+
 def main():
     # ---- 1. Device ----
     if not torch.cuda.is_available():
@@ -154,6 +193,18 @@ def main():
         ref = k.dopri5_ensemble_torch(fun, *a, fargs)
         torch.cuda.synchronize()
         compare(f"kernel_vs_plain_{name}_B{Bc}", got, ref)
+
+    # The stiffness detector, the step budget, a too-small step, first_step
+    # and max_step, through the same kernel.
+    for name, a, kw, want in edge_cases(Bc, dev):
+        got = k.dopri5_ensemble_cuda(rhs.vdp, *a, **kw)
+        ref = k.dopri5_ensemble_torch(rhs.vdp, *a, **kw)
+        torch.cuda.synchronize()
+        compare(f"kernel_vs_plain_{name}_B{Bc}", got, ref)
+        seen = set(got[2].cpu().tolist())
+        if seen != want:
+            raise AssertionError(f"{name}: statuses {sorted(seen)}, expected "
+                                 f"{sorted(want)}")
 
     # ---- 4. Kernel against ivp_tpu's own numbers (golden file) ----
     with np.load(ROOT / "ivp_tpu_torch" / "data" / "vdp_golden.npz") as g:

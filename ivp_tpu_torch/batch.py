@@ -6,7 +6,7 @@ adaptive step size, step counters and status code.  The reference vmaps a
 through ``kernels/dopri5_ensemble.py``: the plain PyTorch driver for CPU
 tensors, one fused CUDA kernel launch for CUDA tensors with a
 :class:`~ivp_tpu_torch.rhs.CudaRHS`.  A torch tensor ``y0_batch`` keeps its
-device; anything else (a numpy array, a list) goes to the card
+device (a ``device`` argument that names another raises); anything else (a numpy array, a list) goes to the card
 (``torch.device("cuda")``) unless the caller passes ``device="cpu"``.  There
 is no fallback: with no CUDA device such a call raises.
 
@@ -93,11 +93,19 @@ def _lanes(v, B, dtype, device) -> torch.Tensor:
 
 
 def _place(y0_batch, device) -> torch.device:
-    """The device a solve runs on: a tensor's own (``device`` is not read),
-    else ``device``, else the card.  Raises, naming the argument, when that
-    is a card and there is none: nothing falls back to the CPU."""
+    """The device a solve runs on: a tensor's own, else ``device``, else the
+    card.  Raises ValueError when ``device`` is given and is not the
+    tensor's, and RuntimeError, naming the argument, when the solve would
+    run on a card and there is none: nothing moves or falls back silently."""
     if isinstance(y0_batch, torch.Tensor):
-        return y0_batch.device
+        own = y0_batch.device
+        if device is not None:
+            want = torch.device(device)
+            if want.type != own.type or want.index not in (None, own.index):
+                raise ValueError(
+                    f"y0_batch is a tensor on {own} and device={str(want)!r} "
+                    "was asked for; move the tensor or drop device")
+        return own
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -108,10 +116,11 @@ def _place(y0_batch, device) -> torch.device:
 
 
 def _as_state(y0_batch, dtype, device) -> torch.Tensor:
+    dev = _place(y0_batch, device)
     if isinstance(y0_batch, torch.Tensor):
         return y0_batch.to(dtype).contiguous()
     return torch.as_tensor(np.asarray(y0_batch, dtype=float), dtype=dtype,
-                           device=_place(y0_batch, device))
+                           device=dev)
 
 
 def build_ensemble_solver(fun, method="RK45", *, n, dtype=None, args=(),
@@ -161,7 +170,8 @@ def build_ensemble_solver(fun, method="RK45", *, n, dtype=None, args=(),
         """``batched_args`` overrides the builder's per-lane ``args``
         (requires ``args_batched=True``).  ``device``: where a ``y0_batch``
         that is not a tensor goes; the card by default, ``"cpu"`` for the
-        plain version.  A tensor keeps its own device."""
+        plain version.  A tensor keeps its own device; a ``device`` given
+        with it must name that device (ValueError otherwise)."""
         y0 = _as_state(y0_batch, dtype, device)
         if y0.ndim != 2 or y0.shape[1] != n:
             raise ValueError(f"y0_batch must have shape (B, {n}), "
@@ -220,8 +230,9 @@ def solve_ivp_ensemble(fun, t_span, y0_batch, method="RK45", *, rtol=1e-3,
     device call to that many attempts; the kernel runs each lane to its
     end in one launch).  ``lane_chunk="auto"`` and ``None`` mean no
     chunking.  ``device`` is as for :func:`build_ensemble_solver`'s solver:
-    a tensor ``y0_batch`` keeps its device, anything else goes to the card
-    unless ``device="cpu"``.  ``dense_output``, ``record_trajectories``, an
+    a tensor ``y0_batch`` keeps its device (a conflicting ``device`` raises
+    ValueError), anything else goes to the card unless ``device="cpu"``.
+    ``dense_output``, ``record_trajectories``, an
     integer ``lane_chunk`` and the options :func:`build_ensemble_solver`
     does not run raise NotImplementedError naming their slice.
     """

@@ -15,14 +15,18 @@
 // headline solve (B=524288, ~1112.5 attempts a lane) needs at least 2.64 ms
 // at the data sheet's 34 TFLOP/s; device memory (132 bytes a lane, read or
 // written once) needs 0.02 ms.  The kernel reaches about a third of that
-// bound (PERF.md).  What holds it back, from measure_kernel.py's loop SASS
-// count and sweeps: an attempt issues ~300 instructions on its fast path,
-// 107 of them f64 (214 cycles of the FP64 pipe), and one warp's attempt is a
-// dependent chain of ~1300 cycles: the stages, then the float32 controller's
-// IEEE division, sqrt, log, exp and division and the f64 division of h.  At
-// 79 registers an SM holds 24 warps, 6 a scheduler, and a warp-attempt takes
-// ~405 scheduler cycles: neither the issue slots nor the FP64 pipe are full.
-// Register caps that would give more warps spill and run slower.
+// bound (PERF.md).  What holds it back is instruction issue, with each f64
+// instruction holding its scheduler for two cycles (16 FP64 lanes a
+// scheduler): a VdP attempt issues 298 instructions on its loop's fast path
+// (measure_kernel.py's loop SASS count), 107 of them f64, so 298 + 107 = 405
+// cycles a warp-attempt against 411 measured at saturation.  That is a fit
+// across three builds, not a hardware counter.  It is not latency: one
+// warp's attempt is a dependent chain of ~1400 cycles (the stages, then the
+// float32 controller's IEEE division, sqrt, log, exp and division and the
+// f64 division of h), which the 6 warps a scheduler hold at 79 registers
+// would hide down to ~234; register caps that give more warps spill and
+// run slower.  Most of the ~190 non-f64 instructions are that controller's,
+// which the reference's step counts depend on.
 //
 // What the design does about it: one thread per lane, the whole carry (t, y,
 // h, k1, the controller memory and the counters) in registers, one launch per
@@ -397,8 +401,6 @@ int launch(int B, const double* y0, const double* t0, const double* tf,
 #define IVP_LAUNCH_CONFIG(THREADS, MIN_BLOCKS) THREADS, MIN_BLOCKS
 #endif
 
-// One C entry per RHS functor (rhs.py::CudaRHS of the same name), plus its
-// state size and parameter count so the wrapper can check its CudaRHS.
 #define IVP_DOPRI5_ENTRY(NAME, FUNCTOR, THREADS, MIN_BLOCKS)                 \
   extern "C" int ivp_dopri5_##NAME(                                          \
       int B, const double* y0, const double* t0, const double* tf,           \
@@ -413,12 +415,14 @@ int launch(int B, const double* y0, const double* t0, const double* tf,
   extern "C" int ivp_rhs_n_##NAME() { return FUNCTOR::N; }                   \
   extern "C" int ivp_rhs_nargs_##NAME() { return FUNCTOR::NARGS; }
 
-// measure_kernel.py's occupancy sweep on an H100 (PERF.md): every setting
-// that leaves VdP and Decay their registers compiles to the same code and
-// times within the noise; 64 x 8 was the fastest in one of two runs.  Lorenz
-// was fastest at 64 x 10 (96 registers, 24 bytes spilled) in both.  Tighter
-// register caps spill more and run slower for all three.
-IVP_DOPRI5_ENTRY(vdp, VdP, 64, 8)
+// The fastest median of measure_kernel.py's occupancy sweep, timed in 10
+// interleaved rounds on an H100 (PERF.md).  The settings that leave VdP its
+// 79 registers (and Decay its 71) compile to the same code and lie within
+// 0.5% (VdP) of each other, an order 10 rounds do not settle.  Lorenz is
+// fastest at 64 x 10 (96 registers, 24 bytes spilled), ahead of 64 x 8 in 9
+// of 10 rounds.  Tighter register caps spill more and run slower for all
+// three.
+IVP_DOPRI5_ENTRY(vdp, VdP, 64, 12)
 IVP_DOPRI5_ENTRY(decay, Decay, 64, 8)
 IVP_DOPRI5_ENTRY(lorenz, Lorenz, 64, 10)
 

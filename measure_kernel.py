@@ -1,7 +1,6 @@
 """Measurements of the port's DOPRI5 kernel on one NVIDIA GPU (an H100).
 
     python3 measure_kernel.py [--baseline CSRC_DIR ...] [--phases a,b,...]
-                              [--dump DIR]
 
 The problem is bench.py's headline one: VdP mu=1, t in [0, 100],
 y0 = [2, 0] + 0.05 N(0,1) (numpy seed 0), DOPRI5, rtol 1e-6, atol 1e-8,
@@ -29,16 +28,21 @@ instantiation), then the phases (all by default, ``ab`` only with
   device time, and device time over wall time;
 * ``occupancy``: one library per (threads a block, __launch_bounds__ min
   blocks an SM), built in parallel with -DIVP_THREADS/-DIVP_MIN_BLOCKS: its
-  registers and spills, and each functor's kernel ms at B=524288 (one
-  untimed launch, then 5 timed) on its own problem (``PROBLEMS``), with a
-  check that every lane's counters equal the package kernel's;
+  registers and spills, and each functor's kernel ms at B=524288 on its own
+  problem (``PROBLEMS``), with a check that every lane's counters equal the
+  package kernel's.  The settings are timed in turns: one untimed launch
+  each, then ``OCC_ROUNDS`` rounds that time every setting once, in
+  forward order on even rounds and backward on odd ones; then each
+  functor's settings ranked by median;
 * ``ab`` (needs ``--baseline``, which may be given more than once): the
   kernel built from another source tree (for example an older commit's
   ``ivp_tpu_torch/csrc``, unpacked into a directory .gitignore lists; its
   label is the directory above ``csrc``) against the package's, at
-  B=524288: how many lanes differ in each output per functor (0 everywhere
-  is bit for bit equal), then rounds of old, new, new, old (CUDA events),
-  and the loop's SASS classes of the old build.
+  B=524288: how many lanes differ in each output (0 everywhere is bit for
+  bit equal) on each ``PROBLEMS`` entry and on chip_smoke.py's
+  ``edge_cases`` (stiff lanes, the step budget, a too-small step,
+  first_step and max_step), then rounds of old, new, new, old (CUDA
+  events), and the loop's SASS classes of the old build.
 
 The fast path of the loop is walked from the loop head to its back edge.  A
 forward branch whose skipped region calls a subroutine is taken: that skips
@@ -46,8 +50,7 @@ the IEEE slow paths of f32/f64 division and sqrt, and the stiffness test
 (run on ~1 accepted attempt in 1000), which holds such calls of its own.
 Every other conditional branch falls through, so the path is an accepted
 attempt's.  The line counts the regions skipped and their instructions.
-``hinit`` lies before the loop and is not counted.  With ``--dump DIR`` the loop's SASS is
-written to DIR/sass_loop_<label>_<functor>.txt for reading.
+``hinit`` lies before the loop and is not counted.
 
 Imports neither jax nor ivp_tpu.  Needs one CUDA device; exits 1 without one.
 """
@@ -74,6 +77,7 @@ FUNCTORS = ("VdP", "Decay", "Lorenz")
 # Occupancy sweep: threads a block x min blocks an SM; a setting above the
 # SM's 2048 threads cannot be met and is skipped.
 OCC_THREADS, OCC_MIN_BLOCKS = (64, 128, 256), (6, 7, 8, 10, 12)
+OCC_ROUNDS = 10
 PHASES = ("sass", "settle", "sweep", "turns", "profile", "occupancy", "ab")
 
 # SASS classes of the loop count.
@@ -209,7 +213,7 @@ def _class(op):
 
 def loop_fast_path(ins):
     """(opcodes on the loop's fast path, forward branches taken past a
-    region with a call, instructions they skip, loop head, back edge)."""
+    region with a call, instructions they skip)."""
     at = {a: i for i, (a, *_) in enumerate(ins)}
     back = [(a - t, a, t) for a, _, op, arg in ins
             if op.split(".")[0] == "BRA" and (t := _target(arg)) is not None
@@ -234,22 +238,19 @@ def loop_fast_path(ins):
                 i = at[t]
                 continue
         i += 1
-    return path, skipped, skipped_ins, head, tail
+    return path, skipped, skipped_ins
 
 
-def sass_report(lib, label, dump=None):
+def sass_report(lib, label):
     """Print the static mix and the loop's fast-path classes of each
-    instantiation of ``lib``; write each loop's SASS under ``dump``."""
-    funcs = sass_functions(lib)
-    if dump:
-        dump.mkdir(parents=True, exist_ok=True)
-    for name, ins in funcs.items():
+    instantiation of ``lib``."""
+    for name, ins in sass_functions(lib).items():
         c = Counter(op.split(".")[0] for _, _, op, _ in ins)
         line("sass", build=label, functor=name, instructions=len(ins),
              DFMA=c["DFMA"], DMUL=c["DMUL"], DADD=c["DADD"], MUFU=c["MUFU"],
              FFMA=c["FFMA"], BRA=c["BRA"])
         try:
-            path, skipped, skipped_ins, head, tail = loop_fast_path(ins)
+            path, skipped, skipped_ins = loop_fast_path(ins)
         except (ValueError, KeyError) as e:   # no loop found, or a target
             line("loop", build=label, functor=name, error=repr(str(e)))
             continue
@@ -260,11 +261,6 @@ def sass_report(lib, label, dump=None):
              other=classes["other"], **pipes, branches_skipped=skipped,
              instructions_skipped=skipped_ins,
              top=repr(dict(Counter(path).most_common(12))))
-        if dump:
-            with open(dump / f"sass_loop_{label}_{name}.txt", "w") as fh:
-                for a, pred, op, arg in ins:
-                    if head <= a <= tail:
-                        fh.write(f"{a:06x} {pred:6s} {op} {arg}\n")
 
 
 # ---- phases ----
@@ -378,29 +374,44 @@ def occupancy(k, build, rhs, dev):
     problems = {name: problem_args(name, MAIN_B, dev) for name in PROBLEMS}
     refs = {name: k.dopri5_ensemble_cuda(getattr(rhs, name), *a)
             for name, a in problems.items()}
-    for (t, m), path in libs.items():
-        lib = build.load(path)
-        regs = {}
+    loaded, regs, equal = {}, {}, {}
+    for s, path in libs.items():
+        loaded[s] = build.load(path)
         for functor, info in ptxas_lines(path.with_suffix(".log").read_text()):
-            regs[functor] = f"{regs[functor]}; {info}" if functor in regs else info
-        for name, a in problems.items():
-            fun = getattr(rhs, name)
-            k.dopri5_ensemble_cuda(fun, *a, lib=lib)
-            ms = []
-            for _ in range(REPEATS):
-                out = None
-                out, dt, _ = timed(lambda: k.dopri5_ensemble_cuda(fun, *a,
-                                                                  lib=lib))
-                ms.append(dt)
-            functor = {"vdp": "VdP", "decay": "Decay", "lorenz": "Lorenz"}[name]
-            line("occupancy", threads=t, min_blocks=m, functor=functor,
-                 ptxas=repr(regs.get(functor, "?")),
-                 ms_median=round(float(np.median(ms)), 4),
-                 ms_all=[round(x, 4) for x in ms],
-                 counters_equal=same_counters(out, refs[name]))
+            key = (s, functor)
+            regs[key] = f"{regs[key]}; {info}" if key in regs else info
+        for name, a in problems.items():   # the untimed launch
+            out = k.dopri5_ensemble_cuda(getattr(rhs, name), *a, lib=loaded[s])
+            equal[s, name] = same_counters(out, refs[name])
+    del out, refs
+    ms = {(s, name): [] for s in libs for name in problems}
+    for r in range(OCC_ROUNDS):
+        for s in (settings if r % 2 == 0 else settings[::-1]):
+            for name, a in problems.items():
+                fun, lib = getattr(rhs, name), loaded[s]
+                _, dt, _ = timed(lambda: k.dopri5_ensemble_cuda(fun, *a,
+                                                                lib=lib))
+                ms[s, name].append(dt)
+    names = {"vdp": "VdP", "decay": "Decay", "lorenz": "Lorenz"}
+    for s in settings:
+        for name in problems:
+            functor = names[name]
+            line("occupancy", threads=s[0], min_blocks=s[1], functor=functor,
+                 ptxas=repr(regs.get((s, functor), "?")),
+                 ms_median=round(float(np.median(ms[s, name])), 4),
+                 ms_min=round(min(ms[s, name]), 4),
+                 ms_max=round(max(ms[s, name]), 4),
+                 counters_equal=equal[s, name])
+    for name in problems:
+        ranked = sorted(settings, key=lambda s: np.median(ms[s, name]))
+        first, second = ms[ranked[0], name], ms[ranked[1], name]
+        line("occupancy_rank", functor=names[name], rounds=OCC_ROUNDS,
+             fastest=[f"{t}x{m}:{np.median(ms[(t, m), name]):.4f}"
+                      for t, m in ranked[:5]],
+             rounds_first_beat_second=sum(x < y for x, y in zip(first, second)))
 
 
-def ab(k, build, rhs, dev, baseline, dump):
+def ab(k, build, rhs, dev, baseline):
     label = baseline.parent.name if baseline.name == "csrc" else baseline.name
     t0 = time.perf_counter()
     path = build.build(src_dir=baseline)
@@ -409,11 +420,16 @@ def ab(k, build, rhs, dev, baseline, dump):
          seconds=round(time.perf_counter() - t0, 3))
     for functor, info in ptxas_lines(path.with_suffix(".log").read_text()):
         line("ptxas", build=label, functor=functor, info=repr(info))
-    sass_report(path, label, dump)
-    for name in PROBLEMS:
-        fun, a = getattr(rhs, name), problem_args(name, MAIN_B, dev)
-        new_out = k.dopri5_ensemble_cuda(fun, *a)
-        old_out = k.dopri5_ensemble_cuda(fun, *a, lib=old)
+    sass_report(path, label)
+    from chip_smoke import edge_cases
+
+    cases = [(name, getattr(rhs, name), problem_args(name, MAIN_B, dev), {})
+             for name in PROBLEMS]
+    cases += [(name, rhs.vdp, a, kw)
+              for name, a, kw, _ in edge_cases(MAIN_B, dev)]
+    for name, fun, a, kw in cases:
+        new_out = k.dopri5_ensemble_cuda(fun, *a, **kw)
+        old_out = k.dopri5_ensemble_cuda(fun, *a, **kw, lib=old)
         torch.cuda.synchronize()
         diff = {f: int((x != y).reshape(x.shape[0], -1).any(dim=1).sum())
                 for f, x, y in zip(("t", "y", "status", "nfev", "nstep",
@@ -421,6 +437,7 @@ def ab(k, build, rhs, dev, baseline, dump):
         line("ab_bitwise", old=label, functor=name, B=MAIN_B,
              identical=all(v == 0 for v in diff.values()),
              lanes_differing=repr(diff),
+             statuses=repr(dict(Counter(new_out[2].cpu().tolist()))),
              max_abs_dy=float((new_out[1] - old_out[1]).abs().max()))
     a = problem_args("vdp", MAIN_B, dev)
     for r in range(AB_ROUNDS):
@@ -438,8 +455,6 @@ def main():
     ap.add_argument("--baseline", type=Path, action="append", default=[],
                     help="a csrc directory to build and hold against "
                          "(repeatable)")
-    ap.add_argument("--dump", type=Path,
-                    help="a directory to write each loop's SASS to")
     ap.add_argument("--phases",
                     help=f"comma-separated subset of {','.join(PHASES)} "
                          "(default: all; ab only with --baseline)")
@@ -471,7 +486,7 @@ def main():
     for functor, info in ptxas_lines(lib.with_suffix(".log").read_text()):
         line("ptxas", build="new", functor=functor, info=repr(info))
     if "sass" in phases:
-        sass_report(lib, "new", opts.dump)
+        sass_report(lib, "new")
 
     solver = build_ensemble_solver(rhs.vdp, "RK45", n=2)
     y0 = torch.as_tensor(vdp_y0(MAIN_B), device=dev)
@@ -512,7 +527,7 @@ def main():
         occupancy(k, build, rhs, dev)
     if "ab" in phases:
         for baseline in opts.baseline:
-            ab(k, build, rhs, dev, baseline, opts.dump)
+            ab(k, build, rhs, dev, baseline)
     return 0
 
 

@@ -188,6 +188,25 @@ def test_non_tensor_input_goes_to_the_card(entry):
     assert kmod.LAUNCHES == before
 
 
+@pytest.mark.parametrize("entry", ["solver", "solve_ivp_ensemble"])
+@pytest.mark.parametrize("device", ["cuda", "cuda:1", "meta"])
+def test_device_conflicting_with_a_tensor_raises(entry, device):
+    """An explicit ``device`` that is not the tensor's own raises, naming
+    both, before anything runs: the tensor is neither moved nor solved where
+    it lies.  ``"cpu"`` (and None) with a CPU tensor is the plain route."""
+    before = kmod.LAUNCHES
+    y0 = torch.tensor([[2.0, 0.0], [1.0, 0.5]], dtype=torch.float64)
+    with pytest.raises(ValueError, match=f"on cpu and device='{device}'"):
+        if entry == "solver":
+            it.build_ensemble_solver(it.rhs.vdp, "RK45", n=2)(
+                y0, 0.0, 1.0, 1e-6, 1e-8, device=device)
+        else:
+            it.solve_ivp_ensemble(it.rhs.vdp, (0.0, 1.0), y0, device=device)
+    res = it.solve_ivp_ensemble(it.rhs.vdp, (0.0, 1.0), y0, rtol=1e-6,
+                                atol=1e-8, device="cpu")
+    assert res.y.device.type == "cpu" and kmod.LAUNCHES == before
+
+
 @pytest.mark.parametrize("device", [None, "cuda"])
 def test_unported_option_raises_before_any_device(device, monkeypatch):
     """The options are checked before y0_batch is placed: an unported one
