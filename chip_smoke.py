@@ -2,15 +2,18 @@
 
     python3 chip_smoke.py
 
-Drives ivp_tpu_torch's main path, the lean DOPRI5 ensemble solve, on
-cuda:0 through the hand-written kernel csrc/dopri5_ensemble.cu, and holds
-the kernel against its plain PyTorch version, against ivp_tpu's own numbers
-(ivp_tpu_torch/data/vdp_golden.npz) and against SciPy.  Then a numpy y0 with
-no ``device`` must run the kernel on cuda:0.  Imports neither jax nor
-ivp_tpu.  Prints its phases one per line, then a JSON line with the
-kernel's launches, error, times and bound, then the card, and last
-``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is not 0
-and no result line is printed.  Needs one CUDA device; fails without one.
+Drives ivp_tpu_torch's main paths on cuda:0 through its hand-written CUDA
+kernels: the lean DOPRI5 ensemble solve (VdP, B=524288, csrc/
+dopri5_ensemble.cu) and the rest of the explicit tier (Lorenz, B=16384:
+DOP853 to the final state and with 100 in-loop samples, RK23, RK4 and DOPRI5
+with samples; csrc/erk_*.cu).  Every kernel is built from the sources here
+and held against its plain PyTorch version, against ivp_tpu's own numbers
+(ivp_tpu_torch/data/*.npz) and against SciPy.  A numpy y0 with no ``device``
+must run the kernels on cuda:0.  Imports neither jax nor ivp_tpu.  Prints
+its phases one per line, then a JSON line with every kernel's launches,
+error, times and bound, then the card, and last ``{"ok": true, "device":
+{...}}``.  Any failure raises: the exit code is not 0 and no result line is
+printed.  Needs one CUDA device; fails without one.
 """
 import json
 import subprocess
@@ -32,6 +35,30 @@ RTOL, ATOL = 1e-6, 1e-8
 COUNT_FRACTION, Y_EQUAL_STEPS, Y_ALL = 1.0, 1e-8, 1e-3
 # bench.py's headline batch size.
 MAIN_B = 524288
+# Lanes of each comparison of a kernel with its plain version.
+CHECK_B = 4096
+# With beta != 0 and a lower scale_max the controller's factor is not clamped
+# on the first, tiny steps after hinit, where the error estimate (a sum that
+# cancels to rounding noise at such h) differs between nvcc's FMAs and
+# torch's separate operations by its whole size.  The next step sizes then
+# differ by 1e-4 to 1e-3 (measured on an H100 after 2 attempts), every such
+# step is accepted by both, and later a marginal attempt is accepted by one
+# and rejected by the other on a few lanes: DOP853 on Lorenz, B=4096, 0.7% of
+# lanes (DOPRI5, RK23 and RK4: none).  With the default options the factor is
+# clamped there and every lane agrees.  So the solver_options case asks for
+# equal status on every lane, equal counters on 98% of them, and y within
+# the loosest rtol of the case (1e-5) where the steps are equal, since the
+# two step sequences are then different discretisations of the same solve.
+OPTIONS_FRACTION, Y_OPTIONS = 0.98, 1e-5
+# bench.py's Lorenz configuration: DOP853, B=16384, t in [0, 100], rtol 1e-8,
+# atol 1e-10, with and without a 100-point grid.
+LORENZ_B, LORENZ_TF, LORENZ_M = 16384, 100.0, 100
+LORENZ_TOL = (1e-8, 1e-10)
+# Lorenz lanes are held to each other only up to t = 5: beyond, a last-bit
+# difference (nvcc contracts the f64 stage sums into FMAs, torch does not)
+# grows like exp(0.9 t).  There the ensemble is held: success fraction 1.0,
+# mean nstep within 1%, every sample emitted.
+LORENZ_T_LANES, MEAN_NSTEP = 5.0, 0.01
 
 
 def phase(name, **kv):
@@ -43,29 +70,43 @@ def vdp_y0(B, seed=0):
     return np.array([2.0, 0.0]) + 0.05 * rng.standard_normal((B, 2))
 
 
-def compare(name, got, ref):
-    """Hold a kernel result against a reference (both 7-tuples
-    t, y, status, nfev, nstep, naccpt, nrejct; torch or numpy)."""
-    a = [np.asarray(x.cpu()) if torch.is_tensor(x) else np.asarray(x) for x in got]
-    b = [np.asarray(x.cpu()) if torch.is_tensor(x) else np.asarray(x) for x in ref]
-    t, y, status, nfev, nstep, naccpt, _ = a
-    rt, ry, rstatus, rnfev, rnstep, rnaccpt, _ = b
+def compare(name, got, ref, scaled=False, count_fraction=COUNT_FRACTION,
+            y_equal=Y_EQUAL_STEPS):
+    """Hold a kernel result against a reference (both tuples t, y, status,
+    nfev, nstep, naccpt, nrejct[, y_samples, n_samples]; torch or numpy).
+    Samples, where both have them: n_samples equal on every lane, y_samples
+    within the bound of y on lanes with equal steps.  ``scaled``: errors are
+    taken relative to max(1, |y|) of the lane (Lorenz states reach 50 and
+    DOP853's stage sums cancel terms 40 times their size, so the FMAs nvcc
+    makes and torch does not show at 1e-9 of |y|; on an H100, B=4096, the
+    worst lane differed by 2.8e-8 at |y| ~ 40).  ``count_fraction``: the
+    share of lanes on which every counter must be equal; ``y_equal``: the
+    bound on y where nstep is equal."""
+    a = [np.asarray(x.cpu()) if torch.is_tensor(x) else x for x in got]
+    b = [np.asarray(x.cpu()) if torch.is_tensor(x) else x for x in ref]
+    t, y, status, nfev, nstep, naccpt, nrejct = a[:7]
+    rt, ry, rstatus, rnfev, rnstep, rnaccpt, rnrejct = b[:7]
     if not np.array_equal(status, rstatus):
         raise AssertionError(f"{name}: status differs on "
                              f"{int(np.sum(status != rstatus))} lanes")
-    frac = {k: float(np.mean(u == v)) for k, u, v in
-            (("nstep", nstep, rnstep), ("naccpt", naccpt, rnaccpt),
-             ("nfev", nfev, rnfev))}
+    counters = [("nstep", nstep, rnstep), ("naccpt", naccpt, rnaccpt),
+                ("nfev", nfev, rnfev), ("nrejct", nrejct, rnrejct)]
     same = nstep == rnstep
     dy = np.abs(y - ry).max(axis=1)
+    if len(a) > 7 and a[7] is not None and len(b) > 7 and b[7] is not None:
+        counters.append(("n_samples", a[8], b[8]))
+        dy = np.maximum(dy, np.abs(a[7] - b[7]).max(axis=(1, 2)))
+    if scaled:
+        dy = dy / np.maximum(1.0, np.abs(ry).max(axis=1))
+    frac = {k: float(np.mean(u == v)) for k, u, v in counters}
     err_same = float(dy[same].max()) if same.any() else 0.0
     err_all = float(dy.max())
     phase(name, lanes=len(status), **{f"{k}_equal": v for k, v in frac.items()},
           max_abs_err_equal_steps=err_same, max_abs_err=err_all,
           max_abs_err_t=float(np.abs(t - rt).max()))
-    if min(frac.values()) < COUNT_FRACTION:
+    if min(frac.values()) < count_fraction:
         raise AssertionError(f"{name}: counters equal on only {frac}")
-    if err_same > Y_EQUAL_STEPS or err_all > Y_ALL or not np.isfinite(y).all():
+    if err_same > y_equal or err_all > Y_ALL or not np.isfinite(y).all():
         raise AssertionError(f"{name}: final y differs by {err_same} "
                              f"(equal steps) / {err_all} (all lanes)")
     return err_all
@@ -114,6 +155,274 @@ def edge_cases(B, dev):
                                      Status.STEP_SIZE_TOO_SMALL})]
 
 
+def lorenz_y0(B, seed=0):
+    rng = np.random.default_rng(seed)
+    return np.array([1.0, 1.0, 1.0]) + 1e-3 * rng.standard_normal((B, 3))
+
+
+def timed_solves(solver, y0s, *call, **kw):
+    """Run ``solver(y0, *call, **kw)`` for each y0 (the first warms up):
+    ``(last result, walls in s, device ms)``.  Each result is freed before
+    the next solve: while it is held, the allocator has to cudaMalloc new
+    outputs, and the event time includes that wait."""
+    walls, ev_ms, res = [], [], None
+    for i, y in enumerate(y0s):
+        del res
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t = time.perf_counter()
+        e0.record()
+        res = solver(y, *call, **kw)
+        e1.record()
+        torch.cuda.synchronize()
+        if i:
+            walls.append(time.perf_counter() - t)
+            ev_ms.append(e0.elapsed_time(e1))
+    return res, walls, ev_ms
+
+
+def erk_kernels_vs_plain(dev):
+    """Kernels dop853, rk23, rk4 and dopri5_sampled against the plain version
+    on the card at B=4096 on short spans: lean and sampled (a per-lane grid
+    that starts at t0 and ends at tf), per-lane spans (one zero, backward
+    for decay), per-component tolerances and per-lane mu; non-default
+    solver_options once per method.  ``{kernel: max_abs_err}``."""
+    from ivp_tpu_torch import rhs
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+    from ivp_tpu_torch.methods import get_engine
+
+    Bc = CHECK_B
+
+    def T(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=dev).contiguous()
+
+    errs = {}
+    for method, (kernel, _) in K.KERNELS.items():
+        rng = np.random.default_rng(5)
+        worst = 0.0
+        for name, fun, y0n, span, backward, fargs in (
+                ("vdp_per_lane_mu", rhs.vdp, vdp_y0(Bc, seed=2), 6.0, False,
+                 (T(rng.uniform(0.2, 5.0, Bc)),)),
+                ("decay", rhs.decay, rng.uniform(0.5, 2.0, (Bc, 1)), 5.0, True,
+                 (0.7,)),
+                ("lorenz", rhs.lorenz, 1.0 + rng.standard_normal((Bc, 3)), 2.0,
+                 False, ())):
+            t0 = rng.uniform(-1.0, 1.0, Bc)
+            dt = span * rng.uniform(0.5, 1.0, Bc)
+            if backward:
+                dt[1::4] *= -1.0
+            dt[0] = 0.0
+            n = fun.n
+            first = T(np.full(Bc, 5e-3)) if method == "RK4" else None
+            a = (T(y0n), T(t0), T(t0 + dt), T(np.abs(dt)), first,
+                 T(10.0 ** rng.uniform(-8, -5, (Bc, n))),
+                 T(10.0 ** rng.uniform(-10, -7, (Bc, n))), fargs)
+            u = np.sort(rng.uniform(0.0, 1.0, (Bc, 8)), axis=1)
+            u[:, 0], u[:, -1] = 0.0, 1.0
+            grid = T(t0[:, None] + dt[:, None] * u)
+            modes = [("sampled", dict(t_grid=grid))]
+            if method != "DOPRI5":     # lean DOPRI5 is the other kernel
+                modes.append(("lean", {}))
+            if name == "lorenz":
+                so = dict(safety=0.8, scale_min=0.3, scale_max=5.0,
+                          stiff_test=7, iord=4)
+                if method in ("DOPRI5", "DOP853"):
+                    so.update(beta=0.08, stiff_threshold=2.0)
+                modes.append(("options", dict(params=get_engine(
+                    method, need_cont=False, **so)[1])))
+            for mode, kw in modes:
+                got = K.erk_ensemble_cuda(method, fun, *a, **kw)
+                ref = K.erk_ensemble_torch(method, fun, *a, **kw)
+                torch.cuda.synchronize()
+                gate = (dict(count_fraction=OPTIONS_FRACTION, y_equal=Y_OPTIONS)
+                        if mode == "options" else {})
+                err = compare(f"{kernel}_vs_plain_{name}_{mode}_B{Bc}", got,
+                              ref, scaled=True, **gate)
+                if mode != "options":
+                    worst = max(worst, err)
+        # The step budget mid-grid: 12 attempts, fewer samples than asked.
+        a = (T(lorenz_y0(Bc)), lanes(Bc, 0.0, dev), lanes(Bc, 2.0, dev),
+             lanes(Bc, 2.0, dev),
+             lanes(Bc, 5e-3, dev) if method == "RK4" else None,
+             torch.full((Bc, 3), 1e-8, dtype=torch.float64, device=dev),
+             torch.full((Bc, 3), 1e-10, dtype=torch.float64, device=dev))
+        kw = dict(max_steps=12, t_grid=torch.broadcast_to(
+            T(np.linspace(0.0, 2.0, 9)), (Bc, 9)))
+        got = K.erk_ensemble_cuda(method, rhs.lorenz, *a, **kw)
+        ref = K.erk_ensemble_torch(method, rhs.lorenz, *a, **kw)
+        torch.cuda.synchronize()
+        if int(got[8].max()) >= 9 or set(got[2].cpu().tolist()) != {2}:
+            raise AssertionError(f"{kernel}: max_steps=12 did not stop the "
+                                 f"lanes mid-grid")
+        # These lanes stop mid-span: t and y carry the float32 controller's
+        # last bits (see edge_cases), so the counters and samples are held.
+        for f, u, v in zip(("status", "nfev", "nstep", "naccpt", "nrejct"),
+                           got[2:7], ref[2:7]):
+            if not torch.equal(u, v):
+                raise AssertionError(f"{kernel} max_steps: {f} differs")
+        if not torch.equal(got[8], ref[8]):
+            raise AssertionError(f"{kernel} max_steps: n_samples differs")
+        phase(f"{kernel}_vs_plain_max_steps_B{Bc}", n_samples_max=int(got[8].max()),
+              max_abs_err_samples=float((got[7] - ref[7]).abs().max()),
+              max_abs_err_t=float((got[0] - ref[0]).abs().max()))
+        errs[kernel] = worst
+    return errs
+
+
+def erk_golden_and_scipy(dev):
+    """The DOP853 kernel against ivp_tpu's own numbers (Lorenz to t=5 with
+    samples, lane by lane) and against SciPy's DOP853 at rtol 1e-13."""
+    from scipy.integrate import solve_ivp
+
+    from ivp_tpu_torch import Status, build_ensemble_solver, rhs
+
+    with np.load(ROOT / "ivp_tpu_torch" / "data" / "lorenz_golden.npz") as g:
+        gold = {f: g[f] for f in g.files}
+    res = build_ensemble_solver(rhs.lorenz, "DOP853", n=3, max_steps=200_000,
+                                t_eval=gold["t_eval"])(
+        gold["y0"], 0.0, float(gold["tf"]), float(gold["rtol"]),
+        float(gold["atol"]))
+    torch.cuda.synchronize()
+    names = ("t", "y", "status", "nfev", "nstep", "naccpt", "nrejct",
+             "y_samples", "n_samples")
+    compare(f"dop853_vs_ivp_tpu_golden_B{len(gold['y0'])}", tuple(res),
+            [gold[f] for f in names], scaled=True)
+
+    y8 = vdp_y0(8, seed=1)
+    res = build_ensemble_solver(rhs.vdp, "DOP853", n=2)(y8, 0.0, 100.0, 1e-9,
+                                                        1e-11)
+    ys = np.stack([solve_ivp(lambda t, y: [y[1], (1 - y[0] ** 2) * y[1] - y[0]],
+                             (0.0, 100.0), y8[i], method="DOP853", rtol=1e-13,
+                             atol=1e-14).y[:, -1] for i in range(8)])
+    err = float(np.abs(res.y.cpu().numpy() - ys).max())
+    phase("dop853_vs_scipy_dop853_B8", max_abs_err=err,
+          status=sorted(set(res.status.cpu().tolist())))
+    # VdP to t=100 at rtol 1e-9 against SciPy at 1e-13: 1e-5 bounds the
+    # global error of the looser solve.
+    if err > 1e-5 or set(res.status.cpu().tolist()) != {Status.SUCCESS}:
+        raise AssertionError(f"dop853 kernel vs SciPy: {err}")
+    return gold
+
+
+def erk_main_path(dev, gold):
+    """The explicit tier's main path at full width: Lorenz, B=16384, numpy
+    y0 and no ``device``, through build_ensemble_solver.  bench.py's two
+    DOP853 configurations (t in [0, 100], lean and with 100 samples), and
+    RK23, RK4 and sampled DOPRI5 with the depth cut to t in [0, 20].  Each
+    configuration: one warm-up and three timed solves, then the plain
+    version on the card on the same inputs.  ``{kernel: row}`` with the
+    launches of this run, device ms, plain ms and the bound."""
+    from ivp_tpu_torch import Status, build_ensemble_solver, rhs
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+
+    B, m = LORENZ_B, LORENZ_M
+    y0s = [lorenz_y0(B, seed=s) for s in range(4)]
+    configs = [   # method, kernel, tf, (rtol, atol), build options, sampled
+        ("DOP853", "dop853", LORENZ_TF, LORENZ_TOL, {}, False),
+        ("DOP853", "dop853", LORENZ_TF, LORENZ_TOL, {}, True),
+        ("RK23", "rk23", 20.0, (1e-6, 1e-8), {}, False),
+        ("RK23", "rk23", 20.0, (1e-6, 1e-8), {}, True),
+        ("RK4", "rk4", 20.0, (1e-6, 1e-8), dict(first_step=2e-3), False),
+        ("RK4", "rk4", 20.0, (1e-6, 1e-8), dict(first_step=2e-3), True),
+        ("RK45", "dopri5_sampled", 20.0, (1e-6, 1e-8), {}, True),
+    ]
+    for kname in K.LAUNCHES:
+        K.LAUNCHES[kname] = 0
+    runs = []
+    for method, kernel, tf, (rtol, atol), opts, sampled in configs:
+        # RK4's fixed steps sum to tf only up to rounding, and its last
+        # step may end a hair short of tf: its grid stops before tf.
+        grid = (np.linspace(0.0, tf, m, endpoint=method != "RK4")
+                if sampled else None)
+        solver = build_ensemble_solver(rhs.lorenz, method, n=3,
+                                       max_steps=200_000, t_eval=grid, **opts)
+        before = K.LAUNCHES[kernel]
+        res, walls, ev_ms = timed_solves(solver, y0s, 0.0, tf, rtol, atol)
+        runs.append((method, kernel, tf, rtol, atol, opts, sampled, grid, res,
+                     walls, ev_ms, K.LAUNCHES[kernel] - before))
+    launches = dict(K.LAUNCHES)
+
+    rows = {}
+    for (method, kernel, tf, rtol, atol, opts, sampled, grid, res, walls,
+         ev_ms, n_launch) in runs:
+        tag = f"{kernel}_{'sampled' if sampled else 'lean'}_lorenz_B{B}"
+        ms = float(np.median(ev_ms))
+        status = res.status.cpu().numpy()
+        nstep = res.nstep.cpu().numpy()
+        canon = "DOPRI5" if method == "RK45" else method
+        bound_ms, bound_by = K.solve_bound(
+            canon, rhs.lorenz, res.nstep, res.naccpt,
+            res.n_samples if sampled else None, m if sampled else 0)
+        phase(f"main_path_{tag}", launches=n_launch,
+              success_fraction=float(np.mean(status == Status.SUCCESS)),
+              ivps_per_sec=B / float(np.median(walls)),
+              mean_nstep=float(nstep.mean()), max_nstep=int(nstep.max()),
+              n_samples=(sorted(set(res.n_samples.cpu().tolist()))
+                         if sampled else None),
+              walls_s=[round(w, 6) for w in walls],
+              event_ms=[round(x, 3) for x in ev_ms], bound_ms=bound_ms,
+              bound_by=bound_by, bound_share=bound_ms / ms,
+              finite=bool(torch.isfinite(res.y).all()))
+        if n_launch != 4:
+            raise AssertionError(f"{tag}: {n_launch} launches in 4 solves")
+        if not np.all(status == Status.SUCCESS) or not bool(
+                torch.isfinite(res.y).all()):
+            raise AssertionError(f"{tag}: not every lane succeeded")
+        if tuple(res.y.shape) != (B, 3) or res.y.device != dev:
+            raise AssertionError(f"{tag}: y {tuple(res.y.shape)} on "
+                                 f"{res.y.device}")
+        if sampled and (tuple(res.y_samples.shape) != (B, m, 3)
+                        or not bool((res.n_samples == m).all())
+                        or not bool(torch.isfinite(res.y_samples).all())):
+            raise AssertionError(f"{tag}: samples missing")
+
+        # The plain version on the card, same inputs (the last y0).
+        T = lambda v: torch.full((B,), v, dtype=torch.float64, device=dev)
+        first = opts.get("first_step")
+        a = (torch.as_tensor(y0s[-1], device=dev), T(0.0), T(tf), T(tf),
+             None if first is None else T(first),
+             torch.full((B, 3), rtol, dtype=torch.float64, device=dev),
+             torch.full((B, 3), atol, dtype=torch.float64, device=dev))
+        g = (None if grid is None else torch.broadcast_to(
+            torch.as_tensor(grid, device=dev), (B, m)))
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        plain = K.erk_ensemble_torch(canon, rhs.lorenz, *a, (), 200_000, g)
+        e1.record()
+        torch.cuda.synchronize()
+        plain_ms = e0.elapsed_time(e1)
+        # Lanes diverge over these spans (chaos): hold the ensemble, and the
+        # samples lane by lane while t <= 5.
+        pn = plain[4].cpu().numpy()
+        gap = abs(float(nstep.mean()) / float(pn.mean()) - 1.0)
+        early = None
+        if sampled:
+            keep = torch.as_tensor(grid <= LORENZ_T_LANES, device=dev)
+            early = float((res.y_samples - plain[7])[:, keep].abs().max())
+        phase(f"plain_{tag}", event_ms=round(plain_ms, 3),
+              kernel_speedup=plain_ms / ms, mean_nstep=float(pn.mean()),
+              mean_nstep_gap=gap, max_abs_err_samples_t_le_5=early,
+              success_fraction=float((plain[2] == 0).double().mean()))
+        if gap > MEAN_NSTEP or not bool((plain[2] == 0).all()):
+            raise AssertionError(f"{tag}: mean nstep {nstep.mean()} against "
+                                 f"the plain version's {pn.mean()}")
+        if sampled and not (early <= Y_EQUAL_STEPS
+                            and bool((plain[8] == m).all())):
+            raise AssertionError(f"{tag}: samples at t <= 5 differ by {early}")
+        if method == "DOP853" and not sampled:
+            gm = float(gold["long_nstep"].mean())
+            ggap = abs(float(nstep.mean()) / gm - 1.0)
+            phase(f"golden_{tag}", golden_mean_nstep=gm, mean_nstep_gap=ggap)
+            if ggap > MEAN_NSTEP:
+                raise AssertionError(f"{tag}: mean nstep {nstep.mean()} "
+                                     f"against ivp_tpu's {gm}")
+        row = rows.setdefault(kernel, {"launches": launches[kernel]})
+        key = "sampled_" if sampled and kernel != "dopri5_sampled" else ""
+        row.update({f"{key}ms": ms, f"{key}plain_ms": plain_ms,
+                    f"{key}bound_ms": bound_ms, f"{key}bound_by": bound_by,
+                    f"{key}bound_share": bound_ms / ms})
+    return rows
+
+
 def main():
     # ---- 1. Device ----
     if not torch.cuda.is_available():
@@ -134,20 +443,20 @@ def main():
           torch=torch.__version__, cuda=torch.version.cuda, nvidia_smi=repr(smi))
 
     # ---- 2. Build ----
+    # One nvcc per source, all started together; the lean DOPRI5 library
+    # is loaded as soon as it is there.
     t = time.perf_counter()
-    nvcc_ran = not build.library_path().is_file()
-    lib = build.build()
-    build.library()
-    phase("build", seconds=round(time.perf_counter() - t, 3), library=lib.name,
-          nvcc_ran=nvcc_ran)
-    functor = "?"
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "Compiling entry function" in line:
-            functor = next((f for f in ("VdP", "Decay", "Lorenz") if f in line),
-                           line.split("'")[1] if "'" in line else "?")
-        elif "registers" in line or "spill" in line:
-            print(f"  ptxas [{functor}]:", line.split(":", 1)[-1].strip(),
-                  flush=True)
+    nvcc_ran = not all(build.library_path(name=n).is_file()
+                       for n in build.names())
+    libs = build.build_all()
+    for name in libs:
+        build.library(name)
+    phase("build", seconds=round(time.perf_counter() - t, 3),
+          libraries=sorted(p.name for p in libs.values()), nvcc_ran=nvcc_ran)
+    for name, path in sorted(libs.items()):
+        for fn, regs, st, ld in build.ptxas_report(path):
+            print(f"  ptxas [{name}] {fn}: {regs} registers, {st} bytes "
+                  f"spill stores, {ld} bytes spill loads", flush=True)
 
     def args_for(y0):
         B = y0.shape[0]
@@ -237,21 +546,7 @@ def main():
     y0s = [torch.as_tensor(vdp_y0(B, seed=s), device=dev) for s in range(4)]
     torch.cuda.synchronize()
     k.LAUNCHES = 0
-    walls, ev_ms = [], []
-    res = None
-    for i, y in enumerate(y0s):
-        # Free the last result first: while it is held, the allocator has to
-        # cudaMalloc new outputs, and the event time includes that wait.
-        del res
-        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        t = time.perf_counter()
-        e0.record()
-        res = solver(y, 0.0, 100.0, RTOL, ATOL)
-        e1.record()
-        torch.cuda.synchronize()
-        if i:   # run 0 warms up
-            walls.append(time.perf_counter() - t)
-            ev_ms.append(e0.elapsed_time(e1))
+    res, walls, ev_ms = timed_solves(solver, y0s, 0.0, 100.0, RTOL, ATOL)
     launches = k.LAUNCHES
     status = res.status.cpu().numpy()
     nstep = res.nstep.cpu().numpy()
@@ -319,7 +614,7 @@ def main():
     phase(f"bound_B{B}", bound_ms=bound_ms, bound_by=bound_by,
           flops_per_attempt=k.FLOPS_PER_ATTEMPT["vdp"],
           bound_share=bound_ms / ms)
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "dopri5_ensemble", "route": "cuda",
         "source": "ivp_tpu_torch/csrc/dopri5_ensemble.cu",
         "replaces": "attic/pallas_erk.py:205",
@@ -327,7 +622,32 @@ def main():
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "bound_share": bound_ms / ms,
         # No single PyTorch call computes an adaptive ODE solve.
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}]
+
+    # ---- 9. The rest of the explicit tier: kernels against their plain
+    #         versions, ivp_tpu's numbers and SciPy; then the Lorenz main
+    #         path at full width ----
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+
+    errs = erk_kernels_vs_plain(dev)
+    gold = erk_golden_and_scipy(dev)
+    rows = erk_main_path(dev, gold)
+    # None has a TPU kernel behind it: each replaces the XLA-fused vmapped
+    # driver loop around one engine of ivp_tpu/methods/erk.py.
+    replaces = {"dop853": "ivp_tpu/methods/erk.py:224",
+                "rk23": "ivp_tpu/methods/erk.py:370",
+                "rk4": "ivp_tpu/methods/erk.py:439",
+                "dopri5_sampled": "ivp_tpu/core/driver.py:396"}
+    for method, (kernel, source) in K.KERNELS.items():
+        kernels.append({"name": kernel, "route": "cuda",
+                        "source": f"ivp_tpu_torch/csrc/{source}.cu",
+                        "replaces": replaces[kernel],
+                        "max_abs_err": errs[kernel], "library_ms": None,
+                        **rows[kernel]})
+    for row in kernels:
+        if row["launches"] < 1:
+            raise AssertionError(f"the main path never launched {row['name']}")
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -2,10 +2,13 @@
 
 The JAX package ``ivp_tpu`` stays the reference; this package runs the same
 solves with PyTorch on the CPU and on an NVIDIA Hopper GPU (H100), and
-imports no jax.  Ported so far: the lean final-state DOPRI5 ensemble solve
-(``build_ensemble_solver`` / ``solve_ivp_ensemble``), through the plain
-PyTorch driver on the CPU and one hand-written CUDA kernel on the GPU
-(kernels/dopri5_ensemble.py).  ROADMAP.md lists the slices still to come.
+imports no jax.  Ported so far: the explicit tier of the ensemble solve
+(``build_ensemble_solver`` / ``solve_ivp_ensemble`` with ``"RK45"``,
+``"DOP853"``, ``"RK23"`` and ``"RK4"``), to each lane's final state or with
+in-loop samples on a ``t_eval`` grid, with the engines' ``solver_options``:
+through the plain PyTorch driver on the CPU and one hand-written CUDA kernel
+launch per solve on the GPU (kernels/erk_ensemble.py).  ROADMAP.md lists the
+slices still to come.
 
 The RHS contract differs from ``ivp_tpu`` in one way: a torch RHS is
 batched, ``fun(t, y, *args)`` with ``t`` of shape ``(B,)`` and ``y`` of shape

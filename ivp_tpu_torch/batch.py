@@ -1,20 +1,23 @@
-"""Batched ensemble solving to the final state (``ivp_tpu.batch``).
+"""Batched ensemble solving (``ivp_tpu.batch``): the explicit tier.
 
 Thousands of independent IVPs integrate together, each with its own
-adaptive step size, step counters and status code.  The reference vmaps a
+adaptive step size, step counters and status code, to each lane's final
+state or with in-loop samples on a ``t_eval`` grid.  The reference vmaps a
 ``lax.while_loop``; here the batch axis is explicit and the solve runs
-through ``kernels/dopri5_ensemble.py``: the plain PyTorch driver for CPU
+through ``kernels/erk_ensemble.py``: the plain PyTorch driver for CPU
 tensors, one fused CUDA kernel launch for CUDA tensors with a
 :class:`~ivp_tpu_torch.rhs.CudaRHS`.  A torch tensor ``y0_batch`` keeps its
-device (a ``device`` argument that names another raises); anything else (a numpy array, a list) goes to the card
-(``torch.device("cuda")``) unless the caller passes ``device="cpu"``.  There
-is no fallback: with no CUDA device such a call raises.
+device (a ``device`` argument that names another raises); anything else (a
+numpy array, a list) goes to the card (``torch.device("cuda")``) unless the
+caller passes ``device="cpu"``.  There is no fallback: with no CUDA device
+such a call raises.
 
 The RHS is batched: ``fun(t, y, *args)`` takes ``t`` of shape ``(B,)`` and
 ``y`` of shape ``(B, n)`` and returns ``(B, n)``.
 
-Only the lean final-state mode with DOPRI5 (``"RK45"``) is ported.  Options
-of later slices raise NotImplementedError naming their ROADMAP item.
+Ported: ``"RK45"``, ``"DOP853"``, ``"RK23"`` and ``"RK4"`` with ``t_eval``
+and the explicit engines' ``solver_options``.  Options of later slices
+raise NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import torch
 from .types import canonical_method
 from .methods import get_engine
 from .methods.ddtier import resolve_auto_dtype
-from .kernels.dopri5_ensemble import dopri5_ensemble
+from .kernels.erk_ensemble import erk_ensemble
 
 
 class EnsembleResult(NamedTuple):
@@ -37,6 +40,8 @@ class EnsembleResult(NamedTuple):
     nstep: Any    # (B,) int32
     naccpt: Any   # (B,) int32
     nrejct: Any   # (B,) int32
+    y_samples: Any = None  # (B, m, n) states at the t_eval grid
+    n_samples: Any = None  # (B,) int32 emitted sample counts
 
 
 def _unported(**opts):
@@ -53,9 +58,24 @@ def _check_method(method):
         raise NotImplementedError(
             "method='auto' is not ported to ivp_tpu_torch yet: ROADMAP §1 "
             "item 8 (auto.py)")
-    method = canonical_method(method)
-    get_engine(method, need_cont=False)   # raises for unported methods
-    return method
+    return canonical_method(method)
+
+
+def _norm_sample_grid(t_eval):
+    """Validate a t_eval grid: (m,) shared or (B, m) per-lane, each lane
+    monotone (the in-loop sample cursor only moves forward, so an unsorted
+    grid would be sampled wrongly without a word: refuse it up front)."""
+    grid = np.atleast_1d(np.asarray(t_eval, dtype=float))
+    if grid.ndim > 2:
+        raise ValueError("t_eval must be 1-D (shared) or 2-D (per-lane)")
+    if grid.shape[-1] > 1:
+        d = np.diff(grid, axis=-1)
+        mono = (np.all(d >= 0.0, axis=-1) | np.all(d <= 0.0, axis=-1))
+        if not np.all(mono):
+            raise ValueError(
+                "t_eval must be sorted (monotone in the integration "
+                "direction) for ensemble solvers")
+    return grid
 
 
 def _norm_tol(v, B, n, dtype, device, name):
@@ -137,6 +157,9 @@ def build_ensemble_solver(fun, method="RK45", *, n, dtype=None, args=(),
                           time_dtype=None) -> Callable:
     """Return ``solver(y0_batch, t0, tf, rtol, atol) -> EnsembleResult``.
 
+    ``method``: ``"RK45"``/``"DOPRI5"``, ``"DOP853"``, ``"RK23"`` or
+    ``"RK4"`` (fixed step: pass ``first_step``, else hinit picks it).
+
     ``y0_batch`` has shape ``(B, n)``; ``t0``/``tf`` are scalars or ``(B,)``
     per-lane spans; ``rtol``/``atol`` are scalars, ``(n,)``, ``(B,)``,
     ``(B, 1)`` or ``(B, n)`` (see :func:`_norm_tol`).
@@ -147,28 +170,42 @@ def build_ensemble_solver(fun, method="RK45", *, n, dtype=None, args=(),
     ``dtype``: ``None``, ``"auto"`` and ``"dd"`` resolve to float64 (native
     f64 on CPUs and GPUs); ``torch.float32`` runs the CPU route only.
 
-    ``min_step`` is accepted and, as in ivp_tpu, unused by DOPRI5.
-    ``unroll`` is accepted and has no effect: the kernel loops per lane, and
-    the plain version's host-check cadence is fixed.  ``events``,
-    ``t_eval``, ``max_restarts``, ``time_dtype``, ``jac``, ``jac_sparsity``
-    and ``solver_options`` raise NotImplementedError naming their slice.
+    ``t_eval``: a sorted grid, ``(m,)`` shared or ``(B, m)`` per lane.  Each
+    lane's states there come back as ``y_samples (B, m, n)``, interpolated
+    inside the loop from the step that covers each time, with ``n_samples``
+    the count a lane emitted (fewer than ``m`` where it stopped early; rows
+    past it are zero).
+
+    ``solver_options``: the explicit engines' controller options
+    (``uround, safety, scale_min, scale_max, beta, stiff_test,
+    stiff_threshold, iord, controller_precision``); an unknown one raises
+    TypeError.  ``controller_precision="state"`` runs on the CPU route only.
+
+    ``min_step`` is accepted and, as in ivp_tpu, unused by the explicit
+    engines.  ``unroll`` is accepted and has no effect: the kernels loop per
+    lane, and the plain version's host-check cadence is fixed.  ``events``,
+    ``max_restarts``, ``time_dtype``, ``jac`` and ``jac_sparsity`` raise
+    NotImplementedError naming their slice.
     """
     del unroll, min_step, event_capacity
     _unported(events=(bool(events), "item 5 (events and restarts)"),
-              t_eval=(t_eval is not None, "item 3 (t_eval emission)"),
               max_restarts=(bool(max_restarts), "item 5 (events and restarts)"),
               time_dtype=(time_dtype is not None, "item 4 (the single-IVP facade)"),
               jac=(jac is not None, "item 7 (the stiff tier)"),
-              jac_sparsity=(jac_sparsity is not None, "item 7 (the stiff tier)"),
-              solver_options=(bool(solver_options),
-                              "item 3 (the rest of the explicit tier)"))
-    _check_method(method)
+              jac_sparsity=(jac_sparsity is not None, "item 7 (the stiff tier)"))
+    method = _check_method(method)
     dtype = resolve_auto_dtype(dtype)
     args = tuple(args)
+    sample_grid = None if t_eval is None else _norm_sample_grid(t_eval)
+    sample_cap = 0 if sample_grid is None else int(sample_grid.shape[-1])
+    _, params = get_engine(method, need_cont=sample_cap > 0,
+                           **(solver_options or {}))
 
-    def solver(y0_batch, t0, tf, rtol, atol, batched_args=None, device=None):
-        """``batched_args`` overrides the builder's per-lane ``args``
-        (requires ``args_batched=True``).  ``device``: where a ``y0_batch``
+    def solver(y0_batch, t0, tf, rtol, atol, t_grid=None, batched_args=None,
+               device=None):
+        """``t_grid`` / ``batched_args`` override the ``t_eval`` grid given
+        at build time (same length) / the per-lane ``args`` (requires
+        ``args_batched=True``).  ``device``: where a ``y0_batch``
         that is not a tensor goes; the card by default, ``"cpu"`` for the
         plain version.  A tensor keeps its own device; a ``device`` given
         with it must name that device (ValueError otherwise)."""
@@ -190,10 +227,23 @@ def build_ensemble_solver(fun, method="RK45", *, n, dtype=None, args=(),
         lane_args = args if batched_args is None else tuple(batched_args)
         if args_batched:
             lane_args = tuple(_lane_arg(a, B, **kw) for a in lane_args)
-        out = dopri5_ensemble(fun, y0, t0_b, tf_b, hmax, fs,
-                              _norm_tol(rtol, B, n, dtype, dev, "rtol"),
-                              _norm_tol(atol, B, n, dtype, dev, "atol"),
-                              lane_args, max_steps)
+        grid = sample_grid if t_grid is None else t_grid
+        if grid is not None:
+            grid = torch.as_tensor(grid, **kw)
+            if (t_grid is not None and (sample_cap == 0 or grid.ndim == 0
+                                        or grid.shape[-1] != sample_cap)):
+                raise ValueError(
+                    f"explicit t_grid must match the t_eval length "
+                    f"{sample_cap} given at build time, got "
+                    f"{tuple(grid.shape)}")
+            if grid.ndim == 2 and grid.shape[0] != B:
+                raise ValueError(f"a per-lane t_eval grid needs {B} rows, "
+                                 f"got {tuple(grid.shape)}")
+            grid = torch.broadcast_to(grid, (B, sample_cap))
+        out = erk_ensemble(method, fun, y0, t0_b, tf_b, hmax, fs,
+                           _norm_tol(rtol, B, n, dtype, dev, "rtol"),
+                           _norm_tol(atol, B, n, dtype, dev, "atol"),
+                           lane_args, max_steps, grid, params)
         return EnsembleResult(*out)
 
     return solver
@@ -224,7 +274,7 @@ def solve_ivp_ensemble(fun, t_span, y0_batch, method="RK45", *, rtol=1e-3,
                        lane_chunk="auto",
                        time_dtype=None, device=None) -> EnsembleResult:
     """Batched solve of ``y0_batch (B, n)`` over ``t_span = (t0, tf)`` to
-    each lane's final state.
+    each lane's final state, with its states on ``t_eval`` if given.
 
     ``chunk_steps`` is accepted and has no effect (ivp_tpu bounds each
     device call to that many attempts; the kernel runs each lane to its

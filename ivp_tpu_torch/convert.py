@@ -15,17 +15,21 @@ from .methods.erk import ERKParams, ERKState
 
 
 def erk_params_from_jax(p) -> ERKParams:
-    """The port's ERKParams from an ``ivp_tpu.methods.erk.ERKParams``."""
+    """The port's ERKParams from an ``ivp_tpu.methods.erk.ERKParams`` of any
+    of the four explicit methods."""
     return ERKParams(**{f.name: getattr(p, f.name)
                         for f in dataclasses.fields(ERKParams)})
 
 
 def carry_from_numpy(carry, device=None) -> Carry:
-    """The port's lean driver Carry from an ``ivp_tpu`` lean driver Carry
-    (vmapped: every leaf has a leading batch axis) whose leaves are numpy
-    arrays, ``ERKState`` included.  dtypes are kept; tensors land on
-    ``device`` (default: CPU).  Fields the lean driver does not carry
-    (njev, nlu, record/event/sample buffers) are dropped."""
+    """The port's driver Carry from an ``ivp_tpu`` driver Carry, lean or in
+    sample mode (vmapped: every leaf has a leading batch axis), whose leaves
+    are numpy arrays, ``ERKState`` included.  The sample cursor and buffer
+    and the carried segment (``s_cursor``, ``sample_y``, ``seg_*``) come
+    across as they are: zero-size in lean mode, mid-solve otherwise.  dtypes
+    are kept; tensors land on ``device`` (default: CPU).  Fields the port's
+    driver does not carry (njev, nlu, record and event buffers) are
+    dropped."""
     def tt(x):
         return torch.as_tensor(np.array(x), device=device)
 
@@ -35,5 +39,7 @@ def carry_from_numpy(carry, device=None) -> Carry:
 
 
 def result_to_numpy(res):
-    """An EnsembleResult with every field as a numpy array."""
-    return type(res)(*(x.detach().cpu().numpy() for x in res))
+    """An EnsembleResult with every field as a numpy array (``y_samples``
+    and ``n_samples`` stay None where the solve had no grid)."""
+    return type(res)(*(None if x is None else x.detach().cpu().numpy()
+                       for x in res))

@@ -32,6 +32,19 @@ def div_const(x, c, reverse=False):
     return cc / x if reverse else x / cc
 
 
+def safe_pow(x, p):
+    """``x**p`` robust to non-finite bases: ``inf**p`` is 0 for ``p < 0`` and
+    inf for ``p > 0``; NaN and ``-inf`` bases give NaN (as
+    ``ivp_tpu.core.common.safe_pow``, whose platform pow misbehaves there)."""
+    finite = torch.isfinite(x)
+    r = torch.where(finite, x, torch.ones_like(x)) ** p
+    pos_inf = torch.isinf(x) & (x > 0)
+    r = torch.where(pos_inf, torch.full_like(x, float("inf") if p > 0 else 0.0),
+                    r)
+    bad = torch.isnan(x) | (torch.isinf(x) & (x < 0))
+    return torch.where(bad, torch.full_like(x, float("nan")), r)
+
+
 def error_scale(atol, rtol, y):
     """Component scale ``atol + rtol*|y|``."""
     return atol + rtol * torch.abs(y)

@@ -1,18 +1,26 @@
-"""Generic integration driver, lean mode (``ivp_tpu.core.driver``).
+"""Generic integration driver (``ivp_tpu.core.driver``): lean mode and
+in-loop ``t_grid`` samples.
 
 The reference runs one ``lax.while_loop`` around an engine's attempt and
 vmaps it over the ensemble; here the loop is a Python loop over batched
 attempts:
 
-    carry -> engine.attempt -> counters/status -> carry
+    carry -> engine.attempt -> [sample emission] -> counters/status -> carry
 
 Every lane keeps its own step size, counters and status.  A lane that is
 done is frozen (its carry is kept by a masked select), so each lane's
 result is the one it would have alone, as under ``vmap`` in the reference.
 
-Only the lean final-state mode is ported: no record buffers, events or
-``t_eval`` samples (ROADMAP §1 items 3, 5 and 6).  This is the plain version
-of the fused CUDA kernel (kernels/dopri5_ensemble.py), and the CPU route.
+Sample mode (``DriverConfig.sample_cap > 0``) follows the reference's
+stall-based emission: a lane with a sample due inside the span it has
+covered spends the iteration on that sample, interpolated from the last
+accepted segment it carries, and the iteration's attempt is thrown away,
+counters included.  A lane's own row is written through its cursor with an
+ordinary indexed write (the reference's one-hot select is a TPU lowering).
+
+Record buffers and events are not ported (ROADMAP §1 items 5 and 6).  This
+is the plain version of the fused CUDA kernels (kernels/erk_ensemble.py),
+and the CPU route.
 """
 from __future__ import annotations
 
@@ -27,10 +35,11 @@ from ..methods.base import Engine, RunArgs
 
 @dataclasses.dataclass(frozen=True)
 class DriverConfig:
-    """Driver configuration (the lean fields of ``ivp_tpu``'s)."""
+    """Driver configuration (the ported fields of ``ivp_tpu``'s)."""
 
     unroll: int = 1  # masked attempts per check of the done mask (a host
     #                  sync on a GPU); results do not depend on it
+    sample_cap: int = 0  # in-loop t_grid emission buffer size (0 = off)
 
 
 class Carry(NamedTuple):
@@ -43,6 +52,14 @@ class Carry(NamedTuple):
     nstep: Any
     naccpt: Any
     nrejct: Any
+    s_cursor: Any   # (B,) int32: next t_grid sample to emit
+    sample_y: Any   # (B, sample_cap, n) in-loop interpolated samples
+    # Last accepted segment (sample mode; zero-size otherwise), from which
+    # due samples are interpolated.
+    seg_cont: Any   # (B, C, n) dense coefficients of the last accepted step
+    seg_xold: Any   # (B,) left edge
+    seg_h: Any      # (B,) signed step size
+    seg_valid: Any  # (B,) bool: at least one step accepted
 
 
 def tree_where(mask, a, b):
@@ -58,9 +75,14 @@ def _i32(like, v):
 
 def make_driver(engine: Engine, p, cfg: DriverConfig, rhs):
     """Build ``(init_carry, run_chunk, run_bounded)`` for an engine."""
+    m = cfg.sample_cap
+    Cs = engine.ncoeff if m else 0
+    if m and not Cs:
+        raise ValueError("sample mode needs an engine built with need_cont")
 
     def init_carry(t0, y0, first_step, ra: RunArgs) -> Carry:
         ms, nfev0 = engine.init(rhs, t0, y0, first_step, ra, p)
+        B, n = y0.shape
         # Per-lane zero-interval fast path (|tend - t0| < 1e-15): the lane
         # is done at init with its initial state; its init nfev counts.
         trivial = torch.abs(ra.tend - t0) < 1e-15
@@ -71,17 +93,36 @@ def make_driver(engine: Engine, p, cfg: DriverConfig, rhs):
             done=trivial,
             nfev=_i32(y0, nfev0), nstep=_i32(y0, 0), naccpt=_i32(y0, 0),
             nrejct=_i32(y0, 0),
+            s_cursor=_i32(y0, 0),
+            sample_y=y0.new_zeros((B, m, n)),
+            seg_cont=y0.new_zeros((B, Cs, n)),
+            seg_xold=torch.zeros_like(t0), seg_h=torch.zeros_like(t0),
+            seg_valid=torch.zeros_like(trivial),
         )
 
-    def step_body(c: Carry, ra: RunArgs) -> Carry:
+    def step_body(c: Carry, ra: RunArgs, stall=None) -> Carry:
         """One step attempt on every lane (done lanes are frozen by the
-        caller)."""
+        caller).  ``stall`` (sample mode): lanes whose iteration goes to a
+        sample emission; every effect of their attempt is masked out."""
         res = engine.attempt(rhs, c.t, c.y, c.naccpt, c.ms, ra, p)
+        act = torch.ones_like(c.done) if stall is None else ~stall
+        adv = res.advance & act
 
-        nstep = c.nstep + res.count_step.to(torch.int32)
-        naccpt = c.naccpt + res.accepted.to(torch.int32)
-        nrejct = c.nrejct + res.count_reject.to(torch.int32)
-        nfev = c.nfev + res.nfev_inc
+        # ---- Carried segment for the t_grid emission (in ``body``) ----
+        if m:
+            seg_cont = torch.where(adv[:, None, None], res.cont, c.seg_cont)
+            seg_xold = torch.where(adv, res.xold, c.seg_xold)
+            seg_h = torch.where(adv, res.h_used, c.seg_h)
+            seg_valid = c.seg_valid | adv
+        else:
+            seg_cont, seg_xold = c.seg_cont, c.seg_xold
+            seg_h, seg_valid = c.seg_h, c.seg_valid
+
+        # ---- Counters (masked out on stall iterations) ----
+        nstep = c.nstep + (res.count_step & act).to(torch.int32)
+        naccpt = c.naccpt + (res.accepted & act).to(torch.int32)
+        nrejct = c.nrejct + (res.count_reject & act).to(torch.int32)
+        nfev = c.nfev + res.nfev_inc * act.to(torch.int32)
 
         # Status priority: engine failure > reached tend > step budget.
         status = res.status
@@ -90,39 +131,81 @@ def make_driver(engine: Engine, p, cfg: DriverConfig, rhs):
         running = status == Status.RUNNING
         status = torch.where(running & (nstep > ra.max_steps),
                              Status.NEED_LARGER_NMAX, status).to(torch.int32)
-        return Carry(t=res.t_new, y=res.y_new, ms=res.ms, status=status,
+
+        # ---- Stall masking of the state advance (sample mode) ----
+        t_step, y_step, ms_next = res.t_new, res.y_new, res.ms
+        if stall is not None:
+            t_step = torch.where(act, t_step, c.t)
+            y_step = torch.where(act[:, None], y_step, c.y)
+            ms_next = tree_where(act, ms_next, c.ms)
+            status = torch.where(act, status, c.status)
+        # In sample mode ``body`` decides ``done``: a lane whose engine is
+        # finished may still owe due samples.
+        return Carry(t=t_step, y=y_step, ms=ms_next, status=status,
                      done=status != Status.RUNNING, nfev=nfev, nstep=nstep,
-                     naccpt=naccpt, nrejct=nrejct)
+                     naccpt=naccpt, nrejct=nrejct,
+                     s_cursor=c.s_cursor, sample_y=c.sample_y,
+                     seg_cont=seg_cont, seg_xold=seg_xold, seg_h=seg_h,
+                     seg_valid=seg_valid)
+
+    def _due(cursor, valid, t, posneg, ra):
+        """Lanes whose next sample lies inside the covered span, and that
+        sample's index and time."""
+        idx = torch.clamp_max(cursor, m - 1).to(torch.int64)
+        tau = ra.t_grid.gather(1, idx[:, None])[:, 0]
+        return (cursor < m) & valid & ((tau - t) * posneg <= 0.0), idx, tau
 
     def body(c: Carry, ra: RunArgs) -> Carry:
-        """``cfg.unroll`` attempts, freezing lanes as they finish."""
+        """One driver iteration: one step attempt (step_body) or, where a
+        t_grid sample is due inside the span already covered, one sample
+        emission from the carried segment with the attempt discarded (the
+        lane stalls until its due samples are drained, so every sample
+        interpolates the segment that covered it)."""
+        if not m:
+            return step_body(c, ra)
+        posneg = c.ms.posneg
+        due, idx, tau = _due(c.s_cursor, c.seg_valid, c.t, posneg, ra)
+        c2 = step_body(c, ra, stall=due)
+
+        yi = engine.interp(c.seg_cont, c.seg_xold, c.seg_h, tau)
+        rows = torch.nonzero(due)[:, 0]
+        sample_y = c.sample_y.index_put((rows, idx[rows]), yi[rows])
+        s_cursor = c.s_cursor + due.to(torch.int32)
+        still, _, _ = _due(s_cursor, c2.seg_valid, c2.t, posneg, ra)
+        return c2._replace(sample_y=sample_y, s_cursor=s_cursor,
+                           done=(c2.status != Status.RUNNING) & ~still)
+
+    def body_unrolled(c: Carry, ra: RunArgs) -> Carry:
+        """``cfg.unroll`` iterations, freezing lanes as they finish."""
         for _ in range(max(1, cfg.unroll)):
-            c = tree_where(c.done, c, step_body(c, ra))
+            c = tree_where(c.done, c, body(c, ra))
         return c
 
     def run_chunk(c: Carry, ra: RunArgs) -> Carry:
         """Integrate every lane until it is done."""
         while not bool(c.done.all()):
-            c = body(c, ra)
+            c = body_unrolled(c, ra)
         return c
 
     def run_bounded(c: Carry, ra: RunArgs, max_attempts: int) -> Carry:
         """Integrate each lane while it is not done and has made fewer than
         ``max_attempts`` counted attempts since the call (in units of
-        ``cfg.unroll`` attempts, as the reference's vmapped while loop)."""
+        ``cfg.unroll`` iterations, as the reference's vmapped while loop)."""
         start = c.nstep
         while True:
             go = ~c.done & (c.nstep - start < max_attempts)
             if not bool(go.any()):
                 return c
-            c = tree_where(go, body(c, ra), c)
+            c = tree_where(go, body_unrolled(c, ra), c)
 
     return init_carry, run_chunk, run_bounded
 
 
-def run_args(tend, rtol, atol, hmax, hmin, max_steps, y0) -> RunArgs:
-    """Batched RunArgs: ``tend/hmax/hmin`` broadcast to ``(B,)`` and
-    ``rtol/atol`` to ``(B, n)``, in ``y0``'s dtype and on its device."""
+def run_args(tend, rtol, atol, hmax, hmin, max_steps, y0,
+             t_grid=None) -> RunArgs:
+    """Batched RunArgs: ``tend/hmax/hmin`` broadcast to ``(B,)``,
+    ``rtol/atol`` to ``(B, n)`` and ``t_grid`` (shared ``(m,)`` or per-lane
+    ``(B, m)``) to ``(B, m)``, in ``y0``'s dtype and on its device."""
     B, n = y0.shape
     kw = dict(dtype=y0.dtype, device=y0.device)
 
@@ -132,6 +215,9 @@ def run_args(tend, rtol, atol, hmax, hmin, max_steps, y0) -> RunArgs:
     def comp(v):
         return torch.broadcast_to(torch.as_tensor(v, **kw), (B, n)).contiguous()
 
+    if t_grid is not None:
+        t_grid = torch.as_tensor(t_grid, **kw)
+        t_grid = torch.broadcast_to(t_grid, (B, t_grid.shape[-1]))
     return RunArgs(tend=lane(tend), rtol=comp(rtol), atol=comp(atol),
                    hmax=torch.abs(lane(hmax)), hmin=torch.abs(lane(hmin)),
-                   max_steps=int(max_steps))
+                   max_steps=int(max_steps), t_grid=t_grid)

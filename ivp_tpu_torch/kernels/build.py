@@ -1,23 +1,27 @@
-"""Build the CUDA kernel library at first use and bind it with ctypes.
+"""Build the CUDA kernel libraries at first use and bind them with ctypes.
 
-``nvcc`` compiles every ``csrc/*.cu`` (with the headers under ``csrc/``) into
-one shared library with a plain C interface, for Hopper (``sm_90a``), into
-``ivp_tpu_torch/_build/``.  The library's name carries a hash of the sources,
-flags and defines, so an edit rebuilds it and an unchanged tree reuses it;
-nvcc's output (ptxas's registers and spills) is kept beside it as ``.log``.
-Another source tree or ``-D`` defines build another library beside the
-default one (measure_kernel.py's A/B and occupancy sweep).  Nothing here
-runs at import time: a machine without nvcc or a GPU imports this module and
-fails only when it asks for the library.
+``nvcc`` compiles each ``csrc/<name>.cu`` (with the headers under ``csrc/``)
+into a shared library of its own with a plain C interface, for Hopper
+(``sm_90a``), into ``ivp_tpu_torch/_build/``: one library per method, built
+when that method first launches, or all at once and in parallel by
+:func:`build_all`.  A library's name carries a hash of its source, the
+headers, the flags and the defines, so an edit rebuilds it and an unchanged
+tree reuses it; nvcc's output (ptxas's registers and spills) is kept beside
+it as ``.log``.  Another source tree or ``-D`` defines build another library
+beside the default one (measure_kernel.py's A/B and occupancy sweep).
+Nothing here runs at import time: a machine without nvcc or a GPU imports
+this module and fails only when it asks for a library.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent.parent
@@ -29,21 +33,30 @@ BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_lib = None
+# The source of the lean DOPRI5 kernel, and the default of every ``name``.
+DOPRI5 = "dopri5_ensemble"
+
+_libs: dict = {}
 _entries: dict = {}
 
 
-def _sources(src_dir: Path) -> list[Path]:
-    return sorted(p for p in src_dir.rglob("*") if p.suffix in (".cu", ".cuh"))
+def _sources(src_dir: Path, name: str) -> list[Path]:
+    """``<name>.cu`` and every header under ``src_dir``."""
+    return [src_dir / f"{name}.cu"] + sorted(src_dir.rglob("*.cuh"))
 
 
-def library_path(src_dir: Path = SRC_DIR, defines=()) -> Path:
+def names(src_dir: Path = SRC_DIR) -> list[str]:
+    """The libraries ``src_dir`` holds: one per ``*.cu``."""
+    return sorted(p.stem for p in Path(src_dir).glob("*.cu"))
+
+
+def library_path(src_dir: Path = SRC_DIR, defines=(), name: str = DOPRI5) -> Path:
     flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
     h = hashlib.sha256(" ".join(flags).encode())
-    for p in _sources(src_dir):
+    for p in _sources(Path(src_dir), name):
         h.update(str(p.relative_to(src_dir)).encode())
         h.update(p.read_bytes())
-    return BUILD_DIR / f"libivp_tpu_torch_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libivp_{name}_{h.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:
@@ -58,22 +71,21 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def build(src_dir: Path = SRC_DIR, defines=()) -> Path:
-    """Compile the library of ``src_dir`` with ``-D`` ``defines`` unless a
-    build of these sources exists; return its path.  nvcc's output goes to
-    the path with suffix ``.log``.  Raises RuntimeError with nvcc's output
-    if nvcc fails.  Safe to call from several threads at once."""
+def build(src_dir: Path = SRC_DIR, defines=(), name: str = DOPRI5) -> Path:
+    """Compile ``src_dir/<name>.cu`` with ``-D`` ``defines`` unless a build
+    of these sources exists; return the library's path.  nvcc's output goes
+    to the path with suffix ``.log``.  Raises RuntimeError with nvcc's
+    output if nvcc fails.  Safe to call from several threads at once."""
     src_dir = Path(src_dir)
-    out = library_path(src_dir, defines)
+    out = library_path(src_dir, defines, name)
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources(src_dir) if p.suffix == ".cu"]
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
         cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", tmp,
-               *cu]
+               str(src_dir / f"{name}.cu")]
         r = subprocess.run(cmd, capture_output=True, text=True)
         log = r.stdout + r.stderr
         if r.returncode != 0:
@@ -87,6 +99,15 @@ def build(src_dir: Path = SRC_DIR, defines=()) -> Path:
     return out
 
 
+def build_all(src_dir: Path = SRC_DIR) -> dict:
+    """Build every library of ``src_dir``, one nvcc each, all started
+    together; ``{name: path}``."""
+    todo = names(src_dir)
+    with ThreadPoolExecutor(max_workers=len(todo)) as ex:
+        futs = {n: ex.submit(build, src_dir, (), n) for n in todo}
+        return {n: f.result() for n, f in futs.items()}
+
+
 def load(path: Path) -> ctypes.CDLL:
     """Load a built library and declare its error-string entry."""
     lib = ctypes.CDLL(str(path))
@@ -95,18 +116,17 @@ def load(path: Path) -> ctypes.CDLL:
     return lib
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library of the package's sources (built on first
-    call)."""
-    global _lib
-    if _lib is None:
-        _lib = load(build())
-    return _lib
+def library(name: str = DOPRI5) -> ctypes.CDLL:
+    """The loaded library of the package's ``csrc/<name>.cu`` (built on
+    first call)."""
+    if name not in _libs:
+        _libs[name] = load(build(name=name))
+    return _libs[name]
 
 
 def entry(name: str, argtypes: list, restype=ctypes.c_int, lib=None):
-    """A C entry of ``lib`` (default: :func:`library`) with its argument
-    types declared."""
+    """A C entry of ``lib`` (default: the lean DOPRI5 library) with its
+    argument types declared."""
     lib = library() if lib is None else lib
     fn = _entries.get((id(lib), name))
     if fn is None:
@@ -115,6 +135,23 @@ def entry(name: str, argtypes: list, restype=ctypes.c_int, lib=None):
         fn.restype = restype
         _entries[(id(lib), name)] = fn
     return fn
+
+
+def ptxas_report(path: Path) -> list:
+    """``[(kernel, registers, spill store bytes, spill load bytes)]`` from
+    the nvcc log beside a built library, the kernel as ptxas mangles it."""
+    out, fn, spill = [], "?", (0, 0)
+    for line in Path(path).with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.append((fn, int(m.group(1)), *spill))
+    return out
 
 
 def check(err: int, what: str, lib=None) -> None:

@@ -1,8 +1,9 @@
 """The fused DOPRI5 ensemble kernel: wrapper, CUDA launch and plain version.
 
 ``dopri5_ensemble`` integrates a ``(B, n)`` ensemble to each lane's final
-state.  It is the one entry the solvers call (batch.py), and it picks the
-route from the device of ``y0``:
+state with DOPRI5 and its default options.  It is the DOPRI5 part of
+kernels/erk_ensemble.py, whose router the solvers call (batch.py) and which
+picks the route from the device of ``y0``:
 
 * a CPU tensor runs :func:`dopri5_ensemble_torch`, the plain version: the
   ported driver (core/driver.py) around ``methods/erk.py::dopri5_attempt``
@@ -28,18 +29,12 @@ import ctypes
 
 import torch
 
-from ..core.driver import DriverConfig, make_driver, run_args
-from ..methods import get_engine
 from ..rhs import CudaRHS
 from . import build
 
 # Kernel launches made by this process (dopri5_ensemble_cuda adds one per
 # launch).  A caller may reset it to 0 to count the launches of one run.
 LAUNCHES = 0
-
-# Masked attempts per host check of the done mask in the plain version
-# (build_ensemble_solver's default unroll in ivp_tpu).
-_UNROLL = 4
 
 # float64 operations of one attempt of the kernel's loop (csrc/
 # dopri5_ensemble.cu), per functor: an add, subtract or multiply counts 1 (an
@@ -72,21 +67,10 @@ def dopri5_ensemble_torch(fun, y0, t0, tf, hmax, first_step, rtol, atol,
                           args=(), max_steps=100_000):
     """Plain PyTorch version: the ported driver on the whole batch, on the
     device of ``y0`` and in its dtype (float32 or float64)."""
-    B, n = y0.shape
-    dtype = y0.dtype
+    from .erk_ensemble import erk_ensemble_torch
 
-    def rhs(t, y):
-        return torch.as_tensor(fun(t, y, *args), dtype=dtype,
-                               device=y.device).reshape(B, n)
-
-    engine, p = get_engine("DOPRI5", need_cont=False)
-    init_carry, run_chunk, _ = make_driver(engine, p,
-                                           DriverConfig(unroll=_UNROLL), rhs)
-    ra = run_args(tf, rtol, atol, hmax, 0.0, max_steps, y0)
-    t0 = torch.broadcast_to(torch.as_tensor(t0, dtype=dtype, device=y0.device),
-                            (B,))
-    c = run_chunk(init_carry(t0, y0, first_step, ra), ra)
-    return c.t, c.y, c.status, c.nfev, c.nstep, c.naccpt, c.nrejct
+    return erk_ensemble_torch("DOPRI5", fun, y0, t0, tf, hmax, first_step,
+                              rtol, atol, args, max_steps)[:7]
 
 
 def _check(name, x, shape, dtype, device):
@@ -166,17 +150,9 @@ def dopri5_ensemble_cuda(fun: CudaRHS, y0, t0, tf, hmax, first_step, rtol,
 
 def dopri5_ensemble(fun, y0, t0, tf, hmax, first_step, rtol, atol,
                     args=(), max_steps=100_000):
-    """Route by the device of ``y0``: CPU -> plain version, CUDA -> kernel."""
-    if y0.device.type == "cpu":
-        return dopri5_ensemble_torch(fun, y0, t0, tf, hmax, first_step, rtol,
-                                     atol, args, max_steps)
-    if y0.device.type != "cuda":
-        raise NotImplementedError(f"no route for device {y0.device}")
-    if not isinstance(fun, CudaRHS):
-        raise NotImplementedError(
-            "on a CUDA device the ensemble solve runs a CudaRHS "
-            "(ivp_tpu_torch.rhs) through the fused kernel; an arbitrary "
-            "torch RHS on the GPU is not ported yet: ROADMAP §1 item 12 "
-            "(arbitrary RHS on the GPU)")
-    return dopri5_ensemble_cuda(fun, y0, t0, tf, hmax, first_step, rtol, atol,
-                                args, max_steps)
+    """Route by the device of ``y0``: CPU -> plain version, CUDA -> kernel
+    (kernels/erk_ensemble.py's router, for DOPRI5 to the final state)."""
+    from .erk_ensemble import erk_ensemble
+
+    return erk_ensemble("DOPRI5", fun, y0, t0, tf, hmax, first_step, rtol,
+                        atol, args, max_steps)[:7]

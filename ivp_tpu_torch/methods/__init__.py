@@ -5,13 +5,13 @@ from .base import Engine, RunArgs, StepProposal  # noqa: F401
 from . import erk
 
 
-def get_engine(method: str, *, need_cont: bool):
-    """Build (Engine, params) for a canonical method name.  DOPRI5 is
-    ported; the other methods raise NotImplementedError naming their
-    ROADMAP slice."""
+def get_engine(method: str, *, need_cont: bool, **overrides):
+    """Build (Engine, params) for a canonical method name; ``overrides`` are
+    the engine's ``solver_options``.  The explicit tier is ported; the stiff
+    methods raise NotImplementedError naming their ROADMAP slice."""
     method = method.upper()
     if method in ("RK4", "RK23", "DOPRI5", "DOP853"):
-        return erk.make_engine(method, need_cont)
+        return erk.make_engine(method, need_cont, **overrides)
     if method in ("RADAU", "BDF"):
         raise NotImplementedError(
             f"method {method!r} is not ported yet: ROADMAP §1 item 7 "

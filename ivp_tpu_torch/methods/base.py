@@ -5,8 +5,9 @@ An *engine* is three functions that the driver (core/driver.py) composes:
 * ``init(rhs, t0, y0, first_step, ra, p) -> (ms, nfev)``: the method state.
 * ``attempt(rhs, t, y, naccpt, ms, ra, p) -> StepProposal``: one step attempt
   (accepted or rejected) for every lane at once, masked per lane.
-* ``interp(cont, xold, h, ti) -> y``: the step's dense interpolant (None
-  until the dense-output slice).
+* ``interp(cont, xold, h, ti) -> y``: the step's dense interpolant, from the
+  ``(B, C, n)`` coefficients of a step, its left edge and size ``(B,)`` and
+  one time per lane ``ti (B,)``.
 
 Batched: state tensors are ``(B, n)``, per-lane scalars ``(B,)``.  The RHS
 the engines call is ``rhs(t, y)`` with ``t`` of shape ``(B,)`` and ``y`` of
@@ -28,6 +29,7 @@ class RunArgs(NamedTuple):
     hmax: Any       # (B,) |max_step|
     hmin: Any       # (B,) |min_step|
     max_steps: int
+    t_grid: Any = None  # (B, m) sorted sample times for in-loop emission
 
 
 class StepProposal(NamedTuple):
@@ -39,8 +41,9 @@ class StepProposal(NamedTuple):
     y_new: Any
     xold: Any          # left edge of the step (== t)
     h_used: Any        # signed step size actually attempted
-    cont: Any          # dense coefficients (None: not ported yet)
-    nfev_inc: int
+    cont: Any          # (B, C, n) dense coefficients (valid when advance),
+    #                    None when the engine was built without them
+    nfev_inc: Any      # int, or (B,) int32 where lanes differ (DOP853)
     njev_inc: int
     nlu_inc: int
     count_step: Any    # bool — whether nstep increments for this attempt
@@ -53,7 +56,7 @@ class Engine(NamedTuple):
     ncoeff: int
     init: Callable
     attempt: Callable
-    interp: Any = None
+    interp: Callable
 
 
 def dotk(coeffs, ks):

@@ -6,11 +6,15 @@ number or 0-d tensor shared by all lanes, or, with ``args_batched=True``, a
 ``(B,)`` tensor with one value per lane.
 
 A :class:`CudaRHS` pairs such a torch function with a CUDA device functor
-of the same name in ``csrc/rhs/<name>.cuh``, compiled into the kernel library
-(kernels/build.py).  On a CUDA tensor the ensemble solve runs only a
-``CudaRHS``; any torch callable runs on the CPU.  To add one: write the
-functor header, add its ``IVP_DOPRI5_ENTRY`` line to
-``csrc/dopri5_ensemble.cu`` and define it here.
+of the same name in ``csrc/rhs/<name>.cuh``, compiled into the kernel
+libraries (kernels/build.py).  On a CUDA tensor the ensemble solve runs only
+a ``CudaRHS``; any torch callable runs on the CPU.  To add one: write the
+functor header, include it in ``csrc/erk_common.cuh`` and
+``csrc/dopri5_ensemble.cu``, add its ``IVP_DOPRI5_ENTRY`` line there, its
+``IVP_ERK_ENTRY`` line to each ``csrc/erk_*.cu`` and its two lines to
+``IVP_ERK_LIBRARY``, give ``kernels/erk_ensemble.py::RHS_FLOPS`` and
+``kernels/dopri5_ensemble.py::FLOPS_PER_ATTEMPT`` its operation counts, and
+define it here.
 """
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""Measurements of the port's DOPRI5 kernel on one NVIDIA GPU (an H100).
+"""Measurements of the port's ensemble kernels on one NVIDIA GPU (an H100):
+the lean DOPRI5 kernel in depth, the rest of the explicit tier by a sweep.
 
     python3 measure_kernel.py [--baseline CSRC_DIR ...] [--phases a,b,...]
 
@@ -34,6 +35,12 @@ instantiation), then the phases (all by default, ``ab`` only with
   each, then ``OCC_ROUNDS`` rounds that time every setting once, in
   forward order on even rounds and backward on odd ones; then each
   functor's settings ranked by median;
+* ``erk``: the kernels of csrc/erk_*.cu (dop853, rk23, rk4, dopri5_sampled)
+  alone on chip_smoke.py's Lorenz configurations, lean and with 100 samples,
+  over ``ERK_B``: 1 untimed launch, then 3 timed ones, with the bound
+  (kernels/erk_ensemble.py::solve_bound), the share of it reached, warp
+  efficiency and the SM cycles per warp-attempt per scheduler at the SM
+  clock nvidia-smi reads right after;
 * ``ab`` (needs ``--baseline``, which may be given more than once): the
   kernel built from another source tree (for example an older commit's
   ``ivp_tpu_torch/csrc``, unpacked into a directory .gitignore lists; its
@@ -78,7 +85,16 @@ FUNCTORS = ("VdP", "Decay", "Lorenz")
 # SM's 2048 threads cannot be met and is skipped.
 OCC_THREADS, OCC_MIN_BLOCKS = (64, 128, 256), (6, 7, 8, 10, 12)
 OCC_ROUNDS = 10
-PHASES = ("sass", "settle", "sweep", "turns", "profile", "occupancy", "ab")
+PHASES = ("sass", "settle", "sweep", "turns", "profile", "occupancy", "erk",
+          "ab")
+# The erk phase: lanes, and (method, tf, rtol, atol, first_step) on Lorenz
+# with y0 = [1, 1, 1] + 1e-3 N(0, 1), as chip_smoke.py's main path.
+ERK_B = (16384, 65536, 262144)
+ERK_CONFIGS = (("DOP853", 100.0, 1e-8, 1e-10, None),
+               ("RK23", 20.0, 1e-6, 1e-8, None),
+               ("RK4", 20.0, 1e-6, 1e-8, 2e-3),
+               ("DOPRI5", 20.0, 1e-6, 1e-8, None))
+ERK_SAMPLES = 100
 
 # SASS classes of the loop count.
 CLASSES = (
@@ -313,6 +329,61 @@ def sweep(k, rhs, dev):
     return rows
 
 
+def erk_sweep(rhs, dev):
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+
+    f64 = torch.float64
+    for method, tf, rtol, atol, first in ERK_CONFIGS:
+        kernel = K.KERNELS[method][0]
+        for sampled in (False, True):
+            for B in ERK_B:
+                rng = np.random.default_rng(0)
+                y0 = torch.as_tensor(np.array([1.0, 1.0, 1.0])
+                                     + 1e-3 * rng.standard_normal((B, 3)),
+                                     device=dev)
+                lane = lambda v: torch.full((B,), v, dtype=f64, device=dev)
+                # A lean DOPRI5 solve with default options is the other
+                # kernel's (the sweep phase): here only its sampled mode.
+                if method == "DOPRI5" and not sampled:
+                    continue
+                grid = (torch.broadcast_to(torch.linspace(
+                    0.0, tf * (0.99 if method == "RK4" else 1.0), ERK_SAMPLES,
+                    dtype=f64, device=dev), (B, ERK_SAMPLES))
+                    if sampled else None)
+                args = (method, rhs.lorenz, y0, lane(0.0), lane(tf), lane(tf),
+                        None if first is None else lane(first),
+                        torch.full((B, 3), rtol, dtype=f64, device=dev),
+                        torch.full((B, 3), atol, dtype=f64, device=dev), (),
+                        200_000, grid)
+                K.erk_ensemble_cuda(*args)
+                torch.cuda.synchronize()
+                ms = []
+                for _ in range(3):
+                    out = None
+                    out, m, _ = timed(lambda: K.erk_ensemble_cuda(*args))
+                    ms.append(m)
+                mhz = float(subprocess.run(
+                    ["nvidia-smi", "--query-gpu=clocks.sm",
+                     "--format=csv,noheader,nounits"], capture_output=True,
+                    text=True, timeout=60, check=True).stdout.split()[0])
+                nstep, naccpt = out[4], out[5]
+                med = float(np.median(ms))
+                attempts = float(nstep.to(torch.int64).sum())
+                wa = warp_attempts(nstep)
+                bound, by = K.solve_bound(method, rhs.lorenz, nstep, naccpt,
+                                          out[8], ERK_SAMPLES if sampled else 0)
+                line("erk", kernel=kernel, sampled=sampled, B=B,
+                     ms_median=round(med, 4), ms_all=[round(m, 4) for m in ms],
+                     ivps_per_s=round(B / (med * 1e-3), 1),
+                     mean_nstep=round(float(nstep.double().mean()), 3),
+                     success=float((out[2] == 0).double().mean()),
+                     warp_eff=round(attempts / (32 * wa), 5),
+                     bound_ms=round(bound, 4), bound_by=by,
+                     bound_share=round(bound / med, 4), sm_mhz=mhz,
+                     cycles_per_warp_attempt_per_scheduler=round(
+                         med * 1e-3 * mhz * 1e6 * 132 * 4 / wa, 1))
+
+
 def turns(k, rhs, y0):
     args = kernel_args(y0)
     for what in ("kernel", "plain", "plain", "kernel"):
@@ -525,6 +596,8 @@ def main():
         profile_solves(solver, dev)
     if "occupancy" in phases:
         occupancy(k, build, rhs, dev)
+    if "erk" in phases:
+        erk_sweep(rhs, dev)
     if "ab" in phases:
         for baseline in opts.baseline:
             ab(k, build, rhs, dev, baseline)

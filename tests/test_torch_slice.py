@@ -1,10 +1,10 @@
 """The port's main path as a whole, against ivp_tpu on the CPU.
 
 Bounds as in test_torch_dopri5.py: counters exactly equal, final y and t
-within 1e-9.  Running this file as a script rewrites the golden file
-``ivp_tpu_torch/data/vdp_golden.npz`` from ivp_tpu (chip_smoke.py holds the
-CUDA kernel against it); ``test_golden_file_is_current`` keeps it from going
-stale.
+within 1e-9.  Running this file as a script rewrites the golden files
+``ivp_tpu_torch/data/vdp_golden.npz`` and ``lorenz_golden.npz`` from ivp_tpu
+(chip_smoke.py holds the CUDA kernels against them);
+``test_golden_file_is_current`` keeps them from going stale.
 """
 import functools
 import os
@@ -33,6 +33,7 @@ from ivp_tpu_torch.methods.ddtier import resolve_auto_dtype  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
 GOLDEN = REPO / "ivp_tpu_torch" / "data" / "vdp_golden.npz"
+GOLDEN_LORENZ = REPO / "ivp_tpu_torch" / "data" / "lorenz_golden.npz"
 COUNTERS = ("status", "nfev", "nstep", "naccpt", "nrejct")
 TOL = dict(rtol=1e-6, atol=1e-8)
 
@@ -64,16 +65,61 @@ def make_golden():
     return out
 
 
-def test_golden_file_is_current():
-    ref = make_golden()
-    with np.load(GOLDEN) as g:
+def jlorenz(t, y):
+    return jnp.array([10.0 * (y[1] - y[0]), y[0] * (28.0 - y[2]) - y[1],
+                      y[0] * y[1] - (8.0 / 3.0) * y[2]])
+
+
+@functools.lru_cache(maxsize=None)
+def make_golden_lorenz():
+    """ivp_tpu's CPU results for bench.py's Lorenz DOP853 configuration
+    (y0 = [1, 1, 1] + 1e-3 N(0, 1), seed 0, rtol 1e-8, atol 1e-10, float64).
+    Lane by lane on a short span, where lanes can be compared: B=256,
+    t in [0, 5], 11 in-loop samples.  And the ensemble's step counts over
+    the full span t in [0, 100] from B=64 (``long_*``): lanes diverge there
+    (chaos), so only their means are comparable."""
+    rng = np.random.default_rng(0)
+    y0 = np.array([1.0, 1.0, 1.0]) + 1e-3 * rng.standard_normal((256, 3))
+    t_eval = np.linspace(0.0, 5.0, 11)
+    res = jax.jit(jax_build(jlorenz, "DOP853", n=3, max_steps=200_000,
+                            t_eval=t_eval))(y0, 0.0, 5.0, 1e-8, 1e-10)
+    out = dict(y0=y0, t0=np.float64(0.0), tf=np.float64(5.0),
+               rtol=np.float64(1e-8), atol=np.float64(1e-10), t_eval=t_eval)
+    out.update({f: np.asarray(getattr(res, f))
+                for f in ("t", "y", "y_samples", "n_samples") + COUNTERS})
+    long = jax.jit(jax_build(jlorenz, "DOP853", n=3, max_steps=200_000))(
+        y0[:64], 0.0, 100.0, 1e-8, 1e-10)
+    out.update({f"long_{f}": np.asarray(getattr(long, f)) for f in COUNTERS})
+    return out
+
+
+@pytest.mark.parametrize("path, make", [(GOLDEN, make_golden),
+                                        (GOLDEN_LORENZ, make_golden_lorenz)],
+                         ids=["vdp", "lorenz"])
+def test_golden_file_is_current(path, make):
+    ref = make()
+    exact = [f for f in ref if f not in ("t", "y", "y_samples")]
+    with np.load(path) as g:
         assert sorted(g.files) == sorted(ref)
-        for f in COUNTERS:
+        for f in exact:
             np.testing.assert_array_equal(g[f], ref[f], err_msg=f)
-        for f in ("y0", "t0", "tf", "rtol", "atol"):
-            np.testing.assert_array_equal(g[f], ref[f], err_msg=f)
-        np.testing.assert_allclose(g["y"], ref["y"], rtol=1e-12, atol=1e-12)
-        np.testing.assert_allclose(g["t"], ref["t"], rtol=1e-12, atol=1e-12)
+        for f in set(ref) - set(exact):
+            np.testing.assert_allclose(g[f], ref[f], rtol=1e-12, atol=1e-12,
+                                       err_msg=f)
+
+
+def test_lorenz_dop853_samples_match_ivp_tpu_golden():
+    """The port's plain version on the golden file's short-span inputs."""
+    ref = make_golden_lorenz()
+    got = convert.result_to_numpy(it.build_ensemble_solver(
+        it.rhs.lorenz, "DOP853", n=3, max_steps=200_000,
+        t_eval=ref["t_eval"])(ref["y0"], 0.0, 5.0, 1e-8, 1e-10, device="cpu"))
+    for f in COUNTERS + ("n_samples",):
+        np.testing.assert_array_equal(getattr(got, f), ref[f], err_msg=f)
+    assert set(got.n_samples.tolist()) == {11}
+    np.testing.assert_allclose(got.y, ref["y"], rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(got.y_samples, ref["y_samples"], rtol=1e-9,
+                               atol=1e-9)
 
 
 def test_build_ensemble_solver_matches_ivp_tpu():
@@ -81,7 +127,7 @@ def test_build_ensemble_solver_matches_ivp_tpu():
     got = it.build_ensemble_solver(it.rhs.vdp, "RK45", n=2)(
         ref["y0"], 0.0, 100.0, 1e-6, 1e-8, device="cpu")
     assert isinstance(got, it.EnsembleResult)
-    assert_matches(type(got)(**{f: ref[f] for f in got._fields}), got)
+    assert_matches(type(got)(**{f: ref.get(f) for f in got._fields}), got)
     assert got.y.dtype == torch.float64 and got.status.dtype == torch.int32
 
 
@@ -218,13 +264,19 @@ def test_unported_option_raises_before_any_device(device, monkeypatch):
     monkeypatch.setattr(it.batch, "_place", no_placement)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         it.solve_ivp_ensemble(it.rhs.vdp, (0.0, 1.0), np.ones((4, 2)),
-                              t_eval=[0.5], device=device)
+                              events=[lambda t, y: y[:, 0]], device=device)
 
 
 def test_no_route_for_other_devices():
     y0 = torch.zeros((4, 2), dtype=torch.float64, device="meta")
     with pytest.raises(NotImplementedError):
         it.build_ensemble_solver(it.rhs.vdp, "RK45", n=2)(y0, 0.0, 1.0, 1e-6, 1e-8)
+
+
+# Options of later slices raise; those of the explicit tier (t_eval,
+# solver_options, DOP853, RK23, RK4), which raised before that tier was
+# ported, give a result.
+PORTED = ("t_eval", "solver_options", "DOP853", "RK23", "RK4")
 
 
 @pytest.mark.parametrize("opts", [
@@ -248,8 +300,29 @@ def test_no_route_for_other_devices():
 def test_unported_options_raise(opts):
     kw = dict(method="RK45")
     kw.update(opts)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        it.solve_ivp_ensemble(it.rhs.vdp, (0.0, 1.0), np.ones((4, 2)), **kw)
+    y0 = np.ones((4, 2))
+    if not set(PORTED) & (set(opts) | {opts.get("method")}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            it.solve_ivp_ensemble(it.rhs.vdp, (0.0, 1.0), y0, **kw)
+        return
+    res = it.solve_ivp_ensemble(it.rhs.vdp, (0.0, 1.0), y0, device="cpu",
+                                rtol=1e-6, atol=1e-8, **kw)
+    assert set(res.status.tolist()) == {it.Status.SUCCESS}
+    assert tuple(res.y.shape) == (4, 2) and bool(torch.isfinite(res.y).all())
+    plain = it.solve_ivp_ensemble(it.rhs.vdp, (0.0, 1.0), y0, device="cpu",
+                                  rtol=1e-6, atol=1e-8)
+    if "t_eval" in opts:
+        assert tuple(res.y_samples.shape) == (4, 5, 2)
+        assert set(res.n_samples.tolist()) == {5}
+        assert torch.equal(res.y_samples[:, 0], torch.as_tensor(y0))
+        torch.testing.assert_close(res.y_samples[:, -1], res.y, rtol=0,
+                                   atol=1e-12)
+    else:
+        assert res.y_samples is None and res.n_samples is None
+        # Another method or controller takes other steps to the same end.
+        assert not all(torch.equal(getattr(res, f), getattr(plain, f))
+                       for f in ("nfev", "naccpt", "nrejct"))
+        torch.testing.assert_close(res.y, plain.y, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", [None, "auto", "dd"])
@@ -262,7 +335,7 @@ def test_f64_class_dtypes_resolve_to_float64(dtype):
 
 def test_port_imports_no_jax():
     code = ("import sys, ivp_tpu_torch, ivp_tpu_torch.convert, "
-            "ivp_tpu_torch.kernels.build; "
+            "ivp_tpu_torch.kernels.build, ivp_tpu_torch.kernels.erk_ensemble; "
             "assert not any(m == 'jax' or m.startswith('jax.') "
             "or m == 'ivp_tpu' or m.startswith('ivp_tpu.') "
             "for m in sys.modules), sorted(sys.modules)")
@@ -274,5 +347,6 @@ def test_port_imports_no_jax():
 
 if __name__ == "__main__":
     GOLDEN.parent.mkdir(parents=True, exist_ok=True)
-    np.savez(GOLDEN, **make_golden())
-    print(f"wrote {GOLDEN}")
+    for path, make in ((GOLDEN, make_golden), (GOLDEN_LORENZ, make_golden_lorenz)):
+        np.savez(path, **make())
+        print(f"wrote {path}")

@@ -61,3 +61,66 @@ def test_unknown_method_warns_then_raises_when_strict():
             ttypes.canonical_method("Rdau")
     finally:
         ttypes.strict_methods(False)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels' copy of the tableaus (csrc/erk_tableaus.cuh)
+# ---------------------------------------------------------------------------
+
+def _header_constants():
+    """``{namespace: {name: value}}`` of every ``constexpr double`` of the
+    header, and the nonzero entries of a Python table as ``{index: value}``."""
+    import re
+    from pathlib import Path
+
+    text = (Path(ttab.__file__).parent / "csrc" / "erk_tableaus.cuh").read_text()
+    out, space = {}, None
+    for line in text.splitlines():
+        m = re.match(r"namespace (\w+) \{", line)
+        if m and m.group(1) != "ivp":
+            space = out.setdefault(m.group(1), {})
+        m = re.match(r"constexpr double (\w+) = (\S+);", line)
+        if m:
+            space[m.group(1)] = float(m.group(2))
+    return out
+
+
+def _nonzero(table):
+    items = table.items() if isinstance(table, dict) else enumerate(table)
+    return {int(i): float(v) for i, v in items if float(v) != 0.0}
+
+
+def _expected_header():
+    exp = {"dop853": {}, "dopri5": {}, "rk23": {}, "rk4": {}}
+    d = exp["dop853"]
+    for r, row in enumerate(ttab.DOP853_A):
+        d[f"C{r + 1}"] = float(ttab.DOP853_C[r + 1])
+        d.update({f"A{r}_{i}": v for i, v in _nonzero(row).items()})
+    d.update({f"B_{i}": v for i, v in _nonzero(ttab.DOP853_B).items()})
+    d.update({f"BH{j + 1}": float(v) for j, v in enumerate(ttab.DOP853_BH)})
+    d.update({f"ER_{i}": v for i, v in _nonzero(ttab.DOP853_ER).items()})
+    for nm in ("14", "15", "16"):
+        d[f"C{nm}"] = float(getattr(ttab, f"DOP853_C{nm}"))
+        d.update({f"A{nm}_{i}": v for i, v in
+                  _nonzero(getattr(ttab, f"DOP853_A{nm}")).items()})
+    for r in range(4, 8):
+        d.update({f"D{r}_{i}": v for i, v in
+                  _nonzero(ttab.DOP853_D[r]).items()})
+    d = exp["dopri5"]
+    for r, row in enumerate(ttab.DOPRI5_A):
+        d[f"C{r + 1}"] = float(ttab.DOPRI5_C[r + 1])
+        d.update({f"A{r}_{i}": v for i, v in _nonzero(row).items()})
+    d.update({f"E_{i}": v for i, v in _nonzero(ttab.DOPRI5_E).items()})
+    d.update({f"D_{i}": v for i, v in _nonzero(ttab.DOPRI5_D).items()})
+    for name in ("B", "E", "D2", "D3"):
+        exp["rk23"].update({f"{name}_{i}": v for i, v in
+                            _nonzero(getattr(ttab, f"RK23_{name}")).items()})
+    exp["rk4"].update({f"B_{i}": v for i, v in _nonzero(ttab.RK4_B).items()})
+    return exp
+
+
+@pytest.mark.parametrize("space", ["dop853", "dopri5", "rk23", "rk4"])
+def test_cuda_tableau_header_equals_the_python_tables(space):
+    """Every constant the kernels read is the Python table's value to the
+    last bit, and none is missing or left over."""
+    assert _header_constants()[space] == _expected_header()[space]
