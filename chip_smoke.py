@@ -185,7 +185,8 @@ def erk_kernels_vs_plain(dev):
     on the card at B=4096 on short spans: lean and sampled (a per-lane grid
     that starts at t0 and ends at tf), per-lane spans (one zero, backward
     for decay), per-component tolerances and per-lane mu; non-default
-    solver_options once per method.  ``{kernel: max_abs_err}``."""
+    solver_options and the controller in double (controller_precision=
+    "state") once per method.  ``{kernel: max_abs_err}``."""
     from ivp_tpu_torch import rhs
     from ivp_tpu_torch.kernels import erk_ensemble as K
     from ivp_tpu_torch.methods import get_engine
@@ -229,6 +230,9 @@ def erk_kernels_vs_plain(dev):
                     so.update(beta=0.08, stiff_threshold=2.0)
                 modes.append(("options", dict(params=get_engine(
                     method, need_cont=False, **so)[1])))
+                modes.append(("state_precision", dict(params=get_engine(
+                    method, need_cont=False,
+                    controller_precision="state")[1])))
             for mode, kw in modes:
                 got = K.erk_ensemble_cuda(method, fun, *a, **kw)
                 ref = K.erk_ensemble_torch(method, fun, *a, **kw)

@@ -179,7 +179,7 @@ def build_ensemble_solver(fun, method="RK45", *, n, dtype=None, args=(),
     ``solver_options``: the explicit engines' controller options
     (``uround, safety, scale_min, scale_max, beta, stiff_test,
     stiff_threshold, iord, controller_precision``); an unknown one raises
-    TypeError.  ``controller_precision="state"`` runs on the CPU route only.
+    TypeError.
 
     ``min_step`` is accepted and, as in ivp_tpu, unused by the explicit
     engines.  ``unroll`` is accepted and has no effect: the kernels loop per

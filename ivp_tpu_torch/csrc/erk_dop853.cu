@@ -4,7 +4,7 @@
 // bounds them and which semantics they keep).
 //
 // Kept from the engine: the dual 8(5,3) error norm with deno <= 0 -> 1 and
-// sqrt(1 / (n * deno)) in float; f(ynew) and the three dense stages on
+// sqrt(1 / (n * deno)) in the controller's type; f(ynew) and the three dense stages on
 // accepted attempts only, so nfev is 11 + (4 if sampled else 1) on accept
 // and 11 on reject; the stiffness test on f(ynew) - k12 and ynew - y12; the
 // default controller (beta == 0) as three square roots with no log or exp and
@@ -12,22 +12,24 @@
 //
 // Registers: twelve stage vectors (sixteen when sampled) of n doubles each
 // sit beside the state, so the entries ask for 64 x 4 launch bounds, which
-// leave ptxas all 255 registers a thread may have: Lorenz (n = 3) takes 124
-// lean and 189 sampled and spills nothing (kernels/build.py keeps ptxas's
-// report; PERF.md states it).
+// leave ptxas all 255 registers a thread may have: with the float controller
+// Lorenz (n = 3) takes 128 lean and 195 sampled and spills nothing
+// (kernels/build.py keeps ptxas's report; PERF.md states it).
 #include "erk_common.cuh"
 
 namespace ivp {
 
 struct Dop853 {
   static constexpr int NCOEFF = 8;
+  static constexpr bool HAS_CONTROLLER = true;
 
-  template <class F, bool CONT>
+  template <class F, bool CONT, class CT>
   static __device__ double attempt(const F& f, const double* a, double t,
                                    const double* y, const double* k1,
-                                   Lane<F::N>& c, const ErkOptions& o,
+                                   Lane<F::N, CT>& c, const ErkOptions& o,
                                    Step<F::N, CONT ? NCOEFF : 0>& s) {
     using namespace dop853;
+    using C = Ctl<CT>;
     constexpr int N = F::N;
     double h = c.h;
     const bool too_small = 0.1 * fabs(h) <= fabs(t) * o.uround;
@@ -77,27 +79,26 @@ struct Dop853 {
         + B_11 * k[11][j];
     IVP_EACH(j) s.ynew[j] = y[j] + h * kb[j];
 
-    // Error norm in float: the vectors in double, cast; sk and sums in float.
-    float err2 = 0.0f, err5 = 0.0f;
+    // Error norm in CT: the vectors in double, cast; sk and sums in CT.
+    CT err2 = (CT)0, err5 = (CT)0;
     IVP_EACH(j) {
-      const float sk = __fadd_rn(
-          c.atf[j], __fmul_rn(c.rtf[j], nmaxf(fabsf((float)y[j]),
-                                              fabsf((float)s.ynew[j]))));
+      const CT sk = C::add(
+          c.atol[j], C::mul(c.rtol[j], C::vmax(C::abs((CT)y[j]),
+                                               C::abs((CT)s.ynew[j]))));
       const double e2 =
           kb[j] - BH1 * k[0][j] - BH2 * k[8][j] - BH3 * k[11][j];
       const double e5 = ER_0 * k[0][j] + ER_5 * k[5][j] + ER_6 * k[6][j]
           + ER_7 * k[7][j] + ER_8 * k[8][j] + ER_9 * k[9][j]
           + ER_10 * k[10][j] + ER_11 * k[11][j];
-      const float r2 = (float)e2 / sk, r5 = (float)e5 / sk;
-      err2 = __fadd_rn(err2, __fmul_rn(r2, r2));
-      err5 = __fadd_rn(err5, __fmul_rn(r5, r5));
+      const CT r2 = (CT)e2 / sk, r5 = (CT)e5 / sk;
+      err2 = C::add(err2, C::mul(r2, r2));
+      err5 = C::add(err5, C::mul(r5, r5));
     }
-    float deno = __fadd_rn(err5, __fmul_rn(0.01f, err2));
-    if (deno <= 0.0f) deno = 1.0f;
-    const float err =
-        __fmul_rn(__fmul_rn((float)fabs(h), err5),
-                  sqrtf(1.0f / __fmul_rn((float)N, deno)));
-    const bool accepted = (err <= 1.0f) && !too_small;
+    CT deno = C::add(err5, C::mul((CT)0.01, err2));
+    if (deno <= (CT)0) deno = (CT)1;
+    const CT err = C::mul(C::mul((CT)fabs(h), err5),
+                          C::sqrt((CT)1 / C::mul((CT)N, deno)));
+    const bool accepted = (err <= (CT)1) && !too_small;
 
     bool stiff_fail = false;
     s.nfev = 11;
@@ -105,12 +106,12 @@ struct Dop853 {
       f(t + h, s.ynew, k[12], a);
       s.nfev += CONT ? 4 : 1;
       if ((c.naccpt + 1) % o.stiff_test == 0 || c.iasti > 0) {
-        float stnum = 0.0f, stden = 0.0f;
+        CT stnum = (CT)0, stden = (CT)0;
         IVP_EACH(j) {
-          const float dk = (float)(k[12][j] - k[11][j]);
-          const float dy = (float)(s.ynew[j] - ys[j]);
-          stnum = __fadd_rn(stnum, __fmul_rn(dk, dk));
-          stden = __fadd_rn(stden, __fmul_rn(dy, dy));
+          const CT dk = (CT)(k[12][j] - k[11][j]);
+          const CT dy = (CT)(s.ynew[j] - ys[j]);
+          stnum = C::add(stnum, C::mul(dk, dk));
+          stden = C::add(stden, C::mul(dy, dy));
         }
         stiff_fail = stiffness(c, o, stnum, stden, h);
       }
@@ -165,16 +166,16 @@ struct Dop853 {
     }
 
     // Controller.
-    float fac, fac11;
+    CT fac, fac11;
     if (o.sqrt_chain) {
-      fac11 = sqrtf(sqrtf(sqrtf(err)));
+      fac11 = C::sqrt(C::sqrt(C::sqrt(err)));
       fac = fac11;
     } else {
-      const float log_err = logf(nmaxf(err, 1e-35f));
-      const float e1 = __fmul_rn(o.expo1, log_err);
-      fac11 = expf(e1);
-      fac = expf(__fsub_rn(e1, __fmul_rn(o.beta, c.facold)));
-      if (accepted) c.facold = nmaxf(log_err, LOG_FACOLD_FLOOR);
+      const CT log_err = C::log(C::vmax(err, (CT)1e-35));
+      const CT e1 = C::mul((CT)o.expo1, log_err);
+      fac11 = C::exp(e1);
+      fac = C::exp(C::sub(e1, C::mul((CT)o.beta, c.facold)));
+      if (accepted) c.facold = C::vmax(log_err, (CT)LOG_FACOLD_FLOOR);
     }
     const double h_next = pi_next_step(c, o, h, accepted, fac, fac11);
 

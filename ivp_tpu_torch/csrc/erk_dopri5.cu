@@ -11,13 +11,15 @@ namespace ivp {
 
 struct Dopri5 {
   static constexpr int NCOEFF = 5;
+  static constexpr bool HAS_CONTROLLER = true;
 
-  template <class F, bool CONT>
+  template <class F, bool CONT, class CT>
   static __device__ double attempt(const F& f, const double* a, double t,
                                    const double* y, const double* k1,
-                                   Lane<F::N>& c, const ErkOptions& o,
+                                   Lane<F::N, CT>& c, const ErkOptions& o,
                                    Step<F::N, CONT ? NCOEFF : 0>& s) {
     using namespace dopri5;
+    using C = Ctl<CT>;
     constexpr int N = F::N;
     double h = c.h;
     const bool too_small = 0.1 * fabs(h) <= fabs(t) * o.uround;
@@ -46,30 +48,30 @@ struct Dopri5 {
                     A5_4 * k[4][j] + A5_5 * k[5][j]);
     f(t + h, s.ynew, k[6], a);
 
-    // Error norm in float: err_vec in double, cast; sk and the mean in float.
-    float ssum = 0.0f;
+    // Error norm in CT: err_vec in double, cast; sk and the mean in CT.
+    CT ssum = (CT)0;
     IVP_EACH(j) {
       const double ev =
           h * (E_0 * k[0][j] + E_2 * k[2][j] + E_3 * k[3][j] + E_4 * k[4][j] +
                E_5 * k[5][j] + E_6 * k[6][j]);
-      const float sk = __fadd_rn(
-          c.atf[j], __fmul_rn(c.rtf[j], nmaxf(fabsf((float)y[j]),
-                                              fabsf((float)s.ynew[j]))));
-      const float r = (float)ev / sk;
-      ssum = __fadd_rn(ssum, __fmul_rn(r, r));
+      const CT sk = C::add(
+          c.atol[j], C::mul(c.rtol[j], C::vmax(C::abs((CT)y[j]),
+                                               C::abs((CT)s.ynew[j]))));
+      const CT r = (CT)ev / sk;
+      ssum = C::add(ssum, C::mul(r, r));
     }
-    const float err = sqrtf(ssum / (float)N);
-    const bool accepted = (err <= 1.0f) && !too_small;
+    const CT err = C::sqrt(ssum / (CT)N);
+    const bool accepted = (err <= (CT)1) && !too_small;
 
     bool stiff_fail = false;
     if (accepted &&
         ((c.naccpt + 1) % o.stiff_test == 0 || c.iasti > 0)) {
-      float stnum = 0.0f, stden = 0.0f;
+      CT stnum = (CT)0, stden = (CT)0;
       IVP_EACH(j) {
-        const float dk = (float)(k[6][j] - k[5][j]);
-        const float dy = (float)(s.ynew[j] - ys[j]);
-        stnum = __fadd_rn(stnum, __fmul_rn(dk, dk));
-        stden = __fadd_rn(stden, __fmul_rn(dy, dy));
+        const CT dk = (CT)(k[6][j] - k[5][j]);
+        const CT dy = (CT)(s.ynew[j] - ys[j]);
+        stnum = C::add(stnum, C::mul(dk, dk));
+        stden = C::add(stden, C::mul(dy, dy));
       }
       stiff_fail = stiffness(c, o, stnum, stden, h);
     }
@@ -92,13 +94,13 @@ struct Dopri5 {
       }
     }
 
-    // Controller (Lund-stabilised PI on log(facold)), in float.
-    const float log_err = logf(nmaxf(err, 1e-35f));
-    const float e1 = __fmul_rn(o.expo1, log_err);
-    const float fac11 = expf(e1);
-    const float fac = expf(__fsub_rn(e1, __fmul_rn(o.beta, c.facold)));
+    // Controller (Lund-stabilised PI on log(facold)), in CT.
+    const CT log_err = C::log(C::vmax(err, (CT)1e-35));
+    const CT e1 = C::mul((CT)o.expo1, log_err);
+    const CT fac11 = C::exp(e1);
+    const CT fac = C::exp(C::sub(e1, C::mul((CT)o.beta, c.facold)));
     const double h_next = pi_next_step(c, o, h, accepted, fac, fac11);
-    if (accepted) c.facold = nmaxf(log_err, LOG_FACOLD_FLOOR);
+    if (accepted) c.facold = C::vmax(log_err, (CT)LOG_FACOLD_FLOOR);
 
     s.accepted = accepted;
     s.advance = advance;

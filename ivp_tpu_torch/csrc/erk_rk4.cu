@@ -15,11 +15,12 @@ namespace ivp {
 
 struct Rk4 {
   static constexpr int NCOEFF = 4;
+  static constexpr bool HAS_CONTROLLER = false;   // nothing to run in CT
 
-  template <class F, bool CONT>
+  template <class F, bool CONT, class CT>
   static __device__ double attempt(const F& f, const double* a, double t,
                                    const double* y, const double* k1,
-                                   Lane<F::N>& c, const ErkOptions& o,
+                                   Lane<F::N, CT>& c, const ErkOptions& o,
                                    Step<F::N, CONT ? NCOEFF : 0>& s) {
     using namespace rk4;
     constexpr int N = F::N;

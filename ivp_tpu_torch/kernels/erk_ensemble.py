@@ -111,26 +111,21 @@ RHS_FLOPS = {"vdp": 5, "decay": 1, "lorenz": 8}
 
 class KernelOptions(ctypes.Structure):
     """``ErkOptions`` of csrc/erk_common.cuh: the numeric fields of
-    :class:`ERKParams` as the float32 controller reads them."""
+    :class:`ERKParams` and the controller's type."""
 
-    _fields_ = [("uround", ctypes.c_double),
-                ("safety", ctypes.c_float), ("facc1", ctypes.c_float),
-                ("facc2", ctypes.c_float), ("beta", ctypes.c_float),
-                ("expo1", ctypes.c_float), ("stiff_threshold", ctypes.c_float),
-                ("scale_min", ctypes.c_float), ("scale_max", ctypes.c_float),
-                ("stiff_test", ctypes.c_int), ("iord", ctypes.c_int),
-                ("sqrt_chain", ctypes.c_int)]
+    _fields_ = ([(f, ctypes.c_double) for f in (
+        "uround", "safety", "facc1", "facc2", "beta", "expo1",
+        "stiff_threshold", "scale_min", "scale_max")]
+                + [(f, ctypes.c_int) for f in (
+                    "stiff_test", "iord", "sqrt_chain", "state_precision")])
 
 
 def kernel_options(p: ERKParams) -> KernelOptions:
     """``p`` as the kernels' launch argument.  Each float is the Python
-    float the plain version hands to a float32 tensor operation, rounded
-    once, so both routes compute with the same constants."""
-    if p.controller_precision != "float32":
-        raise NotImplementedError(
-            f"controller_precision={p.controller_precision!r} runs on the CPU "
-            "route only; the CUDA kernels' controller is float32: ROADMAP §1 "
-            "item 3b (controller_precision='state' in the kernels)")
+    float the plain version hands to a tensor operation; the kernel rounds
+    it once to its controller's type (float, or double under
+    ``controller_precision="state"``), as that operation does, so both
+    routes compute with the same constants."""
     order = {"DOPRI5": (0.2, 0.75), "DOP853": (1.0 / 8.0, 0.2)}
     e0, eb = order.get(p.method, (0.0, 0.0))
     expo1 = e0 - p.beta * eb
@@ -140,7 +135,8 @@ def kernel_options(p: ERKParams) -> KernelOptions:
         stiff_threshold=p.stiff_threshold, scale_min=p.scale_min,
         scale_max=p.scale_max, stiff_test=p.stiff_test, iord=p.iord,
         sqrt_chain=int(p.method == "DOP853" and p.beta == 0.0
-                       and expo1 == 0.125))
+                       and expo1 == 0.125),
+        state_precision=int(p.controller_precision != "float32"))
 
 
 def erk_ensemble_torch(method, fun, y0, t0, tf, hmax, first_step, rtol, atol,

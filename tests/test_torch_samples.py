@@ -252,23 +252,27 @@ def test_flops_and_bound_match_the_hand_count(method):
     assert by == "bytes" and ms == pytest.approx(1e3 * 4096 * lane / 3.35e12)
 
 
-def test_kernel_options_are_the_float32_constants_of_the_plain_version():
+def test_kernel_options_are_the_constants_of_the_plain_version():
     from ivp_tpu_torch.kernels import erk_ensemble as K
 
     _, p = get_engine("DOP853", need_cont=False)
     o = K.kernel_options(p)
     assert o.sqrt_chain == 1 and o.iord == 8 and o.stiff_test == 1000
-    assert o.facc1 == np.float32(1.0 / 0.333) and o.facc2 == np.float32(1 / 6.0)
-    assert o.stiff_threshold == np.float32(6.1) and o.uround == 2.3e-16
+    assert o.facc1 == 1.0 / 0.333 and o.facc2 == 1.0 / 6.0
+    assert o.stiff_threshold == 6.1 and o.uround == 2.3e-16
+    assert o.state_precision == 0
     _, p = get_engine("DOP853", need_cont=True, beta=0.08)
     o = K.kernel_options(p)
-    assert o.sqrt_chain == 0 and o.expo1 == np.float32(0.125 - 0.08 * 0.2)
+    assert o.sqrt_chain == 0 and o.expo1 == 0.125 - 0.08 * 0.2
     _, p = get_engine("DOPRI5", need_cont=True)
     o = K.kernel_options(p)
-    assert o.expo1 == np.float32(0.2 - 0.04 * 0.75) and o.sqrt_chain == 0
+    assert o.expo1 == 0.2 - 0.04 * 0.75 and o.sqrt_chain == 0
     assert K.is_default(p) and not K.is_default(
         get_engine("DOPRI5", need_cont=True, safety=0.8)[1])
-    # The kernels' controller is float32: "state" raises, naming its item.
+    # "state" selects the kernels' double controller, and is not a default.
     _, p = get_engine("RK23", need_cont=False, controller_precision="state")
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 3b"):
-        K.kernel_options(p)
+    assert K.kernel_options(p).state_precision == 1 and not K.is_default(p)
+    # The struct's layout is csrc/erk_common.cuh::ErkOptions: 9 doubles, 4
+    # ints.
+    import ctypes
+    assert ctypes.sizeof(K.KernelOptions) == 9 * 8 + 4 * 4
