@@ -7,8 +7,9 @@ kernels: the lean DOPRI5 ensemble solve (VdP, B=524288, csrc/
 dopri5_ensemble.cu) and the rest of the explicit tier (Lorenz, B=16384:
 DOP853 to the final state and with 100 in-loop samples, RK23, RK4 and DOPRI5
 with samples; csrc/erk_*.cu).  Every kernel is built from the sources here
-and held against its plain PyTorch version, against ivp_tpu's own numbers
-(ivp_tpu_torch/data/*.npz) and against SciPy.  A numpy y0 with no ``device``
+and held against its plain PyTorch version (on short spans at B=4096 over
+every mode and option, and at each main path's own shapes), against
+ivp_tpu's own numbers (ivp_tpu_torch/data/*.npz) and against SciPy.  A numpy y0 with no ``device``
 must run the kernels on cuda:0.  Imports neither jax nor ivp_tpu.  Prints
 its phases one per line, then a JSON line with every kernel's launches,
 error, times and bound, then the card, and last ``{"ok": true, "device":
@@ -56,8 +57,10 @@ LORENZ_B, LORENZ_TF, LORENZ_M = 16384, 100.0, 100
 LORENZ_TOL = (1e-8, 1e-10)
 # Lorenz lanes are held to each other only up to t = 5: beyond, a last-bit
 # difference (nvcc contracts the f64 stage sums into FMAs, torch does not)
-# grows like exp(0.9 t).  There the ensemble is held: success fraction 1.0,
-# mean nstep within 1%, every sample emitted.
+# grows like exp(0.9 t).  So every kernel of the Lorenz main path is held to
+# its plain version lane by lane at the path's shapes on t in [0, 5] (DOP853)
+# or [0, 2], and at t = 100 the ensemble is held: success fraction 1.0, mean
+# nstep within 1%, every sample emitted.
 LORENZ_T_LANES, MEAN_NSTEP = 5.0, 0.01
 
 
@@ -197,9 +200,15 @@ def erk_kernels_vs_plain(dev):
         return torch.as_tensor(a, dtype=torch.float64, device=dev).contiguous()
 
     errs = {}
+    # The plain version on the card takes 2-9 ms an attempt (a launch per
+    # torch operation), and the low-order methods need many: at the tightest
+    # tolerance of these cases RK23 takes ~800 attempts per unit of t on VdP,
+    # RK4 200.  Their spans are cut so that each method's cases take seconds.
+    shorter = {"RK23": 0.1, "RK4": 0.25}
     for method, (kernel, _) in K.KERNELS.items():
         rng = np.random.default_rng(5)
         worst = 0.0
+        t_method = time.perf_counter()
         for name, fun, y0n, span, backward, fargs in (
                 ("vdp_per_lane_mu", rhs.vdp, vdp_y0(Bc, seed=2), 6.0, False,
                  (T(rng.uniform(0.2, 5.0, Bc)),)),
@@ -208,7 +217,7 @@ def erk_kernels_vs_plain(dev):
                 ("lorenz", rhs.lorenz, 1.0 + rng.standard_normal((Bc, 3)), 2.0,
                  False, ())):
             t0 = rng.uniform(-1.0, 1.0, Bc)
-            dt = span * rng.uniform(0.5, 1.0, Bc)
+            dt = span * shorter.get(method, 1.0) * rng.uniform(0.5, 1.0, Bc)
             if backward:
                 dt[1::4] *= -1.0
             dt[0] = 0.0
@@ -267,7 +276,8 @@ def erk_kernels_vs_plain(dev):
             raise AssertionError(f"{kernel} max_steps: n_samples differs")
         phase(f"{kernel}_vs_plain_max_steps_B{Bc}", n_samples_max=int(got[8].max()),
               max_abs_err_samples=float((got[7] - ref[7]).abs().max()),
-              max_abs_err_t=float((got[0] - ref[0]).abs().max()))
+              max_abs_err_t=float((got[0] - ref[0]).abs().max()),
+              seconds_for_method=round(time.perf_counter() - t_method, 3))
         errs[kernel] = worst
     return errs
 
@@ -311,43 +321,80 @@ def erk_main_path(dev, gold):
     """The explicit tier's main path at full width: Lorenz, B=16384, numpy
     y0 and no ``device``, through build_ensemble_solver.  bench.py's two
     DOP853 configurations (t in [0, 100], lean and with 100 samples), and
-    RK23, RK4 and sampled DOPRI5 with the depth cut to t in [0, 20].  Each
-    configuration: one warm-up and three timed solves, then the plain
-    version on the card on the same inputs.  ``{kernel: row}`` with the
-    launches of this run, device ms, plain ms and the bound."""
+    RK23, RK4 and sampled DOPRI5 with the depth cut to t in [0, 20]: one
+    warm-up and three timed solves each.  Then each configuration's kernel
+    is held to its plain version lane by lane at the same shapes (B=16384,
+    100 samples) on a span short enough for Lorenz lanes to stay together,
+    and both are timed there; the plain version solves t in [0, 100] once,
+    DOP853 on 4096 of the lanes, for the ensemble gate.  ``{kernel: row}``
+    with the launches of the main path's run, the times and bound of the
+    short span (same inputs for kernel, plain version and bound) and the
+    main path's own time and bound."""
     from ivp_tpu_torch import Status, build_ensemble_solver, rhs
     from ivp_tpu_torch.kernels import erk_ensemble as K
 
     B, m = LORENZ_B, LORENZ_M
     y0s = [lorenz_y0(B, seed=s) for s in range(4)]
-    configs = [   # method, kernel, tf, (rtol, atol), build options, sampled
-        ("DOP853", "dop853", LORENZ_TF, LORENZ_TOL, {}, False),
-        ("DOP853", "dop853", LORENZ_TF, LORENZ_TOL, {}, True),
-        ("RK23", "rk23", 20.0, (1e-6, 1e-8), {}, False),
-        ("RK23", "rk23", 20.0, (1e-6, 1e-8), {}, True),
-        ("RK4", "rk4", 20.0, (1e-6, 1e-8), dict(first_step=2e-3), False),
-        ("RK4", "rk4", 20.0, (1e-6, 1e-8), dict(first_step=2e-3), True),
-        ("RK45", "dopri5_sampled", 20.0, (1e-6, 1e-8), {}, True),
+    configs = [   # method, kernel, tf, short tf, (rtol, atol), options, sampled
+        ("DOP853", "dop853", LORENZ_TF, LORENZ_T_LANES, LORENZ_TOL, {}, False),
+        ("DOP853", "dop853", LORENZ_TF, LORENZ_T_LANES, LORENZ_TOL, {}, True),
+        ("RK23", "rk23", 20.0, 2.0, (1e-6, 1e-8), {}, False),
+        ("RK23", "rk23", 20.0, 2.0, (1e-6, 1e-8), {}, True),
+        ("RK4", "rk4", 20.0, 2.0, (1e-6, 1e-8), dict(first_step=2e-3), False),
+        ("RK4", "rk4", 20.0, 2.0, (1e-6, 1e-8), dict(first_step=2e-3), True),
+        ("RK45", "dopri5_sampled", 20.0, 2.0, (1e-6, 1e-8), {}, True),
     ]
+
+    def grid_of(method, tf, sampled):
+        # RK4's fixed steps sum to tf only up to rounding, and its last
+        # step may end a hair short of tf: its grid stops before tf.
+        return (np.linspace(0.0, tf, m, endpoint=method != "RK4")
+                if sampled else None)
+
     for kname in K.LAUNCHES:
         K.LAUNCHES[kname] = 0
     runs = []
-    for method, kernel, tf, (rtol, atol), opts, sampled in configs:
-        # RK4's fixed steps sum to tf only up to rounding, and its last
-        # step may end a hair short of tf: its grid stops before tf.
-        grid = (np.linspace(0.0, tf, m, endpoint=method != "RK4")
-                if sampled else None)
-        solver = build_ensemble_solver(rhs.lorenz, method, n=3,
-                                       max_steps=200_000, t_eval=grid, **opts)
+    for method, kernel, tf, short, (rtol, atol), opts, sampled in configs:
+        solver = build_ensemble_solver(
+            rhs.lorenz, method, n=3, max_steps=200_000,
+            t_eval=grid_of(method, tf, sampled), **opts)
         before = K.LAUNCHES[kernel]
         res, walls, ev_ms = timed_solves(solver, y0s, 0.0, tf, rtol, atol)
-        runs.append((method, kernel, tf, rtol, atol, opts, sampled, grid, res,
-                     walls, ev_ms, K.LAUNCHES[kernel] - before))
+        runs.append((res, walls, ev_ms, K.LAUNCHES[kernel] - before))
     launches = dict(K.LAUNCHES)
 
+    def kernel_args(y0, tf, rtol, atol, first):
+        Bk = y0.shape[0]
+        T = lambda v: torch.full((Bk,), v, dtype=torch.float64, device=dev)
+        return (y0, T(0.0), T(tf), T(tf), None if first is None else T(first),
+                torch.full((Bk, 3), rtol, dtype=torch.float64, device=dev),
+                torch.full((Bk, 3), atol, dtype=torch.float64, device=dev))
+
+    def event_ms(fn):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return out, e0.elapsed_time(e1)
+
+    # The plain version over the whole span, once: DOP853 to t = 100 on the
+    # first CHECK_B lanes of the last y0 (its time does not fall with B: it
+    # waits on the host, one launch per torch operation).
+    y_last = torch.as_tensor(y0s[-1], device=dev)
+    plain_long, plain_long_ms = event_ms(lambda: K.erk_ensemble_torch(
+        "DOP853", rhs.lorenz, *kernel_args(y_last[:CHECK_B], LORENZ_TF,
+                                           *LORENZ_TOL, None), (), 200_000))
+    pn = plain_long[4].cpu().numpy()
+    phase(f"plain_dop853_lean_lorenz_B{CHECK_B}_tf{LORENZ_TF:g}",
+          event_ms=round(plain_long_ms, 3), mean_nstep=float(pn.mean()),
+          success_fraction=float((plain_long[2] == 0).double().mean()))
+    if not bool((plain_long[2] == 0).all()):
+        raise AssertionError("plain DOP853 to t=100: not every lane succeeded")
+
     rows = {}
-    for (method, kernel, tf, rtol, atol, opts, sampled, grid, res, walls,
-         ev_ms, n_launch) in runs:
+    for (method, kernel, tf, short, (rtol, atol), opts, sampled), (
+            res, walls, ev_ms, n_launch) in zip(configs, runs):
         tag = f"{kernel}_{'sampled' if sampled else 'lean'}_lorenz_B{B}"
         ms = float(np.median(ev_ms))
         status = res.status.cpu().numpy()
@@ -379,51 +426,64 @@ def erk_main_path(dev, gold):
                         or not bool(torch.isfinite(res.y_samples).all())):
             raise AssertionError(f"{tag}: samples missing")
 
-        # The plain version on the card, same inputs (the last y0).
-        T = lambda v: torch.full((B,), v, dtype=torch.float64, device=dev)
-        first = opts.get("first_step")
-        a = (torch.as_tensor(y0s[-1], device=dev), T(0.0), T(tf), T(tf),
-             None if first is None else T(first),
-             torch.full((B, 3), rtol, dtype=torch.float64, device=dev),
-             torch.full((B, 3), atol, dtype=torch.float64, device=dev))
-        g = (None if grid is None else torch.broadcast_to(
-            torch.as_tensor(grid, device=dev), (B, m)))
-        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        e0.record()
-        plain = K.erk_ensemble_torch(canon, rhs.lorenz, *a, (), 200_000, g)
-        e1.record()
-        torch.cuda.synchronize()
-        plain_ms = e0.elapsed_time(e1)
-        # Lanes diverge over these spans (chaos): hold the ensemble, and the
-        # samples lane by lane while t <= 5.
-        pn = plain[4].cpu().numpy()
-        gap = abs(float(nstep.mean()) / float(pn.mean()) - 1.0)
-        early = None
-        if sampled:
-            keep = torch.as_tensor(grid <= LORENZ_T_LANES, device=dev)
-            early = float((res.y_samples - plain[7])[:, keep].abs().max())
-        phase(f"plain_{tag}", event_ms=round(plain_ms, 3),
-              kernel_speedup=plain_ms / ms, mean_nstep=float(pn.mean()),
-              mean_nstep_gap=gap, max_abs_err_samples_t_le_5=early,
-              success_fraction=float((plain[2] == 0).double().mean()))
-        if gap > MEAN_NSTEP or not bool((plain[2] == 0).all()):
-            raise AssertionError(f"{tag}: mean nstep {nstep.mean()} against "
-                                 f"the plain version's {pn.mean()}")
-        if sampled and not (early <= Y_EQUAL_STEPS
-                            and bool((plain[8] == m).all())):
-            raise AssertionError(f"{tag}: samples at t <= 5 differ by {early}")
-        if method == "DOP853" and not sampled:
+        # Lanes diverge over t in [0, 100] (chaos): there the ensemble is
+        # held, against the plain version on the same lanes and ivp_tpu's
+        # own mean.
+        if method == "DOP853":
+            gap = abs(float(nstep[:CHECK_B].mean()) / float(pn.mean()) - 1.0)
             gm = float(gold["long_nstep"].mean())
             ggap = abs(float(nstep.mean()) / gm - 1.0)
-            phase(f"golden_{tag}", golden_mean_nstep=gm, mean_nstep_gap=ggap)
-            if ggap > MEAN_NSTEP:
-                raise AssertionError(f"{tag}: mean nstep {nstep.mean()} "
-                                     f"against ivp_tpu's {gm}")
-        row = rows.setdefault(kernel, {"launches": launches[kernel]})
+            phase(f"ensemble_{tag}", plain_mean_nstep=float(pn.mean()),
+                  mean_nstep_gap=gap, golden_mean_nstep=gm,
+                  golden_mean_nstep_gap=ggap)
+            if gap > MEAN_NSTEP or ggap > MEAN_NSTEP:
+                raise AssertionError(
+                    f"{tag}: mean nstep {nstep.mean()} against the plain "
+                    f"version's {pn.mean()} and ivp_tpu's {gm}")
+
+        # This instantiation against its plain version, lane by lane, at
+        # the main path's shapes on the short span; both timed there.
+        g = grid_of(method, short, sampled)
+        a = (*kernel_args(y_last, short, rtol, atol, opts.get("first_step")),
+             (), 200_000,
+             None if g is None else torch.broadcast_to(
+                 torch.as_tensor(g, device=dev), (B, m)))
+        short_ms = []
+        for i in range(4):
+            got = None
+            got, t_ms = event_ms(
+                lambda: K.erk_ensemble_cuda(canon, rhs.lorenz, *a))
+            if i:
+                short_ms.append(t_ms)
+        ref, plain_ms = event_ms(
+            lambda: K.erk_ensemble_torch(canon, rhs.lorenz, *a))
+        err = compare(f"{tag}_vs_plain_tf{short:g}", got, ref, scaled=True)
+        if set(got[2].cpu().tolist()) != {Status.SUCCESS} or (
+                sampled and not bool((got[8] == m).all())):
+            raise AssertionError(f"{tag}: the short span did not succeed "
+                                 f"with every sample")
+        k_ms = float(np.median(short_ms))
+        s_bound, s_by = K.solve_bound(canon, rhs.lorenz, got[4], got[5],
+                                      got[8] if sampled else None,
+                                      m if sampled else 0)
+        phase(f"short_span_{tag}", tf=short, kernel_ms=[round(x, 4)
+                                                        for x in short_ms],
+              plain_ms=round(plain_ms, 3), kernel_speedup=plain_ms / k_ms,
+              mean_nstep=float(got[4].double().mean()), bound_ms=s_bound,
+              bound_by=s_by, bound_share=s_bound / k_ms)
+        row = rows.setdefault(kernel, {
+            "launches": launches[kernel], "max_abs_err": 0.0,
+            "inputs": f"Lorenz B={B}, {m} samples where sampled; ms, "
+                      f"plain_ms, bound_ms and max_abs_err on t in [0, "
+                      f"{short:g}], main_path_* on t in [0, {tf:g}]"})
+        row["max_abs_err"] = max(row["max_abs_err"], err)
         key = "sampled_" if sampled and kernel != "dopri5_sampled" else ""
-        row.update({f"{key}ms": ms, f"{key}plain_ms": plain_ms,
-                    f"{key}bound_ms": bound_ms, f"{key}bound_by": bound_by,
-                    f"{key}bound_share": bound_ms / ms})
+        row.update({f"{key}ms": k_ms, f"{key}plain_ms": plain_ms,
+                    f"{key}bound_ms": s_bound, f"{key}bound_by": s_by,
+                    f"{key}bound_share": s_bound / k_ms,
+                    f"{key}main_path_ms": ms,
+                    f"{key}main_path_bound_ms": bound_ms,
+                    f"{key}main_path_bound_share": bound_ms / ms})
     return rows
 
 
@@ -437,6 +497,7 @@ def main():
     from ivp_tpu_torch.kernels import build
     from ivp_tpu_torch.kernels import dopri5_ensemble as k
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -633,9 +694,13 @@ def main():
     #         path at full width ----
     from ivp_tpu_torch.kernels import erk_ensemble as K
 
+    t = time.perf_counter()
     errs = erk_kernels_vs_plain(dev)
+    phase("erk_kernels_vs_plain", seconds=round(time.perf_counter() - t, 3))
     gold = erk_golden_and_scipy(dev)
+    t = time.perf_counter()
     rows = erk_main_path(dev, gold)
+    phase("erk_main_path", seconds=round(time.perf_counter() - t, 3))
     # None has a TPU kernel behind it: each replaces the XLA-fused vmapped
     # driver loop around one engine of ivp_tpu/methods/erk.py.
     replaces = {"dop853": "ivp_tpu/methods/erk.py:224",
@@ -646,11 +711,12 @@ def main():
         kernels.append({"name": kernel, "route": "cuda",
                         "source": f"ivp_tpu_torch/csrc/{source}.cu",
                         "replaces": replaces[kernel],
-                        "max_abs_err": errs[kernel], "library_ms": None,
-                        **rows[kernel]})
+                        "max_abs_err_B4096": errs[kernel],
+                        "library_ms": None, **rows[kernel]})
     for row in kernels:
         if row["launches"] < 1:
             raise AssertionError(f"the main path never launched {row['name']}")
+    phase("total", seconds=round(time.perf_counter() - t_start, 3))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {

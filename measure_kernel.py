@@ -41,6 +41,9 @@ instantiation), then the phases (all by default, ``ab`` only with
   (kernels/erk_ensemble.py::solve_bound), the share of it reached, warp
   efficiency and the SM cycles per warp-attempt per scheduler at the SM
   clock nvidia-smi reads right after;
+  then the lean DOPRI5 solve through both of its kernels on the headline
+  problem (the tuned one and the generic one that serves ``solver_options``),
+  in turns, with the lanes on which they differ;
 * ``ab`` (needs ``--baseline``, which may be given more than once): the
   kernel built from another source tree (for example an older commit's
   ``ivp_tpu_torch/csrc``, unpacked into a directory .gitignore lists; its
@@ -384,6 +387,33 @@ def erk_sweep(rhs, dev):
                          med * 1e-3 * mhz * 1e6 * 132 * 4 / wa, 1))
 
 
+def dopri5_options_path(k, rhs, dev):
+    """Lean DOPRI5 has two kernels: csrc/dopri5_ensemble.cu for the default
+    options and the lean instantiation of csrc/erk_dopri5.cu for a solve
+    with ``solver_options``.  Both on the headline problem with the default
+    options, in turns (tuned, generic, generic, tuned), and the lanes on
+    which any output differs."""
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+
+    args = kernel_args(torch.as_tensor(vdp_y0(MAIN_B), device=dev))
+    run = {"tuned": lambda: k.dopri5_ensemble_cuda(rhs.vdp, *args),
+           "generic": lambda: K.erk_ensemble_cuda("DOPRI5", rhs.vdp, *args)[:7]}
+    outs = {}
+    for what in run:
+        outs[what] = run[what]()
+    torch.cuda.synchronize()
+    differ = torch.zeros(MAIN_B, dtype=torch.bool, device=dev)
+    for a, b in zip(outs["tuned"], outs["generic"]):
+        differ |= (a != b).reshape(MAIN_B, -1).any(dim=1)
+    line("erk_dopri5_options_path", B=MAIN_B, lanes_differing=int(differ.sum()))
+    del outs
+    for _ in range(AB_ROUNDS):
+        for what in ("tuned", "generic", "generic", "tuned"):
+            _, m, _ = timed(run[what])
+            line("erk_dopri5_options_path", what=what, B=MAIN_B,
+                 event_ms=round(m, 4))
+
+
 def turns(k, rhs, y0):
     args = kernel_args(y0)
     for what in ("kernel", "plain", "plain", "kernel"):
@@ -598,6 +628,7 @@ def main():
         occupancy(k, build, rhs, dev)
     if "erk" in phases:
         erk_sweep(rhs, dev)
+        dopri5_options_path(k, rhs, dev)
     if "ab" in phases:
         for baseline in opts.baseline:
             ab(k, build, rhs, dev, baseline)

@@ -1,5 +1,6 @@
 """Shared by tests/test_torch_erk_*.py and test_torch_samples.py: the same
-inputs through ``ivp_tpu`` on the CPU and through the port.
+inputs through ``ivp_tpu`` on the CPU and through the port.  It holds helpers
+only: pytest collects no test from it.
 
 JAX compiles dominate these tests, so each method gets one jitted ``ivp_tpu``
 solver per mode (lean, sampled) that takes everything per lane: VdP with a
@@ -11,11 +12,13 @@ arguments in the shape the case is about.
 import functools
 
 import numpy as np
-import torch
+import pytest
 
-import jax
-import jax.numpy as jnp
-import ivp_tpu  # noqa: F401  (enables x64)
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import ivp_tpu  # noqa: E402,F401  (enables x64)
 from ivp_tpu.batch import build_ensemble_solver as jax_build
 from ivp_tpu.core.driver import DriverConfig as JaxDriverConfig
 from ivp_tpu.core.driver import make_driver as jax_make_driver

@@ -16,8 +16,8 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import jax  # noqa: E402
-import torch_erk_cases as cases  # noqa: E402
-from torch_erk_cases import B, M, assert_matches, jax_build, jax_vdp  # noqa: E402
+import test_torch_erk_cases as cases  # noqa: E402
+from test_torch_erk_cases import B, M, assert_matches, jax_build, jax_vdp  # noqa: E402
 import ivp_tpu_torch as it  # noqa: E402
 from ivp_tpu_torch import convert  # noqa: E402
 from ivp_tpu_torch.core.driver import DriverConfig, make_driver, run_args  # noqa: E402
