@@ -12,8 +12,10 @@ instantiation), then the phases (all by default, ``ab`` only with
 
 * ``sass``: the static SASS instruction mix of each instantiation
   (cuobjdump), and ``loop``: the instructions one attempt issues on the
-  loop body's fast path, by class (below), with the cycles each pipe needs
-  for them;
+  loop body's fast path, by class (below; UMOVs apart), with the cycles
+  each pipe needs for them; for the lean DOPRI5 library and the Lorenz
+  float-controller instantiations of dop853 and rk23 (``Lorenz/f32/lean/P4``:
+  functor, controller type, mode, threads a lane);
 * ``settle``: 10 back-to-back main-path solves at B=524288, every one timed
   with CUDA events and none discarded, once with each result held until the
   next solve returns and once with it dropped before;
@@ -37,22 +39,37 @@ instantiation), then the phases (all by default, ``ab`` only with
   functor's settings ranked by median;
 * ``erk``: the kernels of csrc/erk_*.cu (dop853, rk23, rk4, dopri5_sampled)
   alone on chip_smoke.py's Lorenz configurations, lean and with 100 samples,
-  over ``ERK_B``: 1 untimed launch, then 3 timed ones, with the bound
+  over ``ERK_B``, dop853 and rk23 at each lane-group size P their library
+  has (``chosen``: the one kernels/erk_ensemble.py::lane_threads takes;
+  ``equal_to_P1``: every output equal to P = 1's): 1 untimed launch each,
+  then ``ERK_ROUNDS`` rounds timing every P once, with the bound
   (kernels/erk_ensemble.py::solve_bound), the share of it reached, warp
-  efficiency and the SM cycles per warp-attempt per scheduler at the SM
-  clock nvidia-smi reads right after;
+  efficiency (lanes of a warp: 32 / P) and the SM cycles per warp-attempt
+  per scheduler at the SM clock nvidia-smi reads right after;
   then the lean DOPRI5 solve through both of its kernels on the headline
   problem (the tuned one and the generic one that serves ``solver_options``),
   in turns, with the lanes on which they differ;
+* ``erk_occupancy``: dop853's and rk23's libraries built once per
+  ``ERK_OCC`` (threads a block, min blocks an SM) setting, in parallel;
+  ptxas's registers and spills of each Lorenz instantiation; each (P,
+  lean/sampled) instantiation timed under every setting in turns (B=16384,
+  and 262144 for P = 1), its counters held to the package build, and the
+  settings ranked;
 * ``ab`` (needs ``--baseline``, which may be given more than once): the
-  kernel built from another source tree (for example an older commit's
+  kernels built from another source tree (for example an older commit's
   ``ivp_tpu_torch/csrc``, unpacked into a directory .gitignore lists; its
-  label is the directory above ``csrc``) against the package's, at
-  B=524288: how many lanes differ in each output (0 everywhere is bit for
-  bit equal) on each ``PROBLEMS`` entry and on chip_smoke.py's
-  ``edge_cases`` (stiff lanes, the step budget, a too-small step,
-  first_step and max_step), then rounds of old, new, new, old (CUDA
-  events), and the loop's SASS classes of the old build.
+  label is the directory above ``csrc``) against the package's.  The lean
+  DOPRI5 kernel at B=524288: how many lanes differ in each output (0
+  everywhere is bit for bit equal) on each ``PROBLEMS`` entry and on
+  chip_smoke.py's ``edge_cases`` (stiff lanes, the step budget, a too-small
+  step, first_step and max_step), then rounds of old, new, new, old (CUDA
+  events), and the loop's SASS classes of the old build.  Then the erk
+  kernels, the old build run one thread a lane and the package's with its
+  largest lane group at B=16384 and one thread a lane at 262144
+  (``AB_ERK_B``): the lanes differing in each
+  output of dop853 and rk23 (lean and sampled, float and double
+  controller, Lorenz and VdP, and the edge cases), rk4 and dopri5_sampled
+  on Lorenz, then old, new, new, old rounds of the Lorenz configurations.
 
 The fast path of the loop is walked from the loop head to its back edge.  A
 forward branch whose skipped region calls a subroutine is taken: that skips
@@ -89,10 +106,14 @@ FUNCTORS = ("VdP", "Decay", "Lorenz")
 OCC_THREADS, OCC_MIN_BLOCKS = (64, 128, 256), (6, 7, 8, 10, 12)
 OCC_ROUNDS = 10
 PHASES = ("sass", "settle", "sweep", "turns", "profile", "occupancy", "erk",
-          "ab")
+          "erk_occupancy", "ab")
 # The erk phase: lanes, and (method, tf, rtol, atol, first_step) on Lorenz
-# with y0 = [1, 1, 1] + 1e-3 N(0, 1), as chip_smoke.py's main path.
-ERK_B = (16384, 65536, 262144)
+# with y0 = [1, 1, 1] + 1e-3 N(0, 1), as chip_smoke.py's main path.  The
+# lane-group kernels run at every P their library has, in turns.
+ERK_B = (4096, 16384, 65536, 262144)
+ERK_ROUNDS = 3
+# The A/B of the erk kernels: lane counts, the split one's and P = 1's.
+AB_ERK_B = (16384, 262144)
 ERK_CONFIGS = (("DOP853", 100.0, 1e-8, 1e-10, None),
                ("RK23", 20.0, 1e-6, 1e-8, None),
                ("RK4", 20.0, 1e-6, 1e-8, 2e-3),
@@ -113,6 +134,7 @@ CLASSES = (
                  "POPC", "FLO", "IADD", "IMUL", "PRMT", "BMSK", "SGXT"}),
     ("move", {"MOV", "UMOV", "S2R", "CS2R", "S2UR"}),
     ("memory", {"LDG", "STG", "LDL", "STL", "LDC", "ULDC", "LDS", "STS"}),
+    ("shuffle", {"SHFL"}),
 )
 # H100 (compute capability 9.0) results a clock per SM, from the CUDA
 # programming guide's throughput table, as cycles a warp instruction holds
@@ -168,14 +190,14 @@ def timed(fn):
     return out, e0.elapsed_time(e1), time.perf_counter() - t
 
 
-def warp_attempts(nstep):
-    """Sum over warps of the warp's largest nstep: a warp runs until its
-    slowest lane is done."""
+def warp_attempts(nstep, lanes=32):
+    """Sum over warps of the warp's largest nstep: a warp of ``lanes``
+    lanes runs until its slowest lane is done."""
     ns = nstep.to(torch.int64)
-    pad = (-ns.numel()) % 32
+    pad = (-ns.numel()) % lanes
     if pad:
         ns = torch.cat([ns, ns.new_zeros(pad)])
-    return float(ns.view(-1, 32).max(dim=1).values.sum())
+    return float(ns.view(-1, lanes).max(dim=1).values.sum())
 
 
 def ptxas_lines(log):
@@ -195,8 +217,28 @@ _INS = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?"
                   r"([A-Z][A-Z0-9_.]*)\s*([^;]*);")
 
 
+# An instantiation of csrc/erk_common.cuh's erk_kernel, as mangled: method,
+# functor, controller type, SAMPLED, then P (none before lane groups),
+# threads and min blocks.
+_ERK = re.compile(r"erk_kernelINS_\d+(\w+?)E\d+(\w+?)([fd])Lb([01])E"
+                  r"((?:Li\d+E)+)E")
+
+
+def instantiation(mangled):
+    """``Lorenz/f32/lean/P4`` for an erk_kernel instantiation (P1 for a
+    build from before lane groups), else the functor the name holds."""
+    m = _ERK.search(mangled)
+    if not m:
+        return next((f for f in FUNCTORS if f in mangled), mangled)
+    ints = re.findall(r"Li(\d+)E", m.group(5))
+    P = ints[0] if len(ints) == 3 else "1"
+    return (f"{m.group(2)}/{'f32' if m.group(3) == 'f' else 'f64'}/"
+            f"{'sampled' if m.group(4) == '1' else 'lean'}/P{P}")
+
+
 def sass_functions(lib):
-    """{functor: [(addr, predicate, opcode, operands)]} from cuobjdump."""
+    """{instantiation: [(addr, predicate, opcode, operands)]} from
+    cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     r = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                        text=True, timeout=120)
@@ -205,8 +247,7 @@ def sass_functions(lib):
     funcs, name = {}, None
     for ln in r.stdout.splitlines():
         if "Function :" in ln:
-            mangled = ln.split("Function :")[1].strip()
-            name = next((f for f in FUNCTORS if f in mangled), mangled)
+            name = instantiation(ln.split("Function :")[1].strip())
             funcs[name] = []
             continue
         m = _INS.match(ln)
@@ -260,10 +301,12 @@ def loop_fast_path(ins):
     return path, skipped, skipped_ins
 
 
-def sass_report(lib, label):
+def sass_report(lib, label, only=None):
     """Print the static mix and the loop's fast-path classes of each
-    instantiation of ``lib``."""
+    instantiation of ``lib`` (whose label starts with ``only``, if given)."""
     for name, ins in sass_functions(lib).items():
+        if only and not name.startswith(only):
+            continue
         c = Counter(op.split(".")[0] for _, _, op, _ in ins)
         line("sass", build=label, functor=name, instructions=len(ins),
              DFMA=c["DFMA"], DMUL=c["DMUL"], DADD=c["DADD"], MUFU=c["MUFU"],
@@ -276,6 +319,7 @@ def sass_report(lib, label):
         classes = Counter(_class(op) for op in path)
         pipes = {f"{k}_cycles": PIPE_CYCLES[k] * classes[k] for k in PIPE_CYCLES}
         line("loop", build=label, functor=name, issued=len(path),
+             UMOV=sum(op.split(".")[0] == "UMOV" for op in path),
              **{k: classes[k] for k, _ in CLASSES}, uniform=classes["uniform"],
              other=classes["other"], **pipes, branches_skipped=skipped,
              instructions_skipped=skipped_ins,
@@ -332,59 +376,91 @@ def sweep(k, rhs, dev):
     return rows
 
 
-def erk_sweep(rhs, dev):
+def lorenz_args(method, B, dev, sampled):
+    """erk_ensemble_cuda's arguments after ``method`` for an ``ERK_CONFIGS``
+    solve of Lorenz over B lanes, lean or with ``ERK_SAMPLES`` samples."""
+    from ivp_tpu_torch import rhs
+
+    _, tf, rtol, atol, first = next(c for c in ERK_CONFIGS if c[0] == method)
+    f64 = torch.float64
+    rng = np.random.default_rng(0)
+    y0 = torch.as_tensor(np.array([1.0, 1.0, 1.0])
+                         + 1e-3 * rng.standard_normal((B, 3)), device=dev)
+    lane = lambda v: torch.full((B,), v, dtype=f64, device=dev)
+    grid = (torch.broadcast_to(torch.linspace(
+        0.0, tf * (0.99 if method == "RK4" else 1.0), ERK_SAMPLES,
+        dtype=f64, device=dev), (B, ERK_SAMPLES)) if sampled else None)
+    return (rhs.lorenz, y0, lane(0.0), lane(tf), lane(tf),
+            None if first is None else lane(first),
+            torch.full((B, 3), rtol, dtype=f64, device=dev),
+            torch.full((B, 3), atol, dtype=f64, device=dev), (), 200_000, grid)
+
+
+def group_sizes(kernel, fun):
+    """The lane-group sizes a kernel's library has for ``fun``."""
     from ivp_tpu_torch.kernels import erk_ensemble as K
 
-    f64 = torch.float64
-    for method, tf, rtol, atol, first in ERK_CONFIGS:
+    if kernel not in K.GROUPED:
+        return (1,)
+    cap = 1 << max(0, fun.n - 1).bit_length()
+    return tuple(1 << e for e in range(cap.bit_length()))
+
+
+def sm_mhz():
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
+
+
+def erk_sweep(rhs, dev):
+    """Each erk kernel over ERK_B, lean and sampled, at each lane-group size
+    its library has, the sizes timed in turns (forward, then backward)."""
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+
+    for method, *_ in ERK_CONFIGS:
         kernel = K.KERNELS[method][0]
+        sizes = group_sizes(kernel, rhs.lorenz)
         for sampled in (False, True):
+            # A lean DOPRI5 solve with default options is the other
+            # kernel's (the sweep phase): here only its sampled mode.
+            if method == "DOPRI5" and not sampled:
+                continue
             for B in ERK_B:
-                rng = np.random.default_rng(0)
-                y0 = torch.as_tensor(np.array([1.0, 1.0, 1.0])
-                                     + 1e-3 * rng.standard_normal((B, 3)),
-                                     device=dev)
-                lane = lambda v: torch.full((B,), v, dtype=f64, device=dev)
-                # A lean DOPRI5 solve with default options is the other
-                # kernel's (the sweep phase): here only its sampled mode.
-                if method == "DOPRI5" and not sampled:
-                    continue
-                grid = (torch.broadcast_to(torch.linspace(
-                    0.0, tf * (0.99 if method == "RK4" else 1.0), ERK_SAMPLES,
-                    dtype=f64, device=dev), (B, ERK_SAMPLES))
-                    if sampled else None)
-                args = (method, rhs.lorenz, y0, lane(0.0), lane(tf), lane(tf),
-                        None if first is None else lane(first),
-                        torch.full((B, 3), rtol, dtype=f64, device=dev),
-                        torch.full((B, 3), atol, dtype=f64, device=dev), (),
-                        200_000, grid)
-                K.erk_ensemble_cuda(*args)
+                args = lorenz_args(method, B, dev, sampled)
+                run = {P: (lambda P=P: K.erk_ensemble_cuda(
+                    method, *args, threads_per_lane=P)) for P in sizes}
+                outs = {P: run[P]() for P in sizes}
                 torch.cuda.synchronize()
-                ms = []
-                for _ in range(3):
-                    out = None
-                    out, m, _ = timed(lambda: K.erk_ensemble_cuda(*args))
-                    ms.append(m)
-                mhz = float(subprocess.run(
-                    ["nvidia-smi", "--query-gpu=clocks.sm",
-                     "--format=csv,noheader,nounits"], capture_output=True,
-                    text=True, timeout=60, check=True).stdout.split()[0])
-                nstep, naccpt = out[4], out[5]
-                med = float(np.median(ms))
-                attempts = float(nstep.to(torch.int64).sum())
-                wa = warp_attempts(nstep)
-                bound, by = K.solve_bound(method, rhs.lorenz, nstep, naccpt,
-                                          out[8], ERK_SAMPLES if sampled else 0)
-                line("erk", kernel=kernel, sampled=sampled, B=B,
-                     ms_median=round(med, 4), ms_all=[round(m, 4) for m in ms],
-                     ivps_per_s=round(B / (med * 1e-3), 1),
-                     mean_nstep=round(float(nstep.double().mean()), 3),
-                     success=float((out[2] == 0).double().mean()),
-                     warp_eff=round(attempts / (32 * wa), 5),
-                     bound_ms=round(bound, 4), bound_by=by,
-                     bound_share=round(bound / med, 4), sm_mhz=mhz,
-                     cycles_per_warp_attempt_per_scheduler=round(
-                         med * 1e-3 * mhz * 1e6 * 132 * 4 / wa, 1))
+                ms = {P: [] for P in sizes}
+                for r in range(ERK_ROUNDS):
+                    for P in (sizes if r % 2 == 0 else sizes[::-1]):
+                        _, m, _ = timed(run[P])
+                        ms[P].append(m)
+                mhz = sm_mhz()
+                chosen = K.lane_threads(method, rhs.lorenz, B)
+                for P in sizes:
+                    out = outs[P]
+                    nstep, naccpt = out[4], out[5]
+                    same = all(torch.equal(x, y) for x, y in
+                               zip(out[:7], outs[sizes[0]][:7]))
+                    med = float(np.median(ms[P]))
+                    attempts = float(nstep.to(torch.int64).sum())
+                    wa = warp_attempts(nstep, 32 // P)
+                    bound, by = K.solve_bound(method, rhs.lorenz, nstep, naccpt,
+                                              out[8], ERK_SAMPLES if sampled else 0)
+                    line("erk", kernel=kernel, sampled=sampled, B=B, P=P,
+                         chosen=P == chosen, ms_median=round(med, 4),
+                         ms_all=[round(m, 4) for m in ms[P]],
+                         ivps_per_s=round(B / (med * 1e-3), 1),
+                         mean_nstep=round(float(nstep.double().mean()), 3),
+                         success=float((out[2] == 0).double().mean()),
+                         equal_to_P1=same,
+                         warp_eff=round(attempts / ((32 // P) * wa), 5),
+                         bound_ms=round(bound, 4), bound_by=by,
+                         bound_share=round(bound / med, 4), sm_mhz=mhz,
+                         cycles_per_warp_attempt_per_scheduler=round(
+                             med * 1e-3 * mhz * 1e6 * 132 * 4 / wa, 1))
+                del outs
 
 
 def dopri5_options_path(k, rhs, dev):
@@ -512,8 +588,7 @@ def occupancy(k, build, rhs, dev):
              rounds_first_beat_second=sum(x < y for x, y in zip(first, second)))
 
 
-def ab(k, build, rhs, dev, baseline):
-    label = baseline.parent.name if baseline.name == "csrc" else baseline.name
+def ab(k, build, rhs, dev, baseline, label):
     t0 = time.perf_counter()
     path = build.build(src_dir=baseline)
     old = build.load(path)
@@ -551,6 +626,155 @@ def ab(k, build, rhs, dev, baseline):
                  event_ms=round(m, 4))
 
 
+# The erk occupancy sweep: (threads a block, min blocks an SM) for every
+# entry of a library, -DIVP_ERK_THREADS/-DIVP_ERK_MIN_BLOCKS.
+ERK_OCC = ((64, 4), (64, 6), (64, 8), (64, 12), (64, 16), (128, 2), (128, 4),
+           (128, 6), (128, 8))
+ERK_OCC_ROUNDS = 5
+
+
+def erk_occupancy(build, rhs, dev):
+    """Each lane-group kernel's (P, lean/sampled) instantiations on Lorenz
+    under every ERK_OCC setting, at B=16384, and at B=262144 too for P = 1,
+    in turns; counters held to the package build; ranked."""
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+
+    sources = {K.KERNELS[m][1]: m for m in ("DOP853", "RK23")}
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(ERK_OCC) * 2) as ex:
+        futs = {(src, s): ex.submit(build.build, defines=(
+            f"IVP_ERK_THREADS={s[0]}", f"IVP_ERK_MIN_BLOCKS={s[1]}"), name=src)
+            for src in sources for s in ERK_OCC}
+        libs = {key: f.result() for key, f in futs.items()}
+    line("erk_occupancy_build", libraries=len(libs),
+         seconds=round(time.perf_counter() - t0, 3))
+    for (src, s), path in sorted(libs.items()):
+        for fn, regs, st, ld in build.ptxas_report(path):
+            name = instantiation(fn)
+            if name.startswith("Lorenz/f32"):
+                line("erk_occupancy_ptxas", source=src, threads=s[0],
+                     min_blocks=s[1], instantiation=name, registers=regs,
+                     spill_stores=st, spill_loads=ld)
+    loaded = {key: build.load(path) for key, path in libs.items()}
+    for src, method in sources.items():
+        kernel = K.KERNELS[method][0]
+        for P, B in [(P, B) for P in group_sizes(kernel, rhs.lorenz)
+                     for B in ((16384, 262144) if P == 1 else (16384,))]:
+            for sampled in (False, True):
+                args = lorenz_args(method, B, dev, sampled)
+                ref = K.erk_ensemble_cuda(method, *args, threads_per_lane=P)
+                run = {s: (lambda lib=loaded[src, s]: K.erk_ensemble_cuda(
+                    method, *args, threads_per_lane=P, lib=lib))
+                    for s in ERK_OCC}
+                equal = {}
+                for s in ERK_OCC:
+                    out = run[s]()
+                    equal[s] = same_counters(out[:7], ref[:7])
+                del out, ref
+                ms = {s: [] for s in ERK_OCC}
+                for r in range(ERK_OCC_ROUNDS):
+                    for s in (ERK_OCC if r % 2 == 0 else ERK_OCC[::-1]):
+                        _, m, _ = timed(run[s])
+                        ms[s].append(m)
+                ranked = sorted(ERK_OCC, key=lambda s: np.median(ms[s]))
+                line("erk_occupancy", kernel=kernel, P=P, sampled=sampled, B=B,
+                     rounds=ERK_OCC_ROUNDS,
+                     counters_equal=all(equal.values()),
+                     ms_median={f"{t}x{mb}": round(float(np.median(ms[t, mb])), 4)
+                                for t, mb in ERK_OCC},
+                     fastest=[f"{t}x{mb}" for t, mb in ranked[:3]])
+
+
+def ab_erk(build, rhs, dev, baseline, label):
+    """The erk kernels built from ``baseline`` (one thread a lane) against
+    the package's, run with their largest lane group at the first of
+    AB_ERK_B and one thread a lane at the second: lanes differing in each
+    output of dop853 and rk23, lean and sampled, float and double
+    controller, on Lorenz and VdP, and of rk4 and dopri5_sampled on Lorenz;
+    chip_smoke.py's edge_cases through dop853 and rk23; then old, new, new,
+    old rounds of the Lorenz main-path configurations, new as the router
+    runs it."""
+    from chip_smoke import edge_cases
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+    from ivp_tpu_torch.methods import get_engine
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(4) as ex:
+        futs = {m: ex.submit(build.build, src_dir=baseline,
+                             name=K.KERNELS[m][1]) for m in K.KERNELS}
+        paths = {m: f.result() for m, f in futs.items()}
+    old = {m: build.load(path) for m, path in paths.items()}
+    line("ab_erk_build", old=label, seconds=round(time.perf_counter() - t0, 3))
+    for m in ("DOP853", "RK23"):
+        sass_report(paths[m], label, only="Lorenz/f32")
+    names = ("t", "y", "status", "nfev", "nstep", "naccpt", "nrejct",
+             "y_samples", "n_samples")
+
+    def compare(what, method, a, kw, B):
+        # The largest lane group at the smaller B, one thread a lane above.
+        P = (group_sizes(K.KERNELS[method][0], a[0])[-1]
+             if B == AB_ERK_B[0] else 1)
+        new_out = K.erk_ensemble_cuda(method, *a, **kw, threads_per_lane=P)
+        old_out = K.erk_ensemble_cuda(method, *a, **kw, threads_per_lane=1,
+                                      lib=old[method])
+        torch.cuda.synchronize()
+        diff = {f: int((x != y).reshape(x.shape[0], -1).any(dim=1).sum())
+                for f, x, y in zip(names, new_out, old_out) if x is not None}
+        line("ab_erk_bitwise", old=label, kernel=K.KERNELS[method][0],
+             case=what, B=B, P=P,
+             identical=all(v == 0 for v in diff.values()),
+             lanes_differing=repr(diff),
+             statuses=repr(dict(Counter(new_out[2].cpu().tolist()))),
+             max_abs_dy=float((new_out[1] - old_out[1]).abs().max()))
+
+    f64 = torch.float64
+    for B in AB_ERK_B:
+        for method in ("DOP853", "RK23", "RK4", "DOPRI5"):
+            precisions = (("float32", "state") if method in ("DOP853", "RK23")
+                          else ("float32",))
+            for sampled in (False, True):
+                if method == "DOPRI5" and not sampled:
+                    continue
+                for prec in precisions:
+                    a = lorenz_args(method, B, dev, sampled)
+                    kw = {} if prec == "float32" else dict(params=get_engine(
+                        method, need_cont=sampled,
+                        controller_precision=prec)[1])
+                    compare(f"lorenz_{'sampled' if sampled else 'lean'}_{prec}",
+                            method, a[:-1], dict(kw, t_grid=a[-1]), B)
+                    if method in ("DOP853", "RK23"):
+                        # VdP at the headline problem (RK23: t in [0, 20]).
+                        y0, t0_, tf, hmax, first, rtol, atol = problem_args(
+                            "vdp", B, dev)
+                        if method == "RK23":
+                            tf = hmax = torch.full_like(tf, 20.0)
+                        grid = (torch.broadcast_to(torch.linspace(
+                            0.0, float(tf[0]), ERK_SAMPLES, dtype=f64,
+                            device=dev), (B, ERK_SAMPLES)) if sampled else None)
+                        compare(f"vdp_{'sampled' if sampled else 'lean'}_{prec}",
+                                method, (rhs.vdp, y0, t0_, tf, hmax, first,
+                                         rtol, atol), dict(kw, t_grid=grid), B)
+        for method in ("DOP853", "RK23"):
+            for name, a, kw, _ in edge_cases(B, dev):
+                compare(name, method, (rhs.vdp, *a), kw, B)
+    for B in AB_ERK_B:
+        for method in ("DOP853", "RK23"):
+            for sampled in (False, True):
+                a = lorenz_args(method, B, dev, sampled)
+                run = {"new": lambda: K.erk_ensemble_cuda(method, *a),
+                       "old": lambda: K.erk_ensemble_cuda(
+                           method, *a, threads_per_lane=1, lib=old[method])}
+                run["old"]()
+                run["new"]()
+                for r in range(AB_ROUNDS):
+                    for what in ("old", "new", "new", "old"):
+                        out = None
+                        out, m, _ = timed(run[what])
+                        line("ab_erk", old=label, kernel=K.KERNELS[method][0],
+                             sampled=sampled, B=B, round=r, what=what,
+                             event_ms=round(m, 4))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, action="append", default=[],
@@ -586,8 +810,19 @@ def main():
     line("build", seconds=round(time.perf_counter() - t, 3), library=lib.name)
     for functor, info in ptxas_lines(lib.with_suffix(".log").read_text()):
         line("ptxas", build="new", functor=functor, info=repr(info))
+    if phases & {"sass", "erk", "erk_occupancy", "ab"}:
+        t = time.perf_counter()
+        erk_libs = build.build_all()
+        line("build_all", seconds=round(time.perf_counter() - t, 3),
+             libraries=sorted(p.name for p in erk_libs.values()))
+        for name in ("erk_dop853", "erk_rk23"):
+            for fn, regs, st, ld in build.ptxas_report(erk_libs[name]):
+                line("ptxas", build="new", instantiation=instantiation(fn),
+                     registers=regs, spill_stores=st, spill_loads=ld)
     if "sass" in phases:
         sass_report(lib, "new")
+        for name in ("erk_dop853", "erk_rk23"):
+            sass_report(erk_libs[name], f"new:{name}", only="Lorenz/f32")
 
     solver = build_ensemble_solver(rhs.vdp, "RK45", n=2)
     y0 = torch.as_tensor(vdp_y0(MAIN_B), device=dev)
@@ -629,9 +864,14 @@ def main():
     if "erk" in phases:
         erk_sweep(rhs, dev)
         dopri5_options_path(k, rhs, dev)
+    if "erk_occupancy" in phases:
+        erk_occupancy(build, rhs, dev)
     if "ab" in phases:
         for baseline in opts.baseline:
-            ab(k, build, rhs, dev, baseline)
+            label = (baseline.parent.name if baseline.name == "csrc"
+                     else baseline.name)
+            ab(k, build, rhs, dev, baseline, label)
+            ab_erk(build, rhs, dev, baseline, label)
     return 0
 
 
