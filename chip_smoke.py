@@ -9,9 +9,7 @@ DOP853 to the final state and with 100 in-loop samples, RK23, RK4 and DOPRI5
 with samples; csrc/erk_*.cu).  Every kernel is built from the sources here
 and held against its plain PyTorch version (on short spans at B=4096 over
 every mode and option, and at each main path's own shapes), against
-ivp_tpu's own numbers (ivp_tpu_torch/data/*.npz) and against SciPy; DOP853
-and RK23 forced to lane groups of P threads are held bit for bit to the
-router's one-thread-a-lane solve and timed beside it.  A numpy y0 with no ``device``
+ivp_tpu's own numbers (ivp_tpu_torch/data/*.npz) and against SciPy.  A numpy y0 with no ``device``
 must run the kernels on cuda:0.  Imports neither jax nor ivp_tpu.  Prints
 its phases one per line, then a JSON line with every kernel's launches,
 error, times and bound, then the card, and last ``{"ok": true, "device":
@@ -64,11 +62,6 @@ LORENZ_TOL = (1e-8, 1e-10)
 # or [0, 2], and at t = 100 the ensemble is held: success fraction 1.0, mean
 # nstep within 1%, every sample emitted.
 LORENZ_T_LANES, MEAN_NSTEP = 5.0, 0.01
-# dop853 and rk23 can solve a lane with a group of threads; the router
-# takes one thread a lane (kernels/erk_ensemble.py::lane_threads, measured
-# faster at every B).  Each Lorenz main-path configuration of theirs also
-# runs forced to its largest group, which must equal the router's solve bit
-# for bit and is timed beside it.
 
 
 def phase(name, **kv):
@@ -120,16 +113,6 @@ def compare(name, got, ref, scaled=False, count_fraction=COUNT_FRACTION,
         raise AssertionError(f"{name}: final y differs by {err_same} "
                              f"(equal steps) / {err_all} (all lanes)")
     return err_all
-
-
-OUTPUTS = ("t", "y", "status", "nfev", "nstep", "naccpt", "nrejct",
-           "y_samples", "n_samples")
-
-
-def outputs_differing(a, b):
-    """The outputs in which two kernel results are not bit for bit equal."""
-    return [f for f, x, y in zip(OUTPUTS, a, b)
-            if x is not None and not torch.equal(x, y)]
 
 
 def lanes(B, v, dev):
@@ -216,19 +199,6 @@ def erk_kernels_vs_plain(dev):
     def T(a):
         return torch.as_tensor(a, dtype=torch.float64, device=dev).contiguous()
 
-    def split_equal(what, method, fun, a, kw, got):
-        # The largest lane group of a grouped kernel: bit for bit the
-        # router's solve.
-        if K.KERNELS[method][0] not in K.GROUPED or fun.n == 1:
-            return 0
-        P = 1 << (fun.n - 1).bit_length()
-        differ = outputs_differing(K.erk_ensemble_cuda(
-            method, fun, *a, **kw, threads_per_lane=P), got)
-        if differ:
-            raise AssertionError(f"{what}: P={P} differs from the router's "
-                                 f"solve in {differ}")
-        return 1
-
     errs = {}
     # The plain version on the card takes 2-9 ms an attempt (a launch per
     # torch operation), and the low-order methods need many: at the tightest
@@ -238,7 +208,6 @@ def erk_kernels_vs_plain(dev):
     for method, (kernel, _) in K.KERNELS.items():
         rng = np.random.default_rng(5)
         worst = 0.0
-        split_cases = 0
         t_method = time.perf_counter()
         for name, fun, y0n, span, backward, fargs in (
                 ("vdp_per_lane_mu", rhs.vdp, vdp_y0(Bc, seed=2), 6.0, False,
@@ -281,8 +250,6 @@ def erk_kernels_vs_plain(dev):
                         if mode == "options" else {})
                 err = compare(f"{kernel}_vs_plain_{name}_{mode}_B{Bc}", got,
                               ref, scaled=True, **gate)
-                split_cases += split_equal(f"{kernel} {name} {mode}", method,
-                                           fun, a, kw, got)
                 if mode != "options":
                     worst = max(worst, err)
         # The step budget mid-grid: 12 attempts, fewer samples than asked.
@@ -307,10 +274,7 @@ def erk_kernels_vs_plain(dev):
                 raise AssertionError(f"{kernel} max_steps: {f} differs")
         if not torch.equal(got[8], ref[8]):
             raise AssertionError(f"{kernel} max_steps: n_samples differs")
-        split_cases += split_equal(f"{kernel} max_steps", method, rhs.lorenz,
-                                   a, kw, got)
         phase(f"{kernel}_vs_plain_max_steps_B{Bc}", n_samples_max=int(got[8].max()),
-              split_cases_bit_for_bit=split_cases,
               max_abs_err_samples=float((got[7] - ref[7]).abs().max()),
               max_abs_err_t=float((got[0] - ref[0]).abs().max()),
               seconds_for_method=round(time.perf_counter() - t_method, 3))
@@ -389,7 +353,6 @@ def erk_main_path(dev, gold):
 
     for kname in K.LAUNCHES:
         K.LAUNCHES[kname] = 0
-    K.LAUNCHES_BY_P.clear()
     runs = []
     for method, kernel, tf, short, (rtol, atol), opts, sampled in configs:
         solver = build_ensemble_solver(
@@ -399,9 +362,6 @@ def erk_main_path(dev, gold):
         res, walls, ev_ms = timed_solves(solver, y0s, 0.0, tf, rtol, atol)
         runs.append((res, walls, ev_ms, K.LAUNCHES[kernel] - before))
     launches = dict(K.LAUNCHES)
-    by_p = dict(K.LAUNCHES_BY_P)
-    phase("main_path_launches_by_kernel_and_P",
-          launches=repr({f"{k}/P{P}": v for (k, P), v in sorted(by_p.items())}))
 
     def kernel_args(y0, tf, rtol, atol, first):
         Bk = y0.shape[0]
@@ -455,10 +415,6 @@ def erk_main_path(dev, gold):
               finite=bool(torch.isfinite(res.y).all()))
         if n_launch != 4:
             raise AssertionError(f"{tag}: {n_launch} launches in 4 solves")
-        P = K.lane_threads(canon, rhs.lorenz, B)
-        if by_p.get((kernel, P), 0) < 4:
-            raise AssertionError(f"{tag}: the main path did not take the "
-                                 f"router's instantiation (P={P}, {by_p})")
         if not np.all(status == Status.SUCCESS) or not bool(
                 torch.isfinite(res.y).all()):
             raise AssertionError(f"{tag}: not every lane succeeded")
@@ -510,8 +466,8 @@ def erk_main_path(dev, gold):
         s_bound, s_by = K.solve_bound(canon, rhs.lorenz, got[4], got[5],
                                       got[8] if sampled else None,
                                       m if sampled else 0)
-        phase(f"short_span_{tag}", tf=short, P=P, kernel_ms=[round(x, 4)
-                                                             for x in short_ms],
+        phase(f"short_span_{tag}", tf=short, kernel_ms=[round(x, 4)
+                                                        for x in short_ms],
               plain_ms=round(plain_ms, 3), kernel_speedup=plain_ms / k_ms,
               mean_nstep=float(got[4].double().mean()), bound_ms=s_bound,
               bound_by=s_by, bound_share=s_bound / k_ms)
@@ -528,47 +484,7 @@ def erk_main_path(dev, gold):
                     f"{key}main_path_ms": ms,
                     f"{key}main_path_bound_ms": bound_ms,
                     f"{key}main_path_bound_share": bound_ms / ms})
-        row.update(P=P, launches_by_P={str(q): v for (k, q), v in
-                                       by_p.items() if k == kernel})
-        if kernel in K.GROUPED:
-            row.update(split_group(canon, tag, key, a, got, ref, sampled,
-                                   m))
     return rows
-
-
-def split_group(method, tag, key, a, got, ref, sampled, m):
-    """The largest lane group of a grouped kernel on the main path's short
-    span (B=16384): every output equal to the router's solve ``got``, held
-    to the plain version ``ref``, and timed.  The row's ``split_*``
-    entries."""
-    from ivp_tpu_torch import rhs
-    from ivp_tpu_torch.kernels import erk_ensemble as K
-
-    P = 1 << (rhs.lorenz.n - 1).bit_length()
-    k_ms = []
-    for i in range(4):
-        split = None
-        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        e0.record()
-        split = K.erk_ensemble_cuda(method, rhs.lorenz, *a, threads_per_lane=P)
-        e1.record()
-        torch.cuda.synchronize()
-        if i:
-            k_ms.append(e0.elapsed_time(e1))
-    differ = outputs_differing(split, got)
-    err = compare(f"{tag}_P{P}_vs_plain", split, ref, scaled=True)
-    ms = float(np.median(k_ms))
-    bound, by = K.solve_bound(method, rhs.lorenz, split[4], split[5],
-                              split[8] if sampled else None,
-                              m if sampled else 0)
-    phase(f"short_span_{tag}_P{P}", outputs_differing_from_router=differ,
-          kernel_ms=[round(x, 4) for x in k_ms], bound_ms=bound,
-          bound_by=by, bound_share=bound / ms)
-    if differ:
-        raise AssertionError(f"{tag}: P={P} differs from the router's solve "
-                             f"in {differ}")
-    return {"split_P": P, f"split_{key}ms": ms, f"split_{key}bound_ms": bound,
-            f"split_{key}max_abs_err": err}
 
 
 def main():

@@ -1,145 +1,98 @@
 // DOP853 ensemble solve, lean and with in-loop samples, float64: the attempt
 // and interpolant of methods/erk.py::dop853_attempt / dop853_interp in the
 // driver loop of erk_common.cuh (which says what these kernels replace, what
-// bounds them and which semantics they keep, and how a lane group of P
-// threads shares a lane).
+// bounds them and which semantics they keep).
 //
 // Kept from the engine: the dual 8(5,3) error norm with deno <= 0 -> 1 and
-// sqrt(1 / (n * deno)) in the controller's type; f(ynew) and the three
-// dense stages on accepted attempts only, so nfev is 11 + (4 if sampled else
-// 1) on accept and 11 on reject; the stiffness test on f(ynew) - k12 and
-// ynew - y12; the default controller (beta == 0) as three square roots with
-// no log or exp and facold left alone, the DOPRI5 controller otherwise.
+// sqrt(1 / (n * deno)) in the controller's type; f(ynew) and the three dense stages on
+// accepted attempts only, so nfev is 11 + (4 if sampled else 1) on accept
+// and 11 on reject; the stiffness test on f(ynew) - k12 and ynew - y12; the
+// default controller (beta == 0) as three square roots with no log or exp and
+// facold left alone, the DOPRI5 controller otherwise.
 //
-// What bounds it on an H100: at B = 16384 one thread a lane gives each of
-// the 528 schedulers one warp, which then waits on its own dependent chain
-// (twelve stages of growing sums, an RHS call between each two).  With P
-// threads a lane a thread keeps its own components of the twelve (sixteen
-// when sampled) stage vectors, and the schedulers get P times the warps.
-// The tableau is read from the constant bank: a DFMA takes c[bank][offset]
-// as an operand, while an immediate double costs two UMOVs, issued again on
-// every attempt.
+// Registers: twelve stage vectors (sixteen when sampled) of n doubles each
+// sit beside the state, so the entries ask for 64 x 4 launch bounds, which
+// leave ptxas all 255 registers a thread may have: with the float controller
+// Lorenz (n = 3) takes 128 lean and 195 sampled and spills nothing
+// (kernels/build.py keeps ptxas's report; PERF.md states it).
 #include "erk_common.cuh"
 
 namespace ivp {
-namespace dop853 {
-
-// Every weight of erk_tableaus.cuh's dop853 namespace, by name.
-#define IVP_DOP853_WEIGHTS(X)                                                 \
-  X(C1) X(A0_0) X(C2) X(A1_0) X(A1_1) X(C3) X(A2_0) X(A2_2) X(C4) X(A3_0)     \
-  X(A3_2) X(A3_3) X(C5) X(A4_0) X(A4_3) X(A4_4) X(C6) X(A5_0) X(A5_3)         \
-  X(A5_4) X(A5_5) X(C7) X(A6_0) X(A6_3) X(A6_4) X(A6_5) X(A6_6) X(C8)         \
-  X(A7_0) X(A7_3) X(A7_4) X(A7_5) X(A7_6) X(A7_7) X(C9) X(A8_0) X(A8_3)       \
-  X(A8_4) X(A8_5) X(A8_6) X(A8_7) X(A8_8) X(C10) X(A9_0) X(A9_3) X(A9_4)      \
-  X(A9_5) X(A9_6) X(A9_7) X(A9_8) X(A9_9) X(C11) X(A10_0) X(A10_3) X(A10_4)   \
-  X(A10_5) X(A10_6) X(A10_7) X(A10_8) X(A10_9) X(A10_10) X(B_0) X(B_5)        \
-  X(B_6) X(B_7) X(B_8) X(B_9) X(B_10) X(B_11) X(BH1) X(BH2) X(BH3) X(ER_0)    \
-  X(ER_5) X(ER_6) X(ER_7) X(ER_8) X(ER_9) X(ER_10) X(ER_11) X(C14) X(A14_0)   \
-  X(A14_6) X(A14_7) X(A14_8) X(A14_9) X(A14_10) X(A14_11) X(A14_12) X(C15)    \
-  X(A15_0) X(A15_5) X(A15_6) X(A15_7) X(A15_10) X(A15_11) X(A15_12)           \
-  X(A15_13) X(C16) X(A16_0) X(A16_5) X(A16_6) X(A16_7) X(A16_8) X(A16_12)     \
-  X(A16_13) X(A16_14) X(D4_0) X(D4_5) X(D4_6) X(D4_7) X(D4_8) X(D4_9)         \
-  X(D4_10) X(D4_11) X(D4_12) X(D4_13) X(D4_14) X(D4_15) X(D5_0) X(D5_5)       \
-  X(D5_6) X(D5_7) X(D5_8) X(D5_9) X(D5_10) X(D5_11) X(D5_12) X(D5_13)         \
-  X(D5_14) X(D5_15) X(D6_0) X(D6_5) X(D6_6) X(D6_7) X(D6_8) X(D6_9)           \
-  X(D6_10) X(D6_11) X(D6_12) X(D6_13) X(D6_14) X(D6_15) X(D7_0) X(D7_5)       \
-  X(D7_6) X(D7_7) X(D7_8) X(D7_9) X(D7_10) X(D7_11) X(D7_12) X(D7_13)         \
-  X(D7_14) X(D7_15)
-IVP_CONSTANT_WEIGHTS(IVP_DOP853_WEIGHTS)
-
-}  // namespace dop853
 
 struct Dop853 {
   static constexpr int NCOEFF = 8;
   static constexpr bool HAS_CONTROLLER = true;
-  static constexpr bool LANE_GROUPS = true;
 
-  // y, k1, c and s hold the thread's own components (G::NL of them).
-  template <class F, bool CONT, class CT, class G>
+  template <class F, bool CONT, class CT>
   static __device__ double attempt(const F& f, const double* a, double t,
                                    const double* y, const double* k1,
-                                   Lane<G::NL, CT>& c, const ErkOptions& o,
-                                   Step<G::NL, CONT ? NCOEFF : 0>& s,
-                                   G& g) {
+                                   Lane<F::N, CT>& c, const ErkOptions& o,
+                                   Step<F::N, CONT ? NCOEFF : 0>& s) {
+    using namespace dop853;
     using C = Ctl<CT>;
-    constexpr int N = F::N, NL = G::NL;
-    const dop853::Weights& W = dop853::W;
+    constexpr int N = F::N;
     double h = c.h;
     const bool too_small = 0.1 * fabs(h) <= fabs(t) * o.uround;
     const bool last = (t + 1.01 * h - c.tend) * c.posneg > 0.0;
     if (last) h = c.tend - t;
 
     // k[0..11] = k1..k12, k[12] = f(ynew), k[13..15] = dense stages 14-16.
-    // Rows whose first weight is negative (A9, A16, D4, D7) start with
-    // their second term.  With the weights as compile-time constants the
-    // compiler rewrote such a row as b*y - |a|*x and fused b*y into the
-    // subtraction; with the weights loaded it fuses the first product of
-    // a*x + b*y.  Swapped, the row fuses b*y as before and rounds as before.
-    double k[CONT ? 16 : 13][NL], ys[NL], kb[NL];
-    IVP_OWN(l) k[0][l] = k1[l];
-    IVP_OWN(l) ys[l] = y[l] + h * (W.A0_0 * k[0][l]);
-    g.eval(f, t + W.C1 * h, ys, k[1], a);
-    IVP_OWN(l) ys[l] = y[l] + h * (W.A1_0 * k[0][l] + W.A1_1 * k[1][l]);
-    g.eval(f, t + W.C2 * h, ys, k[2], a);
-    IVP_OWN(l) ys[l] = y[l] + h * (W.A2_0 * k[0][l] + W.A2_2 * k[2][l]);
-    g.eval(f, t + W.C3 * h, ys, k[3], a);
-    IVP_OWN(l) ys[l] = y[l] + h * (W.A3_0 * k[0][l] + W.A3_2 * k[2][l]
-        + W.A3_3 * k[3][l]);
-    g.eval(f, t + W.C4 * h, ys, k[4], a);
-    IVP_OWN(l) ys[l] = y[l] + h * (W.A4_0 * k[0][l] + W.A4_3 * k[3][l]
-        + W.A4_4 * k[4][l]);
-    g.eval(f, t + W.C5 * h, ys, k[5], a);
-    IVP_OWN(l) ys[l] = y[l] + h * (W.A5_0 * k[0][l] + W.A5_3 * k[3][l]
-        + W.A5_4 * k[4][l] + W.A5_5 * k[5][l]);
-    g.eval(f, t + W.C6 * h, ys, k[6], a);
-    IVP_OWN(l) ys[l] = y[l] + h * (W.A6_0 * k[0][l] + W.A6_3 * k[3][l]
-        + W.A6_4 * k[4][l] + W.A6_5 * k[5][l] + W.A6_6 * k[6][l]);
-    g.eval(f, t + W.C7 * h, ys, k[7], a);
-    IVP_OWN(l) ys[l] = y[l] + h * (W.A7_0 * k[0][l] + W.A7_3 * k[3][l]
-        + W.A7_4 * k[4][l] + W.A7_5 * k[5][l] + W.A7_6 * k[6][l]
-        + W.A7_7 * k[7][l]);
-    g.eval(f, t + W.C8 * h, ys, k[8], a);
-    IVP_OWN(l) ys[l] = y[l] + h * (W.A8_0 * k[0][l] + W.A8_3 * k[3][l]
-        + W.A8_4 * k[4][l] + W.A8_5 * k[5][l] + W.A8_6 * k[6][l]
-        + W.A8_7 * k[7][l] + W.A8_8 * k[8][l]);
-    g.eval(f, t + W.C9 * h, ys, k[9], a);
-    IVP_OWN(l) ys[l] = y[l] + h * (W.A9_3 * k[3][l] + W.A9_0 * k[0][l]
-        + W.A9_4 * k[4][l] + W.A9_5 * k[5][l] + W.A9_6 * k[6][l]
-        + W.A9_7 * k[7][l] + W.A9_8 * k[8][l] + W.A9_9 * k[9][l]);
-    g.eval(f, t + W.C10 * h, ys, k[10], a);
-    IVP_OWN(l) ys[l] = y[l] + h * (W.A10_0 * k[0][l] + W.A10_3 * k[3][l]
-        + W.A10_4 * k[4][l] + W.A10_5 * k[5][l] + W.A10_6 * k[6][l]
-        + W.A10_7 * k[7][l] + W.A10_8 * k[8][l] + W.A10_9 * k[9][l]
-        + W.A10_10 * k[10][l]);
-    g.eval(f, t + W.C11 * h, ys, k[11], a);
+    double k[CONT ? 16 : 13][N], ys[N], kb[N];
+    IVP_EACH(j) k[0][j] = k1[j];
+    IVP_EACH(j) ys[j] = y[j] + h * (A0_0 * k[0][j]);
+    f(t + C1 * h, ys, k[1], a);
+    IVP_EACH(j) ys[j] = y[j] + h * (A1_0 * k[0][j] + A1_1 * k[1][j]);
+    f(t + C2 * h, ys, k[2], a);
+    IVP_EACH(j) ys[j] = y[j] + h * (A2_0 * k[0][j] + A2_2 * k[2][j]);
+    f(t + C3 * h, ys, k[3], a);
+    IVP_EACH(j) ys[j] = y[j] + h * (A3_0 * k[0][j] + A3_2 * k[2][j]
+        + A3_3 * k[3][j]);
+    f(t + C4 * h, ys, k[4], a);
+    IVP_EACH(j) ys[j] = y[j] + h * (A4_0 * k[0][j] + A4_3 * k[3][j]
+        + A4_4 * k[4][j]);
+    f(t + C5 * h, ys, k[5], a);
+    IVP_EACH(j) ys[j] = y[j] + h * (A5_0 * k[0][j] + A5_3 * k[3][j]
+        + A5_4 * k[4][j] + A5_5 * k[5][j]);
+    f(t + C6 * h, ys, k[6], a);
+    IVP_EACH(j) ys[j] = y[j] + h * (A6_0 * k[0][j] + A6_3 * k[3][j]
+        + A6_4 * k[4][j] + A6_5 * k[5][j] + A6_6 * k[6][j]);
+    f(t + C7 * h, ys, k[7], a);
+    IVP_EACH(j) ys[j] = y[j] + h * (A7_0 * k[0][j] + A7_3 * k[3][j]
+        + A7_4 * k[4][j] + A7_5 * k[5][j] + A7_6 * k[6][j] + A7_7 * k[7][j]);
+    f(t + C8 * h, ys, k[8], a);
+    IVP_EACH(j) ys[j] = y[j] + h * (A8_0 * k[0][j] + A8_3 * k[3][j]
+        + A8_4 * k[4][j] + A8_5 * k[5][j] + A8_6 * k[6][j] + A8_7 * k[7][j]
+        + A8_8 * k[8][j]);
+    f(t + C9 * h, ys, k[9], a);
+    IVP_EACH(j) ys[j] = y[j] + h * (A9_0 * k[0][j] + A9_3 * k[3][j]
+        + A9_4 * k[4][j] + A9_5 * k[5][j] + A9_6 * k[6][j] + A9_7 * k[7][j]
+        + A9_8 * k[8][j] + A9_9 * k[9][j]);
+    f(t + C10 * h, ys, k[10], a);
+    IVP_EACH(j) ys[j] = y[j] + h * (A10_0 * k[0][j] + A10_3 * k[3][j]
+        + A10_4 * k[4][j] + A10_5 * k[5][j] + A10_6 * k[6][j]
+        + A10_7 * k[7][j] + A10_8 * k[8][j] + A10_9 * k[9][j]
+        + A10_10 * k[10][j]);
+    f(t + C11 * h, ys, k[11], a);
     // ys is now the stage-12 state y12 of the stiffness test.
-    IVP_OWN(l) kb[l] = W.B_0 * k[0][l] + W.B_5 * k[5][l] + W.B_6 * k[6][l]
-        + W.B_7 * k[7][l] + W.B_8 * k[8][l] + W.B_9 * k[9][l]
-        + W.B_10 * k[10][l] + W.B_11 * k[11][l];
-    IVP_OWN(l) s.ynew[l] = y[l] + h * kb[l];
+    IVP_EACH(j) kb[j] = B_0 * k[0][j] + B_5 * k[5][j] + B_6 * k[6][j]
+        + B_7 * k[7][j] + B_8 * k[8][j] + B_9 * k[9][j] + B_10 * k[10][j]
+        + B_11 * k[11][j];
+    IVP_EACH(j) s.ynew[j] = y[j] + h * kb[j];
 
-    // Error norm in CT: the vectors in double, cast; sk and sums in CT.  Each
-    // thread forms its own components' ratios; the sums run over j in order.
-    CT r2[NL], r5[NL];
-    IVP_OWN(l) {
-      const CT sk = C::add(
-          c.atol[l], C::mul(c.rtol[l], C::vmax(C::abs((CT)y[l]),
-                                               C::abs((CT)s.ynew[l]))));
-      const double e2 =
-          kb[l] - W.BH1 * k[0][l] - W.BH2 * k[8][l] - W.BH3 * k[11][l];
-      const double e5 = W.ER_0 * k[0][l] + W.ER_5 * k[5][l]
-          + W.ER_6 * k[6][l] + W.ER_7 * k[7][l] + W.ER_8 * k[8][l]
-          + W.ER_9 * k[9][l] + W.ER_10 * k[10][l] + W.ER_11 * k[11][l];
-      r2[l] = (CT)e2 / sk;
-      r5[l] = (CT)e5 / sk;
-    }
-    CT u2[N], u5[N];
-    g.gather(r2, u2);
-    g.gather(r5, u5);
+    // Error norm in CT: the vectors in double, cast; sk and sums in CT.
     CT err2 = (CT)0, err5 = (CT)0;
     IVP_EACH(j) {
-      err2 = C::add(err2, C::mul(u2[j], u2[j]));
-      err5 = C::add(err5, C::mul(u5[j], u5[j]));
+      const CT sk = C::add(
+          c.atol[j], C::mul(c.rtol[j], C::vmax(C::abs((CT)y[j]),
+                                               C::abs((CT)s.ynew[j]))));
+      const double e2 =
+          kb[j] - BH1 * k[0][j] - BH2 * k[8][j] - BH3 * k[11][j];
+      const double e5 = ER_0 * k[0][j] + ER_5 * k[5][j] + ER_6 * k[6][j]
+          + ER_7 * k[7][j] + ER_8 * k[8][j] + ER_9 * k[9][j]
+          + ER_10 * k[10][j] + ER_11 * k[11][j];
+      const CT r2 = (CT)e2 / sk, r5 = (CT)e5 / sk;
+      err2 = C::add(err2, C::mul(r2, r2));
+      err5 = C::add(err5, C::mul(r5, r5));
     }
     CT deno = C::add(err5, C::mul((CT)0.01, err2));
     if (deno <= (CT)0) deno = (CT)1;
@@ -150,70 +103,64 @@ struct Dop853 {
     bool stiff_fail = false;
     s.nfev = 11;
     if (accepted) {
-      g.eval(f, t + h, s.ynew, k[12], a);
+      f(t + h, s.ynew, k[12], a);
       s.nfev += CONT ? 4 : 1;
       if ((c.naccpt + 1) % o.stiff_test == 0 || c.iasti > 0) {
-        CT dk[NL], dy[NL];
-        IVP_OWN(l) {
-          dk[l] = (CT)(k[12][l] - k[11][l]);
-          dy[l] = (CT)(s.ynew[l] - ys[l]);
-        }
-        CT u[N], v[N];
-        g.gather(dk, u);
-        g.gather(dy, v);
         CT stnum = (CT)0, stden = (CT)0;
         IVP_EACH(j) {
-          stnum = C::add(stnum, C::mul(u[j], u[j]));
-          stden = C::add(stden, C::mul(v[j], v[j]));
+          const CT dk = (CT)(k[12][j] - k[11][j]);
+          const CT dy = (CT)(s.ynew[j] - ys[j]);
+          stnum = C::add(stnum, C::mul(dk, dk));
+          stden = C::add(stden, C::mul(dy, dy));
         }
         stiff_fail = stiffness(c, o, stnum, stden, h);
       }
-      IVP_OWN(l) s.knew[l] = k[12][l];
+      IVP_EACH(j) s.knew[j] = k[12][j];
     }
     const bool advance = accepted && !stiff_fail;
 
     if constexpr (CONT) {
       if (advance) {
-        double yd[NL];
-        IVP_OWN(l) yd[l] = y[l] + h * (W.A14_0 * k[0][l] + W.A14_6 * k[6][l]
-            + W.A14_7 * k[7][l] + W.A14_8 * k[8][l] + W.A14_9 * k[9][l]
-            + W.A14_10 * k[10][l] + W.A14_11 * k[11][l] + W.A14_12 * k[12][l]);
-        g.eval(f, t + W.C14 * h, yd, k[13], a);
-        IVP_OWN(l) yd[l] = y[l] + h * (W.A15_0 * k[0][l] + W.A15_5 * k[5][l]
-            + W.A15_6 * k[6][l] + W.A15_7 * k[7][l] + W.A15_10 * k[10][l]
-            + W.A15_11 * k[11][l] + W.A15_12 * k[12][l] + W.A15_13 * k[13][l]);
-        g.eval(f, t + W.C15 * h, yd, k[14], a);
-        IVP_OWN(l) yd[l] = y[l] + h * (W.A16_5 * k[5][l] + W.A16_0 * k[0][l]
-            + W.A16_6 * k[6][l] + W.A16_7 * k[7][l] + W.A16_8 * k[8][l]
-            + W.A16_12 * k[12][l] + W.A16_13 * k[13][l] + W.A16_14 * k[14][l]);
-        g.eval(f, t + W.C16 * h, yd, k[15], a);
-        IVP_OWN(l) {
-          const double ydiff = s.ynew[l] - y[l];
-          const double bspl = h * k[0][l] - ydiff;
-          s.cont[0][l] = y[l];
-          s.cont[1][l] = ydiff;
-          s.cont[2][l] = bspl;
-          s.cont[3][l] = ydiff - h * k[12][l] - bspl;
-          s.cont[4][l] = h * (W.D4_5 * k[5][l] + W.D4_0 * k[0][l]
-            + W.D4_6 * k[6][l] + W.D4_7 * k[7][l] + W.D4_8 * k[8][l]
-            + W.D4_9 * k[9][l] + W.D4_10 * k[10][l] + W.D4_11 * k[11][l]
-            + W.D4_12 * k[12][l] + W.D4_13 * k[13][l] + W.D4_14 * k[14][l]
-            + W.D4_15 * k[15][l]);
-          s.cont[5][l] = h * (W.D5_0 * k[0][l] + W.D5_5 * k[5][l]
-            + W.D5_6 * k[6][l] + W.D5_7 * k[7][l] + W.D5_8 * k[8][l]
-            + W.D5_9 * k[9][l] + W.D5_10 * k[10][l] + W.D5_11 * k[11][l]
-            + W.D5_12 * k[12][l] + W.D5_13 * k[13][l] + W.D5_14 * k[14][l]
-            + W.D5_15 * k[15][l]);
-          s.cont[6][l] = h * (W.D6_0 * k[0][l] + W.D6_5 * k[5][l]
-            + W.D6_6 * k[6][l] + W.D6_7 * k[7][l] + W.D6_8 * k[8][l]
-            + W.D6_9 * k[9][l] + W.D6_10 * k[10][l] + W.D6_11 * k[11][l]
-            + W.D6_12 * k[12][l] + W.D6_13 * k[13][l] + W.D6_14 * k[14][l]
-            + W.D6_15 * k[15][l]);
-          s.cont[7][l] = h * (W.D7_5 * k[5][l] + W.D7_0 * k[0][l]
-            + W.D7_6 * k[6][l] + W.D7_7 * k[7][l] + W.D7_8 * k[8][l]
-            + W.D7_9 * k[9][l] + W.D7_10 * k[10][l] + W.D7_11 * k[11][l]
-            + W.D7_12 * k[12][l] + W.D7_13 * k[13][l] + W.D7_14 * k[14][l]
-            + W.D7_15 * k[15][l]);
+        double yd[N];
+        IVP_EACH(j) yd[j] = y[j] + h * (A14_0 * k[0][j] + A14_6 * k[6][j]
+            + A14_7 * k[7][j] + A14_8 * k[8][j] + A14_9 * k[9][j]
+            + A14_10 * k[10][j] + A14_11 * k[11][j] + A14_12 * k[12][j]);
+        f(t + C14 * h, yd, k[13], a);
+        IVP_EACH(j) yd[j] = y[j] + h * (A15_0 * k[0][j] + A15_5 * k[5][j]
+            + A15_6 * k[6][j] + A15_7 * k[7][j] + A15_10 * k[10][j]
+            + A15_11 * k[11][j] + A15_12 * k[12][j] + A15_13 * k[13][j]);
+        f(t + C15 * h, yd, k[14], a);
+        IVP_EACH(j) yd[j] = y[j] + h * (A16_0 * k[0][j] + A16_5 * k[5][j]
+            + A16_6 * k[6][j] + A16_7 * k[7][j] + A16_8 * k[8][j]
+            + A16_12 * k[12][j] + A16_13 * k[13][j] + A16_14 * k[14][j]);
+        f(t + C16 * h, yd, k[15], a);
+        IVP_EACH(j) {
+          const double ydiff = s.ynew[j] - y[j];
+          const double bspl = h * k[0][j] - ydiff;
+          s.cont[0][j] = y[j];
+          s.cont[1][j] = ydiff;
+          s.cont[2][j] = bspl;
+          s.cont[3][j] = ydiff - h * k[12][j] - bspl;
+          s.cont[4][j] = h * (D4_0 * k[0][j] + D4_5 * k[5][j]
+            + D4_6 * k[6][j] + D4_7 * k[7][j] + D4_8 * k[8][j]
+            + D4_9 * k[9][j] + D4_10 * k[10][j] + D4_11 * k[11][j]
+            + D4_12 * k[12][j] + D4_13 * k[13][j] + D4_14 * k[14][j]
+            + D4_15 * k[15][j]);
+          s.cont[5][j] = h * (D5_0 * k[0][j] + D5_5 * k[5][j]
+            + D5_6 * k[6][j] + D5_7 * k[7][j] + D5_8 * k[8][j]
+            + D5_9 * k[9][j] + D5_10 * k[10][j] + D5_11 * k[11][j]
+            + D5_12 * k[12][j] + D5_13 * k[13][j] + D5_14 * k[14][j]
+            + D5_15 * k[15][j]);
+          s.cont[6][j] = h * (D6_0 * k[0][j] + D6_5 * k[5][j]
+            + D6_6 * k[6][j] + D6_7 * k[7][j] + D6_8 * k[8][j]
+            + D6_9 * k[9][j] + D6_10 * k[10][j] + D6_11 * k[11][j]
+            + D6_12 * k[12][j] + D6_13 * k[13][j] + D6_14 * k[14][j]
+            + D6_15 * k[15][j]);
+          s.cont[7][j] = h * (D7_0 * k[0][j] + D7_5 * k[5][j]
+            + D7_6 * k[6][j] + D7_7 * k[7][j] + D7_8 * k[8][j]
+            + D7_9 * k[9][j] + D7_10 * k[10][j] + D7_11 * k[11][j]
+            + D7_12 * k[12][j] + D7_13 * k[13][j] + D7_14 * k[14][j]
+            + D7_15 * k[15][j]);
         }
       }
     }
@@ -260,17 +207,8 @@ struct Dop853 {
 
 }  // namespace ivp
 
-// Launch bounds (threads a block, blocks an SM; lean, then sampled) for one
-// thread a lane and for each lane group a solve may force (P <= the
-// smallest power of two >= n), from measure_kernel.py's erk_occupancy
-// sweep on Lorenz (PERF.md): lean, 64x8 caps P = 1 at 128 registers with
-// no spill, 8% faster than 64x4 at B=262144 and level at 16384; sampled,
-// 64x4 (168 registers at 64x6 spill 104 bytes: 8% faster at B=262144, 13%
-// slower at 16384, where each scheduler holds one warp).
-IVP_ERK_ENTRY(dop853, vdp, ivp::Dop853, VdP, 64, 8, 64, 4)
-IVP_ERK_GROUP_ENTRY(dop853, vdp, ivp::Dop853, VdP, 2, 64, 6, 64, 6)
-IVP_ERK_ENTRY(dop853, decay, ivp::Dop853, Decay, 64, 8, 64, 4)
-IVP_ERK_ENTRY(dop853, lorenz, ivp::Dop853, Lorenz, 64, 8, 64, 4)
-IVP_ERK_GROUP_ENTRY(dop853, lorenz, ivp::Dop853, Lorenz, 2, 64, 6, 64, 6)
-IVP_ERK_GROUP_ENTRY(dop853, lorenz, ivp::Dop853, Lorenz, 4, 128, 2, 128, 4)
+// Launch bounds: 64 threads a block, 4 blocks an SM (see the head).
+IVP_ERK_ENTRY(dop853, vdp, ivp::Dop853, VdP, 64, 4, 64, 4)
+IVP_ERK_ENTRY(dop853, decay, ivp::Dop853, Decay, 64, 4, 64, 4)
+IVP_ERK_ENTRY(dop853, lorenz, ivp::Dop853, Lorenz, 64, 4, 64, 4)
 IVP_ERK_LIBRARY()

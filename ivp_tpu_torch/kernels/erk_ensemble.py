@@ -24,9 +24,7 @@ the route from the device of ``y0``:
 
   They replace the XLA-fused, vmapped ``ivp_tpu.core.driver.run_chunk``
   around each engine of ``ivp_tpu.methods.erk``; none has a TPU kernel of
-  its own behind it (the one TPU kernel, attic/pallas_erk.py, is DOPRI5's).
-  ``dop853`` and ``rk23`` can solve a lane with a group of P threads
-  (:func:`lane_threads` says why the router does not);
+  its own behind it (the one TPU kernel, attic/pallas_erk.py, is DOPRI5's);
 * a CUDA tensor with any other callable raises NotImplementedError.
 
 There is no fallback: a failed build or launch raises.  Every route takes
@@ -55,11 +53,9 @@ from . import dopri5_ensemble as lean_dopri5
 from .dopri5_ensemble import FP64_PEAK, HBM_RATE, _check
 
 # Launches made by this process, per kernel of this module (the lean DOPRI5
-# kernel counts its own in kernels/dopri5_ensemble.py), and per (kernel,
-# threads a lane).  erk_ensemble_cuda adds one to each per launch; a caller
-# may reset a count to 0 or clear LAUNCHES_BY_P.
+# kernel counts its own in kernels/dopri5_ensemble.py).  erk_ensemble_cuda
+# adds one per launch; a caller may reset a count to 0.
 LAUNCHES = {"dopri5_sampled": 0, "dop853": 0, "rk23": 0, "rk4": 0}
-LAUNCHES_BY_P: dict = {}
 
 # Masked attempts per host check of the done mask in the plain version
 # (build_ensemble_solver's default unroll in ivp_tpu).
@@ -70,30 +66,6 @@ KERNELS = {"DOPRI5": ("dopri5_sampled", "erk_dopri5"),
            "DOP853": ("dop853", "erk_dop853"),
            "RK23": ("rk23", "erk_rk23"),
            "RK4": ("rk4", "erk_rk4")}
-
-
-# Kernels whose lanes a group of threads can solve (csrc/erk_common.cuh,
-# "Lane groups"); the others run one thread a lane.
-GROUPED = ("dop853", "rk23")
-
-
-def lane_threads(method: str, fun: CudaRHS, B: int) -> int:
-    """Threads a lane the router takes for a solve of ``B`` lanes of ``fun``
-    with ``method`` on the card: 1.
-
-    A lane group (``GROUPED`` kernels, P a power of two up to the smallest
-    one >= ``fun.n``) gives the schedulers P times the warps, but not a
-    shorter chain: each thread still waits on every stage's sum, the RHS,
-    the exchange of the state and the float32 controller, and the group
-    issues the RHS, the exchange and the controller P times.  Measured on an
-    H100 80GB HBM3 (700 W), Lorenz, measure_kernel.py ``erk`` (PERF.md §6):
-    at every B in {4096, 16384, 65536, 262144} P = 1 is the fastest, lean
-    and sampled, for dop853 and rk23 (at B=16384, dop853 lean 4.73 ms at
-    P = 1, 7.03 at P = 2, 7.49 at P = 4).  So there is no crossover below
-    which a group pays, and the router keeps one thread a lane;
-    ``erk_ensemble_cuda(..., threads_per_lane=P)`` runs a group, bit for
-    bit the same solve."""
-    return 1
 
 
 class Flops(NamedTuple):
@@ -218,22 +190,15 @@ _ARGTYPES = ([_I] + [_P] * 8 + [_I, KernelOptions, _P, _I, _I]
 
 def erk_ensemble_cuda(method, fun: CudaRHS, y0, t0, tf, hmax, first_step,
                       rtol, atol, args=(), max_steps=100_000, t_grid=None,
-                      params=None, threads_per_lane=None, lib=None):
+                      params=None, lib=None):
     """Launch ``method``'s CUDA kernel on the current stream (no
     synchronisation).  float64 only; ``t_grid`` is ``(B, m)`` (a shared grid
-    as an expanded view is read through its strides, not copied).  The lane
-    group is :func:`lane_threads`'s unless ``threads_per_lane`` names one the
-    library has; ``lib``: a library from ``build.load`` to launch from
-    instead of the package's (measure_kernel.py's sweeps and A/B)."""
+    as an expanded view is read through its strides, not copied).  ``lib``:
+    a library from ``build.load`` to launch from instead of the package's
+    (measure_kernel.py's A/B and launch-bound sweep)."""
     method = method.upper()
     if not isinstance(fun, CudaRHS):
         raise TypeError(f"the CUDA kernel runs a CudaRHS, got {fun!r}")
-    kernel, source = KERNELS[method]
-    P = None if threads_per_lane is None else int(threads_per_lane)
-    if P not in (None, 1) and (kernel not in GROUPED or P < 1 or P & (P - 1)
-                               or P >= 2 * fun.n):
-        raise ValueError(f"{kernel} has no group of {P} threads a lane for "
-                         f"{fun.name} (n={fun.n})")
     dev = y0.device
     if dev.type != "cuda":
         raise ValueError(f"y0 must be a CUDA tensor, got {dev}")
@@ -273,6 +238,7 @@ def erk_ensemble_cuda(method, fun: CudaRHS, y0, t0, tf, hmax, first_step,
     if B == 0:
         return (t_out, y_out, *ints, y_samples, n_samples)
 
+    kernel, source = KERNELS[method]
     lib = build.library(source) if lib is None else lib
     shape = tuple(build.entry(f"ivp_rhs_{q}_{fun.name}", [], lib=lib)()
                   for q in ("n", "nargs"))
@@ -280,10 +246,7 @@ def erk_ensemble_cuda(method, fun: CudaRHS, y0, t0, tf, hmax, first_step,
         raise RuntimeError(
             f"{fun!r} has n={fun.n}, {kargs.shape[1]} args; its CUDA functor "
             f"has n={shape[0]}, {shape[1]} args")
-    P = lane_threads(method, fun, B) if P is None else P
-    launch = build.entry(f"ivp_{kernel}_{fun.name}" + (f"_p{P}" if P > 1
-                                                       else ""),
-                         _ARGTYPES, lib=lib)
+    launch = build.entry(f"ivp_{kernel}_{fun.name}", _ARGTYPES, lib=lib)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(B, y0.data_ptr(), t0.data_ptr(), tf.data_ptr(),
@@ -294,10 +257,8 @@ def erk_ensemble_cuda(method, fun: CudaRHS, y0, t0, tf, hmax, first_step,
                      *(x.data_ptr() for x in ints),
                      y_samples.data_ptr() if m else 0,
                      n_samples.data_ptr() if m else 0, stream)
-    build.check(err, f"{kernel} kernel launch ({fun.name}, B={B}, m={m}, "
-                     f"P={P})", lib)
+    build.check(err, f"{kernel} kernel launch ({fun.name}, B={B}, m={m})", lib)
     LAUNCHES[kernel] += 1
-    LAUNCHES_BY_P[kernel, P] = LAUNCHES_BY_P.get((kernel, P), 0) + 1
     return (t_out, y_out, *ints, y_samples, n_samples)
 
 

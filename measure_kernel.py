@@ -14,8 +14,8 @@ instantiation), then the phases (all by default, ``ab`` only with
   (cuobjdump), and ``loop``: the instructions one attempt issues on the
   loop body's fast path, by class (below; UMOVs apart), with the cycles
   each pipe needs for them; for the lean DOPRI5 library and the Lorenz
-  float-controller instantiations of dop853 and rk23 (``Lorenz/f32/lean/P4``:
-  functor, controller type, mode, threads a lane);
+  float-controller instantiations of dop853 and rk23 (``Lorenz/f32/lean``:
+  functor, controller type, mode);
 * ``settle``: 10 back-to-back main-path solves at B=524288, every one timed
   with CUDA events and none discarded, once with each result held until the
   next solve returns and once with it dropped before;
@@ -39,22 +39,19 @@ instantiation), then the phases (all by default, ``ab`` only with
   functor's settings ranked by median;
 * ``erk``: the kernels of csrc/erk_*.cu (dop853, rk23, rk4, dopri5_sampled)
   alone on chip_smoke.py's Lorenz configurations, lean and with 100 samples,
-  over ``ERK_B``, dop853 and rk23 at each lane-group size P their library
-  has (``chosen``: the one kernels/erk_ensemble.py::lane_threads takes;
-  ``equal_to_P1``: every output equal to P = 1's): 1 untimed launch each,
-  then ``ERK_ROUNDS`` rounds timing every P once, with the bound
-  (kernels/erk_ensemble.py::solve_bound), the share of it reached, warp
-  efficiency (lanes of a warp: 32 / P) and the SM cycles per warp-attempt
-  per scheduler at the SM clock nvidia-smi reads right after;
+  over ``ERK_B``: 1 untimed launch, then ``ERK_ROUNDS`` timed ones, with
+  the bound (kernels/erk_ensemble.py::solve_bound), the share of it
+  reached, warp efficiency and the SM cycles per warp-attempt per
+  scheduler at the SM clock nvidia-smi reads right after;
   then the lean DOPRI5 solve through both of its kernels on the headline
   problem (the tuned one and the generic one that serves ``solver_options``),
   in turns, with the lanes on which they differ;
 * ``erk_occupancy``: dop853's and rk23's libraries built once per
   ``ERK_OCC`` (threads a block, min blocks an SM) setting, in parallel;
-  ptxas's registers and spills of each Lorenz instantiation; each (P,
-  lean/sampled) instantiation timed under every setting in turns (B=16384,
-  and 262144 for P = 1), its counters held to the package build, and the
-  settings ranked;
+  ptxas's registers and spills of each Lorenz instantiation; each lean and
+  sampled instantiation timed under every setting in turns at each of
+  ``AB_ERK_B``, its counters held to the package build, and the settings
+  ranked;
 * ``ab`` (needs ``--baseline``, which may be given more than once): the
   kernels built from another source tree (for example an older commit's
   ``ivp_tpu_torch/csrc``, unpacked into a directory .gitignore lists; its
@@ -64,10 +61,8 @@ instantiation), then the phases (all by default, ``ab`` only with
   chip_smoke.py's ``edge_cases`` (stiff lanes, the step budget, a too-small
   step, first_step and max_step), then rounds of old, new, new, old (CUDA
   events), and the loop's SASS classes of the old build.  Then the erk
-  kernels, the old build run one thread a lane and the package's with its
-  largest lane group at B=16384 and one thread a lane at 262144
-  (``AB_ERK_B``): the lanes differing in each
-  output of dop853 and rk23 (lean and sampled, float and double
+  kernels at each of ``AB_ERK_B``: the lanes differing in each output of
+  dop853 and rk23 (lean and sampled, float and double
   controller, Lorenz and VdP, and the edge cases), rk4 and dopri5_sampled
   on Lorenz, then old, new, new, old rounds of the Lorenz configurations.
 
@@ -108,12 +103,13 @@ OCC_ROUNDS = 10
 PHASES = ("sass", "settle", "sweep", "turns", "profile", "occupancy", "erk",
           "erk_occupancy", "ab")
 # The erk phase: lanes, and (method, tf, rtol, atol, first_step) on Lorenz
-# with y0 = [1, 1, 1] + 1e-3 N(0, 1), as chip_smoke.py's main path.  The
-# lane-group kernels run at every P their library has, in turns.
+# with y0 = [1, 1, 1] + 1e-3 N(0, 1), as chip_smoke.py's main path.
 ERK_B = (4096, 16384, 65536, 262144)
 ERK_ROUNDS = 3
-# The A/B of the erk kernels: lane counts, the split one's and P = 1's.
+# The A/B and launch-bound sweep of the erk kernels: the main path's lane
+# count, and one that gives every scheduler several warps.
 AB_ERK_B = (16384, 262144)
+AB_ERK_ROUNDS = 10  # rounds of old, new, new, old: a 2% step shows in 10
 ERK_CONFIGS = (("DOP853", 100.0, 1e-8, 1e-10, None),
                ("RK23", 20.0, 1e-6, 1e-8, None),
                ("RK4", 20.0, 1e-6, 1e-8, 2e-3),
@@ -134,7 +130,6 @@ CLASSES = (
                  "POPC", "FLO", "IADD", "IMUL", "PRMT", "BMSK", "SGXT"}),
     ("move", {"MOV", "UMOV", "S2R", "CS2R", "S2UR"}),
     ("memory", {"LDG", "STG", "LDL", "STL", "LDC", "ULDC", "LDS", "STS"}),
-    ("shuffle", {"SHFL"}),
 )
 # H100 (compute capability 9.0) results a clock per SM, from the CUDA
 # programming guide's throughput table, as cycles a warp instruction holds
@@ -190,14 +185,14 @@ def timed(fn):
     return out, e0.elapsed_time(e1), time.perf_counter() - t
 
 
-def warp_attempts(nstep, lanes=32):
-    """Sum over warps of the warp's largest nstep: a warp of ``lanes``
-    lanes runs until its slowest lane is done."""
+def warp_attempts(nstep):
+    """Sum over warps of the warp's largest nstep: a warp runs until its
+    slowest lane is done."""
     ns = nstep.to(torch.int64)
-    pad = (-ns.numel()) % lanes
+    pad = (-ns.numel()) % 32
     if pad:
         ns = torch.cat([ns, ns.new_zeros(pad)])
-    return float(ns.view(-1, lanes).max(dim=1).values.sum())
+    return float(ns.view(-1, 32).max(dim=1).values.sum())
 
 
 def ptxas_lines(log):
@@ -218,22 +213,18 @@ _INS = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?"
 
 
 # An instantiation of csrc/erk_common.cuh's erk_kernel, as mangled: method,
-# functor, controller type, SAMPLED, then P (none before lane groups),
-# threads and min blocks.
-_ERK = re.compile(r"erk_kernelINS_\d+(\w+?)E\d+(\w+?)([fd])Lb([01])E"
-                  r"((?:Li\d+E)+)E")
+# functor, controller type, SAMPLED, then threads and min blocks.
+_ERK = re.compile(r"erk_kernelINS_\d+(\w+?)E\d+(\w+?)([fd])Lb([01])E")
 
 
 def instantiation(mangled):
-    """``Lorenz/f32/lean/P4`` for an erk_kernel instantiation (P1 for a
-    build from before lane groups), else the functor the name holds."""
+    """``Lorenz/f32/lean`` for an erk_kernel instantiation, else the
+    functor the name holds."""
     m = _ERK.search(mangled)
     if not m:
         return next((f for f in FUNCTORS if f in mangled), mangled)
-    ints = re.findall(r"Li(\d+)E", m.group(5))
-    P = ints[0] if len(ints) == 3 else "1"
     return (f"{m.group(2)}/{'f32' if m.group(3) == 'f' else 'f64'}/"
-            f"{'sampled' if m.group(4) == '1' else 'lean'}/P{P}")
+            f"{'sampled' if m.group(4) == '1' else 'lean'}")
 
 
 def sass_functions(lib):
@@ -396,16 +387,6 @@ def lorenz_args(method, B, dev, sampled):
             torch.full((B, 3), atol, dtype=f64, device=dev), (), 200_000, grid)
 
 
-def group_sizes(kernel, fun):
-    """The lane-group sizes a kernel's library has for ``fun``."""
-    from ivp_tpu_torch.kernels import erk_ensemble as K
-
-    if kernel not in K.GROUPED:
-        return (1,)
-    cap = 1 << max(0, fun.n - 1).bit_length()
-    return tuple(1 << e for e in range(cap.bit_length()))
-
-
 def sm_mhz():
     return float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
@@ -413,13 +394,11 @@ def sm_mhz():
 
 
 def erk_sweep(rhs, dev):
-    """Each erk kernel over ERK_B, lean and sampled, at each lane-group size
-    its library has, the sizes timed in turns (forward, then backward)."""
+    """Each erk kernel over ERK_B on Lorenz, lean and sampled."""
     from ivp_tpu_torch.kernels import erk_ensemble as K
 
     for method, *_ in ERK_CONFIGS:
         kernel = K.KERNELS[method][0]
-        sizes = group_sizes(kernel, rhs.lorenz)
         for sampled in (False, True):
             # A lean DOPRI5 solve with default options is the other
             # kernel's (the sweep phase): here only its sampled mode.
@@ -427,40 +406,30 @@ def erk_sweep(rhs, dev):
                 continue
             for B in ERK_B:
                 args = lorenz_args(method, B, dev, sampled)
-                run = {P: (lambda P=P: K.erk_ensemble_cuda(
-                    method, *args, threads_per_lane=P)) for P in sizes}
-                outs = {P: run[P]() for P in sizes}
+                K.erk_ensemble_cuda(method, *args)
                 torch.cuda.synchronize()
-                ms = {P: [] for P in sizes}
-                for r in range(ERK_ROUNDS):
-                    for P in (sizes if r % 2 == 0 else sizes[::-1]):
-                        _, m, _ = timed(run[P])
-                        ms[P].append(m)
+                ms = []
+                for _ in range(ERK_ROUNDS):
+                    out = None
+                    out, m, _ = timed(lambda: K.erk_ensemble_cuda(method, *args))
+                    ms.append(m)
                 mhz = sm_mhz()
-                chosen = K.lane_threads(method, rhs.lorenz, B)
-                for P in sizes:
-                    out = outs[P]
-                    nstep, naccpt = out[4], out[5]
-                    same = all(torch.equal(x, y) for x, y in
-                               zip(out[:7], outs[sizes[0]][:7]))
-                    med = float(np.median(ms[P]))
-                    attempts = float(nstep.to(torch.int64).sum())
-                    wa = warp_attempts(nstep, 32 // P)
-                    bound, by = K.solve_bound(method, rhs.lorenz, nstep, naccpt,
-                                              out[8], ERK_SAMPLES if sampled else 0)
-                    line("erk", kernel=kernel, sampled=sampled, B=B, P=P,
-                         chosen=P == chosen, ms_median=round(med, 4),
-                         ms_all=[round(m, 4) for m in ms[P]],
-                         ivps_per_s=round(B / (med * 1e-3), 1),
-                         mean_nstep=round(float(nstep.double().mean()), 3),
-                         success=float((out[2] == 0).double().mean()),
-                         equal_to_P1=same,
-                         warp_eff=round(attempts / ((32 // P) * wa), 5),
-                         bound_ms=round(bound, 4), bound_by=by,
-                         bound_share=round(bound / med, 4), sm_mhz=mhz,
-                         cycles_per_warp_attempt_per_scheduler=round(
-                             med * 1e-3 * mhz * 1e6 * 132 * 4 / wa, 1))
-                del outs
+                nstep, naccpt = out[4], out[5]
+                med = float(np.median(ms))
+                attempts = float(nstep.to(torch.int64).sum())
+                wa = warp_attempts(nstep)
+                bound, by = K.solve_bound(method, rhs.lorenz, nstep, naccpt,
+                                          out[8], ERK_SAMPLES if sampled else 0)
+                line("erk", kernel=kernel, sampled=sampled, B=B,
+                     ms_median=round(med, 4), ms_all=[round(m, 4) for m in ms],
+                     ivps_per_s=round(B / (med * 1e-3), 1),
+                     mean_nstep=round(float(nstep.double().mean()), 3),
+                     success=float((out[2] == 0).double().mean()),
+                     warp_eff=round(attempts / (32 * wa), 5),
+                     bound_ms=round(bound, 4), bound_by=by,
+                     bound_share=round(bound / med, 4), sm_mhz=mhz,
+                     cycles_per_warp_attempt_per_scheduler=round(
+                         med * 1e-3 * mhz * 1e6 * 132 * 4 / wa, 1))
 
 
 def dopri5_options_path(k, rhs, dev):
@@ -634,9 +603,9 @@ ERK_OCC_ROUNDS = 5
 
 
 def erk_occupancy(build, rhs, dev):
-    """Each lane-group kernel's (P, lean/sampled) instantiations on Lorenz
-    under every ERK_OCC setting, at B=16384, and at B=262144 too for P = 1,
-    in turns; counters held to the package build; ranked."""
+    """dop853's and rk23's lean and sampled instantiations on Lorenz under
+    every ERK_OCC setting, at each of AB_ERK_B, in turns; counters held to
+    the package build; ranked."""
     from ivp_tpu_torch.kernels import erk_ensemble as K
 
     sources = {K.KERNELS[m][1]: m for m in ("DOP853", "RK23")}
@@ -658,14 +627,12 @@ def erk_occupancy(build, rhs, dev):
     loaded = {key: build.load(path) for key, path in libs.items()}
     for src, method in sources.items():
         kernel = K.KERNELS[method][0]
-        for P, B in [(P, B) for P in group_sizes(kernel, rhs.lorenz)
-                     for B in ((16384, 262144) if P == 1 else (16384,))]:
+        for B in AB_ERK_B:
             for sampled in (False, True):
                 args = lorenz_args(method, B, dev, sampled)
-                ref = K.erk_ensemble_cuda(method, *args, threads_per_lane=P)
+                ref = K.erk_ensemble_cuda(method, *args)
                 run = {s: (lambda lib=loaded[src, s]: K.erk_ensemble_cuda(
-                    method, *args, threads_per_lane=P, lib=lib))
-                    for s in ERK_OCC}
+                    method, *args, lib=lib)) for s in ERK_OCC}
                 equal = {}
                 for s in ERK_OCC:
                     out = run[s]()
@@ -677,7 +644,7 @@ def erk_occupancy(build, rhs, dev):
                         _, m, _ = timed(run[s])
                         ms[s].append(m)
                 ranked = sorted(ERK_OCC, key=lambda s: np.median(ms[s]))
-                line("erk_occupancy", kernel=kernel, P=P, sampled=sampled, B=B,
+                line("erk_occupancy", kernel=kernel, sampled=sampled, B=B,
                      rounds=ERK_OCC_ROUNDS,
                      counters_equal=all(equal.values()),
                      ms_median={f"{t}x{mb}": round(float(np.median(ms[t, mb])), 4)
@@ -686,14 +653,12 @@ def erk_occupancy(build, rhs, dev):
 
 
 def ab_erk(build, rhs, dev, baseline, label):
-    """The erk kernels built from ``baseline`` (one thread a lane) against
-    the package's, run with their largest lane group at the first of
-    AB_ERK_B and one thread a lane at the second: lanes differing in each
-    output of dop853 and rk23, lean and sampled, float and double
-    controller, on Lorenz and VdP, and of rk4 and dopri5_sampled on Lorenz;
-    chip_smoke.py's edge_cases through dop853 and rk23; then old, new, new,
-    old rounds of the Lorenz main-path configurations, new as the router
-    runs it."""
+    """The erk kernels built from ``baseline`` against the package's, at
+    each of AB_ERK_B: lanes differing in each output of dop853 and rk23,
+    lean and sampled, float and double controller, on Lorenz and VdP, and
+    of rk4 and dopri5_sampled on Lorenz; chip_smoke.py's edge_cases through
+    dop853 and rk23; then old, new, new, old rounds of the Lorenz main-path
+    configurations."""
     from chip_smoke import edge_cases
     from ivp_tpu_torch.kernels import erk_ensemble as K
     from ivp_tpu_torch.methods import get_engine
@@ -711,17 +676,13 @@ def ab_erk(build, rhs, dev, baseline, label):
              "y_samples", "n_samples")
 
     def compare(what, method, a, kw, B):
-        # The largest lane group at the smaller B, one thread a lane above.
-        P = (group_sizes(K.KERNELS[method][0], a[0])[-1]
-             if B == AB_ERK_B[0] else 1)
-        new_out = K.erk_ensemble_cuda(method, *a, **kw, threads_per_lane=P)
-        old_out = K.erk_ensemble_cuda(method, *a, **kw, threads_per_lane=1,
-                                      lib=old[method])
+        new_out = K.erk_ensemble_cuda(method, *a, **kw)
+        old_out = K.erk_ensemble_cuda(method, *a, **kw, lib=old[method])
         torch.cuda.synchronize()
         diff = {f: int((x != y).reshape(x.shape[0], -1).any(dim=1).sum())
                 for f, x, y in zip(names, new_out, old_out) if x is not None}
         line("ab_erk_bitwise", old=label, kernel=K.KERNELS[method][0],
-             case=what, B=B, P=P,
+             case=what, B=B,
              identical=all(v == 0 for v in diff.values()),
              lanes_differing=repr(diff),
              statuses=repr(dict(Counter(new_out[2].cpu().tolist()))),
@@ -763,10 +724,10 @@ def ab_erk(build, rhs, dev, baseline, label):
                 a = lorenz_args(method, B, dev, sampled)
                 run = {"new": lambda: K.erk_ensemble_cuda(method, *a),
                        "old": lambda: K.erk_ensemble_cuda(
-                           method, *a, threads_per_lane=1, lib=old[method])}
+                           method, *a, lib=old[method])}
                 run["old"]()
                 run["new"]()
-                for r in range(AB_ROUNDS):
+                for r in range(AB_ERK_ROUNDS):
                     for what in ("old", "new", "new", "old"):
                         out = None
                         out, m, _ = timed(run[what])
