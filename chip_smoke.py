@@ -403,6 +403,11 @@ def erk_main_path(dev, gold):
         bound_ms, bound_by = K.solve_bound(
             canon, rhs.lorenz, res.nstep, res.naccpt,
             res.n_samples if sampled else None, m if sampled else 0)
+        # The bound with dense rows on every accepted step, as before they
+        # were counted on the emitting steps only.
+        every = (K.solve_bound(canon, rhs.lorenz, res.nstep, res.naccpt,
+                               res.n_samples, m, dense_steps=res.naccpt)[0]
+                 if sampled else bound_ms)
         phase(f"main_path_{tag}", launches=n_launch,
               success_fraction=float(np.mean(status == Status.SUCCESS)),
               ivps_per_sec=B / float(np.median(walls)),
@@ -412,6 +417,7 @@ def erk_main_path(dev, gold):
               walls_s=[round(w, 6) for w in walls],
               event_ms=[round(x, 3) for x in ev_ms], bound_ms=bound_ms,
               bound_by=bound_by, bound_share=bound_ms / ms,
+              bound_ms_rows_every_accept=every,
               finite=bool(torch.isfinite(res.y).all()))
         if n_launch != 4:
             raise AssertionError(f"{tag}: {n_launch} launches in 4 solves")

@@ -192,8 +192,11 @@ struct Dop853 {
   }
 
   template <int N>
-  static __device__ void interp(const double (*cont)[N], double xold, double h,
-                                double ti, double* yi) {
+  static __device__ void interp(const Step<N, NCOEFF>& st, const double*,
+                                const double*, double xold, double ti,
+                                double* yi) {
+    const auto& cont = st.cont;
+    const double h = st.h_used;
     const double s = (ti - xold) / h, s1 = 1.0 - s;
     IVP_EACH(j) {
       const double conpar =

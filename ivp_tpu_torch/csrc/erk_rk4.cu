@@ -9,12 +9,17 @@
 // sign(h); 4 RHS evaluations an attempt (k2, k3, k4 and the next k1); the
 // dense output is the cubic Hermite on the start slope k1.  The step is
 // first_step, or hinit's with order 5 when none is given.
+//
+// The Hermite interpolant needs no rows of its own: it reads the segment's
+// ends (y and k1 at its start, which the driver drains before it moves the
+// carry on, and the step's ynew and knew), so a sampled attempt copies
+// nothing and keeps no more values live than a lean one.
 #include "erk_common.cuh"
 
 namespace ivp {
 
 struct Rk4 {
-  static constexpr int NCOEFF = 4;
+  static constexpr int NCOEFF = 0;   // interp reads the segment's ends
   static constexpr bool HAS_CONTROLLER = false;   // nothing to run in CT
 
   template <class F, bool CONT, class CT>
@@ -39,14 +44,6 @@ struct Rk4 {
     s.t_new = t + h;
     f(s.t_new, s.ynew, s.knew, a);
 
-    if constexpr (CONT) {
-      IVP_EACH(j) {
-        s.cont[0][j] = y[j];
-        s.cont[1][j] = k1[j];
-        s.cont[2][j] = s.knew[j];
-        s.cont[3][j] = s.ynew[j];
-      }
-    }
     s.accepted = true;
     s.advance = true;
     s.finished = last;
@@ -58,9 +55,12 @@ struct Rk4 {
     return h;
   }
 
+  // The segment from xold: y, k1 at its start, st.ynew, st.knew at its end.
   template <int N>
-  static __device__ void interp(const double (*cont)[N], double xold, double h,
-                                double ti, double* yi) {
+  static __device__ void interp(const Step<N, NCOEFF>& st, const double* y,
+                                const double* k1, double xold, double ti,
+                                double* yi) {
+    const double h = st.h_used;
     const double s = (ti - xold) / h;
     const double s2 = s * s, s3 = s2 * s;
     const double h00 = 2.0 * s3 - 3.0 * s2 + 1.0;
@@ -68,8 +68,8 @@ struct Rk4 {
     const double h01 = -2.0 * s3 + 3.0 * s2;
     const double h11 = s3 - s2;
     IVP_EACH(j)
-    yi[j] = h00 * cont[0][j] + h10 * h * cont[1][j] + h01 * cont[3][j] +
-            h11 * h * cont[2][j];
+    yi[j] = h00 * y[j] + h10 * h * k1[j] + h01 * st.ynew[j] +
+            h11 * h * st.knew[j];
   }
 };
 

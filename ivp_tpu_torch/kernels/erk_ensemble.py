@@ -78,7 +78,7 @@ class Flops(NamedTuple):
     attempt: int
     rhs_attempt: int
     rhs_accept: int    # more on an accepted attempt, lean
-    dense_n: int       # more on an accepted attempt, sampled
+    dense_n: int       # the dense rows of a step that emits a sample
     rhs_dense: int
     sample_n: int      # each emitted sample
     sample: int
@@ -101,8 +101,9 @@ FLOPS = {
     # terms.  A sample: 10 per component, (ti-xold)/h.
     "RK23": Flops(19, 9, 3, 0, 14, 0, 10, 2),
     # Three stage states (2 each) and ynew 9 per component; h/2, last 4,
-    # t+h 1.  Dense rows are copies.  A sample: the four Hermite weights and
-    # their products with h (15), 7 per component.
+    # t+h 1.  No dense rows: the Hermite reads the segment's ends.  A
+    # sample: the four Hermite weights and their products with h (15), 7
+    # per component.
     "RK4": Flops(15, 6, 4, 0, 0, 0, 7, 17),
 }
 # float64 operations of one RHS evaluation (csrc/rhs/*.cuh).
@@ -283,23 +284,30 @@ def erk_ensemble(method, fun, y0, t0, tf, hmax, first_step, rtol, atol,
     return erk_ensemble_cuda(method, *a, t_grid, params)
 
 
-def solve_flops(method, fun: CudaRHS, nstep, naccpt, n_samples=None) -> float:
+def solve_flops(method, fun: CudaRHS, nstep, naccpt, n_samples=None,
+                dense_steps=None) -> float:
     """float64 operations of a solve whose lanes made ``nstep`` attempts,
     ``naccpt`` of them accepted, and emitted ``n_samples`` samples (None:
-    lean).  Each lane's hinit and the stiffness differences (1 attempt in
-    ~1000) are left out, so a bound from this stays a lower one."""
+    lean).  The dense rows count on ``dense_steps`` steps a lane, by default
+    min(naccpt, n_samples): a lane emits its samples from at most that many
+    steps, so that is the least work that gives them.  Each lane's hinit and
+    the stiffness differences (1 attempt in ~1000) are left out, so a bound
+    from this stays a lower one."""
     f, n, r = FLOPS[method.upper()], fun.n, RHS_FLOPS[fun.name]
-    tot = lambda x: float(torch.as_tensor(x).to(torch.float64).sum())
+    as64 = lambda x: torch.as_tensor(x).to(torch.float64)
+    tot = lambda x: float(as64(x).sum())
     flops = tot(nstep) * (n * f.attempt_n + f.attempt + r * f.rhs_attempt)
     flops += tot(naccpt) * r * f.rhs_accept
     if n_samples is not None:
-        flops += tot(naccpt) * (n * f.dense_n + r * f.rhs_dense)
+        if dense_steps is None:
+            dense_steps = torch.minimum(as64(naccpt), as64(n_samples))
+        flops += tot(dense_steps) * (n * f.dense_n + r * f.rhs_dense)
         flops += tot(n_samples) * (n * f.sample_n + f.sample)
     return flops
 
 
 def solve_bound(method, fun: CudaRHS, nstep, naccpt, n_samples=None, m=0,
-                peak=FP64_PEAK, rate=HBM_RATE):
+                peak=FP64_PEAK, rate=HBM_RATE, dense_steps=None):
     """``(ms, bound_by)``: the least time a card with float64 rate ``peak``
     and memory rate ``rate`` could take for the solve of
     :func:`solve_flops`.  The larger of that work over ``peak`` and, over
@@ -307,7 +315,7 @@ def solve_bound(method, fun: CudaRHS, nstep, naccpt, n_samples=None, m=0,
     the args; a lane's ``m`` grid times) and written once (t, y; five int32
     counters; ``m`` rows of samples and their count)."""
     B, n = torch.as_tensor(nstep).numel(), fun.n
-    flops = solve_flops(method, fun, nstep, naccpt, n_samples)
+    flops = solve_flops(method, fun, nstep, naccpt, n_samples, dense_steps)
     lane = 8 * (3 * n + 4 + len(fun.defaults)) + 8 * (1 + n) + 4 * 5
     if n_samples is not None:
         lane += 8 * m + 8 * m * n + 4

@@ -13,9 +13,9 @@ instantiation), then the phases (all by default, ``ab`` only with
 * ``sass``: the static SASS instruction mix of each instantiation
   (cuobjdump), and ``loop``: the instructions one attempt issues on the
   loop body's fast path, by class (below; UMOVs apart), with the cycles
-  each pipe needs for them; for the lean DOPRI5 library and the Lorenz
-  float-controller instantiations of dop853 and rk23 (``Lorenz/f32/lean``:
-  functor, controller type, mode);
+  each pipe needs for them; for the lean DOPRI5 library and, of each erk
+  library (``ERK_LIBS``), the Lorenz float-controller instantiations and
+  the lean VdP one (``Lorenz/f32/lean``: functor, controller type, mode);
 * ``settle``: 10 back-to-back main-path solves at B=524288, every one timed
   with CUDA events and none discarded, once with each result held until the
   next solve returns and once with it dropped before;
@@ -43,15 +43,17 @@ instantiation), then the phases (all by default, ``ab`` only with
   the bound (kernels/erk_ensemble.py::solve_bound), the share of it
   reached, warp efficiency and the SM cycles per warp-attempt per
   scheduler at the SM clock nvidia-smi reads right after;
-  then the lean DOPRI5 solve through both of its kernels on the headline
-  problem (the tuned one and the generic one that serves ``solver_options``),
-  in turns, with the lanes on which they differ;
-* ``erk_occupancy``: dop853's and rk23's libraries built once per
-  ``ERK_OCC`` (threads a block, min blocks an SM) setting, in parallel;
-  ptxas's registers and spills of each Lorenz instantiation; each lean and
-  sampled instantiation timed under every setting in turns at each of
-  ``AB_ERK_B``, its counters held to the package build, and the settings
-  ranked;
+  then lean DOPRI5 with the default options through both of its kernels
+  (the tuned one and the generic one that serves ``solver_options``): the
+  lanes on which they differ at B=524288 on each ``PROBLEMS`` entry and
+  the edge cases, and ``AB_ERK_ROUNDS`` rounds of turns on the headline;
+* ``erk_occupancy``: the libraries of ``--occupancy-methods`` built once
+  per ``ERK_OCC`` (threads a block, min blocks an SM) setting, in
+  parallel; ptxas's registers and spills of each Lorenz and lean VdP
+  instantiation; each lean and sampled Lorenz instantiation timed under
+  every setting in turns at each of ``AB_ERK_B`` (and lean DOPRI5 on the
+  headline at B=524288), its counters held to the package build, and the
+  settings ranked;
 * ``ab`` (needs ``--baseline``, which may be given more than once): the
   kernels built from another source tree (for example an older commit's
   ``ivp_tpu_torch/csrc``, unpacked into a directory .gitignore lists; its
@@ -62,9 +64,15 @@ instantiation), then the phases (all by default, ``ab`` only with
   step, first_step and max_step), then rounds of old, new, new, old (CUDA
   events), and the loop's SASS classes of the old build.  Then the erk
   kernels at each of ``AB_ERK_B``: the lanes differing in each output of
-  dop853 and rk23 (lean and sampled, float and double
-  controller, Lorenz and VdP, and the edge cases), rk4 and dopri5_sampled
-  on Lorenz, then old, new, new, old rounds of the Lorenz configurations.
+  every method's ``erk_cases`` (lean and sampled, float and double
+  controller, Lorenz, VdP and decay, the edge cases with and without a
+  grid), then old, new, new, old rounds of each method's Lorenz
+  configurations, lean and sampled.
+
+The A/B, occupancy and two-kernel timings are turns of ``turn_ms``: five
+launches back to back between two CUDA events, so the host's work of a
+call stays out of the time.  ``--sass-dir DIR`` writes each SASS listing
+read.
 
 The fast path of the loop is walked from the loop head to its back edge.  A
 forward branch whose skipped region calls a subroutine is taken: that skips
@@ -94,7 +102,6 @@ MAIN_B = 524288
 SWEEP_B = (8192, 32768, 131072, 262144, 524288, 1048576, 2097152)
 REPEATS = 5    # timed launches per B in the sweep
 SETTLE = 10    # back-to-back solves per settle mode
-AB_ROUNDS = 3  # rounds of old, new, new, old
 FUNCTORS = ("VdP", "Decay", "Lorenz")
 # Occupancy sweep: threads a block x min blocks an SM; a setting above the
 # SM's 2048 threads cannot be met and is skipped.
@@ -110,11 +117,14 @@ ERK_ROUNDS = 3
 # count, and one that gives every scheduler several warps.
 AB_ERK_B = (16384, 262144)
 AB_ERK_ROUNDS = 10  # rounds of old, new, new, old: a 2% step shows in 10
+TURN_LAUNCHES = 5   # launches timed back to back in one turn (turn_ms)
 ERK_CONFIGS = (("DOP853", 100.0, 1e-8, 1e-10, None),
                ("RK23", 20.0, 1e-6, 1e-8, None),
                ("RK4", 20.0, 1e-6, 1e-8, 2e-3),
                ("DOPRI5", 20.0, 1e-6, 1e-8, None))
 ERK_SAMPLES = 100
+# The erk libraries whose registers and loop SASS are printed.
+ERK_LIBS = ("erk_dop853", "erk_rk23", "erk_rk4", "erk_dopri5")
 
 # SASS classes of the loop count.
 CLASSES = (
@@ -185,6 +195,25 @@ def timed(fn):
     return out, e0.elapsed_time(e1), time.perf_counter() - t
 
 
+def turn_ms(fn):
+    """Device ms of one launch of ``fn``: ``TURN_LAUNCHES`` launches back to
+    back between two events, after an untimed one that the first event
+    waits behind.  The
+    host enqueues each launch (argument checks, allocation, ctypes) while
+    the device runs the one before, so that work stays out of the time;
+    around a single launch on an idle device it is in it (0.1-0.3 ms, which
+    on an H100 at B=16384 varied one kernel's time by up to 15% between
+    turns)."""
+    fn()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    outs = [fn() for _ in range(TURN_LAUNCHES)]
+    e1.record()
+    torch.cuda.synchronize()
+    del outs
+    return e0.elapsed_time(e1) / TURN_LAUNCHES
+
+
 def warp_attempts(nstep):
     """Sum over warps of the warp's largest nstep: a warp runs until its
     slowest lane is done."""
@@ -227,6 +256,10 @@ def instantiation(mangled):
             f"{'sampled' if m.group(4) == '1' else 'lean'}")
 
 
+# Where sass_functions writes each library's listing (--sass-dir), if set.
+SASS_DIR = None
+
+
 def sass_functions(lib):
     """{instantiation: [(addr, predicate, opcode, operands)]} from
     cuobjdump."""
@@ -235,6 +268,9 @@ def sass_functions(lib):
                        text=True, timeout=120)
     if r.returncode != 0:
         raise RuntimeError(f"cuobjdump failed: {r.stderr.strip()[-300:]}")
+    if SASS_DIR is not None:
+        SASS_DIR.mkdir(parents=True, exist_ok=True)
+        (SASS_DIR / f"{Path(lib).stem}.sass").write_text(r.stdout)
     funcs, name = {}, None
     for ln in r.stdout.splitlines():
         if "Function :" in ln:
@@ -294,7 +330,8 @@ def loop_fast_path(ins):
 
 def sass_report(lib, label, only=None):
     """Print the static mix and the loop's fast-path classes of each
-    instantiation of ``lib`` (whose label starts with ``only``, if given)."""
+    instantiation of ``lib`` (whose label starts with ``only``, a prefix or
+    a tuple of them, if given)."""
     for name, ins in sass_functions(lib).items():
         if only and not name.startswith(only):
             continue
@@ -432,31 +469,62 @@ def erk_sweep(rhs, dev):
                          med * 1e-3 * mhz * 1e6 * 132 * 4 / wa, 1))
 
 
+OUTPUTS = ("t", "y", "status", "nfev", "nstep", "naccpt", "nrejct",
+           "y_samples", "n_samples")
+
+
+def lanes_differing(new_out, old_out):
+    """{output: lanes on which it differs}; NaN equals NaN."""
+    diff = {}
+    for f, x, y in zip(OUTPUTS, new_out, old_out):
+        if x is None:
+            continue
+        ne = x != y
+        if x.is_floating_point():
+            ne &= ~(torch.isnan(x) & torch.isnan(y))
+        diff[f] = int(ne.reshape(x.shape[0], -1).any(dim=1).sum())
+    return diff
+
+
+def lean_cases(rhs, dev):
+    """The lean DOPRI5 bit-for-bit cases at B=524288: ``[(name, fun, args,
+    keyword args)]``, each ``PROBLEMS`` entry and chip_smoke.py's
+    edge_cases."""
+    from chip_smoke import edge_cases
+
+    cases = [(name, getattr(rhs, name), problem_args(name, MAIN_B, dev), {})
+             for name in PROBLEMS]
+    return cases + [(name, rhs.vdp, a, kw)
+                    for name, a, kw, _ in edge_cases(MAIN_B, dev)]
+
+
 def dopri5_options_path(k, rhs, dev):
     """Lean DOPRI5 has two kernels: csrc/dopri5_ensemble.cu for the default
     options and the lean instantiation of csrc/erk_dopri5.cu for a solve
-    with ``solver_options``.  Both on the headline problem with the default
-    options, in turns (tuned, generic, generic, tuned), and the lanes on
-    which any output differs."""
+    with ``solver_options``.  Both with the default options at B=524288 on
+    each ``PROBLEMS`` entry and chip_smoke.py's edge_cases: the lanes on
+    which each output differs; then on the headline problem in
+    ``AB_ERK_ROUNDS`` rounds of tuned, generic, generic, tuned."""
     from ivp_tpu_torch.kernels import erk_ensemble as K
 
-    args = kernel_args(torch.as_tensor(vdp_y0(MAIN_B), device=dev))
+    for name, fun, a, kw in lean_cases(rhs, dev):
+        tuned = k.dopri5_ensemble_cuda(fun, *a, **kw)
+        generic = K.erk_ensemble_cuda("DOPRI5", fun, *a, **kw)[:7]
+        torch.cuda.synchronize()
+        diff = lanes_differing(generic, tuned)
+        line("erk_dopri5_options_path", case=name, B=MAIN_B,
+             identical=all(v == 0 for v in diff.values()),
+             lanes_differing=repr(diff))
+        del tuned, generic
+    args = problem_args("vdp", MAIN_B, dev)
     run = {"tuned": lambda: k.dopri5_ensemble_cuda(rhs.vdp, *args),
-           "generic": lambda: K.erk_ensemble_cuda("DOPRI5", rhs.vdp, *args)[:7]}
-    outs = {}
+           "generic": lambda: K.erk_ensemble_cuda("DOPRI5", rhs.vdp, *args)}
     for what in run:
-        outs[what] = run[what]()
-    torch.cuda.synchronize()
-    differ = torch.zeros(MAIN_B, dtype=torch.bool, device=dev)
-    for a, b in zip(outs["tuned"], outs["generic"]):
-        differ |= (a != b).reshape(MAIN_B, -1).any(dim=1)
-    line("erk_dopri5_options_path", B=MAIN_B, lanes_differing=int(differ.sum()))
-    del outs
-    for _ in range(AB_ROUNDS):
+        run[what]()
+    for r in range(AB_ERK_ROUNDS):
         for what in ("tuned", "generic", "generic", "tuned"):
-            _, m, _ = timed(run[what])
-            line("erk_dopri5_options_path", what=what, B=MAIN_B,
-                 event_ms=round(m, 4))
+            line("erk_dopri5_options_path", what=what, B=MAIN_B, round=r,
+                 event_ms=round(turn_ms(run[what]), 4))
 
 
 def turns(k, rhs, y0):
@@ -566,51 +634,42 @@ def ab(k, build, rhs, dev, baseline, label):
     for functor, info in ptxas_lines(path.with_suffix(".log").read_text()):
         line("ptxas", build=label, functor=functor, info=repr(info))
     sass_report(path, label)
-    from chip_smoke import edge_cases
-
-    cases = [(name, getattr(rhs, name), problem_args(name, MAIN_B, dev), {})
-             for name in PROBLEMS]
-    cases += [(name, rhs.vdp, a, kw)
-              for name, a, kw, _ in edge_cases(MAIN_B, dev)]
-    for name, fun, a, kw in cases:
+    for name, fun, a, kw in lean_cases(rhs, dev):
         new_out = k.dopri5_ensemble_cuda(fun, *a, **kw)
         old_out = k.dopri5_ensemble_cuda(fun, *a, **kw, lib=old)
         torch.cuda.synchronize()
-        diff = {f: int((x != y).reshape(x.shape[0], -1).any(dim=1).sum())
-                for f, x, y in zip(("t", "y", "status", "nfev", "nstep",
-                                    "naccpt", "nrejct"), new_out, old_out)}
+        diff = lanes_differing(new_out, old_out)
         line("ab_bitwise", old=label, functor=name, B=MAIN_B,
              identical=all(v == 0 for v in diff.values()),
              lanes_differing=repr(diff),
              statuses=repr(dict(Counter(new_out[2].cpu().tolist()))),
              max_abs_dy=float((new_out[1] - old_out[1]).abs().max()))
     a = problem_args("vdp", MAIN_B, dev)
-    for r in range(AB_ROUNDS):
+    for r in range(AB_ERK_ROUNDS):
         for what in ("old", "new", "new", "old"):
             lib = old if what == "old" else None
-            out = None
-            out, m, _ = timed(lambda: k.dopri5_ensemble_cuda(rhs.vdp, *a,
-                                                             lib=lib))
             line("ab", old=label, round=r, what=what, B=MAIN_B,
-                 event_ms=round(m, 4))
+                 event_ms=round(turn_ms(
+                     lambda: k.dopri5_ensemble_cuda(rhs.vdp, *a, lib=lib)), 4))
 
 
 # The erk occupancy sweep: (threads a block, min blocks an SM) for every
 # entry of a library, -DIVP_ERK_THREADS/-DIVP_ERK_MIN_BLOCKS.
-ERK_OCC = ((64, 4), (64, 6), (64, 8), (64, 12), (64, 16), (128, 2), (128, 4),
-           (128, 6), (128, 8))
+ERK_OCC = ((64, 4), (64, 6), (64, 8), (64, 10), (64, 12), (64, 16), (128, 2),
+           (128, 4), (128, 6), (128, 8))
 ERK_OCC_ROUNDS = 5
 
 
-def erk_occupancy(build, rhs, dev):
-    """dop853's and rk23's lean and sampled instantiations on Lorenz under
-    every ERK_OCC setting, at each of AB_ERK_B, in turns; counters held to
-    the package build; ranked."""
+def erk_occupancy(build, rhs, dev, methods):
+    """Each of ``methods``' lean and sampled instantiations on Lorenz under
+    every ERK_OCC setting, at each of AB_ERK_B, in turns (and lean DOPRI5
+    on the VdP headline at MAIN_B, its main path); counters held to the
+    package build; ranked."""
     from ivp_tpu_torch.kernels import erk_ensemble as K
 
-    sources = {K.KERNELS[m][1]: m for m in ("DOP853", "RK23")}
+    sources = {K.KERNELS[m][1]: m for m in methods}
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(ERK_OCC) * 2) as ex:
+    with concurrent.futures.ThreadPoolExecutor(len(ERK_OCC) * len(sources)) as ex:
         futs = {(src, s): ex.submit(build.build, defines=(
             f"IVP_ERK_THREADS={s[0]}", f"IVP_ERK_MIN_BLOCKS={s[1]}"), name=src)
             for src in sources for s in ERK_OCC}
@@ -620,48 +679,97 @@ def erk_occupancy(build, rhs, dev):
     for (src, s), path in sorted(libs.items()):
         for fn, regs, st, ld in build.ptxas_report(path):
             name = instantiation(fn)
-            if name.startswith("Lorenz/f32"):
+            if name.startswith(("Lorenz/f32", "VdP/f32/lean")):
                 line("erk_occupancy_ptxas", source=src, threads=s[0],
                      min_blocks=s[1], instantiation=name, registers=regs,
                      spill_stores=st, spill_loads=ld)
     loaded = {key: build.load(path) for key, path in libs.items()}
     for src, method in sources.items():
         kernel = K.KERNELS[method][0]
-        for B in AB_ERK_B:
-            for sampled in (False, True):
-                args = lorenz_args(method, B, dev, sampled)
-                ref = K.erk_ensemble_cuda(method, *args)
-                run = {s: (lambda lib=loaded[src, s]: K.erk_ensemble_cuda(
-                    method, *args, lib=lib)) for s in ERK_OCC}
-                equal = {}
-                for s in ERK_OCC:
-                    out = run[s]()
-                    equal[s] = same_counters(out[:7], ref[:7])
-                del out, ref
-                ms = {s: [] for s in ERK_OCC}
-                for r in range(ERK_OCC_ROUNDS):
-                    for s in (ERK_OCC if r % 2 == 0 else ERK_OCC[::-1]):
-                        _, m, _ = timed(run[s])
-                        ms[s].append(m)
-                ranked = sorted(ERK_OCC, key=lambda s: np.median(ms[s]))
-                line("erk_occupancy", kernel=kernel, sampled=sampled, B=B,
-                     rounds=ERK_OCC_ROUNDS,
-                     counters_equal=all(equal.values()),
-                     ms_median={f"{t}x{mb}": round(float(np.median(ms[t, mb])), 4)
-                                for t, mb in ERK_OCC},
-                     fastest=[f"{t}x{mb}" for t, mb in ranked[:3]])
+        cases = [(f"lorenz_{'sampled' if sampled else 'lean'}", B,
+                  lorenz_args(method, B, dev, sampled))
+                 for B in AB_ERK_B for sampled in (False, True)]
+        if method == "DOPRI5":
+            cases.append(("vdp_lean", MAIN_B,
+                          (rhs.vdp, *problem_args("vdp", MAIN_B, dev))))
+        for case, B, args in cases:
+            ref = K.erk_ensemble_cuda(method, *args)
+            run = {s: (lambda lib=loaded[src, s]: K.erk_ensemble_cuda(
+                method, *args, lib=lib)) for s in ERK_OCC}
+            equal = {}
+            for s in ERK_OCC:
+                out = run[s]()
+                equal[s] = same_counters(out[:7], ref[:7])
+            del out, ref
+            ms = {s: [] for s in ERK_OCC}
+            for r in range(ERK_OCC_ROUNDS):
+                for s in (ERK_OCC if r % 2 == 0 else ERK_OCC[::-1]):
+                    ms[s].append(turn_ms(run[s]))
+            ranked = sorted(ERK_OCC, key=lambda s: np.median(ms[s]))
+            line("erk_occupancy", kernel=kernel, case=case, B=B,
+                 rounds=ERK_OCC_ROUNDS,
+                 counters_equal=all(equal.values()),
+                 ms_median={f"{t}x{mb}": round(float(np.median(ms[t, mb])), 4)
+                            for t, mb in ERK_OCC},
+                 fastest=[f"{t}x{mb}" for t, mb in ranked[:3]])
+
+
+def erk_cases(method, B, dev):
+    """The bit-for-bit cases of ``method``'s kernel at B lanes: ``[(name,
+    erk_ensemble_cuda's args after method, keyword args)]``.  Lorenz (the
+    main path's configuration), VdP (the headline problem; t in [0, 20] but
+    for DOP853) and decay, lean and sampled, with the controller in float
+    and in double (methods with a controller); chip_smoke.py's edge_cases,
+    lean and with an 8-point grid per lane; stiff VdP with stiff_test=7."""
+    from chip_smoke import edge_cases
+    from ivp_tpu_torch import rhs
+    from ivp_tpu_torch.methods import get_engine
+
+    f64 = torch.float64
+    ctl = ("float32",) if method == "RK4" else ("float32", "state")
+    first = 2e-3 if method == "RK4" else None
+    out = []
+    for sampled in (False, True):
+        mode = "sampled" if sampled else "lean"
+        for prec in ctl:
+            kw = {} if prec == "float32" else dict(params=get_engine(
+                method, need_cont=sampled, controller_precision=prec)[1])
+            a = lorenz_args(method, B, dev, sampled)
+            out.append((f"lorenz_{mode}_{prec}", a[:-1], dict(kw, t_grid=a[-1])))
+            for name in ("vdp", "decay"):
+                y0, t0, tf, hmax, _, rtol, atol = problem_args(name, B, dev)
+                if name == "vdp" and method != "DOP853":
+                    tf = hmax = torch.full_like(tf, 20.0)
+                fs = None if first is None else torch.full_like(tf, first)
+                grid = (torch.broadcast_to(torch.linspace(
+                    0.0, float(tf[0]) * (0.99 if method == "RK4" else 1.0),
+                    ERK_SAMPLES, dtype=f64, device=dev), (B, ERK_SAMPLES))
+                    if sampled else None)
+                out.append((f"{name}_{mode}_{prec}",
+                            (getattr(rhs, name), y0, t0, tf, hmax, fs, rtol,
+                             atol), dict(kw, t_grid=grid)))
+    for name, a, kw, _ in edge_cases(B, dev):
+        if method == "RK4" and name == "vdp_stiff":
+            continue      # a fixed step at mu = 1000 overflows to inf
+        out.append((name, (rhs.vdp, *a), kw))
+        t0, tf = a[1], a[2]
+        u = torch.linspace(0.0, 1.0, 8, dtype=f64, device=dev)
+        grid = (t0[:, None] + (tf - t0)[:, None] * u).contiguous()
+        out.append((f"{name}_sampled", (rhs.vdp, *a), dict(kw, t_grid=grid)))
+    if method in ("DOPRI5", "DOP853"):
+        name, a, kw, _ = edge_cases(B, dev)[0]
+        out.append((f"{name}_stiff_test7", (rhs.vdp, *a), dict(kw, params=(
+            get_engine(method, need_cont=False, stiff_test=7)[1]))))
+    return out
 
 
 def ab_erk(build, rhs, dev, baseline, label):
     """The erk kernels built from ``baseline`` against the package's, at
-    each of AB_ERK_B: lanes differing in each output of dop853 and rk23,
-    lean and sampled, float and double controller, on Lorenz and VdP, and
-    of rk4 and dopri5_sampled on Lorenz; chip_smoke.py's edge_cases through
-    dop853 and rk23; then old, new, new, old rounds of the Lorenz main-path
-    configurations."""
-    from chip_smoke import edge_cases
+    each of AB_ERK_B: lanes differing in each output of every erk_cases
+    case of every method; the old build's loop SASS; then old, new, new,
+    old rounds of each method's Lorenz main-path configurations, lean and
+    sampled."""
     from ivp_tpu_torch.kernels import erk_ensemble as K
-    from ivp_tpu_torch.methods import get_engine
 
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(4) as ex:
@@ -670,70 +778,72 @@ def ab_erk(build, rhs, dev, baseline, label):
         paths = {m: f.result() for m, f in futs.items()}
     old = {m: build.load(path) for m, path in paths.items()}
     line("ab_erk_build", old=label, seconds=round(time.perf_counter() - t0, 3))
-    for m in ("DOP853", "RK23"):
+    for m in K.KERNELS:
         sass_report(paths[m], label, only="Lorenz/f32")
-    names = ("t", "y", "status", "nfev", "nstep", "naccpt", "nrejct",
-             "y_samples", "n_samples")
 
-    def compare(what, method, a, kw, B):
-        new_out = K.erk_ensemble_cuda(method, *a, **kw)
-        old_out = K.erk_ensemble_cuda(method, *a, **kw, lib=old[method])
-        torch.cuda.synchronize()
-        diff = {f: int((x != y).reshape(x.shape[0], -1).any(dim=1).sum())
-                for f, x, y in zip(names, new_out, old_out) if x is not None}
-        line("ab_erk_bitwise", old=label, kernel=K.KERNELS[method][0],
-             case=what, B=B,
-             identical=all(v == 0 for v in diff.values()),
-             lanes_differing=repr(diff),
-             statuses=repr(dict(Counter(new_out[2].cpu().tolist()))),
-             max_abs_dy=float((new_out[1] - old_out[1]).abs().max()))
-
-    f64 = torch.float64
     for B in AB_ERK_B:
-        for method in ("DOP853", "RK23", "RK4", "DOPRI5"):
-            precisions = (("float32", "state") if method in ("DOP853", "RK23")
-                          else ("float32",))
-            for sampled in (False, True):
-                if method == "DOPRI5" and not sampled:
-                    continue
-                for prec in precisions:
-                    a = lorenz_args(method, B, dev, sampled)
-                    kw = {} if prec == "float32" else dict(params=get_engine(
-                        method, need_cont=sampled,
-                        controller_precision=prec)[1])
-                    compare(f"lorenz_{'sampled' if sampled else 'lean'}_{prec}",
-                            method, a[:-1], dict(kw, t_grid=a[-1]), B)
-                    if method in ("DOP853", "RK23"):
-                        # VdP at the headline problem (RK23: t in [0, 20]).
-                        y0, t0_, tf, hmax, first, rtol, atol = problem_args(
-                            "vdp", B, dev)
-                        if method == "RK23":
-                            tf = hmax = torch.full_like(tf, 20.0)
-                        grid = (torch.broadcast_to(torch.linspace(
-                            0.0, float(tf[0]), ERK_SAMPLES, dtype=f64,
-                            device=dev), (B, ERK_SAMPLES)) if sampled else None)
-                        compare(f"vdp_{'sampled' if sampled else 'lean'}_{prec}",
-                                method, (rhs.vdp, y0, t0_, tf, hmax, first,
-                                         rtol, atol), dict(kw, t_grid=grid), B)
-        for method in ("DOP853", "RK23"):
-            for name, a, kw, _ in edge_cases(B, dev):
-                compare(name, method, (rhs.vdp, *a), kw, B)
+        for method in K.KERNELS:
+            for what, a, kw in erk_cases(method, B, dev):
+                new_out = K.erk_ensemble_cuda(method, *a, **kw)
+                old_out = K.erk_ensemble_cuda(method, *a, **kw,
+                                              lib=old[method])
+                torch.cuda.synchronize()
+                diff = lanes_differing(new_out, old_out)
+                line("ab_erk_bitwise", old=label,
+                     kernel=K.KERNELS[method][0], case=what, B=B,
+                     identical=all(v == 0 for v in diff.values()),
+                     lanes_differing=repr(diff),
+                     statuses=repr(dict(Counter(new_out[2].cpu().tolist()))),
+                     max_abs_dy=float((new_out[1] - old_out[1]).abs().max()))
+                del new_out, old_out
     for B in AB_ERK_B:
-        for method in ("DOP853", "RK23"):
+        for method in K.KERNELS:
             for sampled in (False, True):
                 a = lorenz_args(method, B, dev, sampled)
                 run = {"new": lambda: K.erk_ensemble_cuda(method, *a),
                        "old": lambda: K.erk_ensemble_cuda(
                            method, *a, lib=old[method])}
-                run["old"]()
-                run["new"]()
+                ms = {"old": [], "new": []}
                 for r in range(AB_ERK_ROUNDS):
                     for what in ("old", "new", "new", "old"):
-                        out = None
-                        out, m, _ = timed(run[what])
+                        ms[what].append(turn_ms(run[what]))
                         line("ab_erk", old=label, kernel=K.KERNELS[method][0],
                              sampled=sampled, B=B, round=r, what=what,
-                             event_ms=round(m, 4))
+                             event_ms=round(ms[what][-1], 4))
+                ab_erk_summary(label, method, sampled, a, run["new"](),
+                               ms, B)
+
+
+def ab_erk_summary(label, method, sampled, a, out, ms, B):
+    """One line per A/B: each side's median, the rounds the new side won
+    (its two turns against the old side's two), the cycles a warp-attempt
+    per scheduler of each median at the SM clock read now, and the bound
+    of this solve (``out``, the new build's) with its share of the new
+    median; sampled, also with dense rows on every accepted step."""
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+
+    fun, m = a[0], ERK_SAMPLES if sampled else 0
+    med = {w: float(np.median(v)) for w, v in ms.items()}
+    pairs = zip(zip(ms["new"][::2], ms["new"][1::2]),
+                zip(ms["old"][::2], ms["old"][1::2]))
+    wins = sum(sum(n) < sum(o) for n, o in pairs)
+    mhz, wa = sm_mhz(), warp_attempts(out[4])
+    cycles = {w: round(v * 1e-3 * mhz * 1e6 * 132 * 4 / wa, 1)
+              for w, v in med.items()}
+    bound, by = K.solve_bound(method, fun, out[4], out[5], out[8], m)
+    every = (K.solve_bound(method, fun, out[4], out[5], out[8], m,
+                           dense_steps=out[5])[0] if sampled else bound)
+    line("ab_erk_summary", old=label, kernel=K.KERNELS[method][0],
+         sampled=sampled, B=B, old_ms=round(med["old"], 4),
+         new_ms=round(med["new"], 4),
+         new_over_old=round(med["new"] / med["old"], 4),
+         rounds_new_won=f"{wins}/{AB_ERK_ROUNDS}", sm_mhz=mhz,
+         cycles_old=cycles["old"], cycles_new=cycles["new"],
+         warp_eff=round(float(out[4].to(torch.int64).sum()) / (32 * wa), 5),
+         bound_ms=round(bound, 6), bound_by=by,
+         bound_share=round(bound / med["new"], 4),
+         bound_ms_rows_every_accept=round(every, 6),
+         bound_share_rows_every_accept=round(every / med["new"], 4))
 
 
 def main():
@@ -744,7 +854,13 @@ def main():
     ap.add_argument("--phases",
                     help=f"comma-separated subset of {','.join(PHASES)} "
                          "(default: all; ab only with --baseline)")
+    ap.add_argument("--occupancy-methods", default="DOP853,RK23,RK4,DOPRI5",
+                    help="methods whose libraries erk_occupancy sweeps")
+    ap.add_argument("--sass-dir", type=Path,
+                    help="write each SASS listing the phases read here")
     opts = ap.parse_args()
+    global SASS_DIR
+    SASS_DIR = opts.sass_dir
     phases = (set(opts.phases.split(",")) if opts.phases else
               set(PHASES) - (set() if opts.baseline else {"ab"}))
     if not phases <= set(PHASES):
@@ -776,14 +892,15 @@ def main():
         erk_libs = build.build_all()
         line("build_all", seconds=round(time.perf_counter() - t, 3),
              libraries=sorted(p.name for p in erk_libs.values()))
-        for name in ("erk_dop853", "erk_rk23"):
+        for name in ERK_LIBS:
             for fn, regs, st, ld in build.ptxas_report(erk_libs[name]):
                 line("ptxas", build="new", instantiation=instantiation(fn),
                      registers=regs, spill_stores=st, spill_loads=ld)
     if "sass" in phases:
         sass_report(lib, "new")
-        for name in ("erk_dop853", "erk_rk23"):
-            sass_report(erk_libs[name], f"new:{name}", only="Lorenz/f32")
+        for name in ERK_LIBS:
+            sass_report(erk_libs[name], f"new:{name}",
+                        only=("Lorenz/f32", "VdP/f32/lean"))
 
     solver = build_ensemble_solver(rhs.vdp, "RK45", n=2)
     y0 = torch.as_tensor(vdp_y0(MAIN_B), device=dev)
@@ -826,7 +943,7 @@ def main():
         erk_sweep(rhs, dev)
         dopri5_options_path(k, rhs, dev)
     if "erk_occupancy" in phases:
-        erk_occupancy(build, rhs, dev)
+        erk_occupancy(build, rhs, dev, opts.occupancy_methods.split(","))
     if "ab" in phases:
         for baseline in opts.baseline:
             label = (baseline.parent.name if baseline.name == "csrc"

@@ -40,11 +40,17 @@ def _port(method, grid, y0, t0, tf, at_call=False, **kw):
                                     **kw)(y0, t0, tf, *TOL, device="cpu")
 
 
-@pytest.mark.parametrize("method", METHODS)
-def test_shared_grid_matches_ivp_tpu(method):
-    """A shared (M,) grid from t0 to tf, both ends on the grid."""
+@pytest.mark.parametrize("method, kind", [
+    *(pytest.param(m, "even", id=m) for m in METHODS),
+    pytest.param("RK45", "clustered", id="RK45-clustered")])
+def test_shared_grid_matches_ivp_tpu(method, kind):
+    """A shared (M,) grid from t0 to tf, both ends on the grid; "clustered"
+    puts the M - 2 inner times within 1e-3 of t = 1.7, so that one step
+    covers several of them and emits them together."""
     y0 = cases.vdp_y0()
     grid = np.linspace(0.0, 4.0, M)
+    if kind == "clustered":
+        grid[1:-1] = np.linspace(1.7, 1.701, M - 2)
     if method == "RK4":
         grid[-1] = 3.99     # the fixed steps may end a hair short of tf
     j = jax_vdp(method, y0, 0.0, 4.0, *TOL, grid=grid,
@@ -240,12 +246,17 @@ def test_flops_and_bound_match_the_hand_count(method):
     assert K.solve_flops(method, fun, nstep, naccpt) == lean
     ms, by = K.solve_bound(method, fun, nstep, naccpt)
     assert by == "operations" and ms == pytest.approx(1e3 * lean / 34e12)
-    # Sampled: the dense rows on accepted attempts, each emitted sample, and
-    # per lane 8 m bytes of grid read, 8 m n + 4 of samples written.
+    # Sampled: the dense rows on the steps that emit, min(naccpt, n_samples)
+    # a lane (or on every accepted attempt, as dense_steps=naccpt asks), each
+    # emitted sample, and per lane 8 m bytes of grid read, 8 m n + 4 of
+    # samples written.
     ns = torch.full((4096,), 100)
-    dense = 1024 * 1907 * (n * f.dense_n + r * f.rhs_dense)
+    row = n * f.dense_n + r * f.rhs_dense
     samples = 4096 * 100 * (n * f.sample_n + f.sample)
-    assert K.solve_flops(method, fun, nstep, naccpt, ns) == lean + dense + samples
+    assert (K.solve_flops(method, fun, nstep, naccpt, ns)
+            == lean + 1024 * (100 + 100 + 0 + 7) * row + samples)
+    assert (K.solve_flops(method, fun, nstep, naccpt, ns, dense_steps=naccpt)
+            == lean + 1024 * 1907 * row + samples)
     zero = torch.zeros(4096, dtype=torch.int32)
     ms, by = K.solve_bound(method, fun, zero, zero, ns * 0, m=100)
     lane = 8 * (3 * n + 4 + 3) + 8 * (1 + n) + 20 + 8 * 100 + 8 * 100 * n + 4
