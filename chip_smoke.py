@@ -4,12 +4,16 @@
 
 Drives ivp_tpu_torch's main paths on cuda:0 through its hand-written CUDA
 kernels: the lean DOPRI5 ensemble solve (VdP, B=524288, csrc/
-dopri5_ensemble.cu) and the rest of the explicit tier (Lorenz, B=16384:
+dopri5_ensemble.cu), the rest of the explicit tier (Lorenz, B=16384:
 DOP853 to the final state and with 100 in-loop samples, RK23, RK4 and DOPRI5
-with samples; csrc/erk_*.cu).  Every kernel is built from the sources here
-and held against its plain PyTorch version (on short spans at B=4096 over
-every mode and option, and at each main path's own shapes), against
-ivp_tpu's own numbers (ivp_tpu_torch/data/*.npz) and against SciPy.  A numpy y0 with no ``device``
+with samples; csrc/erk_*.cu) and the record mode of those kernels:
+``solve_ivp`` on the Arenstorf orbit (CR3BP, DOP853, rtol 1e-12, dense
+output) and the recording Lorenz ensemble at B=16384 (``dense_output`` and
+``record_trajectories``, every method).  Every kernel is built from the
+sources here and held against its plain PyTorch version (on short spans at
+B=4096 over every mode and option, record modes over several chunks, and
+at each main path's own shapes), against ivp_tpu's own numbers
+(ivp_tpu_torch/data/*.npz) and against SciPy.  A numpy y0 with no ``device``
 must run the kernels on cuda:0.  Imports neither jax nor ivp_tpu.  Prints
 its phases one per line, then a JSON line with every kernel's launches,
 error, times and bound, then the card, and last ``{"ok": true, "device":
@@ -493,6 +497,680 @@ def erk_main_path(dev, gold):
     return rows
 
 
+# ---- The record mode (kernels/erk_record.py) ----
+# Rows a lane records per chunk in the checks: every lane crosses chunks.
+REC_CAP_CHECK = 37
+# The Arenstorf orbit (tests/test_gates.py): CR3BP, DOP853, rtol 1e-12.
+MU = 0.012277471
+ARENSTORF = np.array([0.994, 0, 0, 0, -2.00158510637908252240537862224, 0])
+PERIOD = 17.0652165601579625588917206249
+# Each record configuration on Lorenz: method, tf of the B=4096 check, tf of
+# the B=16384 main path (bench.py's DOP853 span cut to t in [0, 20]; the
+# others shorter, as the erk main path cuts them), tolerances, options.
+RECORD_CONFIGS = [
+    ("DOPRI5", 1.0, 5.0, (1e-8, 1e-10), {}),
+    ("DOP853", 5.0, 20.0, LORENZ_TOL, {}),
+    ("RK23", 1.0, 5.0, (1e-6, 1e-8), {}),
+    ("RK4", 1.0, 2.0, (1e-6, 1e-8), dict(first_step=5e-3)),
+]
+
+
+def lorenz_f(y):
+    """The Lorenz RHS on (..., 3) arrays (numpy or torch)."""
+    x, yy, z = y[..., 0], y[..., 1], y[..., 2]
+    st = torch.stack if torch.is_tensor(y) else np.stack
+    return st([10.0 * (yy - x), x * (28.0 - z) - yy, x * yy - (8.0 / 3.0) * z],
+              -1)
+
+
+# A record row's time and left edge against the plain version's, relative
+# to max(1, |t|), and its step size relative to |h|.  Both routes take the
+# same steps (every counter is held equal), but the step sizes part in their
+# last bits on the first, tiny steps after hinit, where the error estimate is
+# a cancelling sum's rounding noise (ROADMAP §3 fault 2) that nvcc's FMAs and
+# torch's separate operations make of different sizes.  Every later step's
+# edges then move with them: on an H100 the edges moved by up to 3.4e-8
+# (DOPRI5, B=4096, rtol 1e-8).  A lane's last step is cut to end on tf, so
+# its h = tf - xold carries its left edge's move whole, which is large
+# against a short last step (up to 2.9e-5 of |h|).  Every other step's h
+# is held to |h| within T_STEP: the error estimate's rounding noise moves
+# each step's size by up to 8.5e-7 of |h| (DOPRI5 at B=16384, rtol 1e-8),
+# step to step, while the edges, their sums, move 40 times less.  Each
+# route's rows also satisfy t = xold + h within T_SUM, so no row's h can be
+# wrong while its edges are right.  PERF.md gives the readings on the H100
+# of every record instantiation, from which the limits are set.  The
+# rows stay points of one trajectory, which the y rows are held to (after
+# moving the plain version's row along f by the rows' time difference:
+# measured 1.2e-14) and the coefficients are, through the step's dense
+# interpolant at the middle of the plain version's step.
+T_REC = 1e-6
+T_STEP = 1e-5
+T_SUM = 2.0 ** -52
+
+
+def record_errors(got, ref, method, f=lorenz_f):
+    """Two RecordResults of the same inputs: ``(counters, errs)``.
+    ``counters``: the share of lanes on which status, nfev, nstep, naccpt,
+    nrejct, n_rec (and n_samples) are equal.  ``errs``: ``raw``, the largest
+    difference of any recorded value, sample or final t, y of a lane,
+    scaled by max(1, |y|) of the lane; ``time``, of the rows' t and xold,
+    scaled by max(1, |t|); ``step``, of the rows' h but each lane's last,
+    relative to |h|, and ``step_last``, of the last; ``sum``, the largest
+    |t - (xold + h)| of either route's rows, scaled by max(1, |t|);
+    ``shifted``, of the y rows after moving the plain version's row along f
+    by the two rows' time difference; ``dense``, of each step's interpolant
+    at the middle of the plain version's step; ``final``, of the samples
+    and the final t and y (the last four scaled as ``raw``)."""
+    from ivp_tpu_torch.methods.interp import get_interp
+
+    counters = {}
+    for name in ("status", "nfev", "nstep", "naccpt", "nrejct", "n_rec",
+                 "n_samples"):
+        a, b = getattr(got, name), getattr(ref, name)
+        if a is not None:
+            counters[name] = float((a.long() == b.long()).double().mean())
+    B = ref.y.shape[0]
+    scale = torch.clamp_min(ref.y.abs().amax(1), 1.0)
+    if ref.rec_y.shape[1]:
+        scale = torch.maximum(scale, ref.rec_y.abs().amax(dim=(1, 2)))
+
+    def worst(a, b, sc=scale):
+        if a is None or not a.numel():
+            return 0.0
+        return float(((a - b).abs().reshape(B, -1).amax(1) / sc).max())
+
+    errs = dict(raw=0.0, time=0.0, step=0.0, step_last=0.0, sum=0.0,
+                shifted=0.0, dense=0.0, final=0.0)
+    for name in ("t", "y", "rec_t", "rec_xold", "rec_h", "rec_y", "rec_cont",
+                 "y_samples"):
+        errs["raw"] = max(errs["raw"], worst(getattr(got, name),
+                                             getattr(ref, name)))
+    for name in ("t", "y", "y_samples"):
+        errs["final"] = max(errs["final"], worst(getattr(got, name),
+                                                 getattr(ref, name)))
+    if ref.rec_t.numel():
+        row = torch.arange(ref.rec_t.shape[1], device=ref.rec_t.device)[None]
+        valid = row < ref.n_rec[:, None]
+        last = row == ref.n_rec[:, None] - 1
+        tscale = torch.clamp_min(ref.rec_t.abs().amax(1), 1.0)
+        errs["time"] = max(worst(getattr(got, n), getattr(ref, n), tscale)
+                           for n in ("rec_t", "rec_xold"))
+        rel_h = ((got.rec_h - ref.rec_h).abs()
+                 / torch.clamp_min(ref.rec_h.abs(),
+                                   torch.finfo(torch.float64).tiny))
+        errs["step"] = float(torch.where(valid & ~last, rel_h, 0.0).max())
+        errs["step_last"] = float(torch.where(last, rel_h, 0.0).max())
+        errs["sum"] = max(float(torch.where(
+            valid, (r.rec_t - (r.rec_xold + r.rec_h)).abs()
+            / torch.clamp_min(r.rec_t.abs(), 1.0), 0.0).max())
+            for r in (got, ref))
+        moved = ref.rec_y + f(got.rec_y) * (got.rec_t - ref.rec_t)[..., None]
+        errs["shifted"] = worst(moved, got.rec_y)
+        if ref.rec_cont is not None:
+            interp, _ = get_interp(method)
+            C, n = ref.rec_cont.shape[2:]
+            mid = (ref.rec_xold + 0.5 * ref.rec_h).reshape(-1)
+            at = lambda r: interp(r.rec_cont.reshape(-1, C, n),
+                                  r.rec_xold.reshape(-1),
+                                  r.rec_h.reshape(-1), mid)
+            d = torch.where(valid.reshape(-1, 1), at(got) - at(ref), 0.0)
+            errs["dense"] = worst(d, torch.zeros_like(d))
+    return counters, errs
+
+
+def check_record(name, counters, errs):
+    """The record gates: every counter equal on every lane; rows' times and
+    step sizes within T_REC and T_STEP, t = xold + h within T_SUM, y rows (shifted),
+    dense evaluations, samples and final states within Y_EQUAL_STEPS."""
+    if min(counters.values()) < 1.0:
+        raise AssertionError(f"{name}: counters equal on only {counters}")
+    if (errs["time"] > T_REC or errs["step"] > T_STEP or errs["sum"] > T_SUM
+            or max(errs["shifted"], errs["dense"], errs["final"])
+            > Y_EQUAL_STEPS):
+        raise AssertionError(f"{name}: rows differ: {errs}")
+
+
+def launches_of(fn):
+    """``(fn(), {kernel: launches})``: the record kernels' counts set to 0
+    just before ``fn`` and read just after it (only kernels it launched)."""
+    from ivp_tpu_torch.kernels import erk_record as R
+
+    for name in R.LAUNCHES:
+        R.LAUNCHES[name] = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in R.LAUNCHES.items() if v}
+
+
+def lorenz_kernel_args(y0, tf, rtol, atol, first, dev):
+    Bk = y0.shape[0]
+    T = lambda v: torch.full((Bk,), v, dtype=torch.float64, device=dev)
+    return (y0, T(0.0), T(tf), T(tf), None if first is None else T(first),
+            torch.full((Bk, 3), rtol, dtype=torch.float64, device=dev),
+            torch.full((Bk, 3), atol, dtype=torch.float64, device=dev))
+
+
+def record_modes():
+    """(name, record_cont, sampled) of the four record modes."""
+    return [("steps", False, False), ("cont", True, False),
+            ("steps_samples", False, True), ("cont_samples", True, True)]
+
+
+def event_call(fn):
+    """``(fn(), device ms between events around it)``."""
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def record_vs_plain(dev):
+    """Every record instantiation on Lorenz at B=4096 against the plain
+    version on the card (the ported driver in record mode), with
+    rec_cap=37, so that every lane crosses several chunks: every counter
+    and n_steps_rec equal on every lane, every recorded row as
+    check_record holds it.  ``{kernel name: row}``: the worst error over
+    its modes (shifted y rows, dense evaluations, samples and final states,
+    scaled by max(1, |y|)) and, from its mode without samples, both routes' times
+    (CUDA events around the whole chunked call, drains included) and the
+    bound on those inputs."""
+    from ivp_tpu_torch import rhs
+    from ivp_tpu_torch.kernels import erk_record as R
+
+    Bc = CHECK_B
+    y0 = torch.as_tensor(lorenz_y0(Bc, seed=6), device=dev)
+    rows = {}
+    for method, tf, _, (rtol, atol), opts in RECORD_CONFIGS:
+        a = lorenz_kernel_args(y0, tf, rtol, atol, opts.get("first_step"),
+                               dev)
+        grid = torch.broadcast_to(torch.linspace(
+            0.0, tf * (0.99 if method == "RK4" else 1.0), 9,
+            dtype=torch.float64, device=dev), (Bc, 9))
+        t_m = time.perf_counter()
+        for mode, cont, sampled in record_modes():
+            kw = dict(rec_cap=REC_CAP_CHECK, record_cont=cont)
+            g = grid if sampled else None
+            R.erk_record_cuda(method, rhs.lorenz, *a, (), 200_000, g, **kw)
+            got, k_ms = event_call(lambda: R.erk_record_cuda(
+                method, rhs.lorenz, *a, (), 200_000, g, **kw))
+            ref, p_ms = event_call(lambda: R.erk_record_torch(
+                method, rhs.lorenz, *a, (), 200_000, g, **kw))
+            counters, errs = record_errors(got, ref, method)
+            name = R.record_kernel(method, cont)
+            b_ms, b_by = R.record_bound(method, rhs.lorenz, got.nstep,
+                                        got.naccpt, got.n_rec, cont,
+                                        got.n_samples, 9 if sampled else 0)
+            phase(f"record_vs_plain_{name}_{mode}_B{Bc}", tf=tf,
+                  chunks=got.chunks, mean_rows=float(got.n_rec.double().mean()),
+                  **{f"{k}_equal": v for k, v in counters.items()},
+                  **{f"max_err_{k}": v for k, v in errs.items()},
+                  kernel_ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+            check_record(f"{name} {mode}", counters, errs)
+            if got.chunks < 3:
+                raise AssertionError(f"{name} {mode}: {got.chunks} chunks")
+            err = max(errs["shifted"], errs["dense"], errs["final"])
+            row = rows.setdefault(name, {"max_abs_err": 0.0})
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            if not sampled:
+                row.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                           bound_by=b_by, bound_share=b_ms / k_ms,
+                           inputs=f"Lorenz B={Bc}, t in [0, {tf:g}], "
+                                  f"rec_cap={REC_CAP_CHECK}")
+        phase(f"record_vs_plain_{method}", seconds=round(
+            time.perf_counter() - t_m, 3))
+    return rows
+
+
+def record_chunking_bitwise(dev):
+    """Every record instantiation at rec_cap=37 against rec_cap=4096 on the
+    same inputs (B=4096): the lanes that differ in any output or row (NaN
+    equal to NaN), which must be 0."""
+    from ivp_tpu_torch import rhs
+    from ivp_tpu_torch.kernels import erk_record as R
+
+    Bc = CHECK_B
+    y0 = torch.as_tensor(lorenz_y0(Bc, seed=7), device=dev)
+    for method, tf, _, (rtol, atol), opts in RECORD_CONFIGS:
+        a = lorenz_kernel_args(y0, tf, rtol, atol, opts.get("first_step"),
+                               dev)
+        grid = torch.broadcast_to(torch.linspace(
+            0.0, tf * 0.99, 9, dtype=torch.float64, device=dev), (Bc, 9))
+        for mode, cont, sampled in record_modes():
+            g = grid if sampled else None
+            small, big = (R.erk_record_cuda(
+                method, rhs.lorenz, *a, (), 200_000, g, rec_cap=cap,
+                record_cont=cont) for cap in (REC_CAP_CHECK, 4096))
+            torch.cuda.synchronize()
+            differ = torch.zeros(Bc, dtype=torch.bool, device=dev)
+            for name in R.RecordResult._fields[:-1]:
+                x, y = getattr(small, name), getattr(big, name)
+                if x is None:
+                    continue
+                if x.shape != y.shape:
+                    raise AssertionError(f"{method} {mode}: {name} shapes "
+                                         f"{tuple(x.shape)} {tuple(y.shape)}")
+                same = (x == y) | (torch.isnan(x) & torch.isnan(y)) if \
+                    x.is_floating_point() else x == y
+                differ |= ~same.reshape(Bc, -1).all(1)
+            n = int(differ.sum())
+            phase(f"record_chunking_bitwise_{R.record_kernel(method, cont)}"
+                  f"_{mode}_B{Bc}", chunks=(small.chunks, big.chunks),
+                  lanes_differing=n)
+            if n or big.chunks != 1 or small.chunks < 3:
+                raise AssertionError(f"{method} {mode}: {n} lanes differ")
+
+
+def kernel_device_ms(fn, match="erk_kernel"):
+    """``(result, device ms of the kernels whose name holds ``match``,
+    device ms of every kernel)`` of one call of ``fn``, from
+    torch.profiler; raises if the profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        e0.record()
+        out = fn()
+        e1.record()
+        torch.cuda.synchronize()
+    mine = total = 0.0
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        if t is None:
+            t = getattr(ev, "cuda_time_total", 0.0)
+        if getattr(ev, "device_type", None) is not None and \
+                str(ev.device_type).endswith("CPU"):
+            continue
+        total += t
+        if match in ev.key:
+            mine += t
+    if mine <= 0.0:
+        raise AssertionError(f"torch.profiler saw no device time of {match}; "
+                             f"events around the call: {e0.elapsed_time(e1)}")
+    return out, mine / 1e3, total / 1e3
+
+
+def solve_ivp_cr3bp(dev):
+    """The single-IVP facade on the card: the Arenstorf orbit (CR3BP,
+    DOP853, rtol 1e-12, atol 1e-14, dense output) through
+    ``ivp_tpu_torch.solve_ivp`` with a numpy state0 and no device.  Gates:
+    success, periodicity within 1e-6, the Jacobi constant within 1e-8 on 200
+    dense points (tests/test_gates.py); counters against the plain version
+    on the card (stated below); chunk_steps=64 bit for bit against the
+    default.  Returns the kernel row's numbers."""
+    from ivp_tpu_torch import rhs, solve_ivp
+    from ivp_tpu_torch.kernels import erk_record as R
+
+    kw = dict(method="DOP853", args=(MU,), rtol=1e-12, atol=1e-14,
+              dense_output=True)
+    solve = lambda: solve_ivp(rhs.cr3bp, (0, PERIOD), ARENSTORF, **kw)
+    solve()
+    walls = []
+    for _ in range(3):
+        t = time.perf_counter()
+        solve()
+        walls.append(time.perf_counter() - t)
+    # The main path's run: the counts set to 0 just before, read just after.
+    res, launches = launches_of(solve)
+    if set(launches) != {"dop853_record_cont"}:
+        raise AssertionError(f"solve_ivp_cr3bp launched {launches}")
+    final = res.y[:, -1]
+    ts = np.linspace(0, PERIOD, 200)
+    traj = res.sol(ts)
+
+    def jacobi(s):
+        x, y, z, vx, vy, vz = s
+        r1 = np.sqrt((x + MU) ** 2 + y ** 2 + z ** 2)
+        r2 = np.sqrt((x - 1 + MU) ** 2 + y ** 2 + z ** 2)
+        return (2 * (0.5 * (x ** 2 + y ** 2) + (1 - MU) / r1 + MU / r2)
+                - (vx ** 2 + vy ** 2 + vz ** 2))
+
+    jac = float(np.max(np.abs(jacobi(traj) - jacobi(ARENSTORF))))
+    period_err = float(max(abs(final[0] - ARENSTORF[0]),
+                           abs(final[1] - ARENSTORF[1])))
+    res64 = solve_ivp(rhs.cr3bp, (0, PERIOD), ARENSTORF, chunk_steps=64, **kw)
+    same64 = (all(np.array_equal(res[f], res64[f])
+                  for f in ("t", "y", "nfev", "nstep", "naccpt", "nrejct"))
+              and np.array_equal(res.sol(ts), res64.sol(ts)))
+
+    # The kernel and the plain version on the card, on solve_ivp's one lane.
+    y0 = torch.as_tensor(ARENSTORF, device=dev).reshape(1, 6)
+    one = lambda v: torch.full((1,), v, dtype=torch.float64, device=dev)
+    a = (y0, one(0.0), one(PERIOD), one(PERIOD), None,
+         torch.full((1, 6), 1e-12, dtype=torch.float64, device=dev),
+         torch.full((1, 6), 1e-14, dtype=torch.float64, device=dev), (MU,),
+         2**31 - 2)
+    got, k_ms, dev_ms = kernel_device_ms(lambda: R.erk_record_cuda(
+        "DOP853", rhs.cr3bp, *a, rec_cap=4096, record_cont=True))
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    ref = R.erk_record_torch("DOP853", rhs.cr3bp, *a, rec_cap=4096,
+                             record_cont=True)
+    e1.record()
+    torch.cuda.synchronize()
+    plain_ms = e0.elapsed_time(e1)
+    f = lambda s: rhs.cr3bp(torch.zeros(s.shape[:-1], dtype=s.dtype,
+                                        device=s.device).reshape(-1),
+                            s.reshape(-1, 6), MU).reshape(s.shape)
+    counters, errs = record_errors(got, ref, "DOP853", f)
+    steps = {k: int(getattr(got, k)[0]) for k in ("nstep", "naccpt",
+                                                  "nrejct", "nfev")}
+    plain_steps = {k: int(getattr(ref, k)[0]) for k in steps}
+    bound_ms, bound_by = R.record_bound("DOP853", rhs.cr3bp, got.nstep,
+                                        got.naccpt, got.n_rec, True)
+    phase("solve_ivp_cr3bp", success=bool(res.success), status=res.status,
+          launches=launches, period_err=period_err, jacobi_err=jac,
+          chunk_steps64_bitwise=same64,
+          solve_ms=[round(1e3 * w, 3) for w in walls], kernel_ms=k_ms,
+          device_ms=dev_ms, plain_ms=plain_ms, steps=steps,
+          plain_steps=plain_steps, counters_equal=counters,
+          **{f"max_err_{k}": v for k, v in errs.items()},
+          bound_ms=bound_ms, bound_by=bound_by)
+    if not res.success or period_err > 1e-6 or jac > 1e-8 or not same64:
+        raise AssertionError("solve_ivp_cr3bp: gate failed")
+    # The kernel against the plain version: on the first, tiny steps after
+    # hinit the error estimate is a cancelling sum's rounding noise (ROADMAP
+    # §3 fault 2), which nvcc's FMAs and torch's separate operations make of
+    # different sizes, so the two step sequences may part there.  Held: the
+    # same status, nstep within 1% and the final state within 1e-8 (the
+    # periodicity gate's 1e-6 with room).
+    if (int(got.status[0]) != int(ref.status[0])
+            or abs(steps["nstep"] - plain_steps["nstep"])
+            > max(2, 0.01 * plain_steps["nstep"])
+            or float((got.y - ref.y).abs().max()) > 1e-8):
+        raise AssertionError("solve_ivp_cr3bp: kernel and plain version "
+                             "part")
+    return dict(launches=launches["dop853_record_cont"], ms=k_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=errs["final"], steps=steps,
+                plain_steps=plain_steps)
+
+
+def record_main_paths(dev):
+    """The recording ensemble at full width (Lorenz, B=16384, numpy y0, no
+    device) through ``solve_ivp_ensemble(dense_output=True)`` and
+    ``(record_trajectories=True)``, every method (the spans of
+    RECORD_CONFIGS), DOP853 on bench.py's configuration cut to t in [0, 20]
+    with rec_chunk=1024: success on every lane and n_steps_rec == naccpt,
+    timed end to end, with the kernel's device time, the launches (chunks)
+    of one solve (the counts set to 0 just before it, read just after),
+    the bytes recorded and their rate, and the bound.  DOP853 dense: ``sol``
+    at each lane's recorded t against ``ys`` (1e-12) and on a 100-point grid
+    in [0, 5] against the sampled dop853 kernel solving t in [0, 20] with
+    that grid (1e-9 scaled).  ``{kernel: row}``."""
+    from ivp_tpu_torch import Status, build_ensemble_solver, rhs
+    from ivp_tpu_torch import solve_ivp_ensemble
+    from ivp_tpu_torch.kernels import erk_record as R
+
+    B = LORENZ_B
+    y0n = lorenz_y0(B, seed=8)
+    rows = {}
+    for method, _, tf, (rtol, atol), opts in RECORD_CONFIGS:
+        for cont in (True, False):
+            name = R.record_kernel(method, cont)
+            kw = dict(rtol=rtol, atol=atol, max_steps=200_000,
+                      dense_output=cont, record_trajectories=not cont, **opts)
+            solve = lambda: solve_ivp_ensemble(rhs.lorenz, (0.0, tf), y0n,
+                                               method, **kw)
+            solve()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = solve()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            del res
+            # The main path's run: the counts set to 0 just before, read
+            # just after.
+            (res, k_ms, dev_ms), launches = launches_of(
+                lambda: kernel_device_ms(solve))
+            if set(launches) != {name}:
+                raise AssertionError(f"{name}: the solve launched {launches}")
+            chunks = launches[name]
+            W = 3 + 3 + (R.record_coeffs(method) * 3 if cont else 0)
+            nbytes = 8.0 * W * float(res.n_steps_rec.double().sum())
+            bound_ms, bound_by = R.record_bound(
+                method, rhs.lorenz, res.nstep, res.naccpt, res.n_steps_rec,
+                cont)
+            ok = bool((res.status == Status.SUCCESS).all())
+            counted = bool(torch.equal(res.n_steps_rec,
+                                       res.naccpt.to(torch.int64)))
+            phase(f"record_main_path_{name}_lorenz_B{B}", tf=tf,
+                  success_fraction=float((res.status == 0).double().mean()),
+                  n_steps_rec_is_naccpt=counted, wall_ms=1e3 * wall,
+                  kernel_ms=k_ms, device_ms=dev_ms, chunks=chunks,
+                  mean_rows=float(res.n_steps_rec.double().mean()),
+                  max_rows=int(res.n_steps_rec.max()), bytes_recorded=nbytes,
+                  gbytes_per_s=nbytes / (k_ms * 1e6), bound_ms=bound_ms,
+                  bound_by=bound_by, bound_share=bound_ms / k_ms)
+            if not ok or not counted or chunks < 1:
+                raise AssertionError(f"{name}: not every lane recorded")
+            if method == "DOP853" and cont:
+                check_dense_lorenz(dev, res, y0n, tf, rtol, atol)
+            rows[name] = dict(launches=chunks, wall_ms=1e3 * wall,
+                              kernel_ms=k_ms,
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              bound_share=bound_ms / k_ms, chunks=chunks,
+                              bytes_recorded=nbytes,
+                              gbytes_per_s=nbytes / (k_ms * 1e6))
+            del res
+    return rows
+
+
+def check_dense_lorenz(dev, res, y0n, tf, rtol, atol):
+    """``sol`` of the B=16384 DOP853 dense solve at each lane's recorded t
+    against ``ys`` (1e-12 scaled) and on a 100-point grid in [0, 5] against
+    y_samples of the sampled dop853 kernel on the same lanes and span."""
+    from ivp_tpu_torch import build_ensemble_solver, rhs
+
+    S = res.ts.shape[1]
+    worst_rec = 0.0
+    for j in range(0, S, 128):
+        ts = res.ts[:, j:j + 128]
+        valid = (torch.arange(j, j + ts.shape[1], device=dev)[None, :]
+                 < res.n_steps_rec[:, None])
+        got = res.sol(ts).permute(0, 2, 1)
+        d = ((got - res.ys[:, j:j + 128]).abs().amax(-1)
+             / torch.clamp_min(res.ys[:, j:j + 128].abs().amax(-1), 1.0))
+        worst_rec = max(worst_rec, float(torch.where(valid, d, 0.0).max()))
+    grid = np.linspace(0.0, 5.0, LORENZ_M)
+    sampled = build_ensemble_solver(rhs.lorenz, "DOP853", n=3,
+                                    max_steps=200_000, t_eval=grid)(
+        y0n, 0.0, tf, rtol, atol)
+    dense = res.sol(grid).permute(0, 2, 1)
+    worst_grid = float(((dense - sampled.y_samples).abs().amax(-1)
+                        / torch.clamp_min(sampled.y_samples.abs().amax(-1),
+                                          1.0)).max())
+    same_steps = float((sampled.nstep == res.nstep).double().mean())
+    phase("ensemble_dense_lorenz_B16384_sol", sol_at_records_err=worst_rec,
+          sol_vs_sampled_kernel_err=worst_grid,
+          nstep_equal_to_sampled=same_steps)
+    if worst_rec > 1e-12 or worst_grid > 1e-9:
+        raise AssertionError("dense Lorenz: sol disagrees")
+
+
+def record_short_span_vs_plain(dev):
+    """Every record instantiation of the recording Lorenz main path at its
+    shape (B=16384, rec_cap=1024, each method's tolerances and options) lane
+    by lane against the plain version on the card, on the main path's span
+    cut to t in [0, 5] (Lorenz lanes stay together that long), both timed
+    there (CUDA events around the whole call, one chunk).  ``{kernel:
+    row}``."""
+    from ivp_tpu_torch import rhs
+    from ivp_tpu_torch.kernels import erk_record as R
+
+    B = LORENZ_B
+    y0 = torch.as_tensor(lorenz_y0(B, seed=8), device=dev)
+    out = {}
+    for method, _, tf_main, (rtol, atol), opts in RECORD_CONFIGS:
+        tf = min(tf_main, LORENZ_T_LANES)
+        a = lorenz_kernel_args(y0, tf, rtol, atol, opts.get("first_step"),
+                               dev)
+        for cont in (True, False):
+            kw = dict(rec_cap=1024, record_cont=cont)
+            run = lambda: R.erk_record_cuda(method, rhs.lorenz, *a, (),
+                                            200_000, **kw)
+            run()
+            got, k_ms = event_call(run)
+            ref, p_ms = event_call(lambda: R.erk_record_torch(
+                method, rhs.lorenz, *a, (), 200_000, **kw))
+            counters, errs = record_errors(got, ref, method)
+            name = R.record_kernel(method, cont)
+            b_ms, b_by = R.record_bound(method, rhs.lorenz, got.nstep,
+                                        got.naccpt, got.n_rec, cont)
+            phase(f"record_short_span_{name}_lorenz_B{B}_tf{tf:g}",
+                  chunks=got.chunks,
+                  mean_rows=float(got.n_rec.double().mean()),
+                  **{f"{k}_equal": v for k, v in counters.items()},
+                  **{f"max_err_{k}": v for k, v in errs.items()},
+                  kernel_ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+            check_record(f"{name} at B={B}", counters, errs)
+            err = max(errs["shifted"], errs["dense"], errs["final"])
+            out[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                             bound_by=b_by, bound_share=b_ms / k_ms,
+                             max_abs_err=err,
+                             inputs=f"Lorenz B={B}, t in [0, {tf:g}], "
+                                    f"rec_cap=1024")
+    return out
+
+
+def facade_host_time(dev):
+    """ROADMAP §1 item 13: the host's share of one sampled Lorenz DOP853
+    solve at B=16384 (t in [0, 5], 100 samples) through solve_ivp_ensemble
+    from a numpy y0: the wall time to the result, with the facade's caches
+    warm and with them cleared before each call (what every call cost
+    before they existed), against the kernel's device time (torch.profiler);
+    and the parts of one call on the host, each timed alone."""
+    from ivp_tpu_torch import batch, build_ensemble_solver, rhs
+    from ivp_tpu_torch import solve_ivp_ensemble
+    from ivp_tpu_torch.kernels import build
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+    from ivp_tpu_torch.methods import get_engine
+
+    B, m = LORENZ_B, LORENZ_M
+    y0n = lorenz_y0(B, seed=9)
+    grid = np.linspace(0.0, 5.0, m)
+    kw = dict(rtol=LORENZ_TOL[0], atol=LORENZ_TOL[1], max_steps=200_000,
+              t_eval=grid)
+    solve = lambda: solve_ivp_ensemble(rhs.lorenz, (0.0, 5.0), y0n, "DOP853",
+                                       **kw)
+
+    def clear():
+        batch._ENSEMBLE_CACHE.clear()
+        K._default_params.cache_clear()
+        K._FUNCTOR_SHAPES.clear()
+
+    def wall_ms(cold, n=10):
+        walls = []
+        for i in range(n + 1):
+            if cold:
+                clear()
+            t = time.perf_counter()
+            res = solve()
+            torch.cuda.synchronize()
+            if i:
+                walls.append(1e3 * (time.perf_counter() - t))
+            del res
+        return float(np.median(walls)), walls
+
+    _, k_ms, dev_ms = kernel_device_ms(solve)
+    cold, cold_all = wall_ms(True)
+    warm, warm_all = wall_ms(False)
+    # The caches change no output: a call after clearing them and a call
+    # through them, bit for bit.
+    clear()
+    a = solve()
+    b = solve()
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(a, b)
+               if torch.is_tensor(x))
+    del a, b
+
+    def host_ms(fn, n=20):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t) / n
+
+    lib = build.library("erk_dop853")
+    parts = dict(
+        y0_to_card=host_ms(lambda: torch.as_tensor(y0n, device=dev)),
+        tolerances_and_lanes=host_ms(lambda: (
+            batch._norm_tol(1e-8, B, 3, torch.float64, dev, "rtol"),
+            batch._norm_tol(1e-10, B, 3, torch.float64, dev, "atol"),
+            batch._lanes(0.0, B, torch.float64, dev),
+            batch._lanes(5.0, B, torch.float64, dev))),
+        grid_to_card=host_ms(lambda: torch.as_tensor(grid, device=dev)),
+        functor_shape_ctypes=host_ms(lambda: tuple(
+            build.entry(f"ivp_rhs_{q}_lorenz", [], lib=lib)()
+            for q in ("n", "nargs"))),
+        default_params_build=host_ms(lambda: get_engine("DOP853",
+                                                        need_cont=True)),
+        solver_build=host_ms(lambda: build_ensemble_solver(
+            rhs.lorenz, "DOP853", n=3, max_steps=200_000, t_eval=grid)))
+    phase("facade_host_B16384", cached_equals_cold=same, kernel_ms=k_ms,
+          device_ms=dev_ms,
+          cold_wall_ms=cold, warm_wall_ms=warm,
+          cold_host_share=(cold - k_ms) / cold,
+          warm_host_share=(warm - k_ms) / warm,
+          cold_walls_ms=[round(x, 4) for x in cold_all],
+          warm_walls_ms=[round(x, 4) for x in warm_all],
+          **{f"{k}_ms": round(v, 4) for k, v in parts.items()})
+    if not same:
+        raise AssertionError("the facade's caches changed an output")
+
+
+def record_phase(dev):
+    """Every record instantiation against its plain version and chunked
+    against unchunked; then its main paths (solve_ivp on CR3BP, the
+    recording Lorenz ensemble), each solve's launches counted from 0 around
+    it alone; then the facade's host time.  The JSON rows of the record
+    kernels."""
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+    from ivp_tpu_torch.kernels import erk_record as R
+
+    t = time.perf_counter()
+    rec_checks = record_vs_plain(dev)
+    record_chunking_bitwise(dev)
+    short = record_short_span_vs_plain(dev)
+    phase("record_checks", seconds=round(time.perf_counter() - t, 3))
+    t = time.perf_counter()
+    cr3bp_row = solve_ivp_cr3bp(dev)
+    rec_rows = record_main_paths(dev)
+    per_solve = {name: {"ensemble_lorenz_B16384": row["launches"]}
+                 for name, row in rec_rows.items()}
+    per_solve["dop853_record_cont"]["solve_ivp_cr3bp"] = \
+        cr3bp_row["launches"]
+    phase("record_main_paths", seconds=round(time.perf_counter() - t, 3),
+          launches_per_solve=per_solve)
+    facade_host_time(dev)
+    rows = []
+    for method, *_ in RECORD_CONFIGS:
+        for cont in (False, True):
+            name = R.record_kernel(method, cont)
+            # Its own shapes first (B=16384, rec_cap=1024), then B=4096 with
+            # rec_cap=37 over every mode; the error is the worse of the two.
+            same_inputs = dict(rec_checks[name])
+            err = max(same_inputs["max_abs_err"], short[name]["max_abs_err"])
+            same_inputs.update(short[name], max_abs_err=err)
+            main = {f"main_path_{k}": v for k, v in rec_rows[name].items()
+                    if k != "launches"}
+            row = {"name": name, "route": "cuda",
+                   "source": f"ivp_tpu_torch/csrc/{K.KERNELS[method][1]}.cu",
+                   "replaces": "ivp_tpu/core/driver.py:286",
+                   "launches": sum(per_solve[name].values()),
+                   "launches_per_solve": per_solve[name], "library_ms": None,
+                   **same_inputs, **main}
+            if name == "dop853_record_cont":
+                row["solve_ivp_cr3bp"] = cr3bp_row
+            rows.append(row)
+    return rows
+
+
 def main():
     # ---- 1. Device ----
     if not torch.cuda.is_available():
@@ -667,15 +1345,21 @@ def main():
                 torch.as_tensor(y0n, device=dev))))
 
     # ---- 8. No silent fallback ----
+    from ivp_tpu_torch import solve_ivp
+
     for what, call in (
             ("plain callable on CUDA", lambda: build_ensemble_solver(
                 lambda t, y: -y, "RK45", n=2)(y0s[0][:4], 0.0, 1.0, RTOL, ATOL)),
-            ("float32 on CUDA", lambda: k.dopri5_ensemble(
-                rhs.vdp, *(None if a is None else a.float()
-                           for a in args_for(y0s[0][:4]))))):
+            ("float32 on CUDA", lambda: build_ensemble_solver(
+                rhs.vdp, "RK45", n=2, dtype=torch.float32)(
+                    vdp_y0(4), 0.0, 1.0, RTOL, ATOL)),
+            ("solve_ivp float32 on CUDA", lambda: solve_ivp(
+                rhs.vdp, (0.0, 1.0), [2.0, 0.0], dtype=torch.float32)),
+            ("solve_ivp plain callable on CUDA", lambda: solve_ivp(
+                lambda t, y: -y, (0.0, 1.0), [2.0, 0.0]))):
         try:
             call()
-        except (NotImplementedError, TypeError) as e:
+        except NotImplementedError as e:
             phase("refused", case=repr(what), error=type(e).__name__)
         else:
             raise AssertionError(f"{what} did not raise")
@@ -719,6 +1403,9 @@ def main():
                         "replaces": replaces[kernel],
                         "max_abs_err_B4096": errs[kernel],
                         "library_ms": None, **rows[kernel]})
+
+    # ---- 10. The record mode ----
+    kernels += record_phase(dev)
     for row in kernels:
         if row["launches"] < 1:
             raise AssertionError(f"the main path never launched {row['name']}")

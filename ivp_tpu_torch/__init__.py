@@ -2,28 +2,43 @@
 
 The JAX package ``ivp_tpu`` stays the reference; this package runs the same
 solves with PyTorch on the CPU and on an NVIDIA Hopper GPU (H100), and
-imports no jax.  Ported so far: the explicit tier of the ensemble solve
-(``build_ensemble_solver`` / ``solve_ivp_ensemble`` with ``"RK45"``,
-``"DOP853"``, ``"RK23"`` and ``"RK4"``), to each lane's final state or with
-in-loop samples on a ``t_eval`` grid, with the engines' ``solver_options``:
-through the plain PyTorch driver on the CPU and one hand-written CUDA kernel
-launch per solve on the GPU (kernels/erk_ensemble.py).  ROADMAP.md lists the
-slices still to come.
+imports no jax.  Ported so far, for the explicit methods ``"RK45"``,
+``"DOP853"``, ``"RK23"`` and ``"RK4"`` with the engines' ``solver_options``:
 
-The RHS contract differs from ``ivp_tpu`` in one way: a torch RHS is
-batched, ``fun(t, y, *args)`` with ``t`` of shape ``(B,)`` and ``y`` of shape
-``(B, n)``, returning ``(B, n)``.  On a GPU the RHS must be a
+* the ensemble solve (``build_ensemble_solver`` / ``solve_ivp_ensemble``),
+  to each lane's final state or with in-loop samples on a ``t_eval`` grid,
+  and its recording tier (``record_trajectories``, ``dense_output`` and
+  :class:`BatchOdeSolution`);
+* the SciPy-compatible single-IVP facade :func:`solve_ivp`, with ``t_eval``,
+  ``dense_output`` (:class:`OdeSolution`) and ``first_step``.
+
+Each runs through the plain PyTorch driver on the CPU and hand-written CUDA
+kernels on the GPU (kernels/erk_ensemble.py, kernels/erk_record.py).
+ROADMAP.md lists the slices still to come.
+
+The RHS contract: an ensemble's torch RHS is batched, ``fun(t, y, *args)``
+with ``t`` of shape ``(B,)`` and ``y`` of shape ``(B, n)``, returning
+``(B, n)``; ``solve_ivp`` takes a SciPy-style callable (``t`` 0-d, ``y`` of
+shape ``(n,)``) on the CPU.  On a GPU the RHS must be a
 :class:`~ivp_tpu_torch.rhs.CudaRHS` (``rhs.vdp``, ``rhs.decay``,
-``rhs.lorenz``), whose CUDA functor is compiled into the kernel.
+``rhs.lorenz``, ``rhs.cr3bp``), whose CUDA functor is compiled into the
+kernels; ``solve_ivp`` runs one as a single lane.
 """
 from . import rhs
 from .types import Status, strict_methods
-from .batch import EnsembleResult, build_ensemble_solver, solve_ivp_ensemble
+from .batch import (BatchOdeSolution, EnsembleResult, build_ensemble_solver,
+                    build_recording_solver, solve_ivp_ensemble)
+from .solve import OdeResult, OdeSolution, solve_ivp
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "solve_ivp",
+    "OdeResult",
+    "OdeSolution",
     "build_ensemble_solver",
+    "build_recording_solver",
+    "BatchOdeSolution",
     "solve_ivp_ensemble",
     "EnsembleResult",
     "Status",

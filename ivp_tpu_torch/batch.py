@@ -2,22 +2,25 @@
 
 Thousands of independent IVPs integrate together, each with its own
 adaptive step size, step counters and status code, to each lane's final
-state or with in-loop samples on a ``t_eval`` grid.  The reference vmaps a
-``lax.while_loop``; here the batch axis is explicit and the solve runs
-through ``kernels/erk_ensemble.py``: the plain PyTorch driver for CPU
-tensors, one fused CUDA kernel launch for CUDA tensors with a
-:class:`~ivp_tpu_torch.rhs.CudaRHS`.  A torch tensor ``y0_batch`` keeps its
-device (a ``device`` argument that names another raises); anything else (a
-numpy array, a list) goes to the card (``torch.device("cuda")``) unless the
-caller passes ``device="cpu"``.  There is no fallback: with no CUDA device
-such a call raises.
+state or with in-loop samples on a ``t_eval`` grid, or recording every
+step (``record_trajectories``) and its dense coefficients
+(``dense_output``, evaluated by :class:`BatchOdeSolution`).  The reference
+vmaps a ``lax.while_loop``; here the batch axis is explicit and the solve
+runs through ``kernels/erk_ensemble.py`` (``kernels/erk_record.py`` when
+recording): the plain PyTorch driver for CPU tensors, fused CUDA kernel
+launches for CUDA tensors with a :class:`~ivp_tpu_torch.rhs.CudaRHS`.  A
+torch tensor ``y0_batch`` keeps its device (a ``device`` argument that names
+another raises); anything else (a numpy array, a list) goes to the card
+(``torch.device("cuda")``) unless the caller passes ``device="cpu"``.  There
+is no fallback: with no CUDA device such a call raises.
 
 The RHS is batched: ``fun(t, y, *args)`` takes ``t`` of shape ``(B,)`` and
 ``y`` of shape ``(B, n)`` and returns ``(B, n)``.
 
-Ported: ``"RK45"``, ``"DOP853"``, ``"RK23"`` and ``"RK4"`` with ``t_eval``
-and the explicit engines' ``solver_options``.  Options of later slices
-raise NotImplementedError naming their ROADMAP item.
+Ported: ``"RK45"``, ``"DOP853"``, ``"RK23"`` and ``"RK4"`` with ``t_eval``,
+the explicit engines' ``solver_options`` and the recording tier.  Options of
+later slices raise NotImplementedError naming their ROADMAP item, and so
+does float32 on the card, all before anything is placed on a device.
 """
 from __future__ import annotations
 
@@ -27,9 +30,11 @@ import numpy as np
 import torch
 
 from .types import canonical_method
+from .core.cache import LRUCache, cache_token
 from .methods import get_engine
 from .methods.ddtier import resolve_auto_dtype
 from .kernels.erk_ensemble import erk_ensemble
+from .kernels.erk_record import erk_record
 
 
 class EnsembleResult(NamedTuple):
@@ -42,6 +47,11 @@ class EnsembleResult(NamedTuple):
     nrejct: Any   # (B,) int32
     y_samples: Any = None  # (B, m, n) states at the t_eval grid
     n_samples: Any = None  # (B,) int32 emitted sample counts
+    ts: Any = None         # (B, S) recorded step endpoints (recording tier;
+    #                        rows past a lane's n_steps_rec are zero)
+    ys: Any = None         # (B, S, n) recorded states
+    n_steps_rec: Any = None  # (B,) int64 recorded steps per lane
+    sol: Any = None        # BatchOdeSolution (dense_output)
 
 
 def _unported(**opts):
@@ -51,6 +61,20 @@ def _unported(**opts):
         if is_set:
             raise NotImplementedError(
                 f"{name} is not ported to ivp_tpu_torch yet: ROADMAP §1 {where}")
+
+
+def _later_slices(events, max_restarts, time_dtype, jac, jac_sparsity):
+    """The solver factories' options of later slices: NotImplementedError
+    naming the first one set."""
+    _unported(events=(bool(events), "item 5 (events and restarts)"),
+              max_restarts=(bool(max_restarts), "item 5 (events and restarts)"),
+              time_dtype=(time_dtype is not None, TIME_DTYPE_ITEM),
+              jac=(jac is not None, "item 7 (the stiff tier)"),
+              jac_sparsity=(jac_sparsity is not None, "item 7 (the stiff tier)"))
+
+
+# Where ROADMAP §1 keeps time_dtype (f64 time with f32 state).
+TIME_DTYPE_ITEM = "item 14 (time_dtype: f64 time with f32 state)"
 
 
 def _check_method(method):
@@ -112,6 +136,26 @@ def _lanes(v, B, dtype, device) -> torch.Tensor:
                               (B,)).contiguous()
 
 
+F32_ON_CARD = ("float32 on the card is not ported to ivp_tpu_torch yet: "
+               "ROADMAP §2 open item 3 (float32 state on the card); run "
+               "float32 with device='cpu', or float64 on the card")
+
+
+def placement(y0, device) -> torch.device:
+    """Where a solve would run, without placing anything: a tensor's own
+    device, else ``device``, else the card."""
+    if isinstance(y0, torch.Tensor):
+        return y0.device
+    return torch.device("cuda" if device is None else device)
+
+
+def _refuse_f32_on_card(dtype, y0, device):
+    """float32 on a CUDA placement raises NotImplementedError (the kernels
+    are float64), before anything is placed or the card is looked for."""
+    if dtype == torch.float32 and placement(y0, device).type == "cuda":
+        raise NotImplementedError(F32_ON_CARD)
+
+
 def _place(y0_batch, device) -> torch.device:
     """The device a solve runs on: a tensor's own, else ``device``, else the
     card.  Raises ValueError when ``device`` is given and is not the
@@ -168,7 +212,8 @@ def build_ensemble_solver(fun, method="RK45", *, n, dtype=None, args=(),
     ``(B,)`` axis, one value per lane (parameter sweeps).
 
     ``dtype``: ``None``, ``"auto"`` and ``"dd"`` resolve to float64 (native
-    f64 on CPUs and GPUs); ``torch.float32`` runs the CPU route only.
+    f64 on CPUs and GPUs); ``torch.float32`` runs the CPU route only (on a
+    CUDA placement it raises NotImplementedError before placing anything).
 
     ``t_eval``: a sorted grid, ``(m,)`` shared or ``(B, m)`` per lane.  Each
     lane's states there come back as ``y_samples (B, m, n)``, interpolated
@@ -188,11 +233,7 @@ def build_ensemble_solver(fun, method="RK45", *, n, dtype=None, args=(),
     NotImplementedError naming their slice.
     """
     del unroll, min_step, event_capacity
-    _unported(events=(bool(events), "item 5 (events and restarts)"),
-              max_restarts=(bool(max_restarts), "item 5 (events and restarts)"),
-              time_dtype=(time_dtype is not None, "item 4 (the single-IVP facade)"),
-              jac=(jac is not None, "item 7 (the stiff tier)"),
-              jac_sparsity=(jac_sparsity is not None, "item 7 (the stiff tier)"))
+    _later_slices(events, max_restarts, time_dtype, jac, jac_sparsity)
     method = _check_method(method)
     dtype = resolve_auto_dtype(dtype)
     args = tuple(args)
@@ -200,6 +241,7 @@ def build_ensemble_solver(fun, method="RK45", *, n, dtype=None, args=(),
     sample_cap = 0 if sample_grid is None else int(sample_grid.shape[-1])
     _, params = get_engine(method, need_cont=sample_cap > 0,
                            **(solver_options or {}))
+    grids = {}   # the build-time grid on each device it has run on
 
     def solver(y0_batch, t0, tf, rtol, atol, t_grid=None, batched_args=None,
                device=None):
@@ -209,6 +251,7 @@ def build_ensemble_solver(fun, method="RK45", *, n, dtype=None, args=(),
         that is not a tensor goes; the card by default, ``"cpu"`` for the
         plain version.  A tensor keeps its own device; a ``device`` given
         with it must name that device (ValueError otherwise)."""
+        _refuse_f32_on_card(dtype, y0_batch, device)
         y0 = _as_state(y0_batch, dtype, device)
         if y0.ndim != 2 or y0.shape[1] != n:
             raise ValueError(f"y0_batch must have shape (B, {n}), "
@@ -227,9 +270,15 @@ def build_ensemble_solver(fun, method="RK45", *, n, dtype=None, args=(),
         lane_args = args if batched_args is None else tuple(batched_args)
         if args_batched:
             lane_args = tuple(_lane_arg(a, B, **kw) for a in lane_args)
-        grid = sample_grid if t_grid is None else t_grid
+        if t_grid is not None:
+            grid = torch.as_tensor(t_grid, **kw)
+        elif sample_grid is not None:
+            grid = grids.get(dev)
+            if grid is None:
+                grid = grids[dev] = torch.as_tensor(sample_grid, **kw)
+        else:
+            grid = None
         if grid is not None:
-            grid = torch.as_tensor(grid, **kw)
             if (t_grid is not None and (sample_cap == 0 or grid.ndim == 0
                                         or grid.shape[-1] != sample_cap)):
                 raise ValueError(
@@ -259,6 +308,16 @@ def _lane_arg(a, B, dtype, device):
     return a
 
 
+_ENSEMBLE_CACHE = LRUCache(maxsize=64)
+
+
+def _grid_token(t_eval):
+    if t_eval is None:
+        return None
+    return cache_token(t_eval if isinstance(t_eval, torch.Tensor)
+                       else np.asarray(t_eval, float))
+
+
 def solve_ivp_ensemble(fun, t_span, y0_batch, method="RK45", *, rtol=1e-3,
                        atol=1e-6, args=(), jac=None, jac_sparsity=None,
                        max_steps: int = 100_000,
@@ -276,21 +335,26 @@ def solve_ivp_ensemble(fun, t_span, y0_batch, method="RK45", *, rtol=1e-3,
     """Batched solve of ``y0_batch (B, n)`` over ``t_span = (t0, tf)`` to
     each lane's final state, with its states on ``t_eval`` if given.
 
+    ``record_trajectories=True`` records every accepted step of every lane
+    (``ts (B, S)``, ``ys (B, S, n)``, ``n_steps_rec (B,)``); ``dense_output``
+    records each step's dense coefficients too and returns ``sol``, a
+    :class:`BatchOdeSolution`.  Records run in chunks of ``rec_chunk`` rows
+    a lane (one kernel launch each on the card) and stay on the solve's
+    device.
+
     ``chunk_steps`` is accepted and has no effect (ivp_tpu bounds each
     device call to that many attempts; the kernel runs each lane to its
     end in one launch).  ``lane_chunk="auto"`` and ``None`` mean no
     chunking.  ``device`` is as for :func:`build_ensemble_solver`'s solver:
     a tensor ``y0_batch`` keeps its device (a conflicting ``device`` raises
     ValueError), anything else goes to the card unless ``device="cpu"``.
-    ``dense_output``, ``record_trajectories``, an
-    integer ``lane_chunk`` and the options :func:`build_ensemble_solver`
-    does not run raise NotImplementedError naming their slice.
+    An integer ``lane_chunk`` and the options :func:`build_ensemble_solver`
+    does not run raise NotImplementedError naming their slice.  Solvers are
+    built once per configuration (an LRU cache keyed on the callable, its
+    args and every option).
     """
-    del chunk_steps, rec_chunk
-    _unported(dense_output=(dense_output, "item 6 (the recording tier)"),
-              record_trajectories=(record_trajectories,
-                                   "item 6 (the recording tier)"),
-              lane_chunk=(lane_chunk not in ("auto", None),
+    del chunk_steps
+    _unported(lane_chunk=(lane_chunk not in ("auto", None),
                           "item 6 (the resumable tier)"))
     # Every option is checked before anything is placed on a device.
     if isinstance(y0_batch, torch.Tensor):
@@ -300,22 +364,242 @@ def solve_ivp_ensemble(fun, t_span, y0_batch, method="RK45", *, rtol=1e-3,
         y0 = np.atleast_2d(np.asarray(y0_batch, float))
         finite = bool(np.isfinite(y0).all())
     B, n = y0.shape
-    solver = build_ensemble_solver(
-        fun, method, n=n, dtype=dtype, args=tuple(args), jac=jac,
+    record = bool(dense_output or record_trajectories)
+    opts = dict(
+        n=n, dtype=dtype, args=tuple(args), jac=jac,
         jac_sparsity=jac_sparsity, max_steps=max_steps, first_step=first_step,
         max_step=max_step, min_step=min_step, events=events, t_eval=t_eval,
         solver_options=solver_options, max_restarts=max_restarts,
         time_dtype=time_dtype)
+    key = ("ensemble", str(method), n, str(dtype),
+           cache_token(fun), tuple(cache_token(a) for a in tuple(args)),
+           cache_token(jac), cache_token(jac_sparsity), max_steps, first_step,
+           max_step, min_step, bool(events), _grid_token(t_eval),
+           tuple(sorted((k, cache_token(v))
+                        for k, v in (solver_options or {}).items())),
+           max_restarts, str(time_dtype), record, bool(dense_output),
+           rec_chunk if record else 0)
+    if record:
+        solver = _ENSEMBLE_CACHE.get_or_build(key, lambda: build_recording_solver(
+            fun, method, dense_output=dense_output, rec_chunk=rec_chunk,
+            **opts))
+    else:
+        solver = _ENSEMBLE_CACHE.get_or_build(
+            key, lambda: build_ensemble_solver(fun, method, **opts))
     if not finite:
         raise ValueError("All components of the initial states `y0_batch` "
                          "must be finite.")
     t0, tf = float(t_span[0]), float(t_span[1])
     if n == 0:
         # Empty system: nothing to integrate.
+        _refuse_f32_on_card(resolve_auto_dtype(dtype), y0_batch, device)
         dev = _place(y0_batch, device)
         z = torch.zeros((B,), dtype=torch.int32, device=dev)
+        kw = {}
+        if record:
+            kw = dict(ts=torch.zeros((B, 0), dtype=torch.float64, device=dev),
+                      ys=torch.zeros((B, 0, 0), dtype=torch.float64,
+                                     device=dev),
+                      n_steps_rec=z.to(torch.int64))
         return EnsembleResult(
             t=torch.full((B,), tf, dtype=torch.float64, device=dev),
             y=torch.as_tensor(y0, dtype=torch.float64, device=dev), status=z,
-            nfev=z, nstep=z, naccpt=z, nrejct=z)
+            nfev=z, nstep=z, naccpt=z, nrejct=z, **kw)
+    if record:
+        return _run_recording(solver, y0, t_span, rtol, atol, device)
     return solver(y0, t0, tf, rtol, atol, device=device)
+
+
+# =============================================================================
+# Batched trajectory recording + dense output
+# =============================================================================
+
+# The coefficients BatchOdeSolution gathers for one block of query times.
+_QUERY_BLOCK_BYTES = 1 << 28
+
+class BatchOdeSolution:
+    """Batched continuous solution: one piecewise interpolant per lane
+    (``ivp_tpu.batch.BatchOdeSolution``), evaluated with torch operations
+    on the device that holds the records.
+
+    * ``sol(t)`` with scalar ``t`` -> ``(B, n)``
+    * ``sol(ts)`` with a shared grid ``(m,)`` -> ``(B, n, m)``
+    * ``sol(ts)`` with per-lane grids ``(B, m)`` -> ``(B, n, m)``
+
+    Extrapolates beyond each lane's covered span with its first or last
+    segment (SciPy semantics).  Per-lane spans are in ``t_mins`` /
+    ``t_maxs``.  Queries are answered in blocks of times, so that the
+    coefficients gathered at once stay near ``_QUERY_BLOCK_BYTES``.
+    """
+
+    def __init__(self, method, interp, xolds, hs, conts, edges, counts,
+                 t0, y0_batch):
+        self.method = method
+        self._interp = interp
+        self._xolds = xolds                  # (B, S)
+        self._hs = hs                        # (B, S)
+        self._conts = conts                  # (B, S, C, n)
+        self._edges = edges                  # (B, S) recorded endpoints
+        self._counts = counts.to(torch.int64)  # (B,)
+        self._y0 = y0_batch                  # (B, n)
+        B, S = xolds.shape
+        dev, dt = xolds.device, xolds.dtype
+        self.n_lanes = B
+        self._t0 = torch.broadcast_to(torch.as_tensor(t0, dtype=dt, device=dev),
+                                      (B,))
+        if S:
+            has = self._counts > 0
+            lastv = edges[torch.arange(B, device=dev),
+                          torch.clamp_min(self._counts - 1, 0)]
+            t_end = torch.where(has, lastv, self._t0)
+            t_start = torch.where(has, xolds[:, 0], self._t0)
+        else:
+            t_end = t_start = self._t0
+        self.t_mins = torch.minimum(t_start, t_end)
+        self.t_maxs = torch.maximum(t_start, t_end)
+        self._forward = bool((t_end >= t_start).all())
+        # Pad edges past each lane's count so searchsorted never selects a
+        # padded segment (the clip keeps queries on the last real one).
+        pad = float("inf") if self._forward else float("-inf")
+        mask = torch.arange(S, device=dev)[None, :] >= self._counts[:, None]
+        self._search_edges = torch.where(mask, torch.full_like(edges, pad),
+                                         edges)
+
+    def __call__(self, t):
+        dev, dt = self._xolds.device, self._xolds.dtype
+        t_arr = torch.as_tensor(t, dtype=dt, device=dev)
+        scalar = t_arr.ndim == 0
+        if t_arr.ndim <= 1:
+            t1 = torch.atleast_1d(t_arr)
+            ts = torch.broadcast_to(t1[None, :], (self.n_lanes, t1.shape[0]))
+        elif t_arr.ndim == 2:
+            if t_arr.shape[0] != self.n_lanes:
+                raise ValueError(
+                    f"per-lane query grid must have leading dim "
+                    f"{self.n_lanes}, got {tuple(t_arr.shape)}")
+            ts = t_arr
+        else:
+            raise ValueError("query times must be scalar, (m,) or (B, m)")
+        B, m = ts.shape
+        if self._xolds.shape[1] == 0:
+            out = torch.broadcast_to(self._y0[:, :, None],
+                                     (B, self._y0.shape[1], m)).clone()
+            return out[:, :, 0] if scalar else out
+        sgn = 1.0 if self._forward else -1.0
+        C, n = self._conts.shape[2:]
+        step = max(1, _QUERY_BLOCK_BYTES // max(1, B * C * n * 8))
+        out = [self._eval(ts[:, j:j + step], sgn) for j in range(0, m, step)]
+        ys = torch.cat(out, dim=2) if len(out) > 1 else out[0]
+        return ys[:, :, 0] if scalar else ys
+
+    def t_span(self):
+        """Per-lane covered spans: ``(t_mins, t_maxs)``, each ``(B,)``."""
+        return self.t_mins, self.t_maxs
+
+    def _eval(self, ts, sgn):
+        """``(B, n, m)`` at the ``(B, m)`` times ``ts``."""
+        B, m = ts.shape
+        idx = torch.searchsorted((sgn * self._search_edges).contiguous(),
+                                 (sgn * ts).contiguous(), side="left")
+        idx = torch.minimum(idx, torch.clamp_min(self._counts - 1, 0)[:, None])
+        rows = torch.arange(B, device=ts.device)[:, None]
+        C, n = self._conts.shape[2:]
+        conts = self._conts[rows, idx].reshape(B * m, C, n)
+        ys = self._interp(conts, self._xolds[rows, idx].reshape(-1),
+                          self._hs[rows, idx].reshape(-1), ts.reshape(-1))
+        return ys.reshape(B, m, n).permute(0, 2, 1)
+
+
+def build_recording_solver(fun, method="RK45", *, n, dtype=None, args=(),
+                           jac=None, jac_sparsity=None,
+                           max_steps: int = 100_000,
+                           first_step: Optional[float] = None,
+                           max_step: Optional[float] = None,
+                           min_step: float = 0.0, events=None,
+                           event_capacity: int = 16, t_eval=None,
+                           solver_options: Optional[dict] = None,
+                           max_restarts: int = 0, dense_output: bool = True,
+                           rec_chunk: int = 1024, time_dtype=None) -> Callable:
+    """Return ``solver(y0_batch, t0, tf, rtol, atol, device=None) ->
+    EnsembleResult`` that records every accepted step of every lane
+    (``ivp_tpu.batch.build_recording_solver``): ``ts``, ``ys`` and
+    ``n_steps_rec``, with ``dense_output`` each step's coefficients and
+    ``sol``, a :class:`BatchOdeSolution`; with ``t_eval`` the in-loop samples
+    too.  Arguments as for :func:`build_ensemble_solver`; ``rec_chunk``
+    rows a lane are recorded between two drains.  ``t0`` may be a scalar or
+    ``(B,)``; the largest ``|tf - t0|`` (capped by ``max_step``) is every
+    lane's ``hmax``, as in ivp_tpu."""
+    del min_step, event_capacity
+    _later_slices(events, max_restarts, time_dtype, jac, jac_sparsity)
+    method = _check_method(method)
+    dtype = resolve_auto_dtype(dtype)
+    args = tuple(args)
+    sample_grid = None if t_eval is None else _norm_sample_grid(t_eval)
+    sample_cap = 0 if sample_grid is None else int(sample_grid.shape[-1])
+    engine, params = get_engine(method,
+                                need_cont=bool(dense_output or sample_cap),
+                                **(solver_options or {}))
+    grids = {}
+
+    def solver(y0_batch, t0, tf, rtol, atol, device=None):
+        _refuse_f32_on_card(dtype, y0_batch, device)
+        y0 = _as_state(y0_batch, dtype, device)
+        if y0.ndim != 2 or y0.shape[1] != n:
+            raise ValueError(f"y0_batch must have shape (B, {n}), "
+                             f"got {tuple(y0.shape)}")
+        B, dev = y0.shape[0], y0.device
+        kw = dict(dtype=dtype, device=dev)
+        t0_b = _lanes(t0, B, **kw)
+        tf_b = _lanes(tf, B, **kw)
+        hmax = float(np.max(np.abs(float(tf) - np.asarray(
+            t0.cpu() if isinstance(t0, torch.Tensor) else t0, float))))
+        if max_step is not None:
+            hmax = min(hmax, abs(float(max_step)))
+        fs = (torch.full((B,), float(first_step), **kw)
+              if first_step is not None else None)
+        grid = None
+        if sample_grid is not None:
+            grid = grids.get(dev)
+            if grid is None:
+                grid = grids[dev] = torch.as_tensor(sample_grid, **kw)
+            if grid.ndim == 2 and grid.shape[0] != B:
+                raise ValueError(f"a per-lane t_eval grid needs {B} rows, "
+                                 f"got {tuple(grid.shape)}")
+            grid = torch.broadcast_to(grid, (B, sample_cap))
+        rec = erk_record(method, fun, y0, t0_b, tf_b, _lanes(hmax, B, **kw),
+                         fs, _norm_tol(rtol, B, n, dtype, dev, "rtol"),
+                         _norm_tol(atol, B, n, dtype, dev, "atol"), args,
+                         max_steps, grid, params, rec_cap=rec_chunk,
+                         record_cont=dense_output)
+        return _recording_result(engine, method, rec, dense_output, t0_b, y0)
+
+    return solver
+
+
+def build_resumable_solver(*args, **kwargs):
+    """ivp_tpu's resumable ensemble tier (``start``/``resume``/``extract``
+    over a carry checkpointed every ``chunk_steps`` attempts) is not ported
+    yet: NotImplementedError naming its ROADMAP item."""
+    del args, kwargs
+    _unported(build_resumable_solver=(True, "item 6 (the resumable tier)"))
+
+
+def _recording_result(engine, method, rec, dense_output, t0,
+                      y0_batch) -> EnsembleResult:
+    """Assemble the EnsembleResult of a drained recording run."""
+    sol = None
+    if dense_output:
+        sol = BatchOdeSolution(method, engine.interp, rec.rec_xold, rec.rec_h,
+                               rec.rec_cont, rec.rec_t, rec.n_rec, t0,
+                               y0_batch)
+    return EnsembleResult(rec.t, rec.y, rec.status, rec.nfev, rec.nstep,
+                          rec.naccpt, rec.nrejct, rec.y_samples,
+                          rec.n_samples, ts=rec.rec_t, ys=rec.rec_y,
+                          n_steps_rec=rec.n_rec, sol=sol)
+
+
+def _run_recording(solver, y0_batch, t_span, rtol, atol,
+                   device=None) -> EnsembleResult:
+    """The recording solve of :func:`solve_ivp_ensemble` over ``t_span``."""
+    t0, tf = float(t_span[0]), float(t_span[1])
+    return solver(y0_batch, t0, tf, rtol, atol, device=device)

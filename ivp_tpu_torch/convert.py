@@ -22,16 +22,22 @@ def erk_params_from_jax(p) -> ERKParams:
 
 
 def carry_from_numpy(carry, device=None) -> Carry:
-    """The port's driver Carry from an ``ivp_tpu`` driver Carry, lean or in
-    sample mode (vmapped: every leaf has a leading batch axis), whose leaves
-    are numpy arrays, ``ERKState`` included.  The sample cursor and buffer
-    and the carried segment (``s_cursor``, ``sample_y``, ``seg_*``) come
-    across as they are: zero-size in lean mode, mid-solve otherwise.  dtypes
-    are kept; tensors land on ``device`` (default: CPU).  Fields the port's
-    driver does not carry (njev, nlu, record and event buffers) are
-    dropped."""
+    """The port's driver Carry from an ``ivp_tpu`` driver Carry, lean, in
+    sample mode or in record mode (``rec_scan=False``), whose leaves are
+    numpy arrays, ``ERKState`` included.  Vmapped (every leaf has a leading
+    batch axis) or a single IVP's (``solve_ivp``'s driver; it comes across
+    as one lane).  The sample cursor and buffer, the carried segment and the
+    record cursor and buffers (``s_cursor``, ``sample_y``, ``seg_*``,
+    ``n_rec``, ``rec_*``, ``rec_cont`` in its flat ``(cap, C*n)`` rows) come
+    across as they are: zero-size where the mode is off, mid-solve
+    otherwise.  dtypes are kept; tensors land on ``device`` (default: CPU).
+    Fields the port's driver does not carry (njev, nlu, event buffers,
+    restarts) are dropped."""
+    single = np.ndim(carry.t) == 0
+
     def tt(x):
-        return torch.as_tensor(np.array(x), device=device)
+        a = np.array(x)
+        return torch.as_tensor(a[None] if single else a, device=device)
 
     ms = ERKState(*(tt(getattr(carry.ms, f)) for f in ERKState._fields))
     return Carry(**{f: ms if f == "ms" else tt(getattr(carry, f))
@@ -39,7 +45,7 @@ def carry_from_numpy(carry, device=None) -> Carry:
 
 
 def result_to_numpy(res):
-    """An EnsembleResult with every field as a numpy array (``y_samples``
-    and ``n_samples`` stay None where the solve had no grid)."""
-    return type(res)(*(None if x is None else x.detach().cpu().numpy()
+    """An EnsembleResult with every tensor field as a numpy array (a field
+    the solve did not fill stays None; ``sol`` stays as it is)."""
+    return type(res)(*(x.detach().cpu().numpy() if torch.is_tensor(x) else x
                        for x in res))

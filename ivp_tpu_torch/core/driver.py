@@ -1,11 +1,11 @@
-"""Generic integration driver (``ivp_tpu.core.driver``): lean mode and
-in-loop ``t_grid`` samples.
+"""Generic integration driver (``ivp_tpu.core.driver``): lean mode, in-loop
+``t_grid`` samples and step records.
 
 The reference runs one ``lax.while_loop`` around an engine's attempt and
 vmaps it over the ensemble; here the loop is a Python loop over batched
 attempts:
 
-    carry -> engine.attempt -> [sample emission] -> counters/status -> carry
+    carry -> engine.attempt -> [record] -> [sample emission] -> counters/status -> carry
 
 Every lane keeps its own step size, counters and status.  A lane that is
 done is frozen (its carry is kept by a masked select), so each lane's
@@ -18,9 +18,19 @@ accepted segment it carries, and the iteration's attempt is thrown away,
 counters included.  A lane's own row is written through its cursor with an
 ordinary indexed write (the reference's one-hot select is a TPU lowering).
 
-Record buffers and events are not ported (ROADMAP §1 items 5 and 6).  This
-is the plain version of the fused CUDA kernels (kernels/erk_ensemble.py),
-and the CPU route.
+Record mode (``DriverConfig.rec_cap > 0``) is the reference's while design
+(``rec_scan=False``): each advanced step writes its endpoint t, state y, left
+edge xold and signed h, and with ``record_cont`` its dense coefficients as
+one flat row of ``C*n``, at the lane's cursor ``n_rec``.  A lane stops when
+its buffer holds ``rec_cap`` rows; the host drains the rows, clears the
+cursors (:func:`reset_records`) and runs the next chunk from the carry.  The
+record buffers are written in place, each lane only its own rows: no
+whole-buffer select per attempt.  The reference's scan tier is a TPU
+lowering and is not ported.
+
+Events are not ported (ROADMAP §1 item 5).  This is the plain version of the
+fused CUDA kernels (kernels/erk_ensemble.py, kernels/erk_record.py), and the
+CPU route.
 """
 from __future__ import annotations
 
@@ -40,6 +50,8 @@ class DriverConfig:
     unroll: int = 1  # masked attempts per check of the done mask (a host
     #                  sync on a GPU); results do not depend on it
     sample_cap: int = 0  # in-loop t_grid emission buffer size (0 = off)
+    rec_cap: int = 0     # step records per chunk (0 = no records)
+    record_cont: bool = False  # also record dense coefficients
 
 
 class Carry(NamedTuple):
@@ -52,6 +64,13 @@ class Carry(NamedTuple):
     nstep: Any
     naccpt: Any
     nrejct: Any
+    n_rec: Any      # (B,) int32: rows recorded in this chunk
+    rec_t: Any      # (B, rec_cap) step endpoints
+    rec_y: Any      # (B, rec_cap, n) states at rec_t
+    rec_xold: Any   # (B, rec_cap) step left edges
+    rec_h: Any      # (B, rec_cap) signed step sizes
+    rec_cont: Any   # (B, rec_cap, C*n) flat dense coefficients ((B, cap, 0)
+    #                 without record_cont); a drain reshapes to (k, C, n)
     s_cursor: Any   # (B,) int32: next t_grid sample to emit
     sample_y: Any   # (B, sample_cap, n) in-loop interpolated samples
     # Last accepted segment (sample mode; zero-size otherwise), from which
@@ -73,12 +92,35 @@ def _i32(like, v):
     return torch.full(like.shape[:1], v, dtype=torch.int32, device=like.device)
 
 
+# Carry fields written in place, lane by lane (record mode): a frozen lane's
+# rows are never touched, so no select keeps them.
+_IN_PLACE = ("rec_t", "rec_y", "rec_xold", "rec_h", "rec_cont")
+
+
+def _keep(frozen, old: Carry, new: Carry) -> Carry:
+    """``new`` on live lanes, ``old`` on frozen ones; the record buffers are
+    ``new``'s (the same tensors, written only on live lanes)."""
+    return Carry(*(n if f in _IN_PLACE else tree_where(frozen, o, n)
+                   for f, o, n in zip(Carry._fields, old, new)))
+
+
+def reset_records(c: Carry) -> Carry:
+    """Clear every lane's record cursor between chunks (the rows stay)."""
+    return c._replace(n_rec=torch.zeros_like(c.n_rec))
+
+
 def make_driver(engine: Engine, p, cfg: DriverConfig, rhs):
-    """Build ``(init_carry, run_chunk, run_bounded)`` for an engine."""
+    """Build ``(init_carry, run_chunk, run_bounded)`` for an engine; a
+    record-mode caller clears the cursors between chunks with
+    :func:`reset_records`."""
     m = cfg.sample_cap
     Cs = engine.ncoeff if m else 0
     if m and not Cs:
         raise ValueError("sample mode needs an engine built with need_cont")
+    cap = cfg.rec_cap
+    Cr = engine.ncoeff if cfg.record_cont else 0
+    if cfg.record_cont and not Cr:
+        raise ValueError("record_cont needs an engine built with need_cont")
 
     def init_carry(t0, y0, first_step, ra: RunArgs) -> Carry:
         ms, nfev0 = engine.init(rhs, t0, y0, first_step, ra, p)
@@ -93,6 +135,10 @@ def make_driver(engine: Engine, p, cfg: DriverConfig, rhs):
             done=trivial,
             nfev=_i32(y0, nfev0), nstep=_i32(y0, 0), naccpt=_i32(y0, 0),
             nrejct=_i32(y0, 0),
+            n_rec=_i32(y0, 0),
+            rec_t=y0.new_zeros((B, cap)), rec_y=y0.new_zeros((B, cap, n)),
+            rec_xold=y0.new_zeros((B, cap)), rec_h=y0.new_zeros((B, cap)),
+            rec_cont=y0.new_zeros((B, cap, Cr * n)),
             s_cursor=_i32(y0, 0),
             sample_y=y0.new_zeros((B, m, n)),
             seg_cont=y0.new_zeros((B, Cs, n)),
@@ -100,13 +146,28 @@ def make_driver(engine: Engine, p, cfg: DriverConfig, rhs):
             seg_valid=torch.zeros_like(trivial),
         )
 
-    def step_body(c: Carry, ra: RunArgs, stall=None) -> Carry:
-        """One step attempt on every lane (done lanes are frozen by the
-        caller).  ``stall`` (sample mode): lanes whose iteration goes to a
-        sample emission; every effect of their attempt is masked out."""
+    def step_body(c: Carry, ra: RunArgs, live, stall=None) -> Carry:
+        """One step attempt on every lane (the caller freezes the lanes
+        that are not ``live``; their record rows are not written).
+        ``stall`` (sample mode): lanes whose iteration goes to a sample
+        emission; every effect of their attempt is masked out."""
         res = engine.attempt(rhs, c.t, c.y, c.naccpt, c.ms, ra, p)
         act = torch.ones_like(c.done) if stall is None else ~stall
         adv = res.advance & act
+
+        # ---- Record the advanced step at the lane's cursor, in place ----
+        n_rec = c.n_rec
+        if cap:
+            w = adv & live
+            rows = torch.nonzero(w)[:, 0]
+            at = (rows, c.n_rec[rows].to(torch.int64))
+            c.rec_t.index_put_(at, res.t_new[rows])
+            c.rec_y.index_put_(at, res.y_new[rows])
+            c.rec_xold.index_put_(at, res.xold[rows])
+            c.rec_h.index_put_(at, res.h_used[rows])
+            if Cr:
+                c.rec_cont.index_put_(at, res.cont[rows].flatten(1))
+            n_rec = c.n_rec + w.to(torch.int32)
 
         # ---- Carried segment for the t_grid emission (in ``body``) ----
         if m:
@@ -143,7 +204,9 @@ def make_driver(engine: Engine, p, cfg: DriverConfig, rhs):
         # finished may still owe due samples.
         return Carry(t=t_step, y=y_step, ms=ms_next, status=status,
                      done=status != Status.RUNNING, nfev=nfev, nstep=nstep,
-                     naccpt=naccpt, nrejct=nrejct,
+                     naccpt=naccpt, nrejct=nrejct, n_rec=n_rec,
+                     rec_t=c.rec_t, rec_y=c.rec_y, rec_xold=c.rec_xold,
+                     rec_h=c.rec_h, rec_cont=c.rec_cont,
                      s_cursor=c.s_cursor, sample_y=c.sample_y,
                      seg_cont=seg_cont, seg_xold=seg_xold, seg_h=seg_h,
                      seg_valid=seg_valid)
@@ -155,17 +218,17 @@ def make_driver(engine: Engine, p, cfg: DriverConfig, rhs):
         tau = ra.t_grid.gather(1, idx[:, None])[:, 0]
         return (cursor < m) & valid & ((tau - t) * posneg <= 0.0), idx, tau
 
-    def body(c: Carry, ra: RunArgs) -> Carry:
+    def body(c: Carry, ra: RunArgs, live) -> Carry:
         """One driver iteration: one step attempt (step_body) or, where a
         t_grid sample is due inside the span already covered, one sample
         emission from the carried segment with the attempt discarded (the
         lane stalls until its due samples are drained, so every sample
         interpolates the segment that covered it)."""
         if not m:
-            return step_body(c, ra)
+            return step_body(c, ra, live)
         posneg = c.ms.posneg
         due, idx, tau = _due(c.s_cursor, c.seg_valid, c.t, posneg, ra)
-        c2 = step_body(c, ra, stall=due)
+        c2 = step_body(c, ra, live, stall=due)
 
         yi = engine.interp(c.seg_cont, c.seg_xold, c.seg_h, tau)
         rows = torch.nonzero(due)[:, 0]
@@ -175,15 +238,21 @@ def make_driver(engine: Engine, p, cfg: DriverConfig, rhs):
         return c2._replace(sample_y=sample_y, s_cursor=s_cursor,
                            done=(c2.status != Status.RUNNING) & ~still)
 
-    def body_unrolled(c: Carry, ra: RunArgs) -> Carry:
-        """``cfg.unroll`` iterations, freezing lanes as they finish."""
+    def frozen(c: Carry):
+        """Lanes that take no iteration: done, or with a full buffer."""
+        return c.done | (c.n_rec >= cap) if cap else c.done
+
+    def body_unrolled(c: Carry, ra: RunArgs, allow=None) -> Carry:
+        """``cfg.unroll`` iterations, freezing lanes as they finish or fill
+        their buffer; lanes outside ``allow`` stay frozen."""
         for _ in range(max(1, cfg.unroll)):
-            c = tree_where(c.done, c, body(c, ra))
+            f = frozen(c) if allow is None else frozen(c) | ~allow
+            c = _keep(f, c, body(c, ra, ~f))
         return c
 
     def run_chunk(c: Carry, ra: RunArgs) -> Carry:
-        """Integrate every lane until it is done."""
-        while not bool(c.done.all()):
+        """Integrate every lane until it is done or its buffer is full."""
+        while not bool(frozen(c).all()):
             c = body_unrolled(c, ra)
         return c
 
@@ -193,10 +262,10 @@ def make_driver(engine: Engine, p, cfg: DriverConfig, rhs):
         ``cfg.unroll`` iterations, as the reference's vmapped while loop)."""
         start = c.nstep
         while True:
-            go = ~c.done & (c.nstep - start < max_attempts)
+            go = ~frozen(c) & (c.nstep - start < max_attempts)
             if not bool(go.any()):
                 return c
-            c = tree_where(go, body_unrolled(c, ra), c)
+            c = body_unrolled(c, ra, allow=go)
 
     return init_carry, run_chunk, run_bounded
 

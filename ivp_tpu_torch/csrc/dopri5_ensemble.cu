@@ -64,6 +64,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "rhs/cr3bp.cuh"
 #include "rhs/decay.cuh"
 #include "rhs/lorenz.cuh"
 #include "rhs/vdp.cuh"
@@ -425,6 +426,8 @@ int launch(int B, const double* y0, const double* t0, const double* tf,
 IVP_DOPRI5_ENTRY(vdp, VdP, 64, 12)
 IVP_DOPRI5_ENTRY(decay, Decay, 64, 8)
 IVP_DOPRI5_ENTRY(lorenz, Lorenz, 64, 10)
+// CR3BP (n = 6) is not tuned: it is no ensemble main path.
+IVP_DOPRI5_ENTRY(cr3bp, Cr3bp, 64, 8)
 
 extern "C" const char* ivp_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

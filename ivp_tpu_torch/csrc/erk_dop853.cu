@@ -23,11 +23,12 @@ struct Dop853 {
   static constexpr int NCOEFF = 8;
   static constexpr bool HAS_CONTROLLER = true;
 
-  template <class F, bool CONT, class CT>
+  template <class F, int DENSE, class CT>
   static __device__ double attempt(const F& f, const double* a, double t,
                                    const double* y, const double* k1,
                                    Lane<F::N, CT>& c, const ErkOptions& o,
-                                   Step<F::N, CONT ? NCOEFF : 0>& s) {
+                                   Step<F::N, DENSE ? NCOEFF : 0>& s) {
+    constexpr bool CONT = DENSE != DENSE_NONE;
     using namespace dop853;
     using C = Ctl<CT>;
     constexpr int N = F::N;
@@ -214,4 +215,5 @@ struct Dop853 {
 IVP_ERK_ENTRY(dop853, vdp, ivp::Dop853, VdP, 64, 4, 64, 4)
 IVP_ERK_ENTRY(dop853, decay, ivp::Dop853, Decay, 64, 4, 64, 4)
 IVP_ERK_ENTRY(dop853, lorenz, ivp::Dop853, Lorenz, 64, 4, 64, 4)
+IVP_ERK_ENTRY(dop853, cr3bp, ivp::Dop853, Cr3bp, 64, 4, 64, 4)
 IVP_ERK_LIBRARY()

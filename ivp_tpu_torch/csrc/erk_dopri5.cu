@@ -45,11 +45,12 @@ struct Dopri5 {
   static constexpr int NCOEFF = 5;
   static constexpr bool HAS_CONTROLLER = true;
 
-  template <class F, bool CONT, class CT>
+  template <class F, int DENSE, class CT>
   static __device__ double attempt(const F& f, const double* a, double t,
                                    const double* y, const double* k1,
                                    Lane<F::N, CT>& c, const ErkOptions& o,
-                                   Step<F::N, CONT ? NCOEFF : 0>& s) {
+                                   Step<F::N, DENSE ? NCOEFF : 0>& s) {
+    constexpr bool CONT = DENSE != DENSE_NONE;
     using namespace dopri5;
     using C = Ctl<CT>;
     constexpr int N = F::N;
@@ -64,9 +65,10 @@ struct Dopri5 {
                   c.posneg) > 0.0;
     if (last) h = c.tend - t;
     const double t_new = last ? c.tend : t + h;
-    // Whether this step, if it advances, emits a sample: only then are the
-    // dense rows built.
-    const bool due = CONT && covers(c, t_new);
+    // Whether the dense rows are built if this step advances: on every step
+    // when they are recorded, else only on a step that emits a sample.
+    const bool due = DENSE == DENSE_EVERY ||
+                     (DENSE == DENSE_SAMPLES && covers(c, t_new));
     // The stiffness test runs on this attempt if it is accepted.
     const bool stiff_due = c.stiff_in == 0 || c.iasti > 0;
 
@@ -202,4 +204,5 @@ struct Dopri5 {
 IVP_ERK_ENTRY(dopri5_sampled, vdp, ivp::Dopri5, VdP, 64, 12, 64, 4)
 IVP_ERK_ENTRY(dopri5_sampled, decay, ivp::Dopri5, Decay, 64, 8, 64, 4)
 IVP_ERK_ENTRY(dopri5_sampled, lorenz, ivp::Dopri5, Lorenz, 64, 8, 64, 4)
+IVP_ERK_ENTRY(dopri5_sampled, cr3bp, ivp::Dopri5, Cr3bp, 64, 8, 64, 4)
 IVP_ERK_LIBRARY()

@@ -22,11 +22,11 @@ struct Rk4 {
   static constexpr int NCOEFF = 0;   // interp reads the segment's ends
   static constexpr bool HAS_CONTROLLER = false;   // nothing to run in CT
 
-  template <class F, bool CONT, class CT>
+  template <class F, int DENSE, class CT>
   static __device__ double attempt(const F& f, const double* a, double t,
                                    const double* y, const double* k1,
                                    Lane<F::N, CT>& c, const ErkOptions& o,
-                                   Step<F::N, CONT ? NCOEFF : 0>& s) {
+                                   Step<F::N, DENSE ? NCOEFF : 0>& s) {
     using namespace rk4;
     constexpr int N = F::N;
     const double h = c.h;
@@ -79,4 +79,5 @@ struct Rk4 {
 IVP_ERK_ENTRY(rk4, vdp, ivp::Rk4, VdP, 64, 8, 64, 8)
 IVP_ERK_ENTRY(rk4, decay, ivp::Rk4, Decay, 64, 8, 64, 8)
 IVP_ERK_ENTRY(rk4, lorenz, ivp::Rk4, Lorenz, 64, 8, 64, 8)
+IVP_ERK_ENTRY(rk4, cr3bp, ivp::Rk4, Cr3bp, 64, 8, 64, 8)
 IVP_ERK_LIBRARY()

@@ -52,6 +52,8 @@ FLOPS_PER_ATTEMPT = {
     "decay": 72,
     # n=3: 3*46 + 6 RHS * 8 (2 + 3 + 3) + 3*12 + 6 + 1 + 1
     "lorenz": 230,
+    # n=6: 6*46 + 6 RHS * 39 (rhs.py::cr3bp) + 6*12 + 6 + 1 + 1
+    "cr3bp": 590,
 }
 # NVIDIA H100 SXM data sheet: FP64 (not the tensor cores, which need a
 # matrix product) and HBM3.

@@ -40,6 +40,7 @@ from the float64 work its lanes did (``FLOPS``) and the bytes it must move.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -106,8 +107,9 @@ FLOPS = {
     # per component.
     "RK4": Flops(15, 6, 4, 0, 0, 0, 7, 17),
 }
-# float64 operations of one RHS evaluation (csrc/rhs/*.cuh).
-RHS_FLOPS = {"vdp": 5, "decay": 1, "lorenz": 8}
+# float64 operations of one RHS evaluation (csrc/rhs/*.cuh; a square root
+# counts 1, as a division).
+RHS_FLOPS = {"vdp": 5, "decay": 1, "lorenz": 8, "cr3bp": 39}
 
 
 class KernelOptions(ctypes.Structure):
@@ -177,9 +179,75 @@ def _engine(method, m, params):
     return engine, params
 
 
+@functools.lru_cache(maxsize=None)
+def _default_params(method: str, need_cont: bool) -> ERKParams:
+    return get_engine(method, need_cont=need_cont)[1]
+
+
 def is_default(p: ERKParams) -> bool:
-    """Whether ``p`` holds its method's default options."""
-    return p == get_engine(p.method, need_cont=p.need_cont)[1]
+    """Whether ``p`` holds its method's default options (the defaults are
+    built once per method and mode)."""
+    return p == _default_params(p.method, p.need_cont)
+
+
+# (library, functor name) -> (n, nargs) the library's functor declares.
+# Keyed by the library object itself, which the dict keeps alive, so a
+# collected library's id cannot alias another's.
+_FUNCTOR_SHAPES: dict = {}
+
+
+def check_functor(lib, fun: CudaRHS, kargs) -> None:
+    """Raise unless ``fun``'s state size and arg count are those of its
+    CUDA functor in ``lib``; the library is asked once per functor."""
+    key = (lib, fun.name)
+    shape = _FUNCTOR_SHAPES.get(key)
+    if shape is None:
+        shape = tuple(build.entry(f"ivp_rhs_{q}_{fun.name}", [], lib=lib)()
+                      for q in ("n", "nargs"))
+        _FUNCTOR_SHAPES[key] = shape
+    if shape != (fun.n, kargs.shape[1]):
+        raise RuntimeError(
+            f"{fun!r} has n={fun.n}, {kargs.shape[1]} args; its CUDA functor "
+            f"has n={shape[0]}, {shape[1]} args")
+
+
+NO_GPU_CALLABLE = (
+    "on a CUDA device the solve runs a CudaRHS (ivp_tpu_torch.rhs) through "
+    "the fused kernel; an arbitrary torch RHS on the GPU is not ported yet: "
+    "ROADMAP §1 item 12 (arbitrary RHS on the GPU)")
+
+
+def check_inputs(fun: CudaRHS, y0, t0, tf, hmax, first_step, rtol, atol,
+                 t_grid):
+    """Check the per-lane inputs of a kernel launch (float64, on ``y0``'s
+    device, contiguous, shaped for ``fun``): ``(first_step, grid_ptr,
+    grid_stride)``, first_step NaN-filled where hinit picks it and the grid
+    as the kernel reads it (row 0 of a shared grid given as an expanded
+    view, else each lane's row)."""
+    dev = y0.device
+    B, n = y0.shape if y0.dim() == 2 else (-1, -1)
+    f64 = torch.float64
+    _check("y0", y0, (B, fun.n), f64, dev)
+    for name, x in (("t0", t0), ("tf", tf), ("hmax", hmax)):
+        _check(name, x, (B,), f64, dev)
+    if first_step is None:
+        first_step = torch.full((B,), float("nan"), dtype=f64, device=dev)
+    _check("first_step", first_step, (B,), f64, dev)
+    _check("rtol", rtol, (B, n), f64, dev)
+    _check("atol", atol, (B, n), f64, dev)
+    grid_ptr, grid_stride = 0, 0
+    if t_grid is not None:
+        m = int(t_grid.shape[-1])
+        if t_grid.stride(0) == 0 and t_grid.stride(1) == 1:
+            grid = t_grid[:1]        # shared: every lane reads row 0
+        else:
+            grid = t_grid.contiguous()
+            grid_stride = m
+        _check("t_grid", grid, (grid.shape[0], m), f64, dev)
+        if grid.shape[0] not in (1, B):
+            raise ValueError(f"t_grid must have {B} rows, got {grid.shape[0]}")
+        grid_ptr = grid.data_ptr()
+    return first_step, grid_ptr, grid_stride
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -208,25 +276,8 @@ def erk_ensemble_cuda(method, fun: CudaRHS, y0, t0, tf, hmax, first_step,
     m = 0 if t_grid is None else int(t_grid.shape[-1])
     _, p = _engine(method, m, params)
     opts = kernel_options(p)
-    _check("y0", y0, (B, fun.n), f64, dev)
-    for name, x in (("t0", t0), ("tf", tf), ("hmax", hmax)):
-        _check(name, x, (B,), f64, dev)
-    if first_step is None:
-        first_step = torch.full((B,), float("nan"), dtype=f64, device=dev)
-    _check("first_step", first_step, (B,), f64, dev)
-    _check("rtol", rtol, (B, n), f64, dev)
-    _check("atol", atol, (B, n), f64, dev)
-    grid_ptr, grid_stride = 0, 0
-    if m:
-        if t_grid.stride(0) == 0 and t_grid.stride(1) == 1:
-            grid = t_grid[:1]        # shared: every lane reads row 0
-        else:
-            grid = t_grid.contiguous()
-            grid_stride = m
-        _check("t_grid", grid, (grid.shape[0], m), f64, dev)
-        if grid.shape[0] not in (1, B):
-            raise ValueError(f"t_grid must have {B} rows, got {grid.shape[0]}")
-        grid_ptr = grid.data_ptr()
+    first_step, grid_ptr, grid_stride = check_inputs(
+        fun, y0, t0, tf, hmax, first_step, rtol, atol, t_grid)
     kargs = fun.kernel_args(args, B, dev)
 
     t_out = torch.empty((B,), dtype=f64, device=dev)
@@ -241,12 +292,7 @@ def erk_ensemble_cuda(method, fun: CudaRHS, y0, t0, tf, hmax, first_step,
 
     kernel, source = KERNELS[method]
     lib = build.library(source) if lib is None else lib
-    shape = tuple(build.entry(f"ivp_rhs_{q}_{fun.name}", [], lib=lib)()
-                  for q in ("n", "nargs"))
-    if shape != (fun.n, kargs.shape[1]):
-        raise RuntimeError(
-            f"{fun!r} has n={fun.n}, {kargs.shape[1]} args; its CUDA functor "
-            f"has n={shape[0]}, {shape[1]} args")
+    check_functor(lib, fun, kargs)
     launch = build.entry(f"ivp_{kernel}_{fun.name}", _ARGTYPES, lib=lib)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -273,11 +319,7 @@ def erk_ensemble(method, fun, y0, t0, tf, hmax, first_step, rtol, atol,
     if y0.device.type != "cuda":
         raise NotImplementedError(f"no route for device {y0.device}")
     if not isinstance(fun, CudaRHS):
-        raise NotImplementedError(
-            "on a CUDA device the ensemble solve runs a CudaRHS "
-            "(ivp_tpu_torch.rhs) through the fused kernel; an arbitrary "
-            "torch RHS on the GPU is not ported yet: ROADMAP §1 item 12 "
-            "(arbitrary RHS on the GPU)")
+        raise NotImplementedError(NO_GPU_CALLABLE)
     if (method == "DOPRI5" and t_grid is None
             and (params is None or is_default(params))):
         return (*lean_dopri5.dopri5_ensemble_cuda(*a), None, None)
@@ -288,37 +330,41 @@ def solve_flops(method, fun: CudaRHS, nstep, naccpt, n_samples=None,
                 dense_steps=None) -> float:
     """float64 operations of a solve whose lanes made ``nstep`` attempts,
     ``naccpt`` of them accepted, and emitted ``n_samples`` samples (None:
-    lean).  The dense rows count on ``dense_steps`` steps a lane, by default
-    min(naccpt, n_samples): a lane emits its samples from at most that many
-    steps, so that is the least work that gives them.  Each lane's hinit and
-    the stiffness differences (1 attempt in ~1000) are left out, so a bound
-    from this stays a lower one."""
+    none).  The dense rows count on ``dense_steps`` steps a lane (a record
+    of coefficients builds them on every recorded step), by default, with
+    samples, min(naccpt, n_samples): a lane emits its samples from at most
+    that many steps, so that is the least work that gives them.  Each lane's
+    hinit and the stiffness differences (1 attempt in ~1000) are left out,
+    so a bound from this stays a lower one."""
     f, n, r = FLOPS[method.upper()], fun.n, RHS_FLOPS[fun.name]
     as64 = lambda x: torch.as_tensor(x).to(torch.float64)
     tot = lambda x: float(as64(x).sum())
     flops = tot(nstep) * (n * f.attempt_n + f.attempt + r * f.rhs_attempt)
     flops += tot(naccpt) * r * f.rhs_accept
-    if n_samples is not None:
-        if dense_steps is None:
-            dense_steps = torch.minimum(as64(naccpt), as64(n_samples))
+    if dense_steps is None and n_samples is not None:
+        dense_steps = torch.minimum(as64(naccpt), as64(n_samples))
+    if dense_steps is not None:
         flops += tot(dense_steps) * (n * f.dense_n + r * f.rhs_dense)
+    if n_samples is not None:
         flops += tot(n_samples) * (n * f.sample_n + f.sample)
     return flops
 
 
 def solve_bound(method, fun: CudaRHS, nstep, naccpt, n_samples=None, m=0,
-                peak=FP64_PEAK, rate=HBM_RATE, dense_steps=None):
+                peak=FP64_PEAK, rate=HBM_RATE, dense_steps=None,
+                extra_bytes=0.0):
     """``(ms, bound_by)``: the least time a card with float64 rate ``peak``
     and memory rate ``rate`` could take for the solve of
     :func:`solve_flops`.  The larger of that work over ``peak`` and, over
     ``rate``, the bytes read once (y0, rtol, atol; t0, tf, hmax, first_step;
     the args; a lane's ``m`` grid times) and written once (t, y; five int32
-    counters; ``m`` rows of samples and their count)."""
+    counters; ``m`` rows of samples and their count), plus ``extra_bytes``
+    (a record mode's rows)."""
     B, n = torch.as_tensor(nstep).numel(), fun.n
     flops = solve_flops(method, fun, nstep, naccpt, n_samples, dense_steps)
     lane = 8 * (3 * n + 4 + len(fun.defaults)) + 8 * (1 + n) + 4 * 5
     if n_samples is not None:
         lane += 8 * m + 8 * m * n + 4
-    t_ops, t_bytes = flops / peak, B * lane / rate
+    t_ops, t_bytes = flops / peak, (B * lane + extra_bytes) / rate
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")

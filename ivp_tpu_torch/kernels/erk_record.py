@@ -1,0 +1,306 @@
+"""The explicit tier's record mode: router, chunked launches, drain, plain
+version.
+
+``erk_record`` integrates a ``(B, n)`` ensemble with one of DOPRI5, DOP853,
+RK23 and RK4 and records every advanced step of every lane: its endpoint
+``t``, state ``y``, left edge ``xold`` and signed ``h``, and with
+``record_cont`` its dense coefficients, optionally with in-loop samples on a
+``t_grid``.  ``solve.py::solve_ivp`` (one lane) and the recording ensemble
+(``batch.py``, ``record_trajectories`` / ``dense_output``) call it.  It
+picks the route from the device of ``y0``:
+
+* a CPU tensor runs :func:`erk_record_torch`, the plain version: the ported
+  driver in record mode (core/driver.py, ``rec_cap``/``record_cont``), one
+  chunk of ``rec_cap`` rows a lane at a time;
+* a CUDA tensor with a :class:`~ivp_tpu_torch.rhs.CudaRHS` runs
+  :func:`erk_record_cuda`: the record mode of ``csrc/erk_common.cuh``'s
+  ``erk_kernel`` (entries ``ivp_<kernel>_record_<rhs>`` of
+  ``csrc/erk_{dopri5,dop853,rk23,rk4}.cu``), one launch a chunk, each lane's
+  whole carry kept in device memory between launches;
+* a CUDA tensor with any other callable raises NotImplementedError.
+
+These kernels replace the XLA-fused ``ivp_tpu.core.driver.run_chunk`` in
+record mode (``step_body``'s record writes, ``:286-310``, and the stop at a
+full buffer, ``:448-457``) around each engine of ``ivp_tpu.methods.erk``;
+no TPU kernel stands behind them.  On an H100 they are bound by float64
+operations, or with coefficient records by the bytes of the rows they
+write (:func:`record_bound`).
+
+The drain is a concatenation.  A lane still running at the end of a chunk
+has written exactly ``rec_cap`` rows in it, so each lane's rows, taken
+chunk after chunk and each chunk cut to its ``max(n_rec)``, form a prefix;
+the rows past a lane's count are zeroed.  Each chunk costs the host one
+read of ``max(n_rec)`` and of whether any lane still runs.  There is no
+fallback: a failed build or launch raises.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Any, NamedTuple
+
+import torch
+
+from ..core.driver import DriverConfig, make_driver, reset_records, run_args
+from ..rhs import CudaRHS
+from ..types import NCOEFF, Status
+from . import build
+from . import erk_ensemble as E
+from .dopri5_ensemble import FP64_PEAK, HBM_RATE
+
+# Launches made by this process: one per chunk, per method and record mode
+# (``<method>_record``: steps; ``<method>_record_cont``: with coefficients).
+# A caller may reset a count to 0.
+LAUNCHES = {f"{k}_record{c}": 0 for k in ("dopri5", "dop853", "rk23", "rk4")
+            for c in ("", "_cont")}
+
+# method -> the LAUNCHES prefix
+_NAMES = {"DOPRI5": "dopri5", "DOP853": "dop853", "RK23": "rk23", "RK4": "rk4"}
+
+
+class RecordResult(NamedTuple):
+    t: Any        # (B,) final time
+    y: Any        # (B, n) final state
+    status: Any   # (B,) int32
+    nfev: Any
+    nstep: Any
+    naccpt: Any
+    nrejct: Any
+    y_samples: Any   # (B, m, n), or None without a grid
+    n_samples: Any   # (B,) int32, or None
+    n_rec: Any    # (B,) int64 rows recorded
+    rec_t: Any    # (B, S) step endpoints (rows past n_rec zero)
+    rec_y: Any    # (B, S, n)
+    rec_xold: Any  # (B, S)
+    rec_h: Any    # (B, S)
+    rec_cont: Any  # (B, S, C, n), or None without record_cont
+    chunks: int   # chunks run (kernel launches on the CUDA route)
+
+
+def record_coeffs(method: str) -> int:
+    """Coefficient rows a step record holds (``types.NCOEFF``; RK4's are
+    the Hermite rows of its segment's ends)."""
+    return NCOEFF[method.upper()]
+
+
+def _assemble(pieces, B, n, C, counts, last, chunks):
+    """Concatenate the chunks' rows, zero each lane's rows past its count
+    and return the RecordResult, whose record fields are views of the rows.
+    ``pieces``: per chunk, the ``(B, k, 3 + n + C*n)`` rows ``[t, xold, h,
+    y, cont]`` of its first ``k = max(n_rec)``."""
+    dev, dt = last[1].device, last[1].dtype
+    if pieces:
+        rows = torch.cat(pieces, dim=1) if len(pieces) > 1 else pieces[0]
+    else:
+        rows = torch.zeros((B, 0, 3 + n + C * n), dtype=dt, device=dev)
+    S = rows.shape[1]
+    past = torch.arange(S, device=dev)[None, :] >= counts[:, None]
+    rows.masked_fill_(past[:, :, None], 0.0)
+    cont = rows[:, :, 3 + n:].reshape(B, S, C, n) if C else None
+    return RecordResult(*last, counts, rows[:, :, 0], rows[:, :, 3:3 + n],
+                        rows[:, :, 1], rows[:, :, 2], cont, chunks)
+
+
+def erk_record_torch(method, fun, y0, t0, tf, hmax, first_step, rtol, atol,
+                     args=(), max_steps=100_000, t_grid=None, params=None,
+                     rec_cap=1024, record_cont=False) -> RecordResult:
+    """Plain PyTorch version: the ported driver in record mode on the whole
+    batch, chunk by chunk, on the device of ``y0`` and in its dtype."""
+    method = method.upper()
+    B, n = y0.shape
+    dtype = y0.dtype
+
+    def rhs(t, y):
+        return torch.as_tensor(fun(t, y, *args), dtype=dtype,
+                               device=y.device).reshape(B, n)
+
+    m = 0 if t_grid is None else int(t_grid.shape[-1])
+    p = _params(method, m, record_cont, params)
+    engine, _ = E.get_engine(method, need_cont=p.need_cont)
+    C = engine.ncoeff if record_cont else 0
+    init_carry, run_chunk, _ = make_driver(
+        engine, p, DriverConfig(unroll=E._UNROLL, sample_cap=m,
+                                rec_cap=int(rec_cap), record_cont=record_cont),
+        rhs)
+    ra = run_args(tf, rtol, atol, hmax, 0.0, max_steps, y0, t_grid=t_grid)
+    t0 = torch.broadcast_to(torch.as_tensor(t0, dtype=dtype, device=y0.device),
+                            (B,))
+    c = init_carry(t0, y0, first_step, ra)
+    pieces, chunks = [], 0
+    counts = torch.zeros(B, dtype=torch.int64, device=y0.device)
+    while True:
+        if chunks:
+            c = reset_records(c)
+        c = run_chunk(c, ra)
+        chunks += 1
+        k = int(c.n_rec.max()) if B else 0
+        counts = counts + c.n_rec.to(torch.int64)
+        if k:   # a copy: the next chunk writes the buffers again
+            pieces.append(torch.cat(
+                [c.rec_t[:, :k, None], c.rec_xold[:, :k, None],
+                 c.rec_h[:, :k, None], c.rec_y[:, :k], c.rec_cont[:, :k]],
+                dim=2))
+        if B == 0 or bool(c.done.all()):
+            break
+    samples = (c.sample_y, c.s_cursor) if m else (None, None)
+    last = (c.t, c.y, c.status, c.nfev, c.nstep, c.naccpt, c.nrejct, *samples)
+    return _assemble(pieces, B, n, C, counts, last, chunks)
+
+
+def _params(method, m, record_cont, params):
+    """``method``'s params with dense output where samples or coefficient
+    records need it: ``params`` if given (it must agree), else the cached
+    defaults."""
+    need = m > 0 or record_cont
+    if params is None:
+        return E._default_params(method, need)
+    if params.method != method or params.need_cont != need:
+        raise ValueError(f"params are for {params.method} with need_cont="
+                         f"{params.need_cont}, the solve is {method} with "
+                         f"need_cont={need}")
+    return params
+
+
+class KernelCarry(ctypes.Structure):
+    """``ErkCarry`` of csrc/erk_common.cuh (same layout)."""
+
+    _fields_ = ([(f, ctypes.c_void_p) for f in (
+        "k1", "h", "facold", "hlamb", "reject", "iasti", "nonstiff",
+        "stiff_in")] + [("init", ctypes.c_int)])
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# The lean entry's arguments up to n_samples; the carry; rows, n_rec, cap,
+# the record mode (1 steps, 2 with coefficients); stream.
+_ARGTYPES = E._ARGTYPES[:-1] + [KernelCarry, _P, _P, _I, _I, _P]
+
+
+def erk_record_cuda(method, fun: CudaRHS, y0, t0, tf, hmax, first_step,
+                    rtol, atol, args=(), max_steps=100_000, t_grid=None,
+                    params=None, rec_cap=1024,
+                    record_cont=False) -> RecordResult:
+    """Run ``method``'s record-mode kernel chunk by chunk on the current
+    stream.  float64 only; ``t_grid`` is ``(B, m)`` (a shared grid as an
+    expanded view is read through its strides)."""
+    if not isinstance(fun, CudaRHS):
+        raise TypeError(f"the CUDA kernel runs a CudaRHS, got {fun!r}")
+    dev = y0.device
+    if dev.type != "cuda":
+        raise ValueError(f"y0 must be a CUDA tensor, got {dev}")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        return record_launches(
+            method, fun, y0, t0, tf, hmax, first_step, rtol, atol, args,
+            max_steps, t_grid, params, rec_cap, record_cont, None, stream)
+
+
+def record_launches(method, fun: CudaRHS, y0, t0, tf, hmax, first_step, rtol,
+                    atol, args, max_steps, t_grid, params, rec_cap,
+                    record_cont, lib, stream) -> RecordResult:
+    """What :func:`erk_record_cuda` does once it has checked the device:
+    allocate the lane carry, the outputs and one chunk's rows on ``y0``'s
+    device, launch from ``lib`` (default: the package's build of the
+    method's source) on ``stream`` until no lane runs, and drain."""
+    method = method.upper()
+    dev = y0.device
+    B, n = y0.shape if y0.dim() == 2 else (-1, -1)
+    m = 0 if t_grid is None else int(t_grid.shape[-1])
+    p = _params(method, m, record_cont, params)
+    first_step, grid_ptr, grid_stride = E.check_inputs(
+        fun, y0, t0, tf, hmax, first_step, rtol, atol, t_grid)
+    kargs = fun.kernel_args(args, B, dev)
+    cap = int(rec_cap)
+    if cap < 1:
+        raise ValueError(f"rec_cap must be at least 1, got {rec_cap}")
+    RC = record_coeffs(method) if record_cont else 0
+    W = 3 + n + RC * n
+    f64, i32 = torch.float64, torch.int32
+
+    t_out = torch.empty((B,), dtype=f64, device=dev)
+    y_out = torch.empty((B, n), dtype=f64, device=dev)
+    ints = [torch.empty((B,), dtype=i32, device=dev) for _ in range(5)]
+    y_samples = torch.zeros((B, m, n), dtype=f64, device=dev) if m else None
+    n_samples = torch.zeros((B,), dtype=i32, device=dev) if m else None
+    k1 = torch.empty((B, n), dtype=f64, device=dev)
+    lane_f = [torch.empty((B,), dtype=f64, device=dev) for _ in range(3)]
+    lane_i = [torch.empty((B,), dtype=i32, device=dev) for _ in range(4)]
+    rows = torch.empty((B, cap, W), dtype=f64, device=dev)
+    n_rec = torch.zeros((B,), dtype=i32, device=dev)
+    counts = torch.zeros((B,), dtype=torch.int64, device=dev)
+    carry = KernelCarry(k1.data_ptr(), *(x.data_ptr() for x in lane_f),
+                        *(x.data_ptr() for x in lane_i), 1)
+    last = (t_out, y_out, *ints, y_samples, n_samples)
+    if B == 0:
+        return _assemble([], 0, n, RC, counts, last, 0)
+
+    name = record_kernel(method, record_cont)
+    kernel, source = E.KERNELS[method]
+    lib = build.library(source) if lib is None else lib
+    E.check_functor(lib, fun, kargs)
+    launch = build.entry(f"ivp_{kernel}_record_{fun.name}", _ARGTYPES, lib=lib)
+    opts = E.kernel_options(p)
+    pieces, chunks = [], 0
+    while True:
+        if pieces:   # the next launch overwrites the rows: keep them
+            pieces[-1] = pieces[-1].clone()
+        err = launch(B, y0.data_ptr(), t0.data_ptr(), tf.data_ptr(),
+                     hmax.data_ptr(), first_step.data_ptr(), rtol.data_ptr(),
+                     atol.data_ptr(), kargs.data_ptr(), int(max_steps), opts,
+                     grid_ptr, m, grid_stride, t_out.data_ptr(),
+                     y_out.data_ptr(), *(x.data_ptr() for x in ints),
+                     y_samples.data_ptr() if m else 0,
+                     n_samples.data_ptr() if m else 0, carry,
+                     rows.data_ptr(), n_rec.data_ptr(), cap,
+                     2 if record_cont else 1, stream)
+        build.check(err, f"{name} kernel launch ({fun.name}, B={B}, m={m}, "
+                    f"cap={cap})", lib)
+        LAUNCHES[name] += 1
+        chunks += 1
+        carry.init = 0
+        counts += n_rec
+        # One read a chunk: the fullest lane's rows and whether any lane
+        # still runs.
+        k, running = torch.stack([
+            n_rec.max(), (ints[0] == Status.RUNNING).any().to(i32)]).tolist()
+        if k:
+            pieces.append(rows[:, :k])
+        if not running:
+            break
+    return _assemble(pieces, B, n, RC, counts, last, chunks)
+
+
+def erk_record(method, fun, y0, t0, tf, hmax, first_step, rtol, atol,
+               args=(), max_steps=100_000, t_grid=None, params=None,
+               rec_cap=1024, record_cont=False) -> RecordResult:
+    """Route by the device of ``y0``: CPU -> plain version, CUDA -> kernel."""
+    method = method.upper()
+    a = (fun, y0, t0, tf, hmax, first_step, rtol, atol, args, max_steps,
+         t_grid, params)
+    kw = dict(rec_cap=rec_cap, record_cont=record_cont)
+    if y0.device.type == "cpu":
+        return erk_record_torch(method, *a, **kw)
+    if y0.device.type != "cuda":
+        raise NotImplementedError(f"no route for device {y0.device}")
+    if not isinstance(fun, CudaRHS):
+        raise NotImplementedError(E.NO_GPU_CALLABLE)
+    return erk_record_cuda(method, *a, **kw)
+
+
+def record_bound(method, fun: CudaRHS, nstep, naccpt, n_rec, record_cont,
+                 n_samples=None, m=0, peak=FP64_PEAK, rate=HBM_RATE):
+    """``(ms, bound_by)``: the least time a card could take for a record-mode
+    solve whose lanes made ``nstep`` attempts, ``naccpt`` accepted, and
+    recorded ``n_rec`` rows: :func:`erk_ensemble.solve_bound`'s work and
+    bytes, with the dense rows built on every recorded step when
+    ``record_cont`` (else on the emitting steps as for samples), and each
+    recorded row of ``3 + n + C*n`` doubles written once."""
+    C = record_coeffs(method) if record_cont else 0
+    rows = float(torch.as_tensor(n_rec).to(torch.float64).sum())
+    return E.solve_bound(
+        method, fun, nstep, naccpt, n_samples, m, peak, rate,
+        dense_steps=n_rec if record_cont else None,
+        extra_bytes=8.0 * rows * (3 + fun.n + C * fun.n))
+
+
+def record_kernel(method: str, record_cont: bool) -> str:
+    """The LAUNCHES key of ``method``'s record kernel in a mode."""
+    return f"{_NAMES[method.upper()]}_record{'_cont' if record_cont else ''}"

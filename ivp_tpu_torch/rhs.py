@@ -7,12 +7,13 @@ number or 0-d tensor shared by all lanes, or, with ``args_batched=True``, a
 
 A :class:`CudaRHS` pairs such a torch function with a CUDA device functor
 of the same name in ``csrc/rhs/<name>.cuh``, compiled into the kernel
-libraries (kernels/build.py).  On a CUDA tensor the ensemble solve runs only
-a ``CudaRHS``; any torch callable runs on the CPU.  To add one: write the
-functor header, include it in ``csrc/erk_common.cuh`` and
+libraries (kernels/build.py).  On a CUDA tensor the ensemble solve and
+``solve_ivp`` run only a ``CudaRHS``; any torch callable runs on the CPU.  To
+add one: write the functor header, include it in ``csrc/erk_common.cuh`` and
 ``csrc/dopri5_ensemble.cu``, add its ``IVP_DOPRI5_ENTRY`` line there, its
-``IVP_ERK_ENTRY`` line to each ``csrc/erk_*.cu`` and its two lines to
-``IVP_ERK_LIBRARY``, give ``kernels/erk_ensemble.py::RHS_FLOPS`` and
+``IVP_ERK_ENTRY`` line (which declares the lean, sampled and record entries)
+to each ``csrc/erk_*.cu`` and its two lines to ``IVP_ERK_LIBRARY``, give
+``kernels/erk_ensemble.py::RHS_FLOPS`` and
 ``kernels/dopri5_ensemble.py::FLOPS_PER_ATTEMPT`` its operation counts, and
 define it here.
 """
@@ -85,9 +86,30 @@ def _lorenz(t, y, sigma=10.0, rho=28.0, beta=8.0 / 3.0):
                         y0 * y1 - beta * y2], dim=-1)
 
 
+def _cr3bp(t, s, mu=0.012277471):
+    # The operations and their order of tests/test_gates.py's jnp RHS (and
+    # of csrc/rhs/cr3bp.cuh): squares as products, r**3 as r * (r * r).
+    x, y, z = s[:, 0], s[:, 1], s[:, 2]
+    xm, xm1 = x + mu, (x - 1.0) + mu
+    y2, z2 = y * y, z * z
+    r1 = torch.sqrt((xm * xm + y2) + z2)
+    r2 = torch.sqrt((xm1 * xm1 + y2) + z2)
+    r13, r23 = r1 * (r1 * r1), r2 * (r2 * r2)
+    om = 1.0 - mu
+    return torch.stack([
+        s[:, 3], s[:, 4], s[:, 5],
+        ((x + 2.0 * s[:, 4]) - (om * xm) / r13) - (mu * xm1) / r23,
+        ((y - 2.0 * s[:, 3]) - (om * y) / r13) - (mu * y) / r23,
+        ((-om) * z) / r13 - (mu * z) / r23], dim=-1)
+
+
 # Van der Pol, y0' = y1, y1' = mu (1 - y0^2) y1 - y0 (mu = 1: non-stiff).
 vdp = CudaRHS("vdp", 2, _vdp, (1.0,))
 # Exponential decay, y' = -k y.
 decay = CudaRHS("decay", 1, _decay, (1.0,))
 # Lorenz 63.
 lorenz = CudaRHS("lorenz", 3, _lorenz, (10.0, 28.0, 8.0 / 3.0))
+# The circular restricted three-body problem in the rotating frame, state
+# (x, y, z, vx, vy, vz), mass ratio mu (default: Earth-Moon, the Arenstorf
+# orbit's).
+cr3bp = CudaRHS("cr3bp", 6, _cr3bp, (0.012277471,))

@@ -53,6 +53,17 @@ METHOD_ALIASES = {
     "BDF15": "BDF",
 }
 
+# Dense coefficient rows per state component, by canonical method (BDF: its
+# six difference rows and the order marker).
+NCOEFF = {
+    "RK4": 4,
+    "RK23": 4,
+    "DOPRI5": 5,
+    "DOP853": 8,
+    "RADAU": 4,
+    "BDF": 7,
+}
+
 
 # When True, unknown method names raise instead of falling back to DOPRI5.
 _STRICT_METHODS = False
@@ -85,3 +96,8 @@ def canonical_method(method) -> str:
             f"methods: {known}.  Call ivp_tpu_torch.strict_methods(True) to "
             f"raise instead.", UserWarning, stacklevel=3)
     return METHOD_ALIASES.get(key, "DOPRI5")
+
+
+def scipy_message(status: int) -> str:
+    """The message SciPy's ``solve_ivp`` gives for a status code."""
+    return Status.MESSAGES.get(int(status), "Unknown solver status.")

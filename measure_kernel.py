@@ -102,7 +102,7 @@ MAIN_B = 524288
 SWEEP_B = (8192, 32768, 131072, 262144, 524288, 1048576, 2097152)
 REPEATS = 5    # timed launches per B in the sweep
 SETTLE = 10    # back-to-back solves per settle mode
-FUNCTORS = ("VdP", "Decay", "Lorenz")
+FUNCTORS = ("VdP", "Decay", "Lorenz", "Cr3bp")
 # Occupancy sweep: threads a block x min blocks an SM; a setting above the
 # SM's 2048 threads cannot be met and is skipped.
 OCC_THREADS, OCC_MIN_BLOCKS = (64, 128, 256), (6, 7, 8, 10, 12)
@@ -242,18 +242,22 @@ _INS = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?"
 
 
 # An instantiation of csrc/erk_common.cuh's erk_kernel, as mangled: method,
-# functor, controller type, SAMPLED, then threads and min blocks.
-_ERK = re.compile(r"erk_kernelINS_\d+(\w+?)E\d+(\w+?)([fd])Lb([01])E")
+# functor, controller type, SAMPLED, the record mode (absent in builds from
+# before it), then threads and min blocks.
+_ERK = re.compile(
+    r"erk_kernelINS_\d+(\w+?)E\d+(\w+?)([fd])Lb([01])E(?:Li([0-2])E)?")
 
 
 def instantiation(mangled):
-    """``Lorenz/f32/lean`` for an erk_kernel instantiation, else the
-    functor the name holds."""
+    """``Lorenz/f32/lean`` for an erk_kernel instantiation (``/record`` or
+    ``/record_cont`` after a record mode's), else the functor the name
+    holds."""
     m = _ERK.search(mangled)
     if not m:
         return next((f for f in FUNCTORS if f in mangled), mangled)
+    rec = {None: "", "0": "", "1": "/record", "2": "/record_cont"}[m.group(5)]
     return (f"{m.group(2)}/{'f32' if m.group(3) == 'f' else 'f64'}/"
-            f"{'sampled' if m.group(4) == '1' else 'lean'}")
+            f"{'sampled' if m.group(4) == '1' else 'lean'}{rec}")
 
 
 # Where sass_functions writes each library's listing (--sass-dir), if set.

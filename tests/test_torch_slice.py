@@ -274,9 +274,11 @@ def test_no_route_for_other_devices():
 
 
 # Options of later slices raise; those of the explicit tier (t_eval,
-# solver_options, DOP853, RK23, RK4), which raised before that tier was
+# solver_options, DOP853, RK23, RK4) and of the recording tier
+# (dense_output, record_trajectories), which raised before they were
 # ported, give a result.
-PORTED = ("t_eval", "solver_options", "DOP853", "RK23", "RK4")
+PORTED = ("t_eval", "solver_options", "DOP853", "RK23", "RK4", "dense_output",
+          "record_trajectories")
 
 
 @pytest.mark.parametrize("opts", [
@@ -317,6 +319,23 @@ def test_unported_options_raise(opts):
         assert torch.equal(res.y_samples[:, 0], torch.as_tensor(y0))
         torch.testing.assert_close(res.y_samples[:, -1], res.y, rtol=0,
                                    atol=1e-12)
+    elif "dense_output" in opts or "record_trajectories" in opts:
+        # The same steps as the plain solve, each one recorded.
+        for f in ("t", "y", "status", "nfev", "nstep", "naccpt", "nrejct"):
+            assert torch.equal(getattr(res, f), getattr(plain, f)), f
+        S = int(res.n_steps_rec.max())
+        assert torch.equal(res.n_steps_rec, res.naccpt.to(torch.int64))
+        assert tuple(res.ts.shape) == (4, S)
+        assert tuple(res.ys.shape) == (4, S, 2)
+        torch.testing.assert_close(res.ts[:, -1], res.t, rtol=0, atol=0)
+        torch.testing.assert_close(res.ys[:, -1], res.y, rtol=0, atol=0)
+        if "dense_output" in opts:
+            assert tuple(res.sol(0.5).shape) == (4, 2)
+            assert tuple(res.sol(np.linspace(0.0, 1.0, 3)).shape) == (4, 2, 3)
+            torch.testing.assert_close(res.sol(1.0), res.y, rtol=0,
+                                       atol=1e-12)
+        else:
+            assert res.sol is None
     else:
         assert res.y_samples is None and res.n_samples is None
         # Another method or controller takes other steps to the same end.
@@ -335,7 +354,9 @@ def test_f64_class_dtypes_resolve_to_float64(dtype):
 
 def test_port_imports_no_jax():
     code = ("import sys, ivp_tpu_torch, ivp_tpu_torch.convert, "
-            "ivp_tpu_torch.kernels.build, ivp_tpu_torch.kernels.erk_ensemble; "
+            "ivp_tpu_torch.kernels.build, ivp_tpu_torch.kernels.erk_ensemble, "
+            "ivp_tpu_torch.kernels.erk_record, ivp_tpu_torch.solve, "
+            "ivp_tpu_torch.core.cache, ivp_tpu_torch.methods.interp; "
             "assert not any(m == 'jax' or m.startswith('jax.') "
             "or m == 'ivp_tpu' or m.startswith('ivp_tpu.') "
             "for m in sys.modules), sorted(sys.modules)")

@@ -46,6 +46,12 @@ def test_status_codes_equal():
         assert ttypes.Status.to_scipy(c) == jtypes.Status.to_scipy(c)
 
 
+def test_ncoeff_and_scipy_messages_equal():
+    assert ttypes.NCOEFF == jtypes.NCOEFF
+    for c in list(jtypes.Status.MESSAGES) + [-1, 99]:
+        assert ttypes.scipy_message(c) == jtypes.scipy_message(c)
+
+
 @pytest.mark.parametrize("method", sorted(jtypes.METHOD_ALIASES)
                          + ["rk45", "dopri5", None])
 def test_canonical_method_equal(method):
