@@ -896,7 +896,10 @@ def record_main_paths(dev):
     with rec_chunk=1024: success on every lane and n_steps_rec == naccpt,
     timed end to end, with the kernel's device time, the launches (chunks)
     of one solve (the counts set to 0 just before it, read just after),
-    the bytes recorded and their rate, and the bound.  DOP853 dense: ``sol``
+    the bytes recorded and their rate, the bound, and the kernel's staging
+    of the rows (row stride, staged rows a lane, shared memory a block,
+    blocks resident an SM; kernels/erk_record.py::record_layout).  DOP853
+    dense: ``sol``
     at each lane's recorded t against ``ys`` (1e-12) and on a 100-point grid
     in [0, 5] against the sampled dop853 kernel solving t in [0, 20] with
     that grid (1e-9 scaled).  ``{kernel: row}``."""
@@ -928,8 +931,14 @@ def record_main_paths(dev):
             if set(launches) != {name}:
                 raise AssertionError(f"{name}: the solve launched {launches}")
             chunks = launches[name]
-            W = 3 + 3 + (R.record_coeffs(method) * 3 if cont else 0)
+            W = R.record_width(method, 3, cont)
             nbytes = 8.0 * W * float(res.n_steps_rec.double().sum())
+            # The kernel's staging of these rows (csrc/erk_common.cuh).
+            lay = R.record_layout(method, rhs.lorenz, cont)
+            layout = dict(row_stride_bytes=8 * lay["row_stride"],
+                          staged_rows=lay["staged_rows"],
+                          smem_bytes_per_block=lay["smem_bytes_per_block"],
+                          blocks_per_sm=lay["blocks_per_sm"])
             bound_ms, bound_by = R.record_bound(
                 method, rhs.lorenz, res.nstep, res.naccpt, res.n_steps_rec,
                 cont)
@@ -943,7 +952,7 @@ def record_main_paths(dev):
                   mean_rows=float(res.n_steps_rec.double().mean()),
                   max_rows=int(res.n_steps_rec.max()), bytes_recorded=nbytes,
                   gbytes_per_s=nbytes / (k_ms * 1e6), bound_ms=bound_ms,
-                  bound_by=bound_by, bound_share=bound_ms / k_ms)
+                  bound_by=bound_by, bound_share=bound_ms / k_ms, **layout)
             if not ok or not counted or chunks < 1:
                 raise AssertionError(f"{name}: not every lane recorded")
             if method == "DOP853" and cont:
@@ -953,7 +962,8 @@ def record_main_paths(dev):
                               bound_ms=bound_ms, bound_by=bound_by,
                               bound_share=bound_ms / k_ms, chunks=chunks,
                               bytes_recorded=nbytes,
-                              gbytes_per_s=nbytes / (k_ms * 1e6))
+                              gbytes_per_s=nbytes / (k_ms * 1e6),
+                              layout=layout)
             del res
     return rows
 
@@ -1158,13 +1168,13 @@ def record_phase(dev):
             err = max(same_inputs["max_abs_err"], short[name]["max_abs_err"])
             same_inputs.update(short[name], max_abs_err=err)
             main = {f"main_path_{k}": v for k, v in rec_rows[name].items()
-                    if k != "launches"}
+                    if k not in ("launches", "layout")}
             row = {"name": name, "route": "cuda",
                    "source": f"ivp_tpu_torch/csrc/{K.KERNELS[method][1]}.cu",
                    "replaces": "ivp_tpu/core/driver.py:286",
                    "launches": sum(per_solve[name].values()),
                    "launches_per_solve": per_solve[name], "library_ms": None,
-                   **same_inputs, **main}
+                   **same_inputs, **main, **rec_rows[name]["layout"]}
             if name == "dop853_record_cont":
                 row["solve_ivp_cr3bp"] = cr3bp_row
             rows.append(row)

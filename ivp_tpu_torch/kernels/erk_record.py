@@ -24,7 +24,10 @@ record mode (``step_body``'s record writes, ``:286-310``, and the stop at a
 full buffer, ``:448-457``) around each engine of ``ivp_tpu.methods.erk``;
 no TPU kernel stands behind them.  On an H100 they are bound by float64
 operations, or with coefficient records by the bytes of the rows they
-write (:func:`record_bound`).
+write (:func:`record_bound`).  Each lane stages its rows in shared memory
+and writes a run of them with one bulk copy, so a row's stride in the
+chunk buffer is its width rounded up to an even number of doubles
+(:func:`record_stride`; the pad at the row's end is never read).
 
 The drain is a concatenation.  A lane still running at the end of a chunk
 has written exactly ``rec_cap`` rows in it, so each lane's rows, taken
@@ -82,20 +85,35 @@ def record_coeffs(method: str) -> int:
     return NCOEFF[method.upper()]
 
 
+def record_width(method: str, n: int, record_cont: bool) -> int:
+    """Doubles of a record row ``[t, xold, h, y, cont]``."""
+    return 3 + n + (record_coeffs(method) * n if record_cont else 0)
+
+
+def record_stride(method: str, n: int, record_cont: bool) -> int:
+    """Doubles from one row to the next in the kernel's chunk buffer: the
+    row's width rounded up to even (csrc/erk_common.cuh ``RecStage::WP``),
+    so that each lane's rows go out in bulk copies of whole 16 bytes."""
+    w = record_width(method, n, record_cont)
+    return w + w % 2
+
+
 def _assemble(pieces, B, n, C, counts, last, chunks):
     """Concatenate the chunks' rows, zero each lane's rows past its count
     and return the RecordResult, whose record fields are views of the rows.
-    ``pieces``: per chunk, the ``(B, k, 3 + n + C*n)`` rows ``[t, xold, h,
-    y, cont]`` of its first ``k = max(n_rec)``."""
+    ``pieces``: per chunk, the ``(B, k, stride)`` rows ``[t, xold, h, y,
+    cont, pad]`` of its first ``k = max(n_rec)``, ``stride >= 3 + n + C*n``
+    (the views skip the pad)."""
     dev, dt = last[1].device, last[1].dtype
+    W = 3 + n + C * n
     if pieces:
         rows = torch.cat(pieces, dim=1) if len(pieces) > 1 else pieces[0]
     else:
-        rows = torch.zeros((B, 0, 3 + n + C * n), dtype=dt, device=dev)
+        rows = torch.zeros((B, 0, W), dtype=dt, device=dev)
     S = rows.shape[1]
     past = torch.arange(S, device=dev)[None, :] >= counts[:, None]
     rows.masked_fill_(past[:, :, None], 0.0)
-    cont = rows[:, :, 3 + n:].reshape(B, S, C, n) if C else None
+    cont = rows[:, :, 3 + n:W].reshape(B, S, C, n) if C else None
     return RecordResult(*last, counts, rows[:, :, 0], rows[:, :, 3:3 + n],
                         rows[:, :, 1], rows[:, :, 2], cont, chunks)
 
@@ -170,8 +188,11 @@ class KernelCarry(ctypes.Structure):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # The lean entry's arguments up to n_samples; the carry; rows, n_rec, cap,
-# the record mode (1 steps, 2 with coefficients); stream.
-_ARGTYPES = E._ARGTYPES[:-1] + [KernelCarry, _P, _P, _I, _I, _P]
+# the row stride, the record mode (1 steps, 2 with coefficients); stream.
+_ARGTYPES = E._ARGTYPES[:-1] + [KernelCarry, _P, _P, _I, _I, _I, _P]
+# The same without the stride: a build from before the staged stores
+# (unpadded rows), which an A/B may pass as ``lib``.
+_ARGTYPES_UNSTAGED = E._ARGTYPES[:-1] + [KernelCarry, _P, _P, _I, _I, _P]
 
 
 def erk_record_cuda(method, fun: CudaRHS, y0, t0, tf, hmax, first_step,
@@ -193,79 +214,132 @@ def erk_record_cuda(method, fun: CudaRHS, y0, t0, tf, hmax, first_step,
             max_steps, t_grid, params, rec_cap, record_cont, None, stream)
 
 
+class RecordLaunch:
+    """One record-mode solve on the device: its lane carry, outputs and one
+    chunk's rows on ``y0``'s device, and :meth:`launch`, one chunk's launch
+    from ``lib`` (default: the package's build of the method's source) on
+    ``stream``.  :func:`record_launches` loops over it;
+    measure_kernel.py times one launch alone.
+
+    The chunk buffer's row stride is :func:`record_stride`'s for a build
+    with staged stores; a build from before them (no
+    ``ivp_<kernel>_record_layout_<rhs>`` entry, passed as ``lib`` for an
+    A/B) writes unpadded rows and is called without the stride."""
+
+    def __init__(self, method, fun: CudaRHS, y0, t0, tf, hmax, first_step,
+                 rtol, atol, args, max_steps, t_grid, params, rec_cap,
+                 record_cont, lib, stream):
+        method = method.upper()
+        dev = y0.device
+        B, n = y0.shape if y0.dim() == 2 else (-1, -1)
+        m = 0 if t_grid is None else int(t_grid.shape[-1])
+        p = _params(method, m, record_cont, params)
+        first_step, grid_ptr, grid_stride = E.check_inputs(
+            fun, y0, t0, tf, hmax, first_step, rtol, atol, t_grid)
+        kargs = fun.kernel_args(args, B, dev)
+        cap = int(rec_cap)
+        if cap < 1:
+            raise ValueError(f"rec_cap must be at least 1, got {rec_cap}")
+        kernel, source = E.KERNELS[method]
+        staged = lib is None or hasattr(
+            lib, f"ivp_{kernel}_record_layout_{fun.name}")
+        stride = (record_stride if staged else record_width)(
+            method, n, record_cont)
+        f64, i32 = torch.float64, torch.int32
+
+        self.B, self.n, self.m, self.cap = B, n, m, cap
+        self.C = record_coeffs(method) if record_cont else 0
+        self.name = record_kernel(method, record_cont)
+        self.t_out = torch.empty((B,), dtype=f64, device=dev)
+        self.y_out = torch.empty((B, n), dtype=f64, device=dev)
+        self.ints = [torch.empty((B,), dtype=i32, device=dev)
+                     for _ in range(5)]
+        self.y_samples = (torch.zeros((B, m, n), dtype=f64, device=dev)
+                          if m else None)
+        self.n_samples = (torch.zeros((B,), dtype=i32, device=dev)
+                          if m else None)
+        k1 = torch.empty((B, n), dtype=f64, device=dev)
+        lane_f = [torch.empty((B,), dtype=f64, device=dev) for _ in range(3)]
+        lane_i = [torch.empty((B,), dtype=i32, device=dev) for _ in range(4)]
+        self.lane_carry = dict(zip(
+            ("k1", "h", "facold", "hlamb", "reject", "iasti", "nonstiff",
+             "stiff_in"), (k1, *lane_f, *lane_i)))
+        self.rows = torch.empty((B, cap, stride), dtype=f64, device=dev)
+        self.n_rec = torch.zeros((B,), dtype=i32, device=dev)
+        self.carry = KernelCarry(k1.data_ptr(),
+                                 *(x.data_ptr() for x in lane_f),
+                                 *(x.data_ptr() for x in lane_i), 1)
+        if B == 0:
+            return
+        self.lib = build.library(source) if lib is None else lib
+        E.check_functor(self.lib, fun, kargs)
+        entry = build.entry(f"ivp_{kernel}_record_{fun.name}",
+                            _ARGTYPES if staged else _ARGTYPES_UNSTAGED,
+                            lib=self.lib)
+        outs = (self.t_out, self.y_out, *self.ints)
+        self._args = (
+            B, y0.data_ptr(), t0.data_ptr(), tf.data_ptr(), hmax.data_ptr(),
+            first_step.data_ptr(), rtol.data_ptr(), atol.data_ptr(),
+            kargs.data_ptr(), int(max_steps), E.kernel_options(p), grid_ptr,
+            m, grid_stride, *(x.data_ptr() for x in outs),
+            self.y_samples.data_ptr() if m else 0,
+            self.n_samples.data_ptr() if m else 0)
+        self._rest = (self.rows.data_ptr(), self.n_rec.data_ptr(), cap,
+                      *((stride,) if staged else ()),
+                      2 if record_cont else 1, stream)
+        self._entry = entry
+        # Held: the entry reads the buffers through their pointers.
+        self._keep = (y0, t0, tf, hmax, first_step, rtol, atol, kargs, t_grid)
+
+    def last(self):
+        """``RecordResult``'s fields up to ``n_samples``."""
+        return (self.t_out, self.y_out, *self.ints, self.y_samples,
+                self.n_samples)
+
+    def launch(self, init=None):
+        """One chunk: from y0, t0 on a solve's first launch (or ``init``
+        True), else from the carry the last one stored."""
+        if init is not None:
+            self.carry.init = int(init)
+        err = self._entry(*self._args, self.carry, *self._rest)
+        build.check(err, f"{self.name} kernel launch (B={self.B}, m={self.m}"
+                    f", cap={self.cap})", self.lib)
+        LAUNCHES[self.name] += 1
+        self.carry.init = 0
+
+
 def record_launches(method, fun: CudaRHS, y0, t0, tf, hmax, first_step, rtol,
                     atol, args, max_steps, t_grid, params, rec_cap,
-                    record_cont, lib, stream) -> RecordResult:
-    """What :func:`erk_record_cuda` does once it has checked the device:
-    allocate the lane carry, the outputs and one chunk's rows on ``y0``'s
-    device, launch from ``lib`` (default: the package's build of the
-    method's source) on ``stream`` until no lane runs, and drain."""
-    method = method.upper()
-    dev = y0.device
-    B, n = y0.shape if y0.dim() == 2 else (-1, -1)
-    m = 0 if t_grid is None else int(t_grid.shape[-1])
-    p = _params(method, m, record_cont, params)
-    first_step, grid_ptr, grid_stride = E.check_inputs(
-        fun, y0, t0, tf, hmax, first_step, rtol, atol, t_grid)
-    kargs = fun.kernel_args(args, B, dev)
-    cap = int(rec_cap)
-    if cap < 1:
-        raise ValueError(f"rec_cap must be at least 1, got {rec_cap}")
-    RC = record_coeffs(method) if record_cont else 0
-    W = 3 + n + RC * n
-    f64, i32 = torch.float64, torch.int32
-
-    t_out = torch.empty((B,), dtype=f64, device=dev)
-    y_out = torch.empty((B, n), dtype=f64, device=dev)
-    ints = [torch.empty((B,), dtype=i32, device=dev) for _ in range(5)]
-    y_samples = torch.zeros((B, m, n), dtype=f64, device=dev) if m else None
-    n_samples = torch.zeros((B,), dtype=i32, device=dev) if m else None
-    k1 = torch.empty((B, n), dtype=f64, device=dev)
-    lane_f = [torch.empty((B,), dtype=f64, device=dev) for _ in range(3)]
-    lane_i = [torch.empty((B,), dtype=i32, device=dev) for _ in range(4)]
-    rows = torch.empty((B, cap, W), dtype=f64, device=dev)
-    n_rec = torch.zeros((B,), dtype=i32, device=dev)
-    counts = torch.zeros((B,), dtype=torch.int64, device=dev)
-    carry = KernelCarry(k1.data_ptr(), *(x.data_ptr() for x in lane_f),
-                        *(x.data_ptr() for x in lane_i), 1)
-    last = (t_out, y_out, *ints, y_samples, n_samples)
-    if B == 0:
-        return _assemble([], 0, n, RC, counts, last, 0)
-
-    name = record_kernel(method, record_cont)
-    kernel, source = E.KERNELS[method]
-    lib = build.library(source) if lib is None else lib
-    E.check_functor(lib, fun, kargs)
-    launch = build.entry(f"ivp_{kernel}_record_{fun.name}", _ARGTYPES, lib=lib)
-    opts = E.kernel_options(p)
+                    record_cont, lib, stream, carry_out=None) -> RecordResult:
+    """What :func:`erk_record_cuda` does once it has checked the device: a
+    :class:`RecordLaunch` (``lib`` as it takes it),
+    launched until no lane runs, and the drain.  ``carry_out``: a dict to
+    receive the lane carry after the last launch (``k1``, ``h``,
+    ``facold``, ``hlamb``, ``reject``, ``iasti``, ``nonstiff``,
+    ``stiff_in``)."""
+    r = RecordLaunch(method, fun, y0, t0, tf, hmax, first_step, rtol, atol,
+                     args, max_steps, t_grid, params, rec_cap, record_cont,
+                     lib, stream)
+    counts = torch.zeros((r.B,), dtype=torch.int64, device=y0.device)
     pieces, chunks = [], 0
-    while True:
+    while r.B:
         if pieces:   # the next launch overwrites the rows: keep them
             pieces[-1] = pieces[-1].clone()
-        err = launch(B, y0.data_ptr(), t0.data_ptr(), tf.data_ptr(),
-                     hmax.data_ptr(), first_step.data_ptr(), rtol.data_ptr(),
-                     atol.data_ptr(), kargs.data_ptr(), int(max_steps), opts,
-                     grid_ptr, m, grid_stride, t_out.data_ptr(),
-                     y_out.data_ptr(), *(x.data_ptr() for x in ints),
-                     y_samples.data_ptr() if m else 0,
-                     n_samples.data_ptr() if m else 0, carry,
-                     rows.data_ptr(), n_rec.data_ptr(), cap,
-                     2 if record_cont else 1, stream)
-        build.check(err, f"{name} kernel launch ({fun.name}, B={B}, m={m}, "
-                    f"cap={cap})", lib)
-        LAUNCHES[name] += 1
+        r.launch()
         chunks += 1
-        carry.init = 0
-        counts += n_rec
+        counts += r.n_rec
         # One read a chunk: the fullest lane's rows and whether any lane
         # still runs.
         k, running = torch.stack([
-            n_rec.max(), (ints[0] == Status.RUNNING).any().to(i32)]).tolist()
+            r.n_rec.max(),
+            (r.ints[0] == Status.RUNNING).any().to(torch.int32)]).tolist()
         if k:
-            pieces.append(rows[:, :k])
+            pieces.append(r.rows[:, :k])
         if not running:
             break
-    return _assemble(pieces, B, n, RC, counts, last, chunks)
+    if carry_out is not None:
+        carry_out.update(r.lane_carry)
+    return _assemble(pieces, r.B, r.n, r.C, counts, r.last(), chunks)
 
 
 def erk_record(method, fun, y0, t0, tf, hmax, first_step, rtol, atol,
@@ -299,6 +373,27 @@ def record_bound(method, fun: CudaRHS, nstep, naccpt, n_rec, record_cont,
         method, fun, nstep, naccpt, n_samples, m, peak, rate,
         dense_steps=n_rec if record_cont else None,
         extra_bytes=8.0 * rows * (3 + fun.n + C * fun.n))
+
+
+def record_layout(method, fun: CudaRHS, record_cont, lib=None) -> dict:
+    """The staging of ``method``'s record kernel for ``fun`` in a mode, as
+    the solves with default options run it (no samples, the controller in
+    float) and its build (``lib``, default the package's) reports it:
+    ``row_stride`` (doubles), ``staged_rows`` (K, slots a lane),
+    ``smem_bytes_per_block``, ``blocks_per_sm``
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor, on the current device)
+    and ``threads``."""
+    method = method.upper()
+    kernel, source = E.KERNELS[method]
+    lib = build.library(source) if lib is None else lib
+    fn = build.entry(f"ivp_{kernel}_record_layout_{fun.name}", [_I, _P],
+                     lib=lib)
+    info = (ctypes.c_int * 5)()
+    build.check(fn(2 if record_cont else 1, info),
+                f"{record_kernel(method, record_cont)} layout ({fun.name})",
+                lib)
+    return dict(zip(("row_stride", "staged_rows", "smem_bytes_per_block",
+                     "blocks_per_sm", "threads"), info))
 
 
 def record_kernel(method: str, record_cont: bool) -> str:

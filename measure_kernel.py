@@ -54,7 +54,8 @@ instantiation), then the phases (all by default, ``ab`` only with
   every setting in turns at each of ``AB_ERK_B`` (and lean DOPRI5 on the
   headline at B=524288), its counters held to the package build, and the
   settings ranked;
-* ``ab`` (needs ``--baseline``, which may be given more than once): the
+* ``ab`` (needs ``--baseline``, which may be given more than once; with
+  ``ab_record`` alone only its record part): the
   kernels built from another source tree (for example an older commit's
   ``ivp_tpu_torch/csrc``, unpacked into a directory .gitignore lists; its
   label is the directory above ``csrc``) against the package's.  The lean
@@ -67,7 +68,20 @@ instantiation), then the phases (all by default, ``ab`` only with
   every method's ``erk_cases`` (lean and sampled, float and double
   controller, Lorenz, VdP and decay, the edge cases with and without a
   grid), then old, new, new, old rounds of each method's Lorenz
-  configurations, lean and sampled.
+  configurations, lean and sampled.  Then the eight record-mode
+  instantiations (``<method>_record`` and ``_record_cont``; an old build
+  without the staged stores writes unpadded rows, kernels/erk_record.py's
+  ``RecordLaunch``):
+  ``ab_record_bitwise``, the lanes differing in every output, count, lane
+  carry field and row view, through ``record_launches`` on each main
+  path's Lorenz inputs (chip_smoke.py's ``RECORD_CONFIGS``, B=16384,
+  ``rec_cap=1024``) and at B=4096 with ``rec_cap=37`` (several chunks a
+  lane), with and without samples; then ``ab_record``, old, new, new, old
+  rounds of one launch alone (the solve's first chunk, from y0) at each
+  of ``AB_RECORD``, and ``ab_record_summary``, one line per kernel and B:
+  the medians, GB/s written and the share of ``record_bound`` of each
+  side, registers and spills, row stride, staged rows, dynamic shared
+  memory a block and blocks resident an SM.
 
 The A/B, occupancy and two-kernel timings are turns of ``turn_ms``: five
 launches back to back between two CUDA events, so the host's work of a
@@ -108,7 +122,7 @@ FUNCTORS = ("VdP", "Decay", "Lorenz", "Cr3bp")
 OCC_THREADS, OCC_MIN_BLOCKS = (64, 128, 256), (6, 7, 8, 10, 12)
 OCC_ROUNDS = 10
 PHASES = ("sass", "settle", "sweep", "turns", "profile", "occupancy", "erk",
-          "erk_occupancy", "ab")
+          "erk_occupancy", "ab", "ab_record")
 # The erk phase: lanes, and (method, tf, rtol, atol, first_step) on Lorenz
 # with y0 = [1, 1, 1] + 1e-3 N(0, 1), as chip_smoke.py's main path.
 ERK_B = (4096, 16384, 65536, 262144)
@@ -118,6 +132,9 @@ ERK_ROUNDS = 3
 AB_ERK_B = (16384, 262144)
 AB_ERK_ROUNDS = 10  # rounds of old, new, new, old: a 2% step shows in 10
 TURN_LAUNCHES = 5   # launches timed back to back in one turn (turn_ms)
+# (B, rec_cap) of the record A/B's turns: the main path's, and 16 times the
+# lanes with the chunk cut to fit two builds' rows on an 80 GB card.
+AB_RECORD = ((16384, 1024), (262144, 256))
 ERK_CONFIGS = (("DOP853", 100.0, 1e-8, 1e-10, None),
                ("RK23", 20.0, 1e-6, 1e-8, None),
                ("RK4", 20.0, 1e-6, 1e-8, 2e-3),
@@ -850,6 +867,180 @@ def ab_erk_summary(label, method, sampled, a, out, ms, B):
          bound_share_rows_every_accept=round(every / med["new"], 4))
 
 
+def blocks_by_registers(regs, threads):
+    """Blocks of ``threads`` an H100 SM holds by registers alone: 65536 a
+    SM, allocated 256 a warp, at most 64 warps and 32 blocks."""
+    per_warp = -(-regs * 32 // 256) * 256
+    warps = min(64, 65536 // per_warp)
+    return min(32, warps // (threads // 32))
+
+
+def record_cases(method, dev):
+    """``ab_record_bitwise``'s cases of ``method`` on Lorenz: ``[(label, B,
+    rec_cap, kernel args, t_grid)]``, the main path's (B=16384,
+    ``rec_cap=1024``, its span and options) and chip_smoke.py's check
+    (B=4096, ``rec_cap=37``) without and with a 9-point grid."""
+    from chip_smoke import (CHECK_B, LORENZ_B, REC_CAP_CHECK, RECORD_CONFIGS,
+                            lorenz_kernel_args, lorenz_y0)
+
+    _, tf_check, tf_main, (rtol, atol), opts = next(
+        c for c in RECORD_CONFIGS if c[0] == method)
+    first = opts.get("first_step")
+    main = lorenz_kernel_args(torch.as_tensor(lorenz_y0(LORENZ_B, seed=8),
+                                              device=dev),
+                              tf_main, rtol, atol, first, dev)
+    check = lorenz_kernel_args(torch.as_tensor(lorenz_y0(CHECK_B, seed=6),
+                                               device=dev),
+                               tf_check, rtol, atol, first, dev)
+    grid = torch.broadcast_to(torch.linspace(
+        0.0, tf_check * 0.99, 9, dtype=torch.float64, device=dev), (CHECK_B, 9))
+    return [(f"main_path_tf{tf_main:g}", LORENZ_B, 1024, main, None),
+            (f"chunked_tf{tf_check:g}", CHECK_B, REC_CAP_CHECK, check, None),
+            (f"chunked_samples_tf{tf_check:g}", CHECK_B, REC_CAP_CHECK, check,
+             grid)]
+
+
+def record_lanes_differing(new, old, new_carry, old_carry):
+    """{field: lanes on which it differs} over a RecordResult's fields and
+    the lane carry (NaN equal to NaN; a field of another shape differs on
+    every lane)."""
+    pairs = [(f, getattr(new, f), getattr(old, f))
+             for f in new._fields if f != "chunks"]
+    pairs += [(f"carry_{f}", new_carry[f], old_carry[f]) for f in new_carry]
+    diff = {"chunks": int(new.chunks != old.chunks)}
+    for f, x, y in pairs:
+        if x is None and y is None:
+            continue
+        B = x.shape[0]
+        if x.shape != y.shape:
+            diff[f] = B
+            continue
+        ne = x != y
+        if x.is_floating_point():
+            ne &= ~(torch.isnan(x) & torch.isnan(y))
+        diff[f] = int(ne.reshape(B, -1).any(dim=1).sum())
+    return diff
+
+
+def ab_record(build, rhs, dev, baseline, label):
+    """The record-mode instantiations built from ``baseline`` against the
+    package's: ``ab_record_bitwise`` on every ``record_cases`` case, then
+    ``ab_record`` turns of one launch of each main path's solve at each of
+    AB_RECORD and an ``ab_record_summary`` line per kernel and B."""
+    from chip_smoke import LORENZ_B, RECORD_CONFIGS, lorenz_kernel_args
+    from chip_smoke import lorenz_y0
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+    from ivp_tpu_torch.kernels import erk_record as R
+
+    with concurrent.futures.ThreadPoolExecutor(4) as ex:
+        futs = {m: ex.submit(build.build, src_dir=baseline,
+                             name=K.KERNELS[m][1]) for m in K.KERNELS}
+        old = {m: build.load(f.result()) for m, f in futs.items()}
+    # A baseline with staged stores (a variant) reports its staging too.
+    old_staged = {m: hasattr(old[m], f"ivp_{K.KERNELS[m][0]}"
+                             "_record_layout_lorenz") for m in K.KERNELS}
+    regs = {}
+    for side, src in (("new", build.SRC_DIR), ("old", baseline)):
+        for m in K.KERNELS:
+            path = build.library_path(src, (), K.KERNELS[m][1])
+            for fn, r, st, ld in build.ptxas_report(path):
+                regs[(side, m, instantiation(fn))] = (r, st, ld)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for method in K.KERNELS:
+        for case, B, cap, a, grid in record_cases(method, dev):
+            for cont in (False, True):
+                carry_new, carry_old = {}, {}
+                new_out = R.record_launches(
+                    method, rhs.lorenz, *a, (), 200_000, grid, None, cap,
+                    cont, None, stream, carry_out=carry_new)
+                old_out = R.record_launches(
+                    method, rhs.lorenz, *a, (), 200_000, grid, None, cap,
+                    cont, old[method], stream, carry_out=carry_old)
+                torch.cuda.synchronize()
+                diff = record_lanes_differing(new_out, old_out, carry_new,
+                                              carry_old)
+                line("ab_record_bitwise", old=label,
+                     kernel=R.record_kernel(method, cont), case=case, B=B,
+                     rec_cap=cap, chunks=new_out.chunks,
+                     identical=all(v == 0 for v in diff.values()),
+                     fields=len(diff), lanes_differing=repr(
+                         {k: v for k, v in diff.items() if v}))
+                del new_out, old_out, carry_new, carry_old
+    for B, cap in AB_RECORD:
+        y0 = torch.as_tensor(lorenz_y0(B, seed=8), device=dev)
+        for method, _, tf, (rtol, atol), opts in RECORD_CONFIGS:
+            a = lorenz_kernel_args(y0, tf, rtol, atol, opts.get("first_step"),
+                                   dev)
+            for cont in (False, True):
+                run = {"new": R.RecordLaunch(
+                    method, rhs.lorenz, *a, (), 200_000, None, None, cap, cont,
+                    None, stream),
+                    "old": R.RecordLaunch(
+                    method, rhs.lorenz, *a, (), 200_000, None, None, cap, cont,
+                    old[method], stream)}
+                ms = {"old": [], "new": []}
+                name = R.record_kernel(method, cont)
+                for r in range(AB_ERK_ROUNDS):
+                    for what in ("old", "new", "new", "old"):
+                        ms[what].append(turn_ms(
+                            lambda: run[what].launch(init=True)))
+                        line("ab_record", old=label, kernel=name, B=B,
+                             rec_cap=cap, round=r, what=what,
+                             event_ms=round(ms[what][-1], 4))
+                new = run["new"]
+                new.launch(init=True)
+                torch.cuda.synchronize()
+                ab_record_summary(label, method, cont, new, ms, B, cap, regs,
+                                  old[method] if old_staged[method]
+                                  else None)
+                del run, new
+        del y0
+
+
+def ab_record_summary(label, method, cont, new, ms, B, cap, regs, old_lib):
+    """One line per record A/B: each side's median, the rounds the new
+    side won, the rows of the launch, GB/s written (the unpadded rows, the
+    work) and the share of ``record_bound`` of each side, registers and
+    spills of each build's instantiation, and the new build's staging (and
+    the old's, ``old_lib``, where it stages its rows too)."""
+    from ivp_tpu_torch import rhs
+    from ivp_tpu_torch.kernels import erk_record as R
+
+    med = {w: float(np.median(v)) for w, v in ms.items()}
+    pairs = zip(zip(ms["new"][::2], ms["new"][1::2]),
+                zip(ms["old"][::2], ms["old"][1::2]))
+    wins = sum(sum(n) < sum(o) for n, o in pairs)
+    nstep, naccpt = new.ints[2], new.ints[3]
+    rows = float(new.n_rec.double().sum())
+    nbytes = 8.0 * R.record_width(method, 3, cont) * rows
+    bound, by = R.record_bound(method, rhs.lorenz, nstep, naccpt, new.n_rec,
+                               cont)
+    inst = f"Lorenz/f32/lean/record{'_cont' if cont else ''}"
+    r_new = regs.get(("new", method, inst), (None, None, None))
+    r_old = regs.get(("old", method, inst), (None, None, None))
+    lay = R.record_layout(method, rhs.lorenz, cont)
+    line("ab_record_summary", old=label, kernel=R.record_kernel(method, cont),
+         B=B, rec_cap=cap, old_ms=round(med["old"], 4),
+         new_ms=round(med["new"], 4),
+         new_over_old=round(med["new"] / med["old"], 4),
+         rounds_new_won=f"{wins}/{AB_ERK_ROUNDS}", rows=int(rows),
+         gbytes_written=round(nbytes / 1e9, 4),
+         gbytes_per_s_old=round(nbytes / (med["old"] * 1e6), 1),
+         gbytes_per_s_new=round(nbytes / (med["new"] * 1e6), 1),
+         bound_ms=round(bound, 6), bound_by=by,
+         bound_share_old=round(bound / med["old"], 4),
+         bound_share_new=round(bound / med["new"], 4),
+         registers_old=r_old[0], spill_old=r_old[1:],
+         registers_new=r_new[0], spill_new=r_new[1:],
+         blocks_per_sm_old_by_registers=(
+             blocks_by_registers(r_old[0], lay["threads"])
+             if r_old[0] else None),
+         old_layout=(repr(R.record_layout(method, rhs.lorenz, cont,
+                                          lib=old_lib))
+                     if old_lib is not None else None),
+         **lay)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, action="append", default=[],
@@ -857,7 +1048,8 @@ def main():
                          "(repeatable)")
     ap.add_argument("--phases",
                     help=f"comma-separated subset of {','.join(PHASES)} "
-                         "(default: all; ab only with --baseline)")
+                         "(default: all; ab, which includes ab_record, "
+                         "only with --baseline)")
     ap.add_argument("--occupancy-methods", default="DOP853,RK23,RK4,DOPRI5",
                     help="methods whose libraries erk_occupancy sweeps")
     ap.add_argument("--sass-dir", type=Path,
@@ -866,11 +1058,12 @@ def main():
     global SASS_DIR
     SASS_DIR = opts.sass_dir
     phases = (set(opts.phases.split(",")) if opts.phases else
-              set(PHASES) - (set() if opts.baseline else {"ab"}))
+              set(PHASES) - ({"ab_record"} if opts.baseline
+                             else {"ab", "ab_record"}))
     if not phases <= set(PHASES):
         ap.error(f"unknown phases {sorted(phases - set(PHASES))}")
-    if "ab" in phases and not opts.baseline:
-        ap.error("the ab phase needs --baseline")
+    if phases & {"ab", "ab_record"} and not opts.baseline:
+        ap.error("the ab phases need --baseline")
     if not torch.cuda.is_available():
         print("measure_kernel: no CUDA device", file=sys.stderr)
         return 1
@@ -891,7 +1084,7 @@ def main():
     line("build", seconds=round(time.perf_counter() - t, 3), library=lib.name)
     for functor, info in ptxas_lines(lib.with_suffix(".log").read_text()):
         line("ptxas", build="new", functor=functor, info=repr(info))
-    if phases & {"sass", "erk", "erk_occupancy", "ab"}:
+    if phases & {"sass", "erk", "erk_occupancy", "ab", "ab_record"}:
         t = time.perf_counter()
         erk_libs = build.build_all()
         line("build_all", seconds=round(time.perf_counter() - t, 3),
@@ -948,12 +1141,13 @@ def main():
         dopri5_options_path(k, rhs, dev)
     if "erk_occupancy" in phases:
         erk_occupancy(build, rhs, dev, opts.occupancy_methods.split(","))
-    if "ab" in phases:
-        for baseline in opts.baseline:
-            label = (baseline.parent.name if baseline.name == "csrc"
-                     else baseline.name)
+    for baseline in opts.baseline if phases & {"ab", "ab_record"} else ():
+        label = (baseline.parent.name if baseline.name == "csrc"
+                 else baseline.name)
+        if "ab" in phases:
             ab(k, build, rhs, dev, baseline, label)
             ab_erk(build, rhs, dev, baseline, label)
+        ab_record(build, rhs, dev, baseline, label)
     return 0
 
 
