@@ -9,7 +9,12 @@ DOP853 to the final state and with 100 in-loop samples, RK23, RK4 and DOPRI5
 with samples; csrc/erk_*.cu) and the record mode of those kernels:
 ``solve_ivp`` on the Arenstorf orbit (CR3BP, DOP853, rtol 1e-12, dense
 output) and the recording Lorenz ensemble at B=16384 (``dense_output`` and
-``record_trajectories``, every method).  Every kernel is built from the
+``record_trajectories``, every method); then the event modes of those
+kernels (ivp_tpu_torch/events.py's sets): the bouncing-ball ensemble at
+B=524288 (RK45, 8 in-loop restarts a lane), the Lorenz Poincaré section at
+B=16384 (DOP853, every crossing to t = 20, and the fifth terminal),
+``solve_ivp`` with restarts, the host-loop bouncing ball against SciPy and
+the recording ball ensemble.  Every kernel is built from the
 sources here and held against its plain PyTorch version (on short spans at
 B=4096 over every mode and option, record modes over several chunks, and
 at each main path's own shapes), against ivp_tpu's own numbers
@@ -117,6 +122,14 @@ def compare(name, got, ref, scaled=False, count_fraction=COUNT_FRACTION,
         raise AssertionError(f"{name}: final y differs by {err_same} "
                              f"(equal steps) / {err_all} (all lanes)")
     return err_all
+
+
+def outputs(res):
+    """An EnsembleResult as compare() takes it: t, y, status, nfev, nstep,
+    naccpt, nrejct, y_samples, n_samples (the result's own order puts the
+    event fields between them)."""
+    return (res.t, res.y, res.status, res.nfev, res.nstep, res.naccpt,
+            res.nrejct, res.y_samples, res.n_samples)
 
 
 def lanes(B, v, dev):
@@ -302,7 +315,7 @@ def erk_golden_and_scipy(dev):
     torch.cuda.synchronize()
     names = ("t", "y", "status", "nfev", "nstep", "naccpt", "nrejct",
              "y_samples", "n_samples")
-    compare(f"dop853_vs_ivp_tpu_golden_B{len(gold['y0'])}", tuple(res),
+    compare(f"dop853_vs_ivp_tpu_golden_B{len(gold['y0'])}", outputs(res),
             [gold[f] for f in names], scaled=True)
 
     y8 = vdp_y0(8, seed=1)
@@ -631,23 +644,33 @@ def check_record(name, counters, errs):
 
 
 def launches_of(fn):
-    """``(fn(), {kernel: launches})``: the record kernels' counts set to 0
+    """``(fn(), {kernel: launches})``: every kernel's count (the lean
+    DOPRI5 kernel's, the erk kernels' and the record kernels') set to 0
     just before ``fn`` and read just after it (only kernels it launched)."""
+    from ivp_tpu_torch.kernels import dopri5_ensemble as k
+    from ivp_tpu_torch.kernels import erk_ensemble as K
     from ivp_tpu_torch.kernels import erk_record as R
 
-    for name in R.LAUNCHES:
-        R.LAUNCHES[name] = 0
+    k.LAUNCHES = 0
+    for d in (K.LAUNCHES, R.LAUNCHES):
+        for name in d:
+            d[name] = 0
     out = fn()
     torch.cuda.synchronize()
-    return out, {k: v for k, v in R.LAUNCHES.items() if v}
+    seen = {n: v for d in (K.LAUNCHES, R.LAUNCHES) for n, v in d.items() if v}
+    if k.LAUNCHES:
+        seen["dopri5_ensemble"] = k.LAUNCHES
+    return out, seen
 
 
-def lorenz_kernel_args(y0, tf, rtol, atol, first, dev):
-    Bk = y0.shape[0]
+def solve_args(y0, tf, rtol, atol, first, dev):
+    """The kernel wrappers' per-lane arguments for ``y0 (B, n)`` on t in
+    [0, tf] (hmax tf), with ``first`` the first step or None."""
+    Bk, n = y0.shape
     T = lambda v: torch.full((Bk,), v, dtype=torch.float64, device=dev)
     return (y0, T(0.0), T(tf), T(tf), None if first is None else T(first),
-            torch.full((Bk, 3), rtol, dtype=torch.float64, device=dev),
-            torch.full((Bk, 3), atol, dtype=torch.float64, device=dev))
+            torch.full((Bk, n), rtol, dtype=torch.float64, device=dev),
+            torch.full((Bk, n), atol, dtype=torch.float64, device=dev))
 
 
 def record_modes():
@@ -683,7 +706,7 @@ def record_vs_plain(dev):
     y0 = torch.as_tensor(lorenz_y0(Bc, seed=6), device=dev)
     rows = {}
     for method, tf, _, (rtol, atol), opts in RECORD_CONFIGS:
-        a = lorenz_kernel_args(y0, tf, rtol, atol, opts.get("first_step"),
+        a = solve_args(y0, tf, rtol, atol, opts.get("first_step"),
                                dev)
         grid = torch.broadcast_to(torch.linspace(
             0.0, tf * (0.99 if method == "RK4" else 1.0), 9,
@@ -733,7 +756,7 @@ def record_chunking_bitwise(dev):
     Bc = CHECK_B
     y0 = torch.as_tensor(lorenz_y0(Bc, seed=7), device=dev)
     for method, tf, _, (rtol, atol), opts in RECORD_CONFIGS:
-        a = lorenz_kernel_args(y0, tf, rtol, atol, opts.get("first_step"),
+        a = solve_args(y0, tf, rtol, atol, opts.get("first_step"),
                                dev)
         grid = torch.broadcast_to(torch.linspace(
             0.0, tf * 0.99, 9, dtype=torch.float64, device=dev), (Bc, 9))
@@ -1015,7 +1038,7 @@ def record_short_span_vs_plain(dev):
     out = {}
     for method, _, tf_main, (rtol, atol), opts in RECORD_CONFIGS:
         tf = min(tf_main, LORENZ_T_LANES)
-        a = lorenz_kernel_args(y0, tf, rtol, atol, opts.get("first_step"),
+        a = solve_args(y0, tf, rtol, atol, opts.get("first_step"),
                                dev)
         for cont in (True, False):
             kw = dict(rec_cap=1024, record_cont=cont)
@@ -1181,6 +1204,693 @@ def record_phase(dev):
     return rows
 
 
+# =============================================================================
+# Events and in-loop restarts: the event modes of the erk kernels
+# =============================================================================
+
+# The bouncing-ball main path (examples/bouncing_ball.py::main_in_device at
+# the headline's B): RK45, rtol = atol = 1e-9, t in [0, 15], heights 2..20 m,
+# the ground event with its restart, 16 occurrences a lane, 8 restarts.
+BALL_TOL, BALL_TF, BALL_CAP, BALL_RESTARTS = 1e-9, 15.0, 16, 8
+G, COR = 9.81, 0.8
+# The Lorenz section main path: DOP853 at bench.py's Lorenz tolerances,
+# B=16384, t in [0, 20], 64 occurrences a lane; lanes held one by one on
+# t in [0, 5], the ensemble (mean crossings) on [0, 20].
+SECTION_TF, SECTION_CAP = 20.0, 64
+# The B=4096 checks of every method and mode: per method its tolerances on
+# the Lorenz section (on t in [0, 2]) and RK4's fixed steps.
+EVENT_LORENZ = {"DOPRI5": (1e-8, 1e-10, None), "DOP853": (*LORENZ_TOL, None),
+                "RK23": (1e-6, 1e-8, None), "RK4": (1e-6, 1e-8, 5e-3)}
+EVENT_CHECK_TF = 2.0
+RK4_BALL_STEP = 0.1
+# Event times against the plain version, relative to max(1, |t|): both
+# refine a root of the same step's interpolant to Brent's xtol (2e-12), and
+# the interpolants differ in their last bits (nvcc's FMAs).
+T_EVENT = 1e-9
+# DOP853 on the ball, whose parabola every Runge-Kutta step integrates
+# exactly: the error estimate is rounding noise, unclamped by DOP853's
+# controller (it clamps below err 2.6e-7, DOPRI5's below 6e-6, RK23's below
+# 7e-4), so nvcc's FMAs and torch's separate operations pick other step
+# sizes (ROADMAP §3 fault 2; ivp_tpu and the plain version part the same way
+# on the CPU).  Its counters are held equal on DOP853_BALL_FRACTION of the
+# lanes: on an H100 (B=4096) they were equal on 85.7% (lean, record) and
+# 95.0% (sampled), so the gate is that low end less a margin; status,
+# n_events, n_restarts and the event times are held on every lane.  Its
+# record rows are not held: a lane whose steps part has other rows.
+DOP853_BALL_FRACTION = 0.8
+
+
+def ball_y0(B):
+    return np.stack([np.linspace(2.0, 20.0, B), np.zeros(B)], axis=1)
+
+
+def ball_f(y):
+    """The ball's RHS on (..., 2) arrays (torch)."""
+    return torch.stack([y[..., 1], torch.zeros_like(y[..., 1]) - G], -1)
+
+
+def event_cases(dev):
+    """The B=4096 checks: ``(set, method, mode, fun, kernel args, grid,
+    EventArgs, f)``, ``set`` the name of events.SETS.  The ball: the main path's configuration (heights
+    2..20, 8 restarts), sampled with 2 restarts (so the third bounce ends
+    each lane and the grid runs on past it); the Lorenz section on t in
+    [0, 2]: every crossing, sampled with the third crossing terminal."""
+    from ivp_tpu_torch import events as E
+    from ivp_tpu_torch import rhs
+    from ivp_tpu_torch.events import EventArgs
+
+    Bc = CHECK_B
+    T = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+    yb = T(ball_y0(Bc))
+    yl = T(lorenz_y0(Bc, seed=11))
+    ball_grid = torch.broadcast_to(T(np.linspace(0.0, BALL_TF, 31)), (Bc, 31))
+    sec_grid = torch.broadcast_to(T(np.linspace(0.0, EVENT_CHECK_TF, 21)),
+                                  (Bc, 21))
+    out = []
+    for method, (rtol, atol, h) in EVENT_LORENZ.items():
+        ab = solve_args(yb, BALL_TF, BALL_TOL, BALL_TOL,
+                               RK4_BALL_STEP if method == "RK4" else None, dev)
+        al = solve_args(yl, EVENT_CHECK_TF, rtol, atol, h, dev)
+        full = EventArgs((E.ground,), BALL_CAP, BALL_RESTARTS)
+        out += [("ground", method, "lean", rhs.ball, ab, None, full, ball_f),
+                ("ground", method, "sampled", rhs.ball, ab, ball_grid,
+                 EventArgs((E.ground,), BALL_CAP, 2), ball_f),
+                ("ground", method, "record", rhs.ball, ab, None, full,
+                 ball_f)]
+        every = EventArgs((E.lorenz_section,), SECTION_CAP, 0)
+        out += [("section", method, "lean", rhs.lorenz, al, None, every,
+                 lorenz_f),
+                ("section", method, "sampled", rhs.lorenz, al, sec_grid,
+                 EventArgs((E.lorenz_section.replace(terminal=3),),
+                           SECTION_CAP, 0), lorenz_f),
+                ("section", method, "record", rhs.lorenz, al, None, every,
+                 lorenz_f)]
+    return out
+
+
+def event_errors(got, ref):
+    """``(shares, errs)`` of two EventOuts: the share of lanes on which
+    n_events, n_restarts and the overflow flags are equal; the largest
+    difference of an event time (relative to max(1, |t|)) and state
+    (relative to max(1, |y|) of its lane)."""
+    shares = {}
+    for f in ("n_events", "n_restarts", "event_overflow"):
+        a, b = getattr(got, f), getattr(ref, f)
+        shares[f] = float((a == b).reshape(a.shape[0], -1).all(1)
+                          .double().mean())
+    dt = ((got.t_events - ref.t_events).abs()
+          / torch.clamp_min(ref.t_events.abs(), 1.0))
+    dy = ((got.y_events - ref.y_events).abs().amax(-1)
+          / torch.clamp_min(ref.y_events.abs().amax(-1), 1.0))
+    return shares, dict(t_events=float(dt.max()) if dt.numel() else 0.0,
+                        y_events=float(dy.max()) if dy.numel() else 0.0)
+
+
+def uncut(r):
+    """``(B, S)``: the rows of a record-event RecordResult that no event
+    cut (their time is not one of the lane's event times)."""
+    S = r.rec_t.shape[1]
+    valid = torch.arange(S, device=r.rec_t.device)[None] < r.n_rec[:, None]
+    ev = r.events.t_events.reshape(r.rec_t.shape[0], 1, -1)
+    return valid & ~(r.rec_t[:, :, None] == ev).any(-1)
+
+
+def uncut_sum_err(r):
+    """record_errors' ``sum`` over the rows that no event cut."""
+    if not r.rec_t.shape[1]:
+        return 0.0
+    d = ((r.rec_t - (r.rec_xold + r.rec_h)).abs()
+         / torch.clamp_min(r.rec_t.abs(), 1.0))
+    return float(torch.where(uncut(r), d, 0.0).max())
+
+
+def uncut_step_err(got, ref):
+    """record_errors' ``step`` (each lane's rows but its last, relative to
+    |h|) over the rows that no event cut on either route.  A row an event
+    cut keeps its step's h, and on the ball that h is sized from rounding
+    noise (DOP853_BALL_FRACTION); the event time it ends at is held."""
+    S = ref.rec_t.shape[1]
+    if not S:
+        return 0.0
+    last = (torch.arange(S, device=ref.rec_t.device)[None]
+            == ref.n_rec[:, None] - 1)
+    rel_h = ((got.rec_h - ref.rec_h).abs()
+             / torch.clamp_min(ref.rec_h.abs(),
+                               torch.finfo(torch.float64).tiny))
+    return float(torch.where(uncut(got) & uncut(ref) & ~last, rel_h,
+                             0.0).max())
+
+
+def same_bits(x, y):
+    """``x`` and ``y`` equal element for element (NaN equal to NaN)."""
+    if x.shape != y.shape:
+        return False
+    eq = x == y
+    if x.is_floating_point():
+        eq |= torch.isnan(x) & torch.isnan(y)
+    return bool(eq.all())
+
+
+def record_outputs(r):
+    """A RecordResult as compare() takes it."""
+    return (r.t, r.y, r.status, r.nfev, r.nstep, r.naccpt, r.nrejct,
+            r.y_samples, r.n_samples)
+
+
+def check_record_events(tag, got, ref, method, f):
+    """Two record-event RecordResults of the same inputs: every counter
+    equal on every lane and the rows as check_record holds them, with
+    ``sum`` and ``step`` taken over the rows no event cut (a row an event
+    cut ends at the event, short of xold + h).  ``(counters, errs)``."""
+    counters, rerrs = record_errors(got, ref, method, f)
+    rerrs["sum"] = max(uncut_sum_err(r) for r in (got, ref))
+    rerrs["step_uncut"] = uncut_step_err(got, ref)
+    phase(tag + "_rows", chunks=got.chunks,
+          **{f"{k}_equal": v for k, v in counters.items()},
+          **{f"max_err_{k}": v for k, v in rerrs.items()})
+    check_record(tag, counters, dict(rerrs, step=rerrs["step_uncut"]))
+    return counters, rerrs
+
+
+def check_events(name, shares, errs):
+    if min(shares.values()) < 1.0:
+        raise AssertionError(f"{name}: event counts equal on only {shares}")
+    if errs["t_events"] > T_EVENT or errs["y_events"] > Y_EQUAL_STEPS:
+        raise AssertionError(f"{name}: events differ: {errs}")
+
+
+def events_vs_plain(dev):
+    """Every event instantiation against the plain version on the card at
+    B=4096 (``event_cases``): lean, sampled, and the record mode with
+    coefficients at rec_cap=37 (the event state crosses launches).  Status,
+    n_events, n_restarts, the overflow flags and every counter equal on
+    every lane (DOP853 on the ball: its counters on DOP853_BALL_FRACTION
+    of the lanes, its rows not held); event times within T_EVENT, event states, final
+    states, samples and rows as compare() and check_record() hold them.
+    ``{kernel: row}`` (each mode's worst error, the times and bound of the
+    lean ball and of the record ball)."""
+    from ivp_tpu_torch.events import SETS
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+    from ivp_tpu_torch.kernels import erk_record as R
+
+    rows = {}
+    for set_name, method, mode, fun, a, grid, ev, f in event_cases(dev):
+        gate = (DOP853_BALL_FRACTION
+                if (method, set_name) == ("DOP853", "ground")
+                else COUNT_FRACTION)
+        tag = f"events_vs_plain_{set_name}_{method}_{mode}_B{CHECK_B}"
+        kw = dict(events=ev)
+        if mode == "record":
+            run = lambda: R.erk_record_cuda(method, fun, *a, (), 200_000,
+                                            grid, rec_cap=REC_CAP_CHECK,
+                                            record_cont=True, **kw)
+            plain = lambda: R.erk_record_torch(method, fun, *a, (), 200_000,
+                                               grid, rec_cap=REC_CAP_CHECK,
+                                               record_cont=True, **kw)
+            name = R.record_kernel(method, True, True)
+        else:
+            run = lambda: K.erk_ensemble_cuda(method, fun, *a, (), 200_000,
+                                              grid, events=ev)
+            plain = lambda: K.erk_ensemble_torch(method, fun, *a, (), 200_000,
+                                                 grid, None, ev)
+            name = f"{K.KERNELS[method][0]}_ev"
+        run()
+        got, k_ms = event_call(run)
+        ref, p_ms = event_call(plain)
+        if mode == "record":
+            g_ev, r_ev = got.events, ref.events
+            err = compare(tag, record_outputs(got), record_outputs(ref),
+                          scaled=True, count_fraction=gate)
+            if gate == COUNT_FRACTION:
+                # On the ball every step is exact and the error estimate is
+                # rounding noise, which nvcc's FMAs and torch's operations
+                # make of different sizes: the controller sizes some steps
+                # apart from it (by up to 18% on an H100 at B=4096), steps
+                # that a bounce then cuts at the same event time, so the
+                # counters, times, states and dense output stay equal while
+                # those rows' h differ.  Every other row's h is held.
+                _, rerrs = check_record_events(tag, got, ref, method, f)
+                err = max(err, rerrs["shifted"], rerrs["dense"])
+                if got.chunks < 2:
+                    raise AssertionError(f"{tag}: {got.chunks} chunks")
+            b_ms, b_by = R.record_bound(method, fun, got.nstep, got.naccpt,
+                                        got.n_rec, True,
+                                        events=(SETS[set_name], g_ev))
+        else:
+            g_ev, r_ev = got[9], ref[9]
+            err = compare(tag, got[:9], ref[:9], scaled=True,
+                          count_fraction=gate)
+            fl, by = K.event_work(method, fun, SETS[set_name], got[5], g_ev)
+            m = 0 if grid is None else grid.shape[1]
+            b_ms, b_by = K.solve_bound(
+                method, fun, got[4], got[5], got[8], m, dense_steps=got[5],
+                extra_flops=fl, extra_bytes=by)
+        shares, eerrs = event_errors(g_ev, r_ev)
+        phase(tag + "_events", **{f"{k}_equal": v for k, v in shares.items()},
+              **{f"max_err_{k}": v for k, v in eerrs.items()},
+              brent_kernel=int(g_ev.n_brent.sum()),
+              brent_plain=int(r_ev.n_brent.sum()),
+              mean_events=float(g_ev.n_events.double().mean()),
+              kernel_ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+        check_events(tag, shares, eerrs)
+        err = max(err, eerrs["y_events"])
+        row = rows.setdefault(name, {"max_abs_err": 0.0})
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        if set_name == "ground" and mode != "sampled":
+            row.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                       bound_share=b_ms / k_ms,
+                       inputs=f"ball B={CHECK_B}, t in [0, {BALL_TF:g}], "
+                              f"rtol=atol={BALL_TOL:g}"
+                              + (f", rec_cap={REC_CAP_CHECK}"
+                                 if mode == "record" else ""))
+    return rows
+
+
+def events_chunking_bitwise(dev):
+    """Every record-event instantiation at rec_cap=37 against rec_cap=4096
+    on the same inputs (B=4096), both record modes: the lanes that differ in
+    any output, row or event buffer (NaN equal to NaN), which must be 0."""
+    from ivp_tpu_torch.kernels import erk_record as R
+
+    for set_name, method, mode, fun, a, grid, ev, _ in event_cases(dev):
+        if mode != "record":
+            continue
+        for cont in (False, True):
+            small, big = (R.erk_record_cuda(
+                method, fun, *a, (), 200_000, grid, rec_cap=cap,
+                record_cont=cont, events=ev) for cap in (REC_CAP_CHECK, 4096))
+            torch.cuda.synchronize()
+            Bc = a[0].shape[0]
+            differ = torch.zeros(Bc, dtype=torch.bool, device=dev)
+            pairs = [(getattr(small, n), getattr(big, n))
+                     for n in R.RecordResult._fields
+                     if n not in ("events", "chunks")]
+            pairs += list(zip(small.events, big.events))
+            for x, y in pairs:
+                if x is None:
+                    continue
+                if x.shape != y.shape:
+                    raise AssertionError(f"{method} {set_name}: shapes "
+                                         f"{tuple(x.shape)} {tuple(y.shape)}")
+                same = ((x == y) | (torch.isnan(x) & torch.isnan(y))
+                        if x.is_floating_point() else x == y)
+                differ |= ~same.reshape(Bc, -1).all(1)
+            n = int(differ.sum())
+            phase(f"events_chunking_bitwise_"
+                  f"{R.record_kernel(method, cont, True)}_{set_name}_B{Bc}",
+                  chunks=(small.chunks, big.chunks), lanes_differing=n)
+            if n or big.chunks != 1 or small.chunks < 2:
+                raise AssertionError(f"{method} {set_name}: {n} lanes differ")
+
+
+def ball_main_path(dev):
+    """The bouncing-ball ensemble at the headline's B through
+    build_ensemble_solver with a numpy y0 and no device: one launch a solve
+    (the counts set to 0 just before it, read just after), the kernel's
+    device time (torch.profiler) and the solve's wall time; every lane
+    succeeds or ends at its ninth bounce, with its first two bounces within
+    1e-9 of the closed form.  One more launch on the same inputs, bit for
+    bit the main path's result, gives the kernel's Brent count for the
+    bound and is held lane by lane against the plain version on the card at
+    this B, as events_vs_plain holds the B=4096 checks.  The main path's
+    row."""
+    from ivp_tpu_torch import Status, build_ensemble_solver, rhs
+    from ivp_tpu_torch import events as E
+    from ivp_tpu_torch.events import SETS, EventArgs
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+
+    B = MAIN_B
+    solver = build_ensemble_solver(rhs.ball, "RK45", n=2, events=[E.ground],
+                                   event_capacity=BALL_CAP,
+                                   max_restarts=BALL_RESTARTS)
+    y0n = ball_y0(B)
+    solve = lambda: solver(y0n, 0.0, BALL_TF, BALL_TOL, BALL_TOL)
+    solve()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t = time.perf_counter()
+        res = solve()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        del res
+    (res, k_ms, dev_ms), launches = launches_of(
+        lambda: kernel_device_ms(solve))
+    if launches != {"dopri5_sampled_ev": 1}:
+        raise AssertionError(f"ball main path launched {launches}")
+    status = res.status
+    nb, nr = res.n_events[:, 0], res.n_restarts
+    h = torch.as_tensor(y0n[:, 0], device=dev)
+    t1 = torch.sqrt(2.0 * h / G)
+    t2 = t1 + 2.0 * COR * torch.sqrt(2.0 * G * h) / G
+    err1 = float((res.t_events[:, 0, 0] - t1).abs().max())
+    two = nb >= 2
+    err2 = float((res.t_events[:, 0, 1] - t2).abs()[two].max())
+    ev_bytes = sum(x.numel() * x.element_size() for x in (
+        res.t_events, res.y_events, res.n_events, res.event_overflow,
+        res.n_restarts))
+    # The kernel's Brent evaluations, for the bound, and the kernel against
+    # the plain version lane by lane.
+    a = solve_args(torch.as_tensor(y0n, device=dev), BALL_TF, BALL_TOL,
+                   BALL_TOL, None, dev)
+    ev = EventArgs((E.ground,), BALL_CAP, BALL_RESTARTS)
+    out = K.erk_ensemble_cuda("DOPRI5", rhs.ball, *a, (), 100_000,
+                              events=ev)
+    torch.cuda.synchronize()
+    same = all(torch.equal(u, v) for u, v in zip(
+        out[:7], (res.t, res.y, res.status, res.nfev, res.nstep, res.naccpt,
+                  res.nrejct)))
+    tag = f"ball_main_path_vs_plain_B{B}"
+    ref, plain_ms = event_call(lambda: K.erk_ensemble_torch(
+        "DOPRI5", rhs.ball, *a, (), 100_000, None, None, ev))
+    err = compare(tag, out[:9], ref[:9], scaled=True)
+    shares, eerrs = event_errors(out[9], ref[9])
+    phase(tag + "_events", **{f"{k}_equal": v for k, v in shares.items()},
+          **{f"max_err_{k}": v for k, v in eerrs.items()},
+          brent_kernel=int(out[9].n_brent.sum()),
+          brent_plain=int(ref[9].n_brent.sum()), plain_ms=plain_ms)
+    check_events(tag, shares, eerrs)
+    del ref
+    fl, by = K.event_work("DOPRI5", rhs.ball, SETS["ground"], res.naccpt,
+                          out[9])
+    bound_ms, bound_by = K.solve_bound("DOPRI5", rhs.ball, res.nstep,
+                                       res.naccpt, dense_steps=res.naccpt,
+                                       extra_flops=fl, extra_bytes=by)
+    ok_status = bool(((status == Status.SUCCESS)
+                      | (status == Status.USER_INTERRUPT)).all())
+    stopped = status == Status.USER_INTERRUPT
+    phase(f"ball_main_path_B{B}", launches=launches,
+          success_share=float((status == Status.SUCCESS).double().mean()),
+          interrupt_share=float(stopped.double().mean()),
+          bounces=(int(nb.min()), int(nb.max())),
+          restarts=(int(nr.min()), int(nr.max())),
+          mean_nstep=float(res.nstep.double().mean()),
+          max_nstep=int(res.nstep.max()),
+          brent_evals_per_lane=float(out[9].n_brent.double().mean()),
+          first_bounce_err=err1, second_bounce_err=err2,
+          kernel_ms=k_ms, device_ms=dev_ms,
+          walls_ms=[round(1e3 * w, 3) for w in walls],
+          event_buffer_bytes=ev_bytes, bound_ms=bound_ms, bound_by=bound_by,
+          bound_share=bound_ms / k_ms, rerun_bitwise=same)
+    if (not ok_status or not bool((nr[stopped] == BALL_RESTARTS).all())
+            or not bool((nr <= BALL_RESTARTS).all()) or err1 > 1e-9
+            or err2 > 1e-9 or not bool(torch.isfinite(res.y).all())
+            or tuple(res.t_events.shape) != (B, 1, BALL_CAP) or not same
+            or bool(res.event_overflow.any())):
+        raise AssertionError("ball main path: gate failed")
+    return dict(launches=1, kernel_ms=k_ms, device_ms=dev_ms,
+                wall_ms=1e3 * float(np.median(walls)), plain_ms=plain_ms,
+                max_abs_err=max(err, eerrs["y_events"]), bound_ms=bound_ms,
+                bound_by=bound_by, bound_share=bound_ms / k_ms,
+                event_buffer_bytes=ev_bytes)
+
+
+def section_main_path(dev):
+    """The Lorenz section at B=16384 (DOP853, bench.py's tolerances, t in
+    [0, 20], every crossing) through build_ensemble_solver, and its
+    terminal=5 variant: one launch each.  Lane by lane against the plain
+    version on t in [0, 5] (both timed there); on [0, 20] the mean crossings
+    of the first 4096 lanes within 1% of the plain version's on them; the
+    terminal variant lane by lane against the plain version on the first
+    4096 lanes.  The main path's row."""
+    from ivp_tpu_torch import Status, build_ensemble_solver, rhs
+    from ivp_tpu_torch import events as E
+    from ivp_tpu_torch.events import SETS, EventArgs
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+
+    B, Bc = LORENZ_B, CHECK_B
+    y0n = lorenz_y0(B, seed=9)
+    every = E.lorenz_section
+    stop5 = E.lorenz_section.replace(terminal=5)
+    solvers = {name: build_ensemble_solver(
+        rhs.lorenz, "DOP853", n=3, events=[e], event_capacity=SECTION_CAP,
+        max_steps=200_000) for name, e in (("every", every), ("stop5", stop5))}
+    rtol, atol = LORENZ_TOL
+    res = {}
+    launches = {}
+    for name, solver in solvers.items():
+        solve = lambda: solver(y0n, 0.0, SECTION_TF, rtol, atol)
+        solve()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = solve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        del r
+        (r, k_ms, dev_ms), seen = launches_of(
+            lambda: kernel_device_ms(solve))
+        if seen != {"dop853_ev": 1}:
+            raise AssertionError(f"section main path {name} launched {seen}")
+        launches[name] = 1
+        res[name] = (r, k_ms, dev_ms, wall)
+    r, k_ms, dev_ms, wall = res["every"]
+    y0 = torch.as_tensor(y0n, device=dev)
+    # The plain version on the first 4096 lanes, t in [0, 20]: the mean.
+    a = solve_args(y0[:Bc].contiguous(), SECTION_TF, rtol, atol, None,
+                          dev)
+    ev = EventArgs((every,), SECTION_CAP, 0)
+    plain_20, plain20_ms = event_call(lambda: K.erk_ensemble_torch(
+        "DOP853", rhs.lorenz, *a, (), 200_000, None, None, ev))
+    mean_k = float(r.n_events[:Bc, 0].double().mean())
+    mean_p = float(plain_20[9].n_events[:, 0].double().mean())
+    gap = abs(mean_k / mean_p - 1.0)
+    # Lane by lane on [0, 5], at the main path's B.
+    a5 = solve_args(y0, LORENZ_T_LANES, rtol, atol, None, dev)
+    run = lambda: K.erk_ensemble_cuda("DOP853", rhs.lorenz, *a5, (), 200_000,
+                                      events=ev)
+    run()
+    got, lane_ms = event_call(run)
+    ref, lane_plain_ms = event_call(lambda: K.erk_ensemble_torch(
+        "DOP853", rhs.lorenz, *a5, (), 200_000, None, None, ev))
+    tag = f"section_vs_plain_B{B}_tf{LORENZ_T_LANES:g}"
+    err = compare(tag, got[:9], ref[:9], scaled=True)
+    shares, eerrs = event_errors(got[9], ref[9])
+    fl, by = K.event_work("DOP853", rhs.lorenz, SETS["section"], got[5],
+                          got[9])
+    b5_ms, b5_by = K.solve_bound("DOP853", rhs.lorenz, got[4], got[5],
+                                 dense_steps=got[5], extra_flops=fl,
+                                 extra_bytes=by)
+    phase(tag + "_events", **{f"{k}_equal": v for k, v in shares.items()},
+          **{f"max_err_{k}": v for k, v in eerrs.items()},
+          brent_kernel=int(got[9].n_brent.sum()),
+          brent_plain=int(ref[9].n_brent.sum()), kernel_ms=lane_ms,
+          plain_ms=lane_plain_ms, bound_ms=b5_ms, bound_by=b5_by)
+    check_events(tag, shares, eerrs)
+    # The terminal variant, lane by lane on the first 4096 lanes.
+    rs = res["stop5"][0]
+    ev5 = EventArgs((stop5,), SECTION_CAP, 0)
+    got5 = K.erk_ensemble_cuda("DOP853", rhs.lorenz, *a, (), 200_000,
+                               events=ev5)
+    ref5 = K.erk_ensemble_torch("DOP853", rhs.lorenz, *a, (), 200_000, None,
+                                None, ev5)
+    torch.cuda.synchronize()
+    compare(f"section_stop5_vs_plain_B{Bc}", got5[:9], ref5[:9], scaled=True)
+    shares5, eerrs5 = event_errors(got5[9], ref5[9])
+    check_events("section_stop5", shares5, eerrs5)
+    # The main path's bound, from one more launch's Brent count.
+    a20 = solve_args(y0, SECTION_TF, rtol, atol, None, dev)
+    out = K.erk_ensemble_cuda("DOP853", rhs.lorenz, *a20, (), 200_000,
+                              events=ev)
+    torch.cuda.synchronize()
+    fl, by = K.event_work("DOP853", rhs.lorenz, SETS["section"], r.naccpt,
+                          out[9])
+    bound_ms, bound_by = K.solve_bound("DOP853", rhs.lorenz, r.nstep,
+                                       r.naccpt, dense_steps=r.naccpt,
+                                       extra_flops=fl, extra_bytes=by)
+    phase(f"section_main_path_B{B}", launches=launches,
+          success_share=float((r.status == Status.SUCCESS).double().mean()),
+          crossings=(int(r.n_events.min()), int(r.n_events.max())),
+          mean_crossings=float(r.n_events.double().mean()),
+          mean_crossings_gap_B4096=gap, plain_mean_crossings_B4096=mean_p,
+          plain_ms_B4096_tf20=plain20_ms, overflow=bool(r.event_overflow.any()),
+          mean_nstep=float(r.nstep.double().mean()), kernel_ms=k_ms,
+          device_ms=dev_ms, wall_ms=1e3 * wall,
+          brent_evals_per_lane=float(out[9].n_brent.double().mean()),
+          bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / k_ms,
+          stop5_interrupt_share=float(
+              (rs.status == Status.USER_INTERRUPT).double().mean()),
+          stop5_kernel_ms=res["stop5"][1],
+          stop5_t_max=float(rs.t.max()))
+    if (gap > MEAN_NSTEP or not bool((r.status == Status.SUCCESS).all())
+            or bool(r.event_overflow.any())
+            or not bool((rs.status == Status.USER_INTERRUPT).all())
+            or not bool((rs.n_events[:, 0] == 5).all())):
+        raise AssertionError("section main path: gate failed")
+    return dict(launches=sum(launches.values()), ms=lane_ms,
+                plain_ms=lane_plain_ms, bound_ms=b5_ms, bound_by=b5_by,
+                bound_share=b5_ms / lane_ms, max_abs_err=max(
+                    err, eerrs["y_events"]),
+                inputs=f"Lorenz B={B}, t in [0, {LORENZ_T_LANES:g}]",
+                main_path_kernel_ms=k_ms, main_path_wall_ms=1e3 * wall,
+                main_path_bound_ms=bound_ms,
+                main_path_bound_share=bound_ms / k_ms)
+
+
+def ball_solve_ivp(dev):
+    """solve_ivp on the card with the ball's event set: every bounce
+    restarted in the record-event kernel (t in [0, 12], 10 restarts, status
+    1; the first two bounces within 1e-9 of the closed form; every counter
+    equal to the plain version's on the CPU), then examples/bouncing_ball.py
+    ::main, the host loop of six terminal bounces, against SciPy's
+    solve_ivp with the same event (bounce times and impact speeds within
+    1e-8).  Then the recording ensemble of the ball (dense_output, B=16384,
+    restarts): every lane's dense solution at its bounces at height 0
+    within 1e-8, and one more launch of its kernel on the same inputs, bit
+    for bit its result, held lane by lane against the plain version on the
+    card (rows, coefficients and event buffers, as events_vs_plain holds
+    the record mode).  ``({kernel: launches} of the three, the recording
+    ensemble's worst error against the plain version, its plain ms)``."""
+    from scipy.integrate import solve_ivp as scipy_solve_ivp
+
+    from ivp_tpu_torch import Status, rhs, solve_ivp, solve_ivp_ensemble
+    from ivp_tpu_torch import events as E
+    from ivp_tpu_torch.events import EventArgs
+    from ivp_tpu_torch.kernels import erk_record as R
+
+    kw = dict(method="RK45", rtol=1e-9, atol=1e-9)
+    solve = lambda: solve_ivp(rhs.ball, (0.0, 12.0), [10.0, 0.0],
+                              events=[E.ground], max_restarts=10, **kw)
+    solve()
+    r, launches = launches_of(solve)
+    cpu = solve_ivp(rhs.ball, (0.0, 12.0), [10.0, 0.0], events=[E.ground],
+                    max_restarts=10, device="cpu", **kw)
+    t1, v0 = np.sqrt(2 * 10.0 / G), np.sqrt(2 * G * 10.0)
+    tb = r.t_events[0]
+    e1, e2 = abs(tb[0] - t1), abs(tb[1] - (t1 + 2 * COR * v0 / G))
+    same = all(r[f] == cpu[f] for f in ("status", "nfev", "nstep", "naccpt",
+                                        "nrejct", "n_restarts"))
+    phase("solve_ivp_ball_restarts", status=r.status, n_restarts=r.n_restarts,
+          bounces=len(tb), first_bounce_err=e1, second_bounce_err=e2,
+          counters_equal_cpu=same, launches=launches)
+    if (r.status != 1 or r.n_restarts != 10 or e1 > 1e-9 or e2 > 1e-9
+            or not same):
+        raise AssertionError("solve_ivp ball: gate failed")
+    total = dict(launches)
+
+    # The host loop, against SciPy.
+    def ball_np(t, y):
+        return [y[1], -G]
+
+    def ground_np(t, y):
+        return y[0]
+
+    ground_np.terminal, ground_np.direction = True, -1
+    stop = E.ground.replace(restart=None)
+    t0, y, ts = 0.0, [10.0, 0.0], []
+    t0s, ys = 0.0, [10.0, 0.0]
+    worst_t = worst_v = 0.0
+    for _ in range(6):
+        (got, seen) = launches_of(lambda: solve_ivp(
+            rhs.ball, (t0, t0 + 30.0), y, events=stop, **kw))
+        for k_, v in seen.items():
+            total[k_] = total.get(k_, 0) + v
+        ref = scipy_solve_ivp(ball_np, (t0s, t0s + 30.0), ys,
+                              events=ground_np, **kw)
+        if got.status != 1 or ref.status != 1:
+            raise AssertionError("host loop: a bounce was missed")
+        t0 = float(got.t_events[0][0])
+        v = float(got.y_events[0][0][1])
+        t0s = float(ref.t_events[0][0])
+        vs = float(ref.y_events[0][0][1])
+        worst_t = max(worst_t, abs(t0 - t0s))
+        worst_v = max(worst_v, abs(v - vs) / abs(vs))
+        ts.append(t0)
+        y, ys = [0.0, -COR * v], [0.0, -COR * vs]
+    phase("solve_ivp_ball_host_loop_vs_scipy", bounces=len(ts),
+          bounce_times=[round(t, 9) for t in ts], max_time_err=worst_t,
+          max_speed_rel_err=worst_v)
+    if worst_t > 1e-8 or worst_v > 1e-8:
+        raise AssertionError("host loop: differs from SciPy")
+
+    # The recording ensemble with restarts.
+    Bm, tf, chunk = LORENZ_B, 8.0, 256
+    rec = lambda: solve_ivp_ensemble(
+        rhs.ball, (0.0, tf), ball_y0(Bm), events=[E.ground],
+        event_capacity=BALL_CAP, max_restarts=BALL_RESTARTS,
+        dense_output=True, rec_chunk=chunk, **kw)
+    rec()
+    res, seen = launches_of(rec)
+    for k_, v in seen.items():
+        total[k_] = total.get(k_, 0) + v
+    nb = res.n_events[:, 0]
+    J = int(nb.max())
+    cols = torch.arange(J, device=dev)[None, :] < nb[:, None]
+    tev = torch.where(cols, res.t_events[:, 0, :J], 0.0)
+    heights = res.sol(tev)[:, 0, :]          # per-lane times: (B, n, J)
+    worst = float(torch.where(cols, heights.abs(), 0.0).max())
+    ok = bool(((res.status == Status.SUCCESS)
+               | (res.status == Status.USER_INTERRUPT)).all())
+    # The kernel again on the same inputs, against the plain version.
+    a = solve_args(torch.as_tensor(ball_y0(Bm), device=dev), tf, kw["rtol"],
+                   kw["atol"], None, dev)
+    ev = EventArgs((E.ground,), BALL_CAP, BALL_RESTARTS)
+    run = lambda f: f("DOPRI5", rhs.ball, *a, (), 100_000, None,
+                      rec_cap=chunk, record_cont=True, events=ev)
+    got = run(R.erk_record_cuda)
+    ref, plain_ms = event_call(lambda: run(R.erk_record_torch))
+    same = all(same_bits(u, v) for u, v in zip(
+        (got.t, got.y, got.status, got.nstep, got.n_rec, got.rec_t,
+         got.events.t_events, got.events.n_events),
+        (res.t, res.y, res.status, res.nstep, res.n_steps_rec, res.ts,
+         res.t_events, res.n_events)))
+    tag = f"ensemble_dense_ball_vs_plain_B{Bm}"
+    err = compare(tag, record_outputs(got), record_outputs(ref), scaled=True)
+    _, rerrs = check_record_events(tag, got, ref, "DOPRI5", ball_f)
+    shares, eerrs = event_errors(got.events, ref.events)
+    phase(tag + "_events", **{f"{k}_equal": v for k, v in shares.items()},
+          **{f"max_err_{k}": v for k, v in eerrs.items()},
+          plain_ms=plain_ms, rerun_bitwise=same)
+    check_events(tag, shares, eerrs)
+    phase(f"ensemble_dense_ball_B{Bm}", launches=seen,
+          mean_rows=float(res.n_steps_rec.double().mean()),
+          bounces=(int(nb.min()), int(nb.max())),
+          max_height_at_bounces=worst)
+    if not ok or worst > 1e-8 or not same:
+        raise AssertionError("recording ball: gate failed")
+    return total, max(err, rerrs["shifted"], rerrs["dense"],
+                      eerrs["y_events"]), plain_ms
+
+
+def event_phase(dev):
+    """The event modes: every instantiation against its plain version and
+    chunked against unchunked, then the main paths (the ball at B=524288,
+    the Lorenz section at B=16384, solve_ivp and the recording ensemble of
+    the ball), each solve's launches counted from 0 around it alone.  The
+    JSON rows of the three event kernels the main paths run."""
+    t = time.perf_counter()
+    checks = events_vs_plain(dev)
+    events_chunking_bitwise(dev)
+    phase("event_checks", seconds=round(time.perf_counter() - t, 3))
+    t = time.perf_counter()
+    ball = ball_main_path(dev)
+    section = section_main_path(dev)
+    facade, dense_err, dense_plain_ms = ball_solve_ivp(dev)
+    phase("event_main_paths", seconds=round(time.perf_counter() - t, 3),
+          facade_launches=facade)
+    src = "ivp_tpu_torch/csrc/erk_{}.cu"
+    replaces = "ivp_tpu/core/driver.py:214"
+    rows = [dict(name="dopri5_sampled_ev", route="cuda",
+                 source=src.format("dopri5"), replaces=replaces,
+                 launches=ball["launches"], library_ms=None,
+                 **checks["dopri5_sampled_ev"],
+                 **{f"main_path_{k}": v for k, v in ball.items()
+                    if k != "launches"}),
+            dict(name="dop853_ev", route="cuda", source=src.format("dop853"),
+                 replaces=replaces, library_ms=None, **section,
+                 max_abs_err_B4096=checks["dop853_ev"]["max_abs_err"]),
+            dict(name="dopri5_record_cont_ev", route="cuda",
+                 source=src.format("dopri5"), replaces=replaces,
+                 launches=facade.get("dopri5_record_cont_ev", 0),
+                 launches_per_path=facade, library_ms=None,
+                 **checks["dopri5_record_cont_ev"],
+                 main_path_max_abs_err=dense_err,
+                 main_path_plain_ms=dense_plain_ms)]
+    # Each row's error: the worst of its B=4096 checks and its main path's.
+    rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"], ball["max_abs_err"])
+    rows[2]["max_abs_err"] = max(rows[2]["max_abs_err"], dense_err)
+    return rows
+
+
 def main():
     # ---- 1. Device ----
     if not torch.cuda.is_available():
@@ -1335,7 +2045,7 @@ def main():
     plain_ms = e0.elapsed_time(e1)
     phase(f"plain_B{B}", wall_s=round(plain_wall, 6), event_ms=round(plain_ms, 3),
           ivps_per_sec=B / plain_wall, kernel_speedup=plain_ms / ms)
-    compare(f"main_path_vs_plain_B{B}", tuple(res), plain)
+    compare(f"main_path_vs_plain_B{B}", outputs(res), plain)
 
     # ---- 7. A numpy y0 with no device runs the kernel on the card ----
     from ivp_tpu_torch import solve_ivp_ensemble
@@ -1350,7 +2060,7 @@ def main():
     if np_launches != 1 or res_np.y.device != dev:
         raise AssertionError(f"a numpy y0 ran {np_launches} kernel launches on "
                              f"{res_np.y.device}, expected 1 on {dev}")
-    compare("numpy_y0_vs_plain_B4096", tuple(res_np),
+    compare("numpy_y0_vs_plain_B4096", outputs(res_np),
             k.dopri5_ensemble_torch(rhs.vdp, *args_for(
                 torch.as_tensor(y0n, device=dev))))
 
@@ -1366,7 +2076,19 @@ def main():
             ("solve_ivp float32 on CUDA", lambda: solve_ivp(
                 rhs.vdp, (0.0, 1.0), [2.0, 0.0], dtype=torch.float32)),
             ("solve_ivp plain callable on CUDA", lambda: solve_ivp(
-                lambda t, y: -y, (0.0, 1.0), [2.0, 0.0]))):
+                lambda t, y: -y, (0.0, 1.0), [2.0, 0.0])),
+            ("plain callable event on CUDA", lambda: build_ensemble_solver(
+                rhs.ball, "RK45", n=2, events=[lambda t, y: y[:, 0]])(
+                    y0s[0][:4], 0.0, 1.0, RTOL, ATOL)),
+            ("solve_ivp plain callable event on CUDA", lambda: solve_ivp(
+                rhs.ball, (0.0, 1.0), [2.0, 0.0], events=lambda t, y: y[0])),
+            # The ball's entries exist only with its event set.
+            ("ball without events, lean DOPRI5", lambda: build_ensemble_solver(
+                rhs.ball, "RK45", n=2)(ball_y0(4), 0.0, 1.0, RTOL, ATOL)),
+            ("ball without events, DOP853", lambda: build_ensemble_solver(
+                rhs.ball, "DOP853", n=2)(ball_y0(4), 0.0, 1.0, RTOL, ATOL)),
+            ("solve_ivp ball without events", lambda: solve_ivp(
+                rhs.ball, (0.0, 1.0), [2.0, 0.0]))):
         try:
             call()
         except NotImplementedError as e:
@@ -1416,6 +2138,9 @@ def main():
 
     # ---- 10. The record mode ----
     kernels += record_phase(dev)
+
+    # ---- 11. Events and in-loop restarts ----
+    kernels += event_phase(dev)
     for row in kernels:
         if row["launches"] < 1:
             raise AssertionError(f"the main path never launched {row['name']}")

@@ -10,7 +10,10 @@ imports no jax.  Ported so far, for the explicit methods ``"RK45"``,
   and its recording tier (``record_trajectories``, ``dense_output`` and
   :class:`BatchOdeSolution`);
 * the SciPy-compatible single-IVP facade :func:`solve_ivp`, with ``t_eval``,
-  ``dense_output`` (:class:`OdeSolution`) and ``first_step``.
+  ``dense_output`` (:class:`OdeSolution`) and ``first_step``;
+* events and in-loop restarts through all of them (``events``,
+  ``event_capacity``, ``max_restarts``; :mod:`ivp_tpu_torch.events` has the
+  contract and the event sets the kernels run).
 
 Each runs through the plain PyTorch driver on the CPU and hand-written CUDA
 kernels on the GPU (kernels/erk_ensemble.py, kernels/erk_record.py).

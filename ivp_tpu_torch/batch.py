@@ -18,9 +18,11 @@ The RHS is batched: ``fun(t, y, *args)`` takes ``t`` of shape ``(B,)`` and
 ``y`` of shape ``(B, n)`` and returns ``(B, n)``.
 
 Ported: ``"RK45"``, ``"DOP853"``, ``"RK23"`` and ``"RK4"`` with ``t_eval``,
-the explicit engines' ``solver_options`` and the recording tier.  Options of
-later slices raise NotImplementedError naming their ROADMAP item, and so
-does float32 on the card, all before anything is placed on a device.
+the explicit engines' ``solver_options``, the recording tier, and events
+with in-loop restarts (``events``, ``event_capacity``, ``max_restarts``;
+ivp_tpu_torch/events.py has the contract).  Options of later slices raise
+NotImplementedError naming their ROADMAP item, and so does float32 on the
+card, all before anything is placed on a device.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import torch
 
 from .types import canonical_method
 from .core.cache import LRUCache, cache_token
+from .events import as_list, device_set, event_args
 from .methods import get_engine
 from .methods.ddtier import resolve_auto_dtype
 from .kernels.erk_ensemble import erk_ensemble
@@ -38,6 +41,9 @@ from .kernels.erk_record import erk_record
 
 
 class EnsembleResult(NamedTuple):
+    """The fields, in their order, of ``ivp_tpu.batch.EnsembleResult``
+    (``switched`` waits for ``method="auto"``, ROADMAP §1 item 8)."""
+
     t: Any        # (B,) final time per trajectory
     y: Any        # (B, n) final state
     status: Any   # (B,) int32 status codes (0 = success)
@@ -45,8 +51,14 @@ class EnsembleResult(NamedTuple):
     nstep: Any    # (B,) int32
     naccpt: Any   # (B,) int32
     nrejct: Any   # (B,) int32
+    t_events: Any = None   # (B, E, cap) event times (valid up to n_events)
+    y_events: Any = None   # (B, E, cap, n) states at them
+    n_events: Any = None   # (B, E) int32 recorded occurrences per event
     y_samples: Any = None  # (B, m, n) states at the t_eval grid
     n_samples: Any = None  # (B,) int32 emitted sample counts
+    n_restarts: Any = None  # (B,) int32 in-loop event restarts made
+    event_overflow: Any = None  # (B, E) bool: occurrences dropped because
+    #                             the fixed-capacity buffer was full
     ts: Any = None         # (B, S) recorded step endpoints (recording tier;
     #                        rows past a lane's n_steps_rec are zero)
     ys: Any = None         # (B, S, n) recorded states
@@ -63,14 +75,50 @@ def _unported(**opts):
                 f"{name} is not ported to ivp_tpu_torch yet: ROADMAP §1 {where}")
 
 
-def _later_slices(events, max_restarts, time_dtype, jac, jac_sparsity):
+def _later_slices(time_dtype, jac, jac_sparsity):
     """The solver factories' options of later slices: NotImplementedError
     naming the first one set."""
-    _unported(events=(bool(events), "item 5 (events and restarts)"),
-              max_restarts=(bool(max_restarts), "item 5 (events and restarts)"),
-              time_dtype=(time_dtype is not None, TIME_DTYPE_ITEM),
+    _unported(time_dtype=(time_dtype is not None, TIME_DTYPE_ITEM),
               jac=(jac is not None, "item 7 (the stiff tier)"),
               jac_sparsity=(jac_sparsity is not None, "item 7 (the stiff tier)"))
+
+
+def _auto_event_capacity(y0_shape, events, dtype) -> int:
+    """Default per-event record capacity of the ensemble tier
+    (``ivp_tpu.batch._auto_event_capacity``): the buffers hold ``B * E *
+    cap * (n + 1)`` values, so budget ~32 MiB for them and clamp to [16,
+    512]; small ensembles get the single-IVP facade's 512, huge ones 16
+    (overflow is flagged on ``EnsembleResult.event_overflow`` and warned
+    about)."""
+    if not events:
+        return 16
+    n_ev = 1 if callable(events) else max(1, len(list(events)))
+    B, n = int(y0_shape[0]), max(1, int(y0_shape[1]))
+    itemsize = 4 if dtype == torch.float32 else 8
+    cap = (32 * 1024 * 1024) // max(1, B * n_ev * (n + 1) * itemsize)
+    return int(min(512, max(16, cap)))
+
+
+def _warn_event_overflow(res):
+    """Warn when the event buffers overflowed on some lane (occurrences
+    were dropped: a silent flag is easy to miss)."""
+    ov = res.event_overflow
+    if ov is not None and ov.numel() and bool(ov.any()):
+        import warnings
+        warnings.warn(
+            "event record buffers overflowed on some lanes (occurrences "
+            "were dropped; see EnsembleResult.event_overflow).  Raise "
+            "event_capacity= to keep them.", UserWarning, stacklevel=3)
+    return res
+
+
+def _event_fields(out) -> dict:
+    """The event buffers' EnsembleResult fields of a solve's EventOut
+    (``out``, or None without events)."""
+    if out is None:
+        return {}
+    return dict(t_events=out.t_events, y_events=out.y_events,
+                n_events=out.n_events, event_overflow=out.event_overflow)
 
 
 # Where ROADMAP §1 keeps time_dtype (f64 time with f32 state).
@@ -156,6 +204,14 @@ def _refuse_f32_on_card(dtype, y0, device):
         raise NotImplementedError(F32_ON_CARD)
 
 
+def _refuse_events_on_card(fun, ev, y0, device):
+    """Events the kernels cannot run (a plain callable, another RHS's set)
+    on a CUDA placement raise NotImplementedError, before anything is
+    placed."""
+    if ev is not None and placement(y0, device).type == "cuda":
+        device_set(fun, ev)
+
+
 def _place(y0_batch, device) -> torch.device:
     """The device a solve runs on: a tensor's own, else ``device``, else the
     card.  Raises ValueError when ``device`` is given and is not the
@@ -226,20 +282,32 @@ def build_ensemble_solver(fun, method="RK45", *, n, dtype=None, args=(),
     stiff_threshold, iord, controller_precision``); an unknown one raises
     TypeError.
 
+    ``events``: event callables (ivp_tpu_torch/events.py), each called
+    batched, ``g(t (B,), y (B, n), *args) -> (B,)``; on the card a declared
+    event set of ``fun``.  Each lane records up to ``event_capacity``
+    occurrences of each event (``t_events (B, E, cap)``, ``y_events (B, E,
+    cap, n)``, ``n_events (B, E)``, ``event_overflow (B, E)`` where one was
+    dropped); a terminal event stops its lane with status 1.
+    ``max_restarts``: an event with a ``restart`` map that fires terminally
+    restarts its lane from the event point with the mapped state, up to
+    that many times a lane (``n_restarts (B,)``).  ``terminal``,
+    ``direction`` and ``restart`` are read at each call.
+
     ``min_step`` is accepted and, as in ivp_tpu, unused by the explicit
     engines.  ``unroll`` is accepted and has no effect: the kernels loop per
-    lane, and the plain version's host-check cadence is fixed.  ``events``,
-    ``max_restarts``, ``time_dtype``, ``jac`` and ``jac_sparsity`` raise
-    NotImplementedError naming their slice.
+    lane, and the plain version's host-check cadence is fixed.
+    ``time_dtype``, ``jac`` and ``jac_sparsity`` raise NotImplementedError
+    naming their slice.
     """
-    del unroll, min_step, event_capacity
-    _later_slices(events, max_restarts, time_dtype, jac, jac_sparsity)
+    del unroll, min_step
+    _later_slices(time_dtype, jac, jac_sparsity)
     method = _check_method(method)
     dtype = resolve_auto_dtype(dtype)
     args = tuple(args)
+    ev_list = as_list(events)
     sample_grid = None if t_eval is None else _norm_sample_grid(t_eval)
     sample_cap = 0 if sample_grid is None else int(sample_grid.shape[-1])
-    _, params = get_engine(method, need_cont=sample_cap > 0,
+    _, params = get_engine(method, need_cont=sample_cap > 0 or bool(ev_list),
                            **(solver_options or {}))
     grids = {}   # the build-time grid on each device it has run on
 
@@ -252,6 +320,8 @@ def build_ensemble_solver(fun, method="RK45", *, n, dtype=None, args=(),
         plain version.  A tensor keeps its own device; a ``device`` given
         with it must name that device (ValueError otherwise)."""
         _refuse_f32_on_card(dtype, y0_batch, device)
+        ev = event_args(ev_list, event_capacity, max_restarts)
+        _refuse_events_on_card(fun, ev, y0_batch, device)
         y0 = _as_state(y0_batch, dtype, device)
         if y0.ndim != 2 or y0.shape[1] != n:
             raise ValueError(f"y0_batch must have shape (B, {n}), "
@@ -292,8 +362,13 @@ def build_ensemble_solver(fun, method="RK45", *, n, dtype=None, args=(),
         out = erk_ensemble(method, fun, y0, t0_b, tf_b, hmax, fs,
                            _norm_tol(rtol, B, n, dtype, dev, "rtol"),
                            _norm_tol(atol, B, n, dtype, dev, "atol"),
-                           lane_args, max_steps, grid, params)
-        return EnsembleResult(*out)
+                           lane_args, max_steps, grid, params, ev)
+        kw = _event_fields(out[9] if ev is not None else None)
+        if max_restarts:   # as ivp_tpu's, which gives it only then
+            kw["n_restarts"] = (out[9].n_restarts if ev is not None
+                                else torch.zeros_like(out[4]))
+        return EnsembleResult(*out[:7], y_samples=out[7], n_samples=out[8],
+                              **kw)
 
     return solver
 
@@ -342,6 +417,11 @@ def solve_ivp_ensemble(fun, t_span, y0_batch, method="RK45", *, rtol=1e-3,
     a lane (one kernel launch each on the card) and stay on the solve's
     device.
 
+    ``events``, ``max_restarts``: as for :func:`build_ensemble_solver`;
+    ``event_capacity`` None picks one from the ensemble's size
+    (:func:`_auto_event_capacity`), and a buffer that overflowed on some
+    lane gives a UserWarning.
+
     ``chunk_steps`` is accepted and has no effect (ivp_tpu bounds each
     device call to that many attempts; the kernel runs each lane to its
     end in one launch).  ``lane_chunk="auto"`` and ``None`` mean no
@@ -365,16 +445,22 @@ def solve_ivp_ensemble(fun, t_span, y0_batch, method="RK45", *, rtol=1e-3,
         finite = bool(np.isfinite(y0).all())
     B, n = y0.shape
     record = bool(dense_output or record_trajectories)
+    if event_capacity is None:
+        event_capacity = _auto_event_capacity(
+            (B, n), events, resolve_auto_dtype(dtype))
     opts = dict(
         n=n, dtype=dtype, args=tuple(args), jac=jac,
         jac_sparsity=jac_sparsity, max_steps=max_steps, first_step=first_step,
-        max_step=max_step, min_step=min_step, events=events, t_eval=t_eval,
+        max_step=max_step, min_step=min_step, events=events,
+        event_capacity=event_capacity, t_eval=t_eval,
         solver_options=solver_options, max_restarts=max_restarts,
         time_dtype=time_dtype)
     key = ("ensemble", str(method), n, str(dtype),
            cache_token(fun), tuple(cache_token(a) for a in tuple(args)),
            cache_token(jac), cache_token(jac_sparsity), max_steps, first_step,
-           max_step, min_step, bool(events), _grid_token(t_eval),
+           max_step, min_step,
+           tuple(cache_token(e) for e in as_list(events)), event_capacity,
+           _grid_token(t_eval),
            tuple(sorted((k, cache_token(v))
                         for k, v in (solver_options or {}).items())),
            max_restarts, str(time_dtype), record, bool(dense_output),
@@ -406,8 +492,9 @@ def solve_ivp_ensemble(fun, t_span, y0_batch, method="RK45", *, rtol=1e-3,
             y=torch.as_tensor(y0, dtype=torch.float64, device=dev), status=z,
             nfev=z, nstep=z, naccpt=z, nrejct=z, **kw)
     if record:
-        return _run_recording(solver, y0, t_span, rtol, atol, device)
-    return solver(y0, t0, tf, rtol, atol, device=device)
+        return _warn_event_overflow(
+            _run_recording(solver, y0, t_span, rtol, atol, device))
+    return _warn_event_overflow(solver(y0, t0, tf, rtol, atol, device=device))
 
 
 # =============================================================================
@@ -525,24 +612,30 @@ def build_recording_solver(fun, method="RK45", *, n, dtype=None, args=(),
     (``ivp_tpu.batch.build_recording_solver``): ``ts``, ``ys`` and
     ``n_steps_rec``, with ``dense_output`` each step's coefficients and
     ``sol``, a :class:`BatchOdeSolution`; with ``t_eval`` the in-loop samples
-    too.  Arguments as for :func:`build_ensemble_solver`; ``rec_chunk``
-    rows a lane are recorded between two drains.  ``t0`` may be a scalar or
-    ``(B,)``; the largest ``|tf - t0|`` (capped by ``max_step``) is every
-    lane's ``hmax``, as in ivp_tpu."""
-    del min_step, event_capacity
-    _later_slices(events, max_restarts, time_dtype, jac, jac_sparsity)
+    too, and with ``events`` the event buffers and restarts (the row of a
+    step an event ends or restarts holds the event's time and state, and
+    ``sol``'s segments end at the recorded times).  Arguments as for
+    :func:`build_ensemble_solver`; ``rec_chunk`` rows a lane are recorded
+    between two drains.  ``t0`` may be a scalar or ``(B,)``; the largest
+    ``|tf - t0|`` (capped by ``max_step``) is every lane's ``hmax``, as in
+    ivp_tpu."""
+    del min_step
+    _later_slices(time_dtype, jac, jac_sparsity)
     method = _check_method(method)
     dtype = resolve_auto_dtype(dtype)
     args = tuple(args)
+    ev_list = as_list(events)
     sample_grid = None if t_eval is None else _norm_sample_grid(t_eval)
     sample_cap = 0 if sample_grid is None else int(sample_grid.shape[-1])
-    engine, params = get_engine(method,
-                                need_cont=bool(dense_output or sample_cap),
-                                **(solver_options or {}))
+    engine, params = get_engine(
+        method, need_cont=bool(dense_output or sample_cap or ev_list),
+        **(solver_options or {}))
     grids = {}
 
     def solver(y0_batch, t0, tf, rtol, atol, device=None):
         _refuse_f32_on_card(dtype, y0_batch, device)
+        ev = event_args(ev_list, event_capacity, max_restarts)
+        _refuse_events_on_card(fun, ev, y0_batch, device)
         y0 = _as_state(y0_batch, dtype, device)
         if y0.ndim != 2 or y0.shape[1] != n:
             raise ValueError(f"y0_batch must have shape (B, {n}), "
@@ -570,7 +663,7 @@ def build_recording_solver(fun, method="RK45", *, n, dtype=None, args=(),
                          fs, _norm_tol(rtol, B, n, dtype, dev, "rtol"),
                          _norm_tol(atol, B, n, dtype, dev, "atol"), args,
                          max_steps, grid, params, rec_cap=rec_chunk,
-                         record_cont=dense_output)
+                         record_cont=dense_output, events=ev)
         return _recording_result(engine, method, rec, dense_output, t0_b, y0)
 
     return solver
@@ -592,10 +685,15 @@ def _recording_result(engine, method, rec, dense_output, t0,
         sol = BatchOdeSolution(method, engine.interp, rec.rec_xold, rec.rec_h,
                                rec.rec_cont, rec.rec_t, rec.n_rec, t0,
                                y0_batch)
+    # ivp_tpu's recording solver gives n_restarts always.
+    n_restarts = (rec.events.n_restarts if rec.events is not None else
+                  torch.zeros_like(rec.nstep))
     return EnsembleResult(rec.t, rec.y, rec.status, rec.nfev, rec.nstep,
-                          rec.naccpt, rec.nrejct, rec.y_samples,
-                          rec.n_samples, ts=rec.rec_t, ys=rec.rec_y,
-                          n_steps_rec=rec.n_rec, sol=sol)
+                          rec.naccpt, rec.nrejct, y_samples=rec.y_samples,
+                          n_samples=rec.n_samples, ts=rec.rec_t, ys=rec.rec_y,
+                          n_steps_rec=rec.n_rec, sol=sol,
+                          **_event_fields(rec.events),
+                          n_restarts=n_restarts)
 
 
 def _run_recording(solver, y0_batch, t_span, rtol, atol,

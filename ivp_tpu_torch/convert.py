@@ -31,8 +31,9 @@ def carry_from_numpy(carry, device=None) -> Carry:
     ``n_rec``, ``rec_*``, ``rec_cont`` in its flat ``(cap, C*n)`` rows) come
     across as they are: zero-size where the mode is off, mid-solve
     otherwise.  dtypes are kept; tensors land on ``device`` (default: CPU).
-    Fields the port's driver does not carry (njev, nlu, event buffers,
-    restarts) are dropped."""
+    The restart count comes across; the event state does not (``ev`` is
+    None: a carry without events), nor do the fields the port's driver
+    does not carry (njev, nlu)."""
     single = np.ndim(carry.t) == 0
 
     def tt(x):
@@ -40,8 +41,8 @@ def carry_from_numpy(carry, device=None) -> Carry:
         return torch.as_tensor(a[None] if single else a, device=device)
 
     ms = ERKState(*(tt(getattr(carry.ms, f)) for f in ERKState._fields))
-    return Carry(**{f: ms if f == "ms" else tt(getattr(carry, f))
-                    for f in Carry._fields})
+    return Carry(**{f: ms if f == "ms" else None if f == "ev"
+                    else tt(getattr(carry, f)) for f in Carry._fields})
 
 
 def result_to_numpy(res):

@@ -5,7 +5,8 @@ The reference runs one ``lax.while_loop`` around an engine's attempt and
 vmaps it over the ensemble; here the loop is a Python loop over batched
 attempts:
 
-    carry -> engine.attempt -> [record] -> [sample emission] -> counters/status -> carry
+    carry -> engine.attempt -> [events, restart] -> [record] -> [sample emission]
+          -> counters/status -> carry
 
 Every lane keeps its own step size, counters and status.  A lane that is
 done is frozen (its carry is kept by a masked select), so each lane's
@@ -28,19 +29,31 @@ record buffers are written in place, each lane only its own rows: no
 whole-buffer select per attempt.  The reference's scan tier is a TPU
 lowering and is not ported.
 
-Events are not ported (ROADMAP §1 item 5).  This is the plain version of the
-fused CUDA kernels (kernels/erk_ensemble.py, kernels/erk_record.py), and the
-CPU route.
+Events (``DriverConfig.event_spec``) run on every advanced step
+(core/events.py).  A terminal event ends the lane at the event point: its
+step is truncated there (``t``, ``y`` and the record row are the event's),
+and no sample past it is emitted.  With ``max_restarts > 0`` a terminal
+event whose restart map is given instead restarts the lane from the event
+point with the mapped state: the engine's init runs again there (RK4 keeps
+its step, ``|h_used|``), its evaluations count in ``nfev``, the event values
+restart from the new state and the restarting event's hit count goes back
+to 0 (the others keep theirs).  Status priority: engine failure > terminal
+event > reached ``tend`` > step budget.
+
+This is the plain version of the fused CUDA kernels (kernels/erk_ensemble.py,
+kernels/erk_record.py), and the CPU route.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import torch
 
 from ..types import Status
 from ..methods.base import Engine, RunArgs
+from .events import (EventSpec, EvState, init_ev_state, keep_state,
+                     process_events)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +65,8 @@ class DriverConfig:
     sample_cap: int = 0  # in-loop t_grid emission buffer size (0 = off)
     rec_cap: int = 0     # step records per chunk (0 = no records)
     record_cont: bool = False  # also record dense coefficients
+    event_spec: Optional[EventSpec] = None
+    max_restarts: int = 0  # in-loop event restarts a lane may make (0 = off)
 
 
 class Carry(NamedTuple):
@@ -79,10 +94,16 @@ class Carry(NamedTuple):
     seg_xold: Any   # (B,) left edge
     seg_h: Any      # (B,) signed step size
     seg_valid: Any  # (B,) bool: at least one step accepted
+    ev: Any = None  # EvState with an event_spec, else None
+    n_restarts: Any = None  # (B,) int32 in-loop event restarts made
 
 
 def tree_where(mask, a, b):
     """Per-lane select over (nested) NamedTuples of batched tensors."""
+    if a is None:
+        return None
+    if isinstance(a, EvState):
+        return keep_state(mask, a, b, tree_where)
     if isinstance(a, tuple):
         return type(a)(*(tree_where(mask, x, y) for x, y in zip(a, b)))
     return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
@@ -109,10 +130,20 @@ def reset_records(c: Carry) -> Carry:
     return c._replace(n_rec=torch.zeros_like(c.n_rec))
 
 
-def make_driver(engine: Engine, p, cfg: DriverConfig, rhs):
+def make_driver(engine: Engine, p, cfg: DriverConfig, rhs, events_fn=None,
+                restart_fns=None):
     """Build ``(init_carry, run_chunk, run_bounded)`` for an engine; a
     record-mode caller clears the cursors between chunks with
-    :func:`reset_records`."""
+    :func:`reset_records`.  With ``cfg.event_spec``: ``events_fn(t (B,), y
+    (B, n)) -> (B, E)`` and ``restart_fns``, per event a map ``y_new = f(t
+    (B,), y (B, n))`` or None (no restart)."""
+    spec = cfg.event_spec
+    has_events = spec is not None and spec.n_events > 0
+    if has_events and not engine.ncoeff:
+        raise ValueError("events need an engine built with need_cont")
+    restart_fns = list(restart_fns or [])
+    has_restarts = (has_events and cfg.max_restarts > 0
+                    and any(f is not None for f in restart_fns))
     m = cfg.sample_cap
     Cs = engine.ncoeff if m else 0
     if m and not Cs:
@@ -144,6 +175,8 @@ def make_driver(engine: Engine, p, cfg: DriverConfig, rhs):
             seg_cont=y0.new_zeros((B, Cs, n)),
             seg_xold=torch.zeros_like(t0), seg_h=torch.zeros_like(t0),
             seg_valid=torch.zeros_like(trivial),
+            ev=init_ev_state(events_fn, t0, y0, spec) if has_events else None,
+            n_restarts=_i32(y0, 0),
         )
 
     def step_body(c: Carry, ra: RunArgs, live, stall=None) -> Carry:
@@ -155,14 +188,68 @@ def make_driver(engine: Engine, p, cfg: DriverConfig, rhs):
         act = torch.ones_like(c.done) if stall is None else ~stall
         adv = res.advance & act
 
+        # ---- Events (on advanced steps only) ----
+        t_rec, y_rec = res.t_new, res.y_new
+        ev_new, terminal = c.ev, torch.zeros_like(adv)
+        ms_next, finished, n_restarts = res.ms, res.finished, c.n_restarts
+        nfev_inc = res.nfev_inc
+        if has_events:
+            out = process_events(
+                events_fn, engine.interp, res.cont, res.xold, res.h_used,
+                c.t, c.y, res.t_new, res.y_new, c.ms.posneg, c.ev, spec,
+                adv & live)
+            ev_new = keep_state(adv, out.state, c.ev, tree_where)
+            terminal = adv & out.terminal
+            t_rec = torch.where(terminal, out.t_term, t_rec)
+            y_rec = torch.where(terminal[:, None], out.y_term, y_rec)
+
+        # ---- In-loop event restart ----
+        if has_restarts:
+            can = torch.as_tensor([f is not None for f in restart_fns],
+                                  device=adv.device)
+            before_end = (out.t_term - ra.tend) * c.ms.posneg < 0.0
+            do_restart = (terminal & can[out.i_term] & before_end
+                          & (c.n_restarts < cfg.max_restarts))
+            if bool(do_restart.any()):
+                # The restarting event's map on the event state.
+                y_re = out.y_term
+                for i, rf in enumerate(restart_fns):
+                    if rf is not None:
+                        y_re = torch.where((out.i_term == i)[:, None],
+                                           rf(out.t_term, out.y_term), y_re)
+                # A fresh engine state from the event point (RK4 keeps its
+                # fixed step).
+                fs_re = (torch.abs(res.h_used) if engine.name == "RK4"
+                         else None)
+                ms_re, nfev_re = engine.init(rhs, out.t_term, y_re, fs_re,
+                                             ra, p)
+                ms_next = tree_where(do_restart, ms_re, ms_next)
+                nfev_inc = nfev_inc + nfev_re * do_restart.to(torch.int32)
+                # Event values restart from the mapped state; only the
+                # restarting event's hit count goes back to 0.
+                E = spec.n_events
+                hit0 = (torch.arange(E, device=adv.device)[None, :]
+                        == out.i_term[:, None]) & do_restart[:, None]
+                ev_new = ev_new._replace(
+                    g_prev=torch.where(do_restart[:, None],
+                                       events_fn(out.t_term, y_re),
+                                       ev_new.g_prev),
+                    hits=torch.where(hit0, 0, ev_new.hits).to(torch.int32))
+                terminal = terminal & ~do_restart
+                # A restarted lane runs on even if this step reached tend.
+                finished = finished & ~do_restart
+                t_rec = torch.where(do_restart, out.t_term, t_rec)
+                y_rec = torch.where(do_restart[:, None], y_re, y_rec)
+                n_restarts = n_restarts + do_restart.to(torch.int32)
+
         # ---- Record the advanced step at the lane's cursor, in place ----
         n_rec = c.n_rec
         if cap:
             w = adv & live
             rows = torch.nonzero(w)[:, 0]
             at = (rows, c.n_rec[rows].to(torch.int64))
-            c.rec_t.index_put_(at, res.t_new[rows])
-            c.rec_y.index_put_(at, res.y_new[rows])
+            c.rec_t.index_put_(at, t_rec[rows])
+            c.rec_y.index_put_(at, y_rec[rows])
             c.rec_xold.index_put_(at, res.xold[rows])
             c.rec_h.index_put_(at, res.h_used[rows])
             if Cr:
@@ -183,18 +270,23 @@ def make_driver(engine: Engine, p, cfg: DriverConfig, rhs):
         nstep = c.nstep + (res.count_step & act).to(torch.int32)
         naccpt = c.naccpt + (res.accepted & act).to(torch.int32)
         nrejct = c.nrejct + (res.count_reject & act).to(torch.int32)
-        nfev = c.nfev + res.nfev_inc * act.to(torch.int32)
+        nfev = c.nfev + nfev_inc * act.to(torch.int32)
 
-        # Status priority: engine failure > reached tend > step budget.
+        # Status priority: engine failure > terminal event > reached tend >
+        # step budget.
         status = res.status
         running = status == Status.RUNNING
-        status = torch.where(running & res.finished, Status.SUCCESS, status)
+        status = torch.where(running & terminal, Status.USER_INTERRUPT, status)
+        running = status == Status.RUNNING
+        status = torch.where(running & finished, Status.SUCCESS, status)
         running = status == Status.RUNNING
         status = torch.where(running & (nstep > ra.max_steps),
                              Status.NEED_LARGER_NMAX, status).to(torch.int32)
 
         # ---- Stall masking of the state advance (sample mode) ----
-        t_step, y_step, ms_next = res.t_new, res.y_new, res.ms
+        # (the event state and restarts were kept on advanced lanes only,
+        # and a stalled lane does not advance)
+        t_step, y_step = t_rec, y_rec
         if stall is not None:
             t_step = torch.where(act, t_step, c.t)
             y_step = torch.where(act[:, None], y_step, c.y)
@@ -209,7 +301,7 @@ def make_driver(engine: Engine, p, cfg: DriverConfig, rhs):
                      rec_h=c.rec_h, rec_cont=c.rec_cont,
                      s_cursor=c.s_cursor, sample_y=c.sample_y,
                      seg_cont=seg_cont, seg_xold=seg_xold, seg_h=seg_h,
-                     seg_valid=seg_valid)
+                     seg_valid=seg_valid, ev=ev_new, n_restarts=n_restarts)
 
     def _due(cursor, valid, t, posneg, ra):
         """Lanes whose next sample lies inside the covered span, and that

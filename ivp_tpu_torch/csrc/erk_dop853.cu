@@ -216,4 +216,7 @@ IVP_ERK_ENTRY(dop853, vdp, ivp::Dop853, VdP, 64, 4, 64, 4)
 IVP_ERK_ENTRY(dop853, decay, ivp::Dop853, Decay, 64, 4, 64, 4)
 IVP_ERK_ENTRY(dop853, lorenz, ivp::Dop853, Lorenz, 64, 4, 64, 4)
 IVP_ERK_ENTRY(dop853, cr3bp, ivp::Dop853, Cr3bp, 64, 4, 64, 4)
+// The event modes, for the declared event sets (ivp_tpu_torch/events.py).
+IVP_ERK_EVENT_ENTRY(dop853, ball, ground, ivp::Dop853, Ball, Ground, 64, 4, 64, 4)
+IVP_ERK_EVENT_ENTRY(dop853, lorenz, section, ivp::Dop853, Lorenz, Section, 64, 4, 64, 4)
 IVP_ERK_LIBRARY()

@@ -205,4 +205,7 @@ IVP_ERK_ENTRY(dopri5_sampled, vdp, ivp::Dopri5, VdP, 64, 12, 64, 4)
 IVP_ERK_ENTRY(dopri5_sampled, decay, ivp::Dopri5, Decay, 64, 8, 64, 4)
 IVP_ERK_ENTRY(dopri5_sampled, lorenz, ivp::Dopri5, Lorenz, 64, 8, 64, 4)
 IVP_ERK_ENTRY(dopri5_sampled, cr3bp, ivp::Dopri5, Cr3bp, 64, 8, 64, 4)
+// The event modes, for the declared event sets (ivp_tpu_torch/events.py).
+IVP_ERK_EVENT_ENTRY(dopri5_sampled, ball, ground, ivp::Dopri5, Ball, Ground, 64, 8, 64, 4)
+IVP_ERK_EVENT_ENTRY(dopri5_sampled, lorenz, section, ivp::Dopri5, Lorenz, Section, 64, 8, 64, 4)
 IVP_ERK_LIBRARY()

@@ -80,4 +80,7 @@ IVP_ERK_ENTRY(rk4, vdp, ivp::Rk4, VdP, 64, 8, 64, 8)
 IVP_ERK_ENTRY(rk4, decay, ivp::Rk4, Decay, 64, 8, 64, 8)
 IVP_ERK_ENTRY(rk4, lorenz, ivp::Rk4, Lorenz, 64, 8, 64, 8)
 IVP_ERK_ENTRY(rk4, cr3bp, ivp::Rk4, Cr3bp, 64, 8, 64, 8)
+// The event modes, for the declared event sets (ivp_tpu_torch/events.py).
+IVP_ERK_EVENT_ENTRY(rk4, ball, ground, ivp::Rk4, Ball, Ground, 64, 8, 64, 8)
+IVP_ERK_EVENT_ENTRY(rk4, lorenz, section, ivp::Rk4, Lorenz, Section, 64, 8, 64, 8)
 IVP_ERK_LIBRARY()

@@ -126,11 +126,20 @@ def library(name: str = DOPRI5) -> ctypes.CDLL:
 
 def entry(name: str, argtypes: list, restype=ctypes.c_int, lib=None):
     """A C entry of ``lib`` (default: the lean DOPRI5 library) with its
-    argument types declared."""
+    argument types declared.  NotImplementedError if the library has no
+    such entry (a functor with no entry of that mode, as ``rhs.ball``
+    without its event set)."""
     lib = library() if lib is None else lib
     fn = _entries.get((id(lib), name))
     if fn is None:
-        fn = getattr(lib, name)
+        try:
+            fn = getattr(lib, name)
+        except AttributeError:
+            raise NotImplementedError(
+                f"the kernel library has no entry {name}: this RHS, event "
+                f"set and mode are not built for the card (ivp_tpu_torch/"
+                f"rhs.py and events.py say which are); on the CPU it runs"
+            ) from None
         fn.argtypes = argtypes
         fn.restype = restype
         _entries[(id(lib), name)] = fn

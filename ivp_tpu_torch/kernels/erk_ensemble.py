@@ -27,12 +27,21 @@ the route from the device of ``y0``:
   its own behind it (the one TPU kernel, attic/pallas_erk.py, is DOPRI5's);
 * a CUDA tensor with any other callable raises NotImplementedError.
 
+With ``events`` (an :class:`~ivp_tpu_torch.events.EventArgs`) the solve
+detects events and restarts lanes in the loop: the plain version runs the
+driver with events (core/events.py), and on the card each kernel's event
+mode runs (entries ``ivp_<kernel>_ev_<rhs>_<set>``, one per declared event
+set of the RHS, ivp_tpu_torch/events.py), still one launch a solve, the lean
+DOPRI5 solve included.  The event modes build the step's dense rows on every
+advanced step, where an event's Brent iteration reads them.
+
 There is no fallback: a failed build or launch raises.  Every route takes
 the same per-lane arguments, already broadcast by the caller: ``y0 (B, n)``,
 ``t0, tf, hmax (B,)``, ``first_step (B,)`` or None (hinit), ``rtol, atol
-(B, n)``, the RHS ``args``, ``max_steps``, ``t_grid (B, m)`` or None and the
-engine's ``params``.  Each returns ``(t, y, status, nfev, nstep, naccpt,
-nrejct, y_samples, n_samples)``, the last two None without a grid.
+(B, n)``, the RHS ``args``, ``max_steps``, ``t_grid (B, m)`` or None, the
+engine's ``params`` and ``events`` or None.  Each returns ``(t, y, status,
+nfev, nstep, naccpt, nrejct, y_samples, n_samples)``, the last two None
+without a grid, and with events an :class:`EventOut` after them.
 
 :func:`solve_bound` gives the least time an H100 could take for a solve,
 from the float64 work its lanes did (``FLOPS``) and the bytes it must move.
@@ -41,11 +50,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 
 from ..core.driver import DriverConfig, make_driver, run_args
+from ..events import MAX_EVENTS, EventArgs, device_set
 from ..methods import get_engine
 from ..methods.erk import ERKParams
 from ..rhs import CudaRHS
@@ -56,7 +66,8 @@ from .dopri5_ensemble import FP64_PEAK, HBM_RATE, _check
 # Launches made by this process, per kernel of this module (the lean DOPRI5
 # kernel counts its own in kernels/dopri5_ensemble.py).  erk_ensemble_cuda
 # adds one per launch; a caller may reset a count to 0.
-LAUNCHES = {"dopri5_sampled": 0, "dop853": 0, "rk23": 0, "rk4": 0}
+LAUNCHES = {f"{k}{e}": 0 for k in ("dopri5_sampled", "dop853", "rk23", "rk4")
+            for e in ("", "_ev")}
 
 # Masked attempts per host check of the done mask in the plain version
 # (build_ensemble_solver's default unroll in ivp_tpu).
@@ -108,8 +119,67 @@ FLOPS = {
     "RK4": Flops(15, 6, 4, 0, 0, 0, 7, 17),
 }
 # float64 operations of one RHS evaluation (csrc/rhs/*.cuh; a square root
-# counts 1, as a division).
-RHS_FLOPS = {"vdp": 5, "decay": 1, "lorenz": 8, "cr3bp": 39}
+# counts 1, as a division; the ball's is a negation and a copy).
+RHS_FLOPS = {"vdp": 5, "decay": 1, "lorenz": 8, "cr3bp": 39, "ball": 0}
+
+
+class EventOut(NamedTuple):
+    """A solve's event results, each lane's own."""
+
+    t_events: Any        # (B, E, cap) event times (valid up to n_events)
+    y_events: Any        # (B, E, cap, n) states at them
+    n_events: Any        # (B, E) int32 recorded occurrences
+    event_overflow: Any  # (B, E) bool: occurrences dropped (buffer full)
+    n_restarts: Any      # (B,) int32 in-loop restarts made
+    n_brent: Any         # (B,) int32 event evaluations of the Brent
+    #                      iterations (the event work's measure)
+
+
+class KernelEvents(ctypes.Structure):
+    """``ErkEvents`` of csrc/erk_common.cuh (same layout): the event
+    buffers, the record mode's event carry, the capacity, the restart budget
+    and mask, and each event's direction and terminal count."""
+
+    _fields_ = ([(f, ctypes.c_void_p) for f in (
+        "t_ev", "y_ev", "n_ev", "overflow", "n_restarts", "n_brent",
+        "g_prev", "hits")]
+        + [(f, ctypes.c_int) for f in ("cap", "max_restarts", "restart_mask")]
+        + [("direction", ctypes.c_int * MAX_EVENTS),
+           ("terminal", ctypes.c_int * MAX_EVENTS)])
+
+
+def event_buffers(ev: EventArgs, B: int, n: int, device, carry=False):
+    """``(EventOut, (g_prev, hits) or None)``: zeroed event outputs on
+    ``device`` (rows past a lane's count stay zero, as in the plain
+    version), and with ``carry`` the record mode's event carry."""
+    E, cap = ev.n_events, ev.cap
+    f64, i32 = torch.float64, torch.int32
+    out = EventOut(
+        torch.zeros((B, E, cap), dtype=f64, device=device),
+        torch.zeros((B, E, cap, n), dtype=f64, device=device),
+        torch.zeros((B, E), dtype=i32, device=device),
+        torch.zeros((B, E), dtype=torch.bool, device=device),
+        torch.zeros((B,), dtype=i32, device=device),
+        torch.zeros((B,), dtype=i32, device=device))
+    keep = ((torch.empty((B, E), dtype=f64, device=device),
+             torch.empty((B, E), dtype=i32, device=device)) if carry else None)
+    return out, keep
+
+
+def kernel_events(fun, ev: EventArgs, out: EventOut, keep=None):
+    """The launch argument of ``ev``'s events for ``fun``'s declared set:
+    ``(set, KernelEvents)``; raises NotImplementedError (item 12) for
+    events the kernels cannot run."""
+    s, mask = device_set(fun, ev)
+    spec = ev.spec()
+    k = KernelEvents(
+        *(x.data_ptr() for x in out),
+        *((x.data_ptr() for x in keep) if keep is not None else (0, 0)),
+        ev.cap, ev.max_restarts, mask)
+    for i in range(s.n_events):
+        k.direction[i] = spec.directions[i]
+        k.terminal[i] = spec.terminal_counts[i]
+    return s, k
 
 
 class KernelOptions(ctypes.Structure):
@@ -142,40 +212,66 @@ def kernel_options(p: ERKParams) -> KernelOptions:
         state_precision=int(p.controller_precision != "float32"))
 
 
-def erk_ensemble_torch(method, fun, y0, t0, tf, hmax, first_step, rtol, atol,
-                       args=(), max_steps=100_000, t_grid=None, params=None):
-    """Plain PyTorch version: the ported driver on the whole batch, on the
-    device of ``y0`` and in its dtype (float32 or float64)."""
-    B, n = y0.shape
+def plain_driver(method, fun, y0, args, m, params, events, **cfg):
+    """The plain version's driver for a solve: ``(init_carry, run_chunk)``
+    of the ported driver with ``method``'s engine (dense output where
+    samples, events or ``cfg``'s coefficient records need it) and the
+    events' functions, in ``y0``'s dtype and on its device."""
     dtype = y0.dtype
 
     def rhs(t, y):
         return torch.as_tensor(fun(t, y, *args), dtype=dtype,
-                               device=y.device).reshape(B, n)
+                               device=y.device).reshape(y.shape)
 
-    m = 0 if t_grid is None else int(t_grid.shape[-1])
-    engine, p = _engine(method, m, params)
+    need = m > 0 or events is not None or bool(cfg.get("record_cont"))
+    engine, p = _engine(method, need, params)
+    fns = ((None, None) if events is None else
+           events.functions(args, dtype, y0.device))
     init_carry, run_chunk, _ = make_driver(
-        engine, p, DriverConfig(unroll=_UNROLL, sample_cap=m), rhs)
+        engine, p, DriverConfig(
+            unroll=_UNROLL, sample_cap=m,
+            event_spec=None if events is None else events.spec(),
+            max_restarts=0 if events is None else events.max_restarts,
+            **cfg), rhs, *fns)
+    return init_carry, run_chunk
+
+
+def carry_events(c) -> "EventOut":
+    """The EventOut of a plain driver's carry."""
+    ev = c.ev
+    return EventOut(ev.t_buf, ev.y_buf, ev.n_rec, ev.overflow, c.n_restarts,
+                    ev.n_brent)
+
+
+def erk_ensemble_torch(method, fun, y0, t0, tf, hmax, first_step, rtol, atol,
+                       args=(), max_steps=100_000, t_grid=None, params=None,
+                       events=None):
+    """Plain PyTorch version: the ported driver on the whole batch, on the
+    device of ``y0`` and in its dtype (float32 or float64)."""
+    B = y0.shape[0]
+    m = 0 if t_grid is None else int(t_grid.shape[-1])
+    init_carry, run_chunk = plain_driver(method, fun, y0, args, m, params,
+                                         events)
     ra = run_args(tf, rtol, atol, hmax, 0.0, max_steps, y0, t_grid=t_grid)
-    t0 = torch.broadcast_to(torch.as_tensor(t0, dtype=dtype, device=y0.device),
-                            (B,))
+    t0 = torch.broadcast_to(torch.as_tensor(t0, dtype=y0.dtype,
+                                            device=y0.device), (B,))
     c = run_chunk(init_carry(t0, y0, first_step, ra), ra)
     samples = (c.sample_y, c.s_cursor) if m else (None, None)
-    return (c.t, c.y, c.status, c.nfev, c.nstep, c.naccpt, c.nrejct, *samples)
+    out = (c.t, c.y, c.status, c.nfev, c.nstep, c.naccpt, c.nrejct, *samples)
+    return out if events is None else (*out, carry_events(c))
 
 
-def _engine(method, m, params):
+def _engine(method, need_cont, params):
     """The engine of ``method`` with ``params`` (an ERKParams of that method,
-    or None for its defaults), with dense output when ``m`` samples are
-    asked for."""
+    or None for its defaults), with dense output where samples or events
+    need it (``need_cont``)."""
     if params is None:
-        return get_engine(method, need_cont=m > 0)
-    if params.method != method.upper() or params.need_cont != (m > 0):
+        return get_engine(method, need_cont=need_cont)
+    if params.method != method.upper() or params.need_cont != need_cont:
         raise ValueError(f"params are for {params.method} with need_cont="
                          f"{params.need_cont}, the solve is {method} with "
-                         f"{m} samples")
-    engine, _ = get_engine(method, need_cont=m > 0)
+                         f"need_cont={need_cont}")
+    engine, _ = get_engine(method, need_cont=need_cont)
     return engine, params
 
 
@@ -255,27 +351,49 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # t_grid, m, grid_stride; t, y and five counters, y_samples, n_samples; stream.
 _ARGTYPES = ([_I] + [_P] * 8 + [_I, KernelOptions, _P, _I, _I]
              + [_P] * 9 + [_P])
+# The event entries: the same with the events before the stream.
+_ARGTYPES_EV = _ARGTYPES[:-1] + [KernelEvents, _P]
 
 
 def erk_ensemble_cuda(method, fun: CudaRHS, y0, t0, tf, hmax, first_step,
                       rtol, atol, args=(), max_steps=100_000, t_grid=None,
-                      params=None, lib=None):
+                      params=None, lib=None, events=None):
     """Launch ``method``'s CUDA kernel on the current stream (no
     synchronisation).  float64 only; ``t_grid`` is ``(B, m)`` (a shared grid
     as an expanded view is read through its strides, not copied).  ``lib``:
     a library from ``build.load`` to launch from instead of the package's
-    (measure_kernel.py's A/B and launch-bound sweep)."""
-    method = method.upper()
+    (measure_kernel.py's A/B and launch-bound sweep).  ``events``: the
+    event mode of the kernel for the declared set they form."""
     if not isinstance(fun, CudaRHS):
         raise TypeError(f"the CUDA kernel runs a CudaRHS, got {fun!r}")
     dev = y0.device
     if dev.type != "cuda":
         raise ValueError(f"y0 must be a CUDA tensor, got {dev}")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        return ensemble_launch(method, fun, y0, t0, tf, hmax, first_step,
+                               rtol, atol, args, max_steps, t_grid, params,
+                               lib, stream, events)
+
+
+def ensemble_launch(method, fun: CudaRHS, y0, t0, tf, hmax, first_step, rtol,
+                    atol, args, max_steps, t_grid, params, lib, stream,
+                    events=None):
+    """What :func:`erk_ensemble_cuda` does once it has checked the device:
+    the outputs allocated on ``y0``'s device and one launch from ``lib``
+    (default: the package's build of the method's source) on ``stream``, so
+    that a build rehearsed without nvcc runs it on CPU tensors with stream
+    0."""
+    method = method.upper()
+    dev = y0.device
     B, n = y0.shape if y0.dim() == 2 else (-1, -1)
     f64 = torch.float64
     m = 0 if t_grid is None else int(t_grid.shape[-1])
-    _, p = _engine(method, m, params)
+    _, p = _engine(method, m > 0 or events is not None, params)
     opts = kernel_options(p)
+    if events is not None:
+        ev_out, _ = event_buffers(events, B, n, dev)
+        ev_set, ev_arg = kernel_events(fun, events, ev_out)
     first_step, grid_ptr, grid_stride = check_inputs(
         fun, y0, t0, tf, hmax, first_step, rtol, atol, t_grid)
     kargs = fun.kernel_args(args, B, dev)
@@ -287,43 +405,51 @@ def erk_ensemble_cuda(method, fun: CudaRHS, y0, t0, tf, hmax, first_step,
     y_samples = torch.zeros((B, m, n), dtype=f64, device=dev) if m else None
     n_samples = (torch.zeros((B,), dtype=torch.int32, device=dev) if m
                  else None)
+    out = (t_out, y_out, *ints, y_samples, n_samples)
+    if events is not None:
+        out = (*out, ev_out)
     if B == 0:
-        return (t_out, y_out, *ints, y_samples, n_samples)
+        return out
 
     kernel, source = KERNELS[method]
     lib = build.library(source) if lib is None else lib
     check_functor(lib, fun, kargs)
-    launch = build.entry(f"ivp_{kernel}_{fun.name}", _ARGTYPES, lib=lib)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch(B, y0.data_ptr(), t0.data_ptr(), tf.data_ptr(),
-                     hmax.data_ptr(), first_step.data_ptr(), rtol.data_ptr(),
-                     atol.data_ptr(), kargs.data_ptr(), int(max_steps), opts,
-                     grid_ptr, m, grid_stride,
-                     t_out.data_ptr(), y_out.data_ptr(),
-                     *(x.data_ptr() for x in ints),
-                     y_samples.data_ptr() if m else 0,
-                     n_samples.data_ptr() if m else 0, stream)
-    build.check(err, f"{kernel} kernel launch ({fun.name}, B={B}, m={m})", lib)
-    LAUNCHES[kernel] += 1
-    return (t_out, y_out, *ints, y_samples, n_samples)
+    if events is None:
+        name, key, tail = f"ivp_{kernel}_{fun.name}", kernel, ()
+    else:
+        name = f"ivp_{kernel}_ev_{fun.name}_{ev_set.name}"
+        key, tail = f"{kernel}_ev", (ev_arg,)
+    launch = build.entry(name, _ARGTYPES if events is None else _ARGTYPES_EV,
+                         lib=lib)
+    err = launch(B, y0.data_ptr(), t0.data_ptr(), tf.data_ptr(),
+                 hmax.data_ptr(), first_step.data_ptr(), rtol.data_ptr(),
+                 atol.data_ptr(), kargs.data_ptr(), int(max_steps), opts,
+                 grid_ptr, m, grid_stride,
+                 t_out.data_ptr(), y_out.data_ptr(),
+                 *(x.data_ptr() for x in ints),
+                 y_samples.data_ptr() if m else 0,
+                 n_samples.data_ptr() if m else 0, *tail, stream)
+    build.check(err, f"{name} kernel launch (B={B}, m={m})", lib)
+    LAUNCHES[key] += 1
+    return out
 
 
 def erk_ensemble(method, fun, y0, t0, tf, hmax, first_step, rtol, atol,
-                 args=(), max_steps=100_000, t_grid=None, params=None):
+                 args=(), max_steps=100_000, t_grid=None, params=None,
+                 events=None):
     """Route by the device of ``y0``: CPU -> plain version, CUDA -> kernel."""
     method = method.upper()
     a = (fun, y0, t0, tf, hmax, first_step, rtol, atol, args, max_steps)
     if y0.device.type == "cpu":
-        return erk_ensemble_torch(method, *a, t_grid, params)
+        return erk_ensemble_torch(method, *a, t_grid, params, events)
     if y0.device.type != "cuda":
         raise NotImplementedError(f"no route for device {y0.device}")
     if not isinstance(fun, CudaRHS):
         raise NotImplementedError(NO_GPU_CALLABLE)
-    if (method == "DOPRI5" and t_grid is None
+    if (method == "DOPRI5" and t_grid is None and events is None
             and (params is None or is_default(params))):
         return (*lean_dopri5.dopri5_ensemble_cuda(*a), None, None)
-    return erk_ensemble_cuda(method, *a, t_grid, params)
+    return erk_ensemble_cuda(method, *a, t_grid, params, events=events)
 
 
 def solve_flops(method, fun: CudaRHS, nstep, naccpt, n_samples=None,
@@ -350,18 +476,49 @@ def solve_flops(method, fun: CudaRHS, nstep, naccpt, n_samples=None,
     return flops
 
 
+# hinit's float64 operations besides its RHS evaluation (core/common.py:
+# per component the scale, two quotients and their squares, the Euler
+# probe and the difference quotient's square; per lane the step choice).
+INIT_FLOPS_N, INIT_FLOPS = 14, 10
+
+
+def event_work(method, fun: CudaRHS, ev_set, naccpt, out: EventOut):
+    """``(flops, bytes)`` of the event mode's work on a solve, besides
+    :func:`solve_flops`'s: each event function at every advanced step
+    (``naccpt``), one interpolant and one event function a Brent
+    evaluation (``out.n_brent``, the kernel's own count), and each
+    restart's map, event values and method init (two RHS evaluations and
+    hinit); the bytes are the recorded occurrences (a time and a state
+    each) and each lane's counts, flags and restart count.  ``ev_set``: the
+    declared set (events.SETS)."""
+    f, n, r = FLOPS[method.upper()], fun.n, RHS_FLOPS[fun.name]
+    tot = lambda x: float(torch.as_tensor(x).to(torch.float64).sum())
+    values = float(sum(ev_set.value_flops))
+    brent = n * f.sample_n + f.sample + max(ev_set.value_flops)
+    restart = (max(ev_set.restart_flops) + values + 2 * r
+               + n * INIT_FLOPS_N + INIT_FLOPS)
+    flops = (tot(naccpt) * values + tot(out.n_brent) * brent
+             + tot(out.n_restarts) * restart)
+    B, E = out.n_events.shape
+    nbytes = (8.0 * (1 + n) * tot(out.n_events)
+              + B * (E * (4 + 1) + 4 + 4))
+    return flops, nbytes
+
+
 def solve_bound(method, fun: CudaRHS, nstep, naccpt, n_samples=None, m=0,
                 peak=FP64_PEAK, rate=HBM_RATE, dense_steps=None,
-                extra_bytes=0.0):
+                extra_bytes=0.0, extra_flops=0.0):
     """``(ms, bound_by)``: the least time a card with float64 rate ``peak``
     and memory rate ``rate`` could take for the solve of
     :func:`solve_flops`.  The larger of that work over ``peak`` and, over
     ``rate``, the bytes read once (y0, rtol, atol; t0, tf, hmax, first_step;
     the args; a lane's ``m`` grid times) and written once (t, y; five int32
     counters; ``m`` rows of samples and their count), plus ``extra_bytes``
-    (a record mode's rows)."""
+    (a record mode's rows, the event buffers) and ``extra_flops`` (the
+    events' work, :func:`event_work`)."""
     B, n = torch.as_tensor(nstep).numel(), fun.n
     flops = solve_flops(method, fun, nstep, naccpt, n_samples, dense_steps)
+    flops += extra_flops
     lane = 8 * (3 * n + 4 + len(fun.defaults)) + 8 * (1 + n) + 4 * 5
     if n_samples is not None:
         lane += 8 * m + 8 * m * n + 4

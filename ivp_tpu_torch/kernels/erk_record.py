@@ -19,6 +19,14 @@ picks the route from the device of ``y0``:
   whole carry kept in device memory between launches;
 * a CUDA tensor with any other callable raises NotImplementedError.
 
+With ``events`` the record mode detects events and restarts lanes as the
+lean solve does (kernels/erk_ensemble.py): the plain driver with events, or
+the record-event entries ``ivp_<kernel>_record_ev_<rhs>_<set>``, which keep
+each lane's event state (its event values at the last point, hit counts,
+cursors, overflow flags and restart count) in device memory between
+launches too.  The row of a step that an event ends or restarts has the
+event's time and the event's (or the restarted) state.
+
 These kernels replace the XLA-fused ``ivp_tpu.core.driver.run_chunk`` in
 record mode (``step_body``'s record writes, ``:286-310``, and the stop at a
 full buffer, ``:448-457``) around each engine of ``ivp_tpu.methods.erk``;
@@ -43,7 +51,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from ..core.driver import DriverConfig, make_driver, reset_records, run_args
+from ..core.driver import reset_records, run_args
 from ..rhs import CudaRHS
 from ..types import NCOEFF, Status
 from . import build
@@ -53,8 +61,8 @@ from .dopri5_ensemble import FP64_PEAK, HBM_RATE
 # Launches made by this process: one per chunk, per method and record mode
 # (``<method>_record``: steps; ``<method>_record_cont``: with coefficients).
 # A caller may reset a count to 0.
-LAUNCHES = {f"{k}_record{c}": 0 for k in ("dopri5", "dop853", "rk23", "rk4")
-            for c in ("", "_cont")}
+LAUNCHES = {f"{k}_record{c}{e}": 0 for k in ("dopri5", "dop853", "rk23", "rk4")
+            for c in ("", "_cont") for e in ("", "_ev")}
 
 # method -> the LAUNCHES prefix
 _NAMES = {"DOPRI5": "dopri5", "DOP853": "dop853", "RK23": "rk23", "RK4": "rk4"}
@@ -76,6 +84,7 @@ class RecordResult(NamedTuple):
     rec_xold: Any  # (B, S)
     rec_h: Any    # (B, S)
     rec_cont: Any  # (B, S, C, n), or None without record_cont
+    events: Any   # erk_ensemble.EventOut, or None without events
     chunks: int   # chunks run (kernel launches on the CUDA route)
 
 
@@ -98,7 +107,7 @@ def record_stride(method: str, n: int, record_cont: bool) -> int:
     return w + w % 2
 
 
-def _assemble(pieces, B, n, C, counts, last, chunks):
+def _assemble(pieces, B, n, C, counts, last, chunks, events=None):
     """Concatenate the chunks' rows, zero each lane's rows past its count
     and return the RecordResult, whose record fields are views of the rows.
     ``pieces``: per chunk, the ``(B, k, stride)`` rows ``[t, xold, h, y,
@@ -115,30 +124,24 @@ def _assemble(pieces, B, n, C, counts, last, chunks):
     rows.masked_fill_(past[:, :, None], 0.0)
     cont = rows[:, :, 3 + n:W].reshape(B, S, C, n) if C else None
     return RecordResult(*last, counts, rows[:, :, 0], rows[:, :, 3:3 + n],
-                        rows[:, :, 1], rows[:, :, 2], cont, chunks)
+                        rows[:, :, 1], rows[:, :, 2], cont, events, chunks)
 
 
 def erk_record_torch(method, fun, y0, t0, tf, hmax, first_step, rtol, atol,
                      args=(), max_steps=100_000, t_grid=None, params=None,
-                     rec_cap=1024, record_cont=False) -> RecordResult:
+                     rec_cap=1024, record_cont=False,
+                     events=None) -> RecordResult:
     """Plain PyTorch version: the ported driver in record mode on the whole
     batch, chunk by chunk, on the device of ``y0`` and in its dtype."""
     method = method.upper()
     B, n = y0.shape
     dtype = y0.dtype
-
-    def rhs(t, y):
-        return torch.as_tensor(fun(t, y, *args), dtype=dtype,
-                               device=y.device).reshape(B, n)
-
     m = 0 if t_grid is None else int(t_grid.shape[-1])
-    p = _params(method, m, record_cont, params)
-    engine, _ = E.get_engine(method, need_cont=p.need_cont)
-    C = engine.ncoeff if record_cont else 0
-    init_carry, run_chunk, _ = make_driver(
-        engine, p, DriverConfig(unroll=E._UNROLL, sample_cap=m,
-                                rec_cap=int(rec_cap), record_cont=record_cont),
-        rhs)
+    p = _params(method, m, record_cont, params, events)
+    C = record_coeffs(method) if record_cont else 0
+    init_carry, run_chunk = E.plain_driver(
+        method, fun, y0, args, m, p, events, rec_cap=int(rec_cap),
+        record_cont=record_cont)
     ra = run_args(tf, rtol, atol, hmax, 0.0, max_steps, y0, t_grid=t_grid)
     t0 = torch.broadcast_to(torch.as_tensor(t0, dtype=dtype, device=y0.device),
                             (B,))
@@ -161,14 +164,15 @@ def erk_record_torch(method, fun, y0, t0, tf, hmax, first_step, rtol, atol,
             break
     samples = (c.sample_y, c.s_cursor) if m else (None, None)
     last = (c.t, c.y, c.status, c.nfev, c.nstep, c.naccpt, c.nrejct, *samples)
-    return _assemble(pieces, B, n, C, counts, last, chunks)
+    return _assemble(pieces, B, n, C, counts, last, chunks,
+                     None if events is None else E.carry_events(c))
 
 
-def _params(method, m, record_cont, params):
-    """``method``'s params with dense output where samples or coefficient
-    records need it: ``params`` if given (it must agree), else the cached
-    defaults."""
-    need = m > 0 or record_cont
+def _params(method, m, record_cont, params, events=None):
+    """``method``'s params with dense output where samples, coefficient
+    records or events need it: ``params`` if given (it must agree), else
+    the cached defaults."""
+    need = m > 0 or record_cont or events is not None
     if params is None:
         return E._default_params(method, need)
     if params.method != method or params.need_cont != need:
@@ -193,12 +197,15 @@ _ARGTYPES = E._ARGTYPES[:-1] + [KernelCarry, _P, _P, _I, _I, _I, _P]
 # The same without the stride: a build from before the staged stores
 # (unpadded rows), which an A/B may pass as ``lib``.
 _ARGTYPES_UNSTAGED = E._ARGTYPES[:-1] + [KernelCarry, _P, _P, _I, _I, _P]
+# The record-event entries: the staged arguments with the events before
+# the stream.
+_ARGTYPES_EV = _ARGTYPES[:-1] + [E.KernelEvents, _P]
 
 
 def erk_record_cuda(method, fun: CudaRHS, y0, t0, tf, hmax, first_step,
                     rtol, atol, args=(), max_steps=100_000, t_grid=None,
-                    params=None, rec_cap=1024,
-                    record_cont=False) -> RecordResult:
+                    params=None, rec_cap=1024, record_cont=False,
+                    events=None) -> RecordResult:
     """Run ``method``'s record-mode kernel chunk by chunk on the current
     stream.  float64 only; ``t_grid`` is ``(B, m)`` (a shared grid as an
     expanded view is read through its strides)."""
@@ -211,7 +218,8 @@ def erk_record_cuda(method, fun: CudaRHS, y0, t0, tf, hmax, first_step,
         stream = torch.cuda.current_stream(dev).cuda_stream
         return record_launches(
             method, fun, y0, t0, tf, hmax, first_step, rtol, atol, args,
-            max_steps, t_grid, params, rec_cap, record_cont, None, stream)
+            max_steps, t_grid, params, rec_cap, record_cont, None, stream,
+            events=events)
 
 
 class RecordLaunch:
@@ -224,16 +232,18 @@ class RecordLaunch:
     The chunk buffer's row stride is :func:`record_stride`'s for a build
     with staged stores; a build from before them (no
     ``ivp_<kernel>_record_layout_<rhs>`` entry, passed as ``lib`` for an
-    A/B) writes unpadded rows and is called without the stride."""
+    A/B) writes unpadded rows and is called without the stride.  With
+    ``events``: the record-event entry of their set, its event outputs
+    (``ev_out``) and event carry on the device."""
 
     def __init__(self, method, fun: CudaRHS, y0, t0, tf, hmax, first_step,
                  rtol, atol, args, max_steps, t_grid, params, rec_cap,
-                 record_cont, lib, stream):
+                 record_cont, lib, stream, events=None):
         method = method.upper()
         dev = y0.device
         B, n = y0.shape if y0.dim() == 2 else (-1, -1)
         m = 0 if t_grid is None else int(t_grid.shape[-1])
-        p = _params(method, m, record_cont, params)
+        p = _params(method, m, record_cont, params, events)
         first_step, grid_ptr, grid_stride = E.check_inputs(
             fun, y0, t0, tf, hmax, first_step, rtol, atol, t_grid)
         kargs = fun.kernel_args(args, B, dev)
@@ -241,7 +251,8 @@ class RecordLaunch:
         if cap < 1:
             raise ValueError(f"rec_cap must be at least 1, got {rec_cap}")
         kernel, source = E.KERNELS[method]
-        staged = lib is None or hasattr(
+        # (a build with event entries stages its rows)
+        staged = lib is None or events is not None or hasattr(
             lib, f"ivp_{kernel}_record_layout_{fun.name}")
         stride = (record_stride if staged else record_width)(
             method, n, record_cont)
@@ -249,7 +260,13 @@ class RecordLaunch:
 
         self.B, self.n, self.m, self.cap = B, n, m, cap
         self.C = record_coeffs(method) if record_cont else 0
-        self.name = record_kernel(method, record_cont)
+        self.name = record_kernel(method, record_cont, events is not None)
+        self.ev_out = ev_arg = None
+        if events is not None:
+            self.ev_out, self.ev_keep = E.event_buffers(events, B, n, dev,
+                                                        carry=True)
+            ev_set, ev_arg = E.kernel_events(fun, events, self.ev_out,
+                                             self.ev_keep)
         self.t_out = torch.empty((B,), dtype=f64, device=dev)
         self.y_out = torch.empty((B, n), dtype=f64, device=dev)
         self.ints = [torch.empty((B,), dtype=i32, device=dev)
@@ -273,9 +290,14 @@ class RecordLaunch:
             return
         self.lib = build.library(source) if lib is None else lib
         E.check_functor(self.lib, fun, kargs)
-        entry = build.entry(f"ivp_{kernel}_record_{fun.name}",
-                            _ARGTYPES if staged else _ARGTYPES_UNSTAGED,
-                            lib=self.lib)
+        if events is None:
+            entry = build.entry(f"ivp_{kernel}_record_{fun.name}",
+                                _ARGTYPES if staged else _ARGTYPES_UNSTAGED,
+                                lib=self.lib)
+        else:
+            entry = build.entry(
+                f"ivp_{kernel}_record_ev_{fun.name}_{ev_set.name}",
+                _ARGTYPES_EV, lib=self.lib)
         outs = (self.t_out, self.y_out, *self.ints)
         self._args = (
             B, y0.data_ptr(), t0.data_ptr(), tf.data_ptr(), hmax.data_ptr(),
@@ -286,7 +308,8 @@ class RecordLaunch:
             self.n_samples.data_ptr() if m else 0)
         self._rest = (self.rows.data_ptr(), self.n_rec.data_ptr(), cap,
                       *((stride,) if staged else ()),
-                      2 if record_cont else 1, stream)
+                      2 if record_cont else 1,
+                      *(() if ev_arg is None else (ev_arg,)), stream)
         self._entry = entry
         # Held: the entry reads the buffers through their pointers.
         self._keep = (y0, t0, tf, hmax, first_step, rtol, atol, kargs, t_grid)
@@ -310,7 +333,8 @@ class RecordLaunch:
 
 def record_launches(method, fun: CudaRHS, y0, t0, tf, hmax, first_step, rtol,
                     atol, args, max_steps, t_grid, params, rec_cap,
-                    record_cont, lib, stream, carry_out=None) -> RecordResult:
+                    record_cont, lib, stream, carry_out=None,
+                    events=None) -> RecordResult:
     """What :func:`erk_record_cuda` does once it has checked the device: a
     :class:`RecordLaunch` (``lib`` as it takes it),
     launched until no lane runs, and the drain.  ``carry_out``: a dict to
@@ -319,7 +343,7 @@ def record_launches(method, fun: CudaRHS, y0, t0, tf, hmax, first_step, rtol,
     ``stiff_in``)."""
     r = RecordLaunch(method, fun, y0, t0, tf, hmax, first_step, rtol, atol,
                      args, max_steps, t_grid, params, rec_cap, record_cont,
-                     lib, stream)
+                     lib, stream, events)
     counts = torch.zeros((r.B,), dtype=torch.int64, device=y0.device)
     pieces, chunks = [], 0
     while r.B:
@@ -339,17 +363,18 @@ def record_launches(method, fun: CudaRHS, y0, t0, tf, hmax, first_step, rtol,
             break
     if carry_out is not None:
         carry_out.update(r.lane_carry)
-    return _assemble(pieces, r.B, r.n, r.C, counts, r.last(), chunks)
+    return _assemble(pieces, r.B, r.n, r.C, counts, r.last(), chunks,
+                     r.ev_out)
 
 
 def erk_record(method, fun, y0, t0, tf, hmax, first_step, rtol, atol,
                args=(), max_steps=100_000, t_grid=None, params=None,
-               rec_cap=1024, record_cont=False) -> RecordResult:
+               rec_cap=1024, record_cont=False, events=None) -> RecordResult:
     """Route by the device of ``y0``: CPU -> plain version, CUDA -> kernel."""
     method = method.upper()
     a = (fun, y0, t0, tf, hmax, first_step, rtol, atol, args, max_steps,
          t_grid, params)
-    kw = dict(rec_cap=rec_cap, record_cont=record_cont)
+    kw = dict(rec_cap=rec_cap, record_cont=record_cont, events=events)
     if y0.device.type == "cpu":
         return erk_record_torch(method, *a, **kw)
     if y0.device.type != "cuda":
@@ -360,19 +385,25 @@ def erk_record(method, fun, y0, t0, tf, hmax, first_step, rtol, atol,
 
 
 def record_bound(method, fun: CudaRHS, nstep, naccpt, n_rec, record_cont,
-                 n_samples=None, m=0, peak=FP64_PEAK, rate=HBM_RATE):
+                 n_samples=None, m=0, peak=FP64_PEAK, rate=HBM_RATE,
+                 events=None):
     """``(ms, bound_by)``: the least time a card could take for a record-mode
     solve whose lanes made ``nstep`` attempts, ``naccpt`` accepted, and
     recorded ``n_rec`` rows: :func:`erk_ensemble.solve_bound`'s work and
     bytes, with the dense rows built on every recorded step when
-    ``record_cont`` (else on the emitting steps as for samples), and each
-    recorded row of ``3 + n + C*n`` doubles written once."""
+    ``record_cont`` or with events (else on the emitting steps as for
+    samples), each recorded row of ``3 + n + C*n`` doubles written once,
+    and with ``events`` ``(set, EventOut)`` the event work
+    (:func:`erk_ensemble.event_work`)."""
     C = record_coeffs(method) if record_cont else 0
     rows = float(torch.as_tensor(n_rec).to(torch.float64).sum())
+    ev_flops, ev_bytes = (0.0, 0.0) if events is None else E.event_work(
+        method, fun, events[0], naccpt, events[1])
     return E.solve_bound(
         method, fun, nstep, naccpt, n_samples, m, peak, rate,
-        dense_steps=n_rec if record_cont else None,
-        extra_bytes=8.0 * rows * (3 + fun.n + C * fun.n))
+        dense_steps=n_rec if record_cont or events is not None else None,
+        extra_bytes=8.0 * rows * (3 + fun.n + C * fun.n) + ev_bytes,
+        extra_flops=ev_flops)
 
 
 def record_layout(method, fun: CudaRHS, record_cont, lib=None) -> dict:
@@ -396,6 +427,8 @@ def record_layout(method, fun: CudaRHS, record_cont, lib=None) -> dict:
                      "blocks_per_sm", "threads"), info))
 
 
-def record_kernel(method: str, record_cont: bool) -> str:
-    """The LAUNCHES key of ``method``'s record kernel in a mode."""
-    return f"{_NAMES[method.upper()]}_record{'_cont' if record_cont else ''}"
+def record_kernel(method: str, record_cont: bool, events=False) -> str:
+    """The LAUNCHES key of ``method``'s record kernel in a mode (its event
+    mode with ``events``)."""
+    return (f"{_NAMES[method.upper()]}_record{'_cont' if record_cont else ''}"
+            f"{'_ev' if events else ''}")

@@ -15,7 +15,11 @@ add one: write the functor header, include it in ``csrc/erk_common.cuh`` and
 to each ``csrc/erk_*.cu`` and its two lines to ``IVP_ERK_LIBRARY``, give
 ``kernels/erk_ensemble.py::RHS_FLOPS`` and
 ``kernels/dopri5_ensemble.py::FLOPS_PER_ATTEMPT`` its operation counts, and
-define it here.
+define it here.  A functor that runs only with its event sets (as
+``ball``) has no ``IVP_DOPRI5_ENTRY`` or ``IVP_ERK_ENTRY`` line: its
+``IVP_ERK_EVENT_ENTRY`` lines declare it (ivp_tpu_torch/events.py says how
+to add an event set), and a launch without them finds no entry and raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -86,6 +90,10 @@ def _lorenz(t, y, sigma=10.0, rho=28.0, beta=8.0 / 3.0):
                         y0 * y1 - beta * y2], dim=-1)
 
 
+def _ball(t, y, g=9.81):
+    return torch.stack([y[:, 1], torch.zeros_like(y[:, 1]) - g], dim=-1)
+
+
 def _cr3bp(t, s, mu=0.012277471):
     # The operations and their order of tests/test_gates.py's jnp RHS (and
     # of csrc/rhs/cr3bp.cuh): squares as products, r**3 as r * (r * r).
@@ -113,3 +121,7 @@ lorenz = CudaRHS("lorenz", 3, _lorenz, (10.0, 28.0, 8.0 / 3.0))
 # (x, y, z, vx, vy, vz), mass ratio mu (default: Earth-Moon, the Arenstorf
 # orbit's).
 cr3bp = CudaRHS("cr3bp", 6, _cr3bp, (0.012277471,))
+# A ball in free fall, y = (height, velocity), y' = (v, -g).  On the card it
+# runs only with its event set ``events.ground`` (the bounce),
+# csrc/events/ground.cuh.
+ball = CudaRHS("ball", 2, _ball, (9.81,))

@@ -18,9 +18,17 @@ recorded steps; ``t_eval``, ``dense_output`` and ``first_step``'s output
 enforcement are passes over the records afterwards, as in ivp_tpu.  The
 result holds numpy arrays, as ivp_tpu's and SciPy's do.
 
+Events (ivp_tpu_torch/events.py): a plain callable event is SciPy-style
+too, ``g(t, y (n,), *args)`` with ``terminal``, ``direction`` and ``restart``
+(``y_new = restart(t, y)``) attributes, and runs on the CPU; a
+:class:`~ivp_tpu_torch.events.CudaEvent` is batched and runs on either
+route (on the card the events must form a declared event set of the
+CudaRHS).
+
 Ported: ``"RK45"``/``"DOPRI5"``, ``"DOP853"``, ``"RK23"`` and ``"RK4"``
 with ``t_eval``, ``dense_output``, ``first_step``, ``max_step``,
-``max_steps``, ``chunk_steps`` and ``solver_options``.  What a later slice
+``max_steps``, ``chunk_steps``, ``solver_options``, ``events``,
+``event_capacity`` and ``max_restarts``.  What a later slice
 brings raises NotImplementedError naming its ROADMAP item, checked before
 anything is placed on a device.  ``vectorized`` is accepted and ignored.
 """
@@ -36,6 +44,7 @@ from .types import Status, scipy_message
 from .batch import (TIME_DTYPE_ITEM, _check_method as _check_auto, _place,
                     _refuse_f32_on_card, _unported, placement)
 from .core.cache import LRUCache, cache_token
+from .events import EventArgs, as_list, device_set, lane_events
 from .methods import get_engine
 from .methods.ddtier import resolve_auto_dtype
 from .methods.interp import get_interp
@@ -233,16 +242,22 @@ def solve_ivp(
     resolve to float64; float32 runs on the CPU only.  ``device``: where a
     ``y0`` that is not a tensor goes (the card by default).
 
-    ``events``, ``max_restarts``, ``jac``, ``jac_sparsity``, ``mass``,
-    ``nind1..3``, ``time_dtype``, ``method="auto"``, Radau and BDF raise
-    NotImplementedError naming their ROADMAP item; ``vectorized``,
-    ``min_step`` and ``event_capacity`` are accepted and unused.
+    ``events``: one event or a list (see the module docstring); their
+    occurrences come back as ``t_events`` / ``y_events``, one array per
+    event, up to ``event_capacity`` each (``event_overflow`` flags a
+    dropped one), and a terminal event ends the solve with status 1 at the
+    event point.  ``max_restarts``: a terminal event with a ``restart`` map
+    restarts the integration from the event point with the mapped state,
+    up to that many times (``n_restarts``); the dense output and ``t_eval``
+    follow the restarted solution.
+
+    ``jac``, ``jac_sparsity``, ``mass``, ``nind1..3``, ``time_dtype``,
+    ``method="auto"``, Radau and BDF raise NotImplementedError naming their
+    ROADMAP item; ``vectorized`` and ``min_step`` are accepted and unused.
     """
-    del vectorized, event_capacity, min_step
+    del vectorized, min_step
     method = _check_method(method)
     _unported(
-        events=(events is not None, "item 5 (events and restarts)"),
-        max_restarts=(bool(max_restarts), "item 5 (events and restarts)"),
         jac=(jac is not None, "item 7 (the stiff tier)"),
         jac_sparsity=(jac_sparsity is not None, "item 7 (the stiff tier)"),
         mass=(mass is not None, "item 7 (the stiff tier)"),
@@ -251,12 +266,18 @@ def solve_ivp(
         time_dtype=(time_dtype is not None, TIME_DTYPE_ITEM))
     dtype = resolve_auto_dtype(dtype)
     _refuse_f32_on_card(dtype, y0, device)
-    if placement(y0, device).type == "cuda" and not isinstance(fun, CudaRHS):
-        raise NotImplementedError(
-            "solve_ivp on the card runs a CudaRHS (ivp_tpu_torch.rhs); a "
-            "plain callable runs with device='cpu'.  An arbitrary torch RHS "
-            "on the GPU is not ported yet: ROADMAP §1 item 12 (arbitrary RHS "
-            "on the GPU)")
+    ev_list = as_list(events)
+    ev = (EventArgs(tuple(lane_events(ev_list)), int(event_capacity),
+                    int(max_restarts)) if ev_list else None)
+    if placement(y0, device).type == "cuda":
+        if not isinstance(fun, CudaRHS):
+            raise NotImplementedError(
+                "solve_ivp on the card runs a CudaRHS (ivp_tpu_torch.rhs); a "
+                "plain callable runs with device='cpu'.  An arbitrary torch "
+                "RHS on the GPU is not ported yet: ROADMAP §1 item 12 "
+                "(arbitrary RHS on the GPU)")
+        if ev is not None:
+            device_set(fun, ev)   # a plain callable event raises here
 
     if isinstance(y0, torch.Tensor):
         y0_host = y0.detach().cpu().to(torch.float64).numpy().reshape(-1)
@@ -279,13 +300,16 @@ def solve_ivp(
             raise ValueError("Values in `t_eval` are not within `t_span`.")
 
     # -- fast paths: zero interval / empty system --
+    n_events = len(ev_list)
     if abs(tf - t0) < 1e-15:
         return _zero_interval_result(method, t0, y0_host, t_eval_arr,
-                                     dense_output)
+                                     dense_output, n_events,
+                                     events is not None)
     if n == 0:
-        return _empty_system_result(method, t0, tf, t_eval_arr, dense_output)
+        return _empty_system_result(method, t0, tf, t_eval_arr, dense_output,
+                                    n_events, events is not None)
 
-    need_cont = bool(dense_output or t_eval_arr is not None
+    need_cont = bool(dense_output or t_eval_arr is not None or n_events
                      or first_step is not None)
     key = ("solve", method, need_cont,
            tuple(sorted((k, cache_token(v))
@@ -314,7 +338,8 @@ def solve_ivp(
         method, rhs, y0_t, lane(t0), lane(tf), lane(hmax),
         None if fs is None else lane(abs(float(fs))),
         _broadcast_tol(rtol, n, **kw), _broadcast_tol(atol, n, **kw), args,
-        nmax, None, params, rec_cap=int(chunk_steps), record_cont=need_cont)
+        nmax, None, params, rec_cap=int(chunk_steps), record_cont=need_cont,
+        events=ev)
 
     # -- the records on the host, as numpy --
     k = int(rec.n_rec[0])
@@ -325,6 +350,7 @@ def solve_ivp(
     rec_cont = (rec.rec_cont[0, :k].cpu().numpy() if need_cont
                 else np.zeros((0, engine.ncoeff, n)))
     status = int(rec.status[0])
+    terminated = status == Status.USER_INTERRUPT
     y0_np = y0_host
     posneg = 1.0 if tf >= t0 else -1.0
 
@@ -332,6 +358,8 @@ def solve_ivp(
         """Dense evaluation of many times against the records."""
         if ts.size == 0:
             return np.zeros((0, n))
+        # The recorded endpoints, not xold + h: a step an event truncated
+        # (and restarted) must not shadow the segments after it.
         edges = rec_t
         if posneg > 0:
             idx = np.searchsorted(edges, ts - _TOL, side="left")
@@ -342,8 +370,13 @@ def solve_ivp(
                             rec_h[idx], ts)
 
     if t_eval_arr is not None:
-        # The points inside the completed steps (no terminal event here).
-        t_limit = carry_t_reached(rec_t, t0)
+        # The points inside the completed steps; on a terminal event the
+        # terminal step's points are left out and the event point is
+        # appended.
+        if terminated and len(rec_t):
+            t_limit = rec_xold[-1]
+        else:
+            t_limit = carry_t_reached(rec_t, t0)
         sel = (((t_eval_arr - t0) * posneg >= -_TOL)
                & ((t_eval_arr - t_limit) * posneg <= _TOL))
         ts = t_eval_arr[sel]
@@ -353,6 +386,9 @@ def solve_ivp(
             ys[~at_t0] = interp_at(ts[~at_t0])
         ys[at_t0] = y0_np
         t_out, y_out = list(ts), list(ys)
+        if terminated and len(rec_t):
+            t_out.append(rec_t[-1])
+            y_out.append(rec_y[-1])
     else:
         t_out = [t0] + list(rec_t)
         y_out = [y0_np] + list(rec_y)
@@ -365,6 +401,24 @@ def solve_ivp(
     t_arr = np.asarray(t_out, dtype=float)
     y_arr = np.stack(y_out, axis=1) if len(y_out) else np.zeros((n, 0))
 
+    # -- events: one array per event --
+    t_events = y_events = event_overflow = None
+    n_restarts = 0
+    if events is not None:
+        t_events, y_events = [], []
+        event_overflow = np.zeros((0,), bool)
+    if ev is not None:
+        out = rec.events
+        counts = out.n_events[0].cpu().numpy()
+        tb = out.t_events[0].cpu().numpy()
+        yb = out.y_events[0].cpu().numpy()
+        for i in range(n_events):
+            t_events.append(np.array(tb[i, :counts[i]]))
+            y_events.append(np.array(yb[i, :counts[i]]))
+        event_overflow = out.event_overflow[0].cpu().numpy()
+        n_restarts = int(out.n_restarts[0])
+
+    # The dense output's segments end at the recorded endpoints.
     sol = None
     if dense_output:
         sol = OdeSolution(method, engine.interp, rec_xold, rec_h, rec_cont,
@@ -372,11 +426,12 @@ def solve_ivp(
 
     scipy_status = Status.to_scipy(status)
     return OdeResult(
-        t=t_arr, y=y_arr, sol=sol, t_events=None, y_events=None,
+        t=t_arr, y=y_arr, sol=sol, t_events=t_events, y_events=y_events,
         nfev=int(rec.nfev[0]), njev=0, nlu=0, nstep=int(rec.nstep[0]),
         naccpt=int(rec.naccpt[0]), nrejct=int(rec.nrejct[0]),
         status=scipy_status, message=scipy_message(status),
-        success=scipy_status >= 0, n_restarts=0, event_overflow=None,
+        success=scipy_status >= 0, n_restarts=n_restarts,
+        event_overflow=event_overflow,
         raw_status=status, t_reached=float(rec.t[0]),
         y_reached=rec.y[0].cpu().numpy(),
     )
@@ -436,7 +491,16 @@ def _enforce_first_step(t_out, y_out, rec_t, rec_y, t0, posneg, h0, interp_at):
     return new_t, new_y
 
 
-def _zero_interval_result(method, t0, y0_np, t_eval_arr, dense_output):
+def _no_events(n_events, events_given, n):
+    """``(t_events, y_events)`` of a solve that took no step."""
+    if not events_given:
+        return None, None
+    return ([np.zeros((0,)) for _ in range(n_events)],
+            [np.zeros((0, n)) for _ in range(n_events)])
+
+
+def _zero_interval_result(method, t0, y0_np, t_eval_arr, dense_output,
+                          n_events=0, events_given=False):
     n = y0_np.shape[0]
     if t_eval_arr is not None:
         ts = t_eval_arr[np.abs(t_eval_arr - t0) < _TOL]
@@ -448,15 +512,17 @@ def _zero_interval_result(method, t0, y0_np, t_eval_arr, dense_output):
         interp, ncoeff = get_interp(method)
         sol = OdeSolution(method, interp, np.zeros((0,)), np.zeros((0,)),
                           np.zeros((0, ncoeff, n)), t0, y0_np)
+    t_events, y_events = _no_events(n_events, events_given, n)
     return OdeResult(
-        t=ts, y=y, sol=sol, t_events=None, y_events=None,
+        t=ts, y=y, sol=sol, t_events=t_events, y_events=y_events,
         nfev=0, njev=0, nlu=0, nstep=0, naccpt=0, nrejct=0,
         status=0, message=scipy_message(Status.SUCCESS), success=True,
         raw_status=Status.SUCCESS, t_reached=t0, y_reached=y0_np,
     )
 
 
-def _empty_system_result(method, t0, tf, t_eval_arr, dense_output):
+def _empty_system_result(method, t0, tf, t_eval_arr, dense_output,
+                         n_events=0, events_given=False):
     ts = t_eval_arr if t_eval_arr is not None else np.asarray([t0, tf])
     y = np.zeros((0, ts.size))
     sol = None
@@ -464,9 +530,10 @@ def _empty_system_result(method, t0, tf, t_eval_arr, dense_output):
         interp, ncoeff = get_interp(method)
         sol = OdeSolution(method, interp, np.zeros((0,)), np.zeros((0,)),
                           np.zeros((0, ncoeff, 0)), t0, np.zeros((0,)))
+    t_events, y_events = _no_events(n_events, events_given, 0)
     return OdeResult(
         t=np.asarray(ts, dtype=float), y=y, sol=sol,
-        t_events=None, y_events=None,
+        t_events=t_events, y_events=y_events,
         nfev=0, njev=0, nlu=0, nstep=0, naccpt=0, nrejct=0,
         status=0, message=scipy_message(Status.SUCCESS), success=True,
         raw_status=Status.SUCCESS, t_reached=tf, y_reached=np.zeros((0,)),

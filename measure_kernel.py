@@ -82,6 +82,12 @@ instantiation), then the phases (all by default, ``ab`` only with
   the medians, GB/s written and the share of ``record_bound`` of each
   side, registers and spills, row stride, staged rows, dynamic shared
   memory a block and blocks resident an SM.
+* ``events``: each main-path event instantiation alone (``EVENT_B``): the
+  bouncing ball (``dopri5_sampled_ev``) at B=16384 and 524288 and the
+  Lorenz section (``dop853_ev``) at B=16384 and 262144, on chip_smoke.py's
+  inputs, timed in ``turn_ms`` turns, with the bound (the kernel's own
+  Brent count), its share, warp efficiency and the event work a lane; then
+  ptxas's registers and spills of every event instantiation.
 
 The A/B, occupancy and two-kernel timings are turns of ``turn_ms``: five
 launches back to back between two CUDA events, so the host's work of a
@@ -122,7 +128,12 @@ FUNCTORS = ("VdP", "Decay", "Lorenz", "Cr3bp")
 OCC_THREADS, OCC_MIN_BLOCKS = (64, 128, 256), (6, 7, 8, 10, 12)
 OCC_ROUNDS = 10
 PHASES = ("sass", "settle", "sweep", "turns", "profile", "occupancy", "erk",
-          "erk_occupancy", "ab", "ab_record")
+          "erk_occupancy", "ab", "ab_record", "events")
+# The events phase: each main-path event instantiation alone, (kernel, set,
+# lane counts): the bouncing ball and the Lorenz section of chip_smoke.py.
+EVENT_B = (("DOPRI5", "ground", (16384, 524288)),
+           ("DOP853", "section", (16384, 262144)))
+EVENT_ROUNDS = 5
 # The erk phase: lanes, and (method, tf, rtol, atol, first_step) on Lorenz
 # with y0 = [1, 1, 1] + 1e-3 N(0, 1), as chip_smoke.py's main path.
 ERK_B = (4096, 16384, 65536, 262144)
@@ -260,21 +271,24 @@ _INS = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?"
 
 # An instantiation of csrc/erk_common.cuh's erk_kernel, as mangled: method,
 # functor, controller type, SAMPLED, the record mode (absent in builds from
-# before it), then threads and min blocks.
+# before it), the event set (absent before the event modes; ivp::NoEvents or
+# a set's struct), then threads and min blocks.
 _ERK = re.compile(
-    r"erk_kernelINS_\d+(\w+?)E\d+(\w+?)([fd])Lb([01])E(?:Li([0-2])E)?")
+    r"erk_kernelINS_\d+(\w+?)E\d+(\w+?)([fd])Lb([01])E(?:Li([0-2])E)?"
+    r"(?:NS_8NoEventsE|\d+([A-Z]\w*?)(?=Li\d+E))?")
 
 
 def instantiation(mangled):
     """``Lorenz/f32/lean`` for an erk_kernel instantiation (``/record`` or
-    ``/record_cont`` after a record mode's), else the functor the name
-    holds."""
+    ``/record_cont`` after a record mode's, ``/ev_<Set>`` after an event
+    mode's), else the functor the name holds."""
     m = _ERK.search(mangled)
     if not m:
         return next((f for f in FUNCTORS if f in mangled), mangled)
     rec = {None: "", "0": "", "1": "/record", "2": "/record_cont"}[m.group(5)]
+    ev = f"/ev_{m.group(6)}" if m.group(6) else ""
     return (f"{m.group(2)}/{'f32' if m.group(3) == 'f' else 'f64'}/"
-            f"{'sampled' if m.group(4) == '1' else 'lean'}{rec}")
+            f"{'sampled' if m.group(4) == '1' else 'lean'}{rec}{ev}")
 
 
 # Where sass_functions writes each library's listing (--sass-dir), if set.
@@ -881,15 +895,15 @@ def record_cases(method, dev):
     ``rec_cap=1024``, its span and options) and chip_smoke.py's check
     (B=4096, ``rec_cap=37``) without and with a 9-point grid."""
     from chip_smoke import (CHECK_B, LORENZ_B, REC_CAP_CHECK, RECORD_CONFIGS,
-                            lorenz_kernel_args, lorenz_y0)
+                            solve_args, lorenz_y0)
 
     _, tf_check, tf_main, (rtol, atol), opts = next(
         c for c in RECORD_CONFIGS if c[0] == method)
     first = opts.get("first_step")
-    main = lorenz_kernel_args(torch.as_tensor(lorenz_y0(LORENZ_B, seed=8),
+    main = solve_args(torch.as_tensor(lorenz_y0(LORENZ_B, seed=8),
                                               device=dev),
                               tf_main, rtol, atol, first, dev)
-    check = lorenz_kernel_args(torch.as_tensor(lorenz_y0(CHECK_B, seed=6),
+    check = solve_args(torch.as_tensor(lorenz_y0(CHECK_B, seed=6),
                                                device=dev),
                                tf_check, rtol, atol, first, dev)
     grid = torch.broadcast_to(torch.linspace(
@@ -927,7 +941,7 @@ def ab_record(build, rhs, dev, baseline, label):
     package's: ``ab_record_bitwise`` on every ``record_cases`` case, then
     ``ab_record`` turns of one launch of each main path's solve at each of
     AB_RECORD and an ``ab_record_summary`` line per kernel and B."""
-    from chip_smoke import LORENZ_B, RECORD_CONFIGS, lorenz_kernel_args
+    from chip_smoke import LORENZ_B, RECORD_CONFIGS, solve_args
     from chip_smoke import lorenz_y0
     from ivp_tpu_torch.kernels import erk_ensemble as K
     from ivp_tpu_torch.kernels import erk_record as R
@@ -969,7 +983,7 @@ def ab_record(build, rhs, dev, baseline, label):
     for B, cap in AB_RECORD:
         y0 = torch.as_tensor(lorenz_y0(B, seed=8), device=dev)
         for method, _, tf, (rtol, atol), opts in RECORD_CONFIGS:
-            a = lorenz_kernel_args(y0, tf, rtol, atol, opts.get("first_step"),
+            a = solve_args(y0, tf, rtol, atol, opts.get("first_step"),
                                    dev)
             for cont in (False, True):
                 run = {"new": R.RecordLaunch(
@@ -1041,6 +1055,65 @@ def ab_record_summary(label, method, cont, new, ms, B, cap, regs, old_lib):
          **lay)
 
 
+def events_phase(build, dev):
+    """Each main-path event instantiation alone (chip_smoke.py's inputs:
+    the ball from heights 2..20 with 8 restarts, the Lorenz section to t =
+    20) at each of its EVENT_B lane counts: ``EVENT_ROUNDS`` turns, the
+    bound from the kernel's own Brent count (erk_ensemble.event_work), the
+    share of it reached, warp efficiency and the event work a lane; then
+    ptxas's registers and spills of every event instantiation."""
+    import chip_smoke as cs
+    from ivp_tpu_torch import events as E
+    from ivp_tpu_torch import rhs
+    from ivp_tpu_torch.events import SETS, EventArgs
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+
+    for method, set_name, Bs in EVENT_B:
+        for B in Bs:
+            if set_name == "ground":
+                y0 = torch.as_tensor(cs.ball_y0(B), device=dev)
+                a = cs.solve_args(y0, cs.BALL_TF, cs.BALL_TOL,
+                                         cs.BALL_TOL, None, dev)
+                fun, ev = rhs.ball, EventArgs((E.ground,), cs.BALL_CAP,
+                                              cs.BALL_RESTARTS)
+            else:
+                y0 = torch.as_tensor(cs.lorenz_y0(B, seed=9), device=dev)
+                a = cs.solve_args(y0, cs.SECTION_TF, *cs.LORENZ_TOL,
+                                         None, dev)
+                fun, ev = rhs.lorenz, EventArgs((E.lorenz_section,),
+                                                cs.SECTION_CAP, 0)
+            run = lambda: K.erk_ensemble_cuda(method, fun, *a, (), 200_000,
+                                              events=ev)
+            out = run()
+            torch.cuda.synchronize()
+            ms = [turn_ms(run) for _ in range(EVENT_ROUNDS)]
+            fl, by = K.event_work(method, fun, SETS[set_name], out[5], out[9])
+            b_ms, b_by = K.solve_bound(method, fun, out[4], out[5],
+                                       dense_steps=out[5], extra_flops=fl,
+                                       extra_bytes=by)
+            med = float(np.median(ms))
+            line("events", kernel=f"{K.KERNELS[method][0]}_ev", set=set_name,
+                 B=B, turn_ms=[round(m, 4) for m in ms], median_ms=med,
+                 bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / med,
+                 event_flops_share=fl / (fl + K.solve_flops(
+                     method, fun, out[4], out[5], dense_steps=out[5])),
+                 mean_nstep=float(out[4].double().mean()),
+                 warp_efficiency=float(out[4].double().sum())
+                 / (32 * warp_attempts(out[4])),
+                 mean_events=float(out[9].n_events.double().mean()),
+                 mean_restarts=float(out[9].n_restarts.double().mean()),
+                 brent_evals_per_lane=float(out[9].n_brent.double().mean()),
+                 statuses=repr(dict(Counter(out[2].cpu().tolist()))))
+            del out, a, y0
+    for name in ERK_LIBS:
+        path = build.library_path(name=name)
+        for fn, regs, st, ld in build.ptxas_report(path):
+            inst = instantiation(fn)
+            if "/ev_" in inst:
+                line("ptxas_events", library=name, instantiation=inst,
+                     registers=regs, spill_stores=st, spill_loads=ld)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, action="append", default=[],
@@ -1084,7 +1157,8 @@ def main():
     line("build", seconds=round(time.perf_counter() - t, 3), library=lib.name)
     for functor, info in ptxas_lines(lib.with_suffix(".log").read_text()):
         line("ptxas", build="new", functor=functor, info=repr(info))
-    if phases & {"sass", "erk", "erk_occupancy", "ab", "ab_record"}:
+    if phases & {"sass", "erk", "erk_occupancy", "ab", "ab_record",
+                 "events"}:
         t = time.perf_counter()
         erk_libs = build.build_all()
         line("build_all", seconds=round(time.perf_counter() - t, 3),
@@ -1141,6 +1215,8 @@ def main():
         dopri5_options_path(k, rhs, dev)
     if "erk_occupancy" in phases:
         erk_occupancy(build, rhs, dev, opts.occupancy_methods.split(","))
+    if "events" in phases:
+        events_phase(build, dev)
     for baseline in opts.baseline if phases & {"ab", "ab_record"} else ():
         label = (baseline.parent.name if baseline.name == "csrc"
                  else baseline.name)

@@ -173,9 +173,10 @@ def test_float32_on_the_card_raises_before_placement(entry, monkeypatch):
             calls[entry](device)
 
 
+# Events and restarts (item 5) are ported: those cases give a result.
 @pytest.mark.parametrize("kw, item", [
-    (dict(events=[lambda t, y: y[0]]), "item 5"),
-    (dict(max_restarts=2), "item 5"),
+    (dict(events=[lambda t, y: y[0]]), None),
+    (dict(max_restarts=2), None),
     (dict(jac=lambda t, y: None), "item 7"),
     (dict(jac_sparsity=np.ones((2, 2))), "item 7"),
     (dict(mass=np.eye(2)), "item 7"),
@@ -186,6 +187,12 @@ def test_float32_on_the_card_raises_before_placement(entry, monkeypatch):
     (dict(time_dtype=torch.float64), "item 14"),
 ], ids=lambda v: "-".join(v) if isinstance(v, dict) else v)
 def test_solve_ivp_refusals_name_their_item(kw, item, monkeypatch):
+    if item is None:
+        res = it.solve_ivp(lambda t, y: -y, (0.0, 1.0), [1.0, 2.0],
+                           device="cpu", **kw)
+        assert res.success and res.status == 0 and res.n_restarts == 0
+        assert (res.t_events is None) == ("events" not in kw)
+        return
     monkeypatch.setattr(it.solve, "_place", lambda *a, **k: pytest.fail(
         "placed before the options were checked"))
     for device in (None, "cuda", "cpu"):
@@ -203,13 +210,20 @@ def test_solve_ivp_on_the_card_refuses_a_plain_callable(monkeypatch):
         it.solve_ivp(lambda t, y: -y, (0.0, 1.0), [1.0])
 
 
+# Events with records (item 5) are ported: that case gives a result.
 @pytest.mark.parametrize("kw, item", [
     (dict(lane_chunk=16), "item 6"),
-    (dict(dense_output=True, events=[lambda t, y: y[:, 0]]), "item 5"),
+    (dict(dense_output=True, events=[lambda t, y: y[:, 0]]), None),
     (dict(record_trajectories=True, time_dtype=torch.float64), "item 14"),
     (dict(dense_output=True, method="BDF"), "item 7"),
 ], ids=["lane_chunk", "record-events", "record-time_dtype", "record-BDF"])
 def test_ensemble_refusals_name_their_item(kw, item, monkeypatch):
+    if item is None:
+        res = it.solve_ivp_ensemble(it.rhs.vdp, (0.0, 1.0), np.ones((4, 2)),
+                                    device="cpu", **kw)
+        assert set(res.status.tolist()) == {it.Status.SUCCESS}
+        assert tuple(res.n_events.shape) == (4, 1) and res.sol is not None
+        return
     monkeypatch.setattr(it.batch, "_place", lambda *a, **k: pytest.fail(
         "placed before the options were checked"))
     with pytest.raises(NotImplementedError, match=f"ROADMAP §1 {item}"):

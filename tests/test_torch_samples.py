@@ -171,8 +171,8 @@ def test_carry_handoff_mid_grid_from_ivp_tpu():
     assert not bool(c.done.all())
     c = run_chunk(c, ra_t)
     assert_matches(ref, it.EnsembleResult(
-        c.t, c.y, c.status, c.nfev, c.nstep, c.naccpt, c.nrejct, c.sample_y,
-        c.s_cursor))
+        c.t, c.y, c.status, c.nfev, c.nstep, c.naccpt, c.nrejct,
+        y_samples=c.sample_y, n_samples=c.s_cursor))
 
 
 def test_grid_validation():

@@ -264,7 +264,7 @@ def test_unported_option_raises_before_any_device(device, monkeypatch):
     monkeypatch.setattr(it.batch, "_place", no_placement)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         it.solve_ivp_ensemble(it.rhs.vdp, (0.0, 1.0), np.ones((4, 2)),
-                              events=[lambda t, y: y[:, 0]], device=device)
+                              jac=lambda t, y: None, device=device)
 
 
 def test_no_route_for_other_devices():
@@ -274,11 +274,11 @@ def test_no_route_for_other_devices():
 
 
 # Options of later slices raise; those of the explicit tier (t_eval,
-# solver_options, DOP853, RK23, RK4) and of the recording tier
-# (dense_output, record_trajectories), which raised before they were
-# ported, give a result.
+# solver_options, DOP853, RK23, RK4), of the recording tier (dense_output,
+# record_trajectories) and of events (events, max_restarts), which raised
+# before they were ported, give a result.
 PORTED = ("t_eval", "solver_options", "DOP853", "RK23", "RK4", "dense_output",
-          "record_trajectories")
+          "record_trajectories", "events", "max_restarts")
 
 
 @pytest.mark.parametrize("opts", [
@@ -336,6 +336,17 @@ def test_unported_options_raise(opts):
                                        atol=1e-12)
         else:
             assert res.sol is None
+    elif "events" in opts or "max_restarts" in opts:
+        # A non-terminal event (or a restart budget without events) leaves
+        # the steps as they were.
+        for f in ("t", "y", "status", "nfev", "nstep", "naccpt", "nrejct"):
+            assert torch.equal(getattr(res, f), getattr(plain, f)), f
+        if "events" in opts:
+            assert tuple(res.n_events.shape) == (4, 1)
+            assert tuple(res.t_events.shape[:2]) == (4, 1)
+        else:   # ivp_tpu's zeros
+            assert res.t_events is None
+            assert not bool(res.n_restarts.any())
     else:
         assert res.y_samples is None and res.n_samples is None
         # Another method or controller takes other steps to the same end.
