@@ -14,7 +14,11 @@ kernels (ivp_tpu_torch/events.py's sets): the bouncing-ball ensemble at
 B=524288 (RK45, 8 in-loop restarts a lane), the Lorenz Poincaré section at
 B=16384 (DOP853, every crossing to t = 20, and the fifth terminal),
 ``solve_ivp`` with restarts, the host-loop bouncing ball against SciPy and
-the recording ball ensemble.  Every kernel is built from the
+the recording ball ensemble; then the stiff tier (csrc/radau.cu,
+csrc/bdf.cu): bench.py's stiff row uncut (VdP mu=1000, B=131072, Radau and
+BDF through ``build_resumable_solver``), Robertson's budgets, and the
+explicit resumable solver (``erk_kernel``'s resumable mode) at B=16384.
+Every kernel is built from the
 sources here and held against its plain PyTorch version (on short spans at
 B=4096 over every mode and option, record modes over several chunks, and
 at each main path's own shapes), against ivp_tpu's own numbers
@@ -1223,6 +1227,10 @@ EVENT_LORENZ = {"DOPRI5": (1e-8, 1e-10, None), "DOP853": (*LORENZ_TOL, None),
                 "RK23": (1e-6, 1e-8, None), "RK4": (1e-6, 1e-8, 5e-3)}
 EVENT_CHECK_TF = 2.0
 RK4_BALL_STEP = 0.1
+# The ball's B=4096 checks run to t = 8, where the shortest lanes have made
+# their 8 restarts and the tallest 3: a depth cut from the main path's 15
+# that keeps the smoke near 300 s beside the stiff phases.
+BALL_CHECK_TF = 8.0
 # Event times against the plain version, relative to max(1, |t|): both
 # refine a root of the same step's interpolant to Brent's xtol (2e-12), and
 # the interpolants differ in their last bits (nvcc's FMAs).
@@ -1263,12 +1271,13 @@ def event_cases(dev):
     T = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
     yb = T(ball_y0(Bc))
     yl = T(lorenz_y0(Bc, seed=11))
-    ball_grid = torch.broadcast_to(T(np.linspace(0.0, BALL_TF, 31)), (Bc, 31))
+    ball_grid = torch.broadcast_to(T(np.linspace(0.0, BALL_CHECK_TF, 31)),
+                                   (Bc, 31))
     sec_grid = torch.broadcast_to(T(np.linspace(0.0, EVENT_CHECK_TF, 21)),
                                   (Bc, 21))
     out = []
     for method, (rtol, atol, h) in EVENT_LORENZ.items():
-        ab = solve_args(yb, BALL_TF, BALL_TOL, BALL_TOL,
+        ab = solve_args(yb, BALL_CHECK_TF, BALL_TOL, BALL_TOL,
                                RK4_BALL_STEP if method == "RK4" else None, dev)
         al = solve_args(yl, EVENT_CHECK_TF, rtol, atol, h, dev)
         full = EventArgs((E.ground,), BALL_CAP, BALL_RESTARTS)
@@ -1459,7 +1468,7 @@ def events_vs_plain(dev):
         if set_name == "ground" and mode != "sampled":
             row.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                        bound_share=b_ms / k_ms,
-                       inputs=f"ball B={CHECK_B}, t in [0, {BALL_TF:g}], "
+                       inputs=f"ball B={CHECK_B}, t in [0, {BALL_CHECK_TF:g}], "
                               f"rtol=atol={BALL_TOL:g}"
                               + (f", rec_cap={REC_CAP_CHECK}"
                                  if mode == "record" else ""))
@@ -1891,6 +1900,379 @@ def event_phase(dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# 12. The stiff tier (Radau, BDF) and 13. the explicit resumable solver
+# ---------------------------------------------------------------------------
+
+# bench.py's stiff configuration: VdP mu=1000, B=131072, t in [0, 3000],
+# rtol 1e-4, atol 1e-6, y0 = [2, 0] + 0.02 N(0, 1) from seed 0, through
+# build_resumable_solver(..., chunk_steps=4096).
+STIFF_B, STIFF_TF, STIFF_MU, STIFF_CHUNK = 131072, 3000.0, 1000.0, 4096
+STIFF_TOL = (1e-4, 1e-6)
+# The lanes of the plain version held at the main path (all of them while it
+# takes under 30 s a method).
+STIFF_PLAIN_B = 131072
+# Each kernel against its plain version (VdP mu=1000 over [0, 3000]): status
+# and every counter equal on 100% of lanes, y within 1e-8 of max(1, |y|)
+# where they are.  The stiff kernels are built without FMA contraction and
+# the card's float and double libm serve both routes, so the float32
+# controller is held to the same share as "state".
+STIFF_SHARE = {"state": 1.0, "float32": 1.0}
+STIFF_Y = 1e-8
+# Against ivp_tpu's numbers (XLA's CPU float32 pow, log and exp under the
+# default controller): the least share of the 64 golden lanes with every
+# counter equal (Radau 64 of 64 and BDF 47 of 64 on an H100, PERF.md §6), and
+# y within 1e-5 of max(1, |y|) on them.
+GOLDEN_SHARE = {"RADAU": 1.0, "BDF": 0.5}
+# Robertson over [0, 1e8], rtol = atol = 1e-6, y0 [1e4, 0, 0] with x moved
+# by 1e-3 relative: nfev < 5000, njev < 200 (Radau) / 600 (BDF), the sum
+# conserved to 1e-5 (BASELINE.md:17-18).
+ROB_B, ROB_TF, ROB_NFEV, ROB_NJEV = 1024, 1e8, 5000, {"RADAU": 200,
+                                                      "BDF": 600}
+
+
+def stiff_y0(B):
+    rng = np.random.default_rng(0)
+    return np.array([2.0, 0.0]) + 0.02 * rng.standard_normal((B, 2))
+
+
+def robertson_y0(B):
+    rng = np.random.default_rng(4)
+    y0 = np.zeros((B, 3))
+    y0[:, 0] = 1e4 * (1.0 + 1e-3 * rng.standard_normal(B))
+    return y0
+
+
+def stiff_outputs(r):
+    """(t, y, status, nfev, nstep, naccpt, nrejct, njev, nlu) as numpy."""
+    return [np.asarray(x.cpu()) if torch.is_tensor(x) else np.asarray(x)
+            for x in r]
+
+
+def stiff_compare(name, got, ref, share, y_tol=STIFF_Y):
+    """Hold a stiff result against a reference lane by lane: the share of
+    lanes with status and all six counters equal, and y within ``y_tol`` of
+    max(1, |y|) on them.  Returns (share, error)."""
+    a, b = stiff_outputs(got), stiff_outputs(ref)
+    same = np.ones(len(a[2]), bool)
+    fr = {}
+    for i, k in enumerate(("status", "nfev", "nstep", "naccpt", "nrejct",
+                           "njev", "nlu"), start=2):
+        eq = a[i] == b[i]
+        fr[k] = float(np.mean(eq))
+        same &= eq
+    dy = np.abs(a[1] - b[1]).max(axis=1) / np.maximum(
+        1.0, np.abs(b[1]).max(axis=1))
+    err = float(dy[same].max()) if same.any() else 0.0
+    frac = float(np.mean(same))
+    phase(name, lanes=len(same), lanes_all_equal=frac,
+          **{f"{k}_equal": v for k, v in fr.items()},
+          max_scaled_err_equal=err, max_scaled_err=float(dy.max()),
+          finite=bool(np.isfinite(a[1]).all()))
+    if frac < share or err > y_tol or not np.isfinite(a[1]).all():
+        raise AssertionError(f"{name}: {frac} of lanes equal (at least "
+                             f"{share}), y error {err}")
+    return frac, err
+
+
+def stiff_call(method, fun, y0, tf, tol, spec, args, plain=False):
+    """One final-state stiff solve of ``y0`` (on its device) through the
+    kernel wrapper or, with ``plain``, the plain version."""
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+    from ivp_tpu_torch.kernels import stiff_ensemble as S
+
+    a = solve_args(y0, tf, tol[0], tol[1], None, y0.device) + (args, 100000)
+    if plain:
+        out = K.erk_ensemble_torch(method, fun, *a, None, spec, None,
+                                   counters=True)
+        return (*out[:7], *out[-1])
+    return S.stiff_ensemble(method, fun, *a, spec)
+
+
+def stiff_vs_plain(dev):
+    """Each stiff kernel and controller type against its plain version on
+    the card (VdP mu=1000, B=4096, [0, 3000]), and Robertson with its
+    budgets."""
+    from ivp_tpu_torch import rhs
+    from ivp_tpu_torch.methods.jacobian import stiff_spec
+
+    from ivp_tpu_torch.core import linalg
+    from ivp_tpu_torch.kernels import stiff_ensemble as S
+
+    # The lane's inverses for every n the kernels take (n = 4..8: LU with
+    # the reference's row exchange; no solve instantiates them yet) against
+    # core/linalg.py on the card, bit for bit, singular lanes included.
+    rng = np.random.default_rng(7)
+    for n in range(1, 9):
+        a = rng.standard_normal((CHECK_B, n, n)) + 2.0 * np.eye(n)
+        a *= 10.0 ** rng.uniform(-3, 9, (CHECK_B, 1, 1))
+        a[:, 0, 0] *= rng.uniform(0.0, 1.0, CHECK_B) > 0.1   # pivoting
+        a[:4] = 0.0                                          # singular
+        ai = a * rng.uniform(-1.0, 1.0, (CHECK_B, n, n))
+        at, ait = (torch.as_tensor(x, device=dev) for x in (a, ai))
+        got = S.inverses(at, ait)
+        wi, ws = linalg.inv(at)
+        (wr, wim), wcs = linalg.inv_complex(at, ait)
+        torch.cuda.synchronize()
+        ok = {k: bool(torch.equal(g, w)) for k, g, w in (
+            ("inv", got[0][~ws], wi[~ws]), ("singular", got[1], ws),
+            ("br", got[2][0][~wcs], wr[~wcs]),
+            ("bi", got[2][1][~wcs], wim[~wcs]), ("csingular", got[3], wcs))}
+        phase(f"stiff_inverses_vs_linalg_n{n}_B{CHECK_B}", **ok,
+              singular_lanes=int(ws.sum()))
+        if not all(ok.values()):
+            raise AssertionError(f"the kernels' inverses differ at n={n}: {ok}")
+
+    y0 = torch.as_tensor(stiff_y0(CHECK_B), device=dev)
+    shares = {}
+    for method in ("RADAU", "BDF"):
+        for cp in ("state", "float32"):
+            spec = stiff_spec(method, 2, None, {"controller_precision": cp})
+            got = stiff_call(method, rhs.vdp, y0, STIFF_TF, STIFF_TOL, spec,
+                             (STIFF_MU,))
+            ref = stiff_call(method, rhs.vdp, y0, STIFF_TF, STIFF_TOL, spec,
+                             (STIFF_MU,), plain=True)
+            torch.cuda.synchronize()
+            shares[(method, cp)] = stiff_compare(
+                f"{method.lower()}_{cp}_vs_plain_B{CHECK_B}", got, ref,
+                STIFF_SHARE[cp])
+    yr = torch.as_tensor(robertson_y0(ROB_B), device=dev)
+    for method in ("RADAU", "BDF"):
+        spec = stiff_spec(method, 3, None, None)
+        got = stiff_call(method, rhs.robertson, yr, ROB_TF, (1e-6, 1e-6),
+                         spec, ())
+        ref = stiff_call(method, rhs.robertson, yr, ROB_TF, (1e-6, 1e-6),
+                         spec, (), plain=True)
+        torch.cuda.synchronize()
+        stiff_compare(f"{method.lower()}_robertson_vs_plain_B{ROB_B}", got,
+                      ref, STIFF_SHARE["float32"])
+        g = stiff_outputs(got)
+        s0 = yr.sum(dim=1).cpu().numpy()
+        cons = float(np.abs(g[1].sum(axis=1) - s0).max() / np.abs(s0).max())
+        phase(f"{method.lower()}_robertson_budgets_B{ROB_B}",
+              max_nfev=int(g[3].max()), max_njev=int(g[7].max()),
+              sum_rel_err=cons, success=bool(np.all(g[2] == 0)))
+        if (g[3].max() >= ROB_NFEV or g[7].max() >= ROB_NJEV[method]
+                or cons > 1e-5 or not np.all(g[2] == 0)):
+            raise AssertionError(f"{method} Robertson budgets broken")
+    return shares
+
+
+def stiff_golden(dev):
+    """The kernels against ivp_tpu's own numbers: the first 64 lanes of the
+    main path's y0, the default (float32) controller
+    (ivp_tpu_torch/data/stiff_vdp_golden.npz).  Status on every lane; the
+    share of lanes whose counters all agree is stated."""
+    from ivp_tpu_torch import rhs
+    from ivp_tpu_torch.methods.jacobian import stiff_spec
+
+    with np.load(ROOT / "ivp_tpu_torch" / "data" / "stiff_vdp_golden.npz") as g:
+        gold = {f: g[f] for f in g.files}
+    y0 = torch.as_tensor(gold["y0"], device=dev)
+    out = {}
+    for method in ("RADAU", "BDF"):
+        m = method.lower()
+        got = stiff_call(method, rhs.vdp, y0, STIFF_TF, STIFF_TOL,
+                         stiff_spec(method, 2, None, None), (STIFF_MU,))
+        ref = [gold[f"{m}_{f}"] for f in ("t", "y", "status", "nfev", "nstep",
+                                         "naccpt", "nrejct", "njev", "nlu")]
+        torch.cuda.synchronize()
+        a = stiff_outputs(got)
+        if not np.array_equal(a[2], ref[2]):
+            raise AssertionError(f"{method} vs ivp_tpu: status differs")
+        out[method] = stiff_compare(f"{m}_vs_ivp_tpu_golden_B64", got, ref,
+                                    GOLDEN_SHARE[method], y_tol=1e-5)
+    return out
+
+
+def stiff_main_path(dev):
+    """bench.py's stiff configuration uncut through build_resumable_solver:
+    launches a solve, the success share, nstep, kernel ms (torch.profiler)
+    and solve ms (CUDA events, the median of 3 after a warm-up, each result
+    freed first), wall ms, IVPs/s, the bound; the plain version at the same
+    inputs lane by lane; chunk_steps=64 bit for bit."""
+    from ivp_tpu_torch import Status, rhs
+    from ivp_tpu_torch.batch import build_resumable_solver
+    from ivp_tpu_torch.kernels import stiff_ensemble as S
+    from ivp_tpu_torch.methods.jacobian import stiff_spec
+
+    B = STIFF_B
+    rows = {}
+    y0 = torch.as_tensor(stiff_y0(B), device=dev)
+    for method in ("RADAU", "BDF"):
+        m = method.lower()
+
+        def solver(chunk):
+            start, resume, extract = build_resumable_solver(
+                rhs.vdp, method, n=2, args=(STIFF_MU,), chunk_steps=chunk)
+
+            def run(y):
+                carry, ra = start(y, 0.0, STIFF_TF, *STIFF_TOL)
+                while not bool(carry.done.all()):
+                    carry = resume(carry, ra)
+                return extract(carry)
+            return run
+
+        run = solver(STIFF_CHUNK)
+        res, walls, ev_ms, launches = None, [], [], []
+        for i in range(4):
+            del res
+            for k in S.LAUNCHES:
+                S.LAUNCHES[k] = 0
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t = time.perf_counter()
+            e0.record()
+            res = run(y0)
+            e1.record()
+            torch.cuda.synchronize()
+            launches.append(S.LAUNCHES[m])
+            if i:
+                walls.append(time.perf_counter() - t)
+                ev_ms.append(e0.elapsed_time(e1))
+        _, kern_ms, _ = kernel_device_ms(lambda: run(y0), match=f"{m}_kernel")
+        st = res.status.cpu().numpy()
+        ns = res.nstep.cpu().numpy()
+        wall = float(np.median(walls))
+        bound_ms, bound_by = S.stiff_bound(method, rhs.vdp, res.nstep,
+                                           res.naccpt, res.nrejct, res.nfev,
+                                           res.njev, res.nlu)
+        phase(f"{m}_main_path_B{B}", launches_per_solve=launches[-1],
+              success_fraction=float(np.mean(st == Status.SUCCESS)),
+              mean_nstep=float(ns.mean()), max_nstep=int(ns.max()),
+              kernel_ms=kern_ms, solve_event_ms=[round(x, 3) for x in ev_ms],
+              wall_ms=round(1e3 * wall, 3), ivps_per_sec=B / wall,
+              bound_ms=bound_ms, bound_by=bound_by,
+              bound_share=bound_ms / kern_ms)
+        if not np.all(st == Status.SUCCESS) or not bool(
+                torch.isfinite(res.y).all()) or min(launches) < 1:
+            raise AssertionError(f"{method} main path: not every lane "
+                                 f"succeeded")
+        # The plain version on the card at the main path's inputs.
+        Bp = STIFF_PLAIN_B
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t = time.perf_counter()
+        e0.record()
+        ref = stiff_call(method, rhs.vdp, y0[:Bp], STIFF_TF, STIFF_TOL,
+                         stiff_spec(method, 2, None, None), (STIFF_MU,),
+                         plain=True)
+        e1.record()
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t
+        got = (res.t[:Bp], res.y[:Bp], res.status[:Bp], res.nfev[:Bp],
+               res.nstep[:Bp], res.naccpt[:Bp], res.nrejct[:Bp],
+               res.njev[:Bp], res.nlu[:Bp])
+        share, err = stiff_compare(f"{m}_main_path_vs_plain_B{Bp}", got, ref,
+                                   STIFF_SHARE["float32"])
+        phase(f"{m}_plain_B{Bp}", wall_s=round(plain_s, 3),
+              event_ms=e0.elapsed_time(e1))
+        # chunk_steps=64: bit for bit against the first run.
+        small = solver(64)(y0)
+        torch.cuda.synchronize()
+        diff = [f for f in ("t", "y", "status", "nfev", "nstep", "naccpt",
+                            "nrejct", "njev", "nlu")
+                if not torch.equal(getattr(small, f), getattr(res, f))]
+        phase(f"{m}_chunk64_vs_chunk{STIFF_CHUNK}_bitwise", fields_differing=diff)
+        if diff:
+            raise AssertionError(f"{method}: chunk_steps=64 differs in {diff}")
+        rows[m] = {"launches": launches[-1], "max_abs_err": err,
+                   "ms": kern_ms, "plain_ms": e0.elapsed_time(e1),
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bound_share": bound_ms / kern_ms,
+                   "solve_ms": float(np.median(ev_ms)), "wall_ms": 1e3 * wall}
+    return rows
+
+
+RESUME_CASES = [
+    # (method, functor, y0, tf, rtol, atol): bench.py's Lorenz lanes and
+    # tolerances for DOP853; VdP mu=1 for RK45; RK23 and RK4 on Lorenz.
+    ("DOP853", "lorenz", 20.0, 1e-8, 1e-10),
+    ("DOPRI5", "vdp", 20.0, 1e-6, 1e-8),
+    ("RK23", "lorenz", 2.0, 1e-6, 1e-8),
+    ("RK4", "lorenz", 2.0, 1e-6, 1e-8),
+]
+RESUME_B, RESUME_CHUNK = 16384, 256
+
+
+def resumable_phase(dev):
+    """The explicit resumable solver on the card: chunk_steps=256 against
+    one unbounded launch bit for bit, counters against the plain version on
+    every lane; its launches counted from 0 around the chunked solve.  The
+    JSON rows of the four resumable instantiations."""
+    from ivp_tpu_torch import rhs
+    from ivp_tpu_torch.batch import build_resumable_solver
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+    from ivp_tpu_torch.kernels import resumable as RES
+
+    rows = []
+    for method, fname, tf, rt, at in RESUME_CASES:
+        fun = getattr(rhs, fname)
+        y0 = torch.as_tensor(lorenz_y0(RESUME_B) if fun.n == 3 else
+                             vdp_y0(RESUME_B), device=dev)
+
+        def solve(chunk):
+            start, resume, extract = build_resumable_solver(
+                fun, method, n=fun.n, chunk_steps=chunk)
+            carry, ra = start(y0, 0.0, tf, rt, at)
+            while not bool(carry.done.all()):
+                carry = resume(carry, ra)
+            return extract(carry)
+
+        name = f"{K.KERNELS[method][0].replace('_sampled', '')}_resume"
+        solve(RESUME_CHUNK)
+        torch.cuda.synchronize()
+        for k in RES.LAUNCHES:
+            RES.LAUNCHES[k] = 0
+        res, ms = event_call(lambda: solve(RESUME_CHUNK))
+        launches = RES.LAUNCHES[name]
+        one = solve(2**31 - 1)
+        torch.cuda.synchronize()
+        diff = [f for f in ("t", "y", "status", "nfev", "nstep", "naccpt",
+                            "nrejct") if not torch.equal(getattr(res, f),
+                                                         getattr(one, f))]
+        phase(f"{name}_chunk{RESUME_CHUNK}_vs_unbounded_bitwise_B{RESUME_B}",
+              launches=launches, fields_differing=diff)
+        if diff or launches < 2:
+            raise AssertionError(f"{name}: chunked differs in {diff}")
+        a = solve_args(y0, tf, rt, at, None, dev)
+        ref, plain_ms = event_call(lambda: K.erk_ensemble_torch(method, fun,
+                                                                *a))
+        # Lorenz to t = 20: nvcc's FMAs in the stage sums (the explicit
+        # kernels contract them; the plain version does not) grow like
+        # exp(0.9 t) to ~1e-6 of |y| with every counter equal.
+        err = compare(f"{name}_vs_plain_B{RESUME_B}", outputs(res), ref,
+                      scaled=True, y_equal=1e-5 if tf > 5.0 else 1e-6)
+        bound_ms, bound_by = K.solve_bound(method, fun, res.nstep, res.naccpt)
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"ivp_tpu_torch/csrc/{K.KERNELS[method][1]}.cu",
+                     "replaces": "ivp_tpu/core/driver.py:478",
+                     "launches": launches, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "bound_share": bound_ms / ms,
+                     "library_ms": None})
+    return rows
+
+
+def stiff_phase(dev):
+    """The stiff kernels against their plain versions, ivp_tpu's numbers and
+    the Robertson budgets, then the stiff main path; the JSON rows of radau
+    and bdf."""
+    t = time.perf_counter()
+    stiff_vs_plain(dev)
+    stiff_golden(dev)
+    phase("stiff_checks", seconds=round(time.perf_counter() - t, 3))
+    t = time.perf_counter()
+    main = stiff_main_path(dev)
+    phase("stiff_main_path", seconds=round(time.perf_counter() - t, 3))
+    replaces = {"radau": "ivp_tpu/methods/radau.py:348",
+                "bdf": "ivp_tpu/methods/bdf.py:312"}
+    return [{"name": m, "route": "cuda",
+             "source": f"ivp_tpu_torch/csrc/{m}.cu", "replaces": replaces[m],
+             "library_ms": None,
+             **{k: v for k, v in main[m].items()
+                if k not in ("solve_ms", "wall_ms")}}
+            for m in ("radau", "bdf")]
+
+
 def main():
     # ---- 1. Device ----
     if not torch.cuda.is_available():
@@ -2088,7 +2470,19 @@ def main():
             ("ball without events, DOP853", lambda: build_ensemble_solver(
                 rhs.ball, "DOP853", n=2)(ball_y0(4), 0.0, 1.0, RTOL, ATOL)),
             ("solve_ivp ball without events", lambda: solve_ivp(
-                rhs.ball, (0.0, 1.0), [2.0, 0.0]))):
+                rhs.ball, (0.0, 1.0), [2.0, 0.0])),
+            # The stiff kernels run the final state (or resumably) of a
+            # CudaRHS with a Jacobian, n <= 8, the inverse backend.
+            ("Radau with t_eval on CUDA", lambda: build_ensemble_solver(
+                rhs.vdp, "Radau", n=2, t_eval=[0.0, 1.0])(
+                    vdp_y0(4), 0.0, 1.0, RTOL, ATOL)),
+            ("BDF with a callable jac on CUDA", lambda: build_ensemble_solver(
+                rhs.vdp, "BDF", n=2, jac=lambda t, y: None)(
+                    vdp_y0(4), 0.0, 1.0, RTOL, ATOL)),
+            ("Radau without a functor Jacobian", lambda: build_ensemble_solver(
+                rhs.lorenz, "Radau", n=3)(lorenz_y0(4), 0.0, 1.0, RTOL, ATOL)),
+            ("solve_ivp BDF on CUDA", lambda: solve_ivp(
+                rhs.vdp, (0.0, 1.0), [2.0, 0.0], method="BDF"))):
         try:
             call()
         except NotImplementedError as e:
@@ -2141,6 +2535,12 @@ def main():
 
     # ---- 11. Events and in-loop restarts ----
     kernels += event_phase(dev)
+
+    # ---- 12. The stiff tier; 13. the explicit resumable solver ----
+    kernels += stiff_phase(dev)
+    t = time.perf_counter()
+    kernels += resumable_phase(dev)
+    phase("resumable_phase", seconds=round(time.perf_counter() - t, 3))
     for row in kernels:
         if row["launches"] < 1:
             raise AssertionError(f"the main path never launched {row['name']}")

@@ -17,12 +17,17 @@ is no fallback: with no CUDA device such a call raises.
 The RHS is batched: ``fun(t, y, *args)`` takes ``t`` of shape ``(B,)`` and
 ``y`` of shape ``(B, n)`` and returns ``(B, n)``.
 
-Ported: ``"RK45"``, ``"DOP853"``, ``"RK23"`` and ``"RK4"`` with ``t_eval``,
-the explicit engines' ``solver_options``, the recording tier, and events
-with in-loop restarts (``events``, ``event_capacity``, ``max_restarts``;
-ivp_tpu_torch/events.py has the contract).  Options of later slices raise
-NotImplementedError naming their ROADMAP item, and so does float32 on the
-card, all before anything is placed on a device.
+Ported: ``"RK45"``, ``"DOP853"``, ``"RK23"``, ``"RK4"``, ``"Radau"`` and
+``"BDF"`` with ``t_eval``, the engines' ``solver_options``, ``jac``, the
+recording tier, events with in-loop restarts (``events``,
+``event_capacity``, ``max_restarts``; ivp_tpu_torch/events.py has the
+contract), the resumable solver (:func:`build_resumable_solver`: the carry
+is the checkpoint) and an integer ``lane_chunk``.  The stiff methods run on
+the card to each lane's final state, in one launch or resumably
+(kernels/stiff_ensemble.py); with samples, events or records they run on
+the CPU.  Options of later slices raise NotImplementedError naming their
+ROADMAP item, and so does float32 on the card, all before anything is
+placed on a device.
 """
 from __future__ import annotations
 
@@ -34,15 +39,27 @@ import torch
 from .types import canonical_method
 from .core.cache import LRUCache, cache_token
 from .events import as_list, device_set, event_args
+from .rhs import CudaRHS
 from .methods import get_engine
+from .methods.interp import get_interp
 from .methods.ddtier import resolve_auto_dtype
+from .methods.jacobian import stiff_spec
+from .methods.radau import STIFF_REST_ITEM
+from .core.driver import run_args
+from .kernels import erk_ensemble as E
+from .kernels import resumable as RES
+from .kernels import stiff_ensemble as S
 from .kernels.erk_ensemble import erk_ensemble
-from .kernels.erk_record import erk_record
+from .kernels.erk_record import STIFF_MODES_ON_CARD, erk_record
+
+STIFF = ("RADAU", "BDF")
 
 
 class EnsembleResult(NamedTuple):
     """The fields, in their order, of ``ivp_tpu.batch.EnsembleResult``
-    (``switched`` waits for ``method="auto"``, ROADMAP §1 item 8)."""
+    (``switched`` waits for ``method="auto"``, ROADMAP §1 item 8), and the
+    stiff methods' ``njev`` and ``nlu`` (which ``ivp_tpu`` keeps in its
+    carry only)."""
 
     t: Any        # (B,) final time per trajectory
     y: Any        # (B, n) final state
@@ -63,6 +80,8 @@ class EnsembleResult(NamedTuple):
     #                        rows past a lane's n_steps_rec are zero)
     ys: Any = None         # (B, S, n) recorded states
     n_steps_rec: Any = None  # (B,) int64 recorded steps per lane
+    njev: Any = None       # (B,) int32 Jacobian evaluations (Radau, BDF)
+    nlu: Any = None        # (B,) int32 decompositions (Radau, BDF)
     sol: Any = None        # BatchOdeSolution (dense_output)
 
 
@@ -75,12 +94,31 @@ def _unported(**opts):
                 f"{name} is not ported to ivp_tpu_torch yet: ROADMAP §1 {where}")
 
 
-def _later_slices(time_dtype, jac, jac_sparsity):
+def _later_slices(time_dtype, jac_sparsity):
     """The solver factories' options of later slices: NotImplementedError
     naming the first one set."""
     _unported(time_dtype=(time_dtype is not None, TIME_DTYPE_ITEM),
-              jac=(jac is not None, "item 7 (the stiff tier)"),
-              jac_sparsity=(jac_sparsity is not None, "item 7 (the stiff tier)"))
+              jac_sparsity=(jac_sparsity is not None, STIFF_REST_ITEM))
+
+
+def _solver_params(method, n, jac, solver_options, need_cont):
+    """The params a solve hands its route: a Radau or BDF solve's
+    StiffSpec (whose unported options raise here), else the explicit
+    engine's ERKParams.  ``jac`` is read by the stiff methods only."""
+    if method in STIFF:
+        return stiff_spec(method, n, jac, solver_options)
+    return get_engine(method, need_cont=need_cont,
+                      **(solver_options or {}))[1]
+
+
+def _refuse_stiff_on_card(method, spec, fun, y0, device, modes=False):
+    """What the stiff kernels do not run (samples, events or records:
+    ``modes``; and see ``stiff_ensemble.check_card``) raises
+    NotImplementedError on a CUDA placement, before anything is placed."""
+    if method in STIFF and placement(y0, device).type == "cuda":
+        if modes:
+            raise NotImplementedError(STIFF_MODES_ON_CARD)
+        S.check_card(spec, fun)
 
 
 def _auto_event_capacity(y0_shape, events, dtype) -> int:
@@ -257,8 +295,15 @@ def build_ensemble_solver(fun, method="RK45", *, n, dtype=None, args=(),
                           time_dtype=None) -> Callable:
     """Return ``solver(y0_batch, t0, tf, rtol, atol) -> EnsembleResult``.
 
-    ``method``: ``"RK45"``/``"DOPRI5"``, ``"DOP853"``, ``"RK23"`` or
-    ``"RK4"`` (fixed step: pass ``first_step``, else hinit picks it).
+    ``method``: ``"RK45"``/``"DOPRI5"``, ``"DOP853"``, ``"RK23"``,
+    ``"RK4"`` (fixed step: pass ``first_step``, else hinit picks it),
+    ``"Radau"`` or ``"BDF"`` (the result then has ``njev`` and ``nlu``).
+
+    ``jac`` (Radau, BDF; methods/jacobian.py has the contract): None (the
+    CudaRHS's own Jacobian, else forward-mode differentiation of ``fun``),
+    a batched callable ``jac(t (B,), y (B, n), *args) -> (B, n, n)``, or a
+    constant ``(n, n)`` matrix.  On the card a stiff solve runs a CudaRHS
+    with a Jacobian and ``jac=None``.
 
     ``y0_batch`` has shape ``(B, n)``; ``t0``/``tf`` are scalars or ``(B,)``
     per-lane spans; ``rtol``/``atol`` are scalars, ``(n,)``, ``(B,)``,
@@ -293,22 +338,23 @@ def build_ensemble_solver(fun, method="RK45", *, n, dtype=None, args=(),
     that many times a lane (``n_restarts (B,)``).  ``terminal``,
     ``direction`` and ``restart`` are read at each call.
 
-    ``min_step`` is accepted and, as in ivp_tpu, unused by the explicit
-    engines.  ``unroll`` is accepted and has no effect: the kernels loop per
-    lane, and the plain version's host-check cadence is fixed.
-    ``time_dtype``, ``jac`` and ``jac_sparsity`` raise NotImplementedError
-    naming their slice.
+    ``min_step`` bounds the stiff engines' step sizes and is, as in
+    ivp_tpu, unused by the explicit ones.  ``unroll`` is accepted and has
+    no effect: the kernels loop per lane, and the plain version's
+    host-check cadence is fixed.  ``time_dtype`` and ``jac_sparsity`` raise
+    NotImplementedError naming their slice.
     """
-    del unroll, min_step
-    _later_slices(time_dtype, jac, jac_sparsity)
+    del unroll
+    _later_slices(time_dtype, jac_sparsity)
     method = _check_method(method)
     dtype = resolve_auto_dtype(dtype)
     args = tuple(args)
     ev_list = as_list(events)
     sample_grid = None if t_eval is None else _norm_sample_grid(t_eval)
     sample_cap = 0 if sample_grid is None else int(sample_grid.shape[-1])
-    _, params = get_engine(method, need_cont=sample_cap > 0 or bool(ev_list),
-                           **(solver_options or {}))
+    params = _solver_params(method, n, jac, solver_options,
+                            sample_cap > 0 or bool(ev_list))
+    hmin = abs(float(min_step))
     grids = {}   # the build-time grid on each device it has run on
 
     def solver(y0_batch, t0, tf, rtol, atol, t_grid=None, batched_args=None,
@@ -321,6 +367,9 @@ def build_ensemble_solver(fun, method="RK45", *, n, dtype=None, args=(),
         with it must name that device (ValueError otherwise)."""
         _refuse_f32_on_card(dtype, y0_batch, device)
         ev = event_args(ev_list, event_capacity, max_restarts)
+        _refuse_stiff_on_card(method, params, fun, y0_batch, device,
+                              ev is not None or sample_cap > 0
+                              or t_grid is not None)
         _refuse_events_on_card(fun, ev, y0_batch, device)
         y0 = _as_state(y0_batch, dtype, device)
         if y0.ndim != 2 or y0.shape[1] != n:
@@ -359,16 +408,27 @@ def build_ensemble_solver(fun, method="RK45", *, n, dtype=None, args=(),
                 raise ValueError(f"a per-lane t_eval grid needs {B} rows, "
                                  f"got {tuple(grid.shape)}")
             grid = torch.broadcast_to(grid, (B, sample_cap))
-        out = erk_ensemble(method, fun, y0, t0_b, tf_b, hmax, fs,
-                           _norm_tol(rtol, B, n, dtype, dev, "rtol"),
-                           _norm_tol(atol, B, n, dtype, dev, "atol"),
-                           lane_args, max_steps, grid, params, ev)
+        a = (fun, y0, t0_b, tf_b, hmax, fs,
+             _norm_tol(rtol, B, n, dtype, dev, "rtol"),
+             _norm_tol(atol, B, n, dtype, dev, "atol"), lane_args, max_steps)
+        counters = {}
+        if method in STIFF and grid is None and ev is None:
+            out = S.stiff_ensemble(method, *a, params, hmin)
+            counters = dict(njev=out[7], nlu=out[8])
+            out = (*out[:7], None, None)
+        elif method in STIFF:   # samples or events: the CPU route only
+            out = E.erk_ensemble_torch(method, *a, grid, params, ev,
+                                       hmin=hmin, counters=True)
+            counters = dict(njev=out[-1][0], nlu=out[-1][1])
+            out = out[:-1]
+        else:
+            out = erk_ensemble(method, *a, grid, params, ev)
         kw = _event_fields(out[9] if ev is not None else None)
         if max_restarts:   # as ivp_tpu's, which gives it only then
             kw["n_restarts"] = (out[9].n_restarts if ev is not None
                                 else torch.zeros_like(out[4]))
         return EnsembleResult(*out[:7], y_samples=out[7], n_samples=out[8],
-                              **kw)
+                              **kw, **counters)
 
     return solver
 
@@ -424,18 +484,22 @@ def solve_ivp_ensemble(fun, t_span, y0_batch, method="RK45", *, rtol=1e-3,
 
     ``chunk_steps`` is accepted and has no effect (ivp_tpu bounds each
     device call to that many attempts; the kernel runs each lane to its
-    end in one launch).  ``lane_chunk="auto"`` and ``None`` mean no
-    chunking.  ``device`` is as for :func:`build_ensemble_solver`'s solver:
-    a tensor ``y0_batch`` keeps its device (a conflicting ``device`` raises
-    ValueError), anything else goes to the card unless ``device="cpu"``.
-    An integer ``lane_chunk`` and the options :func:`build_ensemble_solver`
-    does not run raise NotImplementedError naming their slice.  Solvers are
-    built once per configuration (an LRU cache keyed on the callable, its
-    args and every option).
+    end in one launch).  ``lane_chunk``: an integer solves the lanes in
+    sub-batches of that many, one after another, and concatenates the
+    results (``sol`` becomes a :class:`ChunkedBatchSolution`); ``"auto"``
+    and ``None`` mean no chunking (``ivp_tpu``'s auto table sizes TPU
+    sub-batches).  ``device`` is as for :func:`build_ensemble_solver`'s
+    solver: a tensor ``y0_batch`` keeps its device (a conflicting
+    ``device`` raises ValueError), anything else goes to the card unless
+    ``device="cpu"``.  The options :func:`build_ensemble_solver` does not
+    run raise NotImplementedError naming their slice.  Solvers are built
+    once per configuration (an LRU cache keyed on the callable, its args
+    and every option).
     """
     del chunk_steps
-    _unported(lane_chunk=(lane_chunk not in ("auto", None),
-                          "item 6 (the resumable tier)"))
+    if isinstance(lane_chunk, str) and lane_chunk != "auto":
+        raise ValueError(f"lane_chunk must be an int, None or 'auto', "
+                         f"got {lane_chunk!r}")
     # Every option is checked before anything is placed on a device.
     if isinstance(y0_batch, torch.Tensor):
         y0 = torch.atleast_2d(y0_batch)
@@ -475,6 +539,17 @@ def solve_ivp_ensemble(fun, t_span, y0_batch, method="RK45", *, rtol=1e-3,
     if not finite:
         raise ValueError("All components of the initial states `y0_batch` "
                          "must be finite.")
+    if isinstance(lane_chunk, int) and 0 < lane_chunk < B:
+        return _solve_lane_chunked(
+            fun, t_span, y0_batch, method, int(lane_chunk), t_eval,
+            dict(rtol=rtol, atol=atol, args=args, jac=jac,
+                 jac_sparsity=jac_sparsity, max_steps=max_steps,
+                 first_step=first_step, max_step=max_step, min_step=min_step,
+                 dtype=dtype, events=events, event_capacity=event_capacity,
+                 solver_options=solver_options, max_restarts=max_restarts,
+                 dense_output=dense_output,
+                 record_trajectories=record_trajectories,
+                 rec_chunk=rec_chunk, time_dtype=time_dtype, device=device))
     t0, tf = float(t_span[0]), float(t_span[1])
     if n == 0:
         # Empty system: nothing to integrate.
@@ -495,6 +570,90 @@ def solve_ivp_ensemble(fun, t_span, y0_batch, method="RK45", *, rtol=1e-3,
         return _warn_event_overflow(
             _run_recording(solver, y0, t_span, rtol, atol, device))
     return _warn_event_overflow(solver(y0, t0, tf, rtol, atol, device=device))
+
+
+def _lane_rows(v, sl, B, n):
+    """Lanes ``sl`` of a per-lane value (a ``(B, ...)`` tensor or array, a
+    ``(B,)`` tolerance read per lane as :func:`_norm_tol` reads it), else
+    ``v`` as it is (shared)."""
+    if v is None or isinstance(v, (int, float)):
+        return v
+    a = v if isinstance(v, torch.Tensor) else np.asarray(v)
+    if a.ndim == 1 and a.shape[0] == B and B != n:
+        return a[sl, None]
+    if a.ndim == 2 and a.shape[0] == B:
+        return a[sl]
+    return v
+
+
+class ChunkedBatchSolution:
+    """A lane-chunked ensemble's dense solution (``ivp_tpu.batch.
+    ChunkedBatchSolution``): each sub-batch's :class:`BatchOdeSolution`,
+    concatenated along the lane axis, with the same query surface (scalar,
+    shared ``(m,)`` or per-lane ``(B, m)`` times)."""
+
+    def __init__(self, sols, counts):
+        self._sols = list(sols)
+        self._counts = [int(c) for c in counts]
+        self.n_lanes = sum(self._counts)
+        self.method = sols[0].method
+        self.t_mins = torch.cat([s.t_mins for s in self._sols])
+        self.t_maxs = torch.cat([s.t_maxs for s in self._sols])
+
+    def t_span(self):
+        return self.t_mins, self.t_maxs
+
+    def __call__(self, t):
+        t_arr = torch.as_tensor(t, dtype=torch.float64)
+        if t_arr.ndim == 2:
+            if t_arr.shape[0] != self.n_lanes:
+                raise ValueError(
+                    f"per-lane query grid must have leading dim "
+                    f"{self.n_lanes}, got {tuple(t_arr.shape)}")
+            outs, off = [], 0
+            for s, c in zip(self._sols, self._counts):
+                outs.append(s(t_arr[off:off + c]))
+                off += c
+            return torch.cat(outs)
+        if t_arr.ndim > 2:
+            raise ValueError("query times must be scalar, (m,) or (B, m)")
+        return torch.cat([s(t) for s in self._sols])
+
+
+def _solve_lane_chunked(fun, t_span, y0_batch, method, lane_chunk, t_eval,
+                        kw) -> EnsembleResult:
+    """Solve the lanes in sub-batches of ``lane_chunk`` and concatenate the
+    results (``ivp_tpu.batch._solve_lane_chunked``; no padding: a sub-batch
+    of another size costs no compile here)."""
+    y0 = (torch.atleast_2d(y0_batch) if isinstance(y0_batch, torch.Tensor)
+          else np.atleast_2d(np.asarray(y0_batch, float)))
+    B, n = y0.shape
+    te = None if t_eval is None else np.asarray(
+        t_eval.cpu() if isinstance(t_eval, torch.Tensor) else t_eval, float)
+    parts, counts = [], []
+    for lo in range(0, B, lane_chunk):
+        sl = slice(lo, min(lo + lane_chunk, B))
+        sub = dict(kw, rtol=_lane_rows(kw["rtol"], sl, B, n),
+                   atol=_lane_rows(kw["atol"], sl, B, n))
+        te_c = te[sl] if te is not None and te.ndim == 2 else te
+        parts.append(solve_ivp_ensemble(fun, t_span, y0[sl], method,
+                                        t_eval=te_c, lane_chunk=None, **sub))
+        counts.append(sl.stop - sl.start)
+
+    def cat(f):
+        vals = [getattr(r, f) for r in parts]
+        if any(v is None for v in vals):
+            return None
+        if f == "sol":
+            return ChunkedBatchSolution(vals, counts)
+        if f in ("ts", "ys"):   # pad the step axis to the widest sub-batch
+            S = max(v.shape[1] for v in vals)
+            vals = [torch.nn.functional.pad(
+                v, (0, 0) * (v.dim() - 2) + (0, S - v.shape[1]))
+                for v in vals]
+        return torch.cat(vals)
+
+    return EnsembleResult(**{f: cat(f) for f in EnsembleResult._fields})
 
 
 # =============================================================================
@@ -618,23 +777,25 @@ def build_recording_solver(fun, method="RK45", *, n, dtype=None, args=(),
     :func:`build_ensemble_solver`; ``rec_chunk`` rows a lane are recorded
     between two drains.  ``t0`` may be a scalar or ``(B,)``; the largest
     ``|tf - t0|`` (capped by ``max_step``) is every lane's ``hmax``, as in
-    ivp_tpu."""
-    del min_step
-    _later_slices(time_dtype, jac, jac_sparsity)
+    ivp_tpu.  Radau and BDF record on the CPU (on the card: ROADMAP §1
+    item 16)."""
+    _later_slices(time_dtype, jac_sparsity)
     method = _check_method(method)
     dtype = resolve_auto_dtype(dtype)
     args = tuple(args)
     ev_list = as_list(events)
     sample_grid = None if t_eval is None else _norm_sample_grid(t_eval)
     sample_cap = 0 if sample_grid is None else int(sample_grid.shape[-1])
-    engine, params = get_engine(
-        method, need_cont=bool(dense_output or sample_cap or ev_list),
-        **(solver_options or {}))
+    need = bool(dense_output or sample_cap or ev_list)
+    params = _solver_params(method, n, jac, solver_options, need)
+    interp, _ = get_interp(method)
+    hmin = abs(float(min_step))
     grids = {}
 
     def solver(y0_batch, t0, tf, rtol, atol, device=None):
         _refuse_f32_on_card(dtype, y0_batch, device)
         ev = event_args(ev_list, event_capacity, max_restarts)
+        _refuse_stiff_on_card(method, params, fun, y0_batch, device, True)
         _refuse_events_on_card(fun, ev, y0_batch, device)
         y0 = _as_state(y0_batch, dtype, device)
         if y0.ndim != 2 or y0.shape[1] != n:
@@ -663,37 +824,151 @@ def build_recording_solver(fun, method="RK45", *, n, dtype=None, args=(),
                          fs, _norm_tol(rtol, B, n, dtype, dev, "rtol"),
                          _norm_tol(atol, B, n, dtype, dev, "atol"), args,
                          max_steps, grid, params, rec_cap=rec_chunk,
-                         record_cont=dense_output, events=ev)
-        return _recording_result(engine, method, rec, dense_output, t0_b, y0)
+                         record_cont=dense_output, events=ev, hmin=hmin)
+        return _recording_result(interp, method, rec, dense_output, t0_b, y0)
 
     return solver
 
 
-def build_resumable_solver(*args, **kwargs):
-    """ivp_tpu's resumable ensemble tier (``start``/``resume``/``extract``
-    over a carry checkpointed every ``chunk_steps`` attempts) is not ported
-    yet: NotImplementedError naming its ROADMAP item."""
-    del args, kwargs
-    _unported(build_resumable_solver=(True, "item 6 (the resumable tier)"))
+def build_resumable_solver(fun, method="RK45", *, n, dtype=None, args=(),
+                           jac=None, jac_sparsity=None,
+                           chunk_steps: int = 1024,
+                           max_steps: int = 100_000, events=None,
+                           event_capacity: int = 16,
+                           first_step: Optional[float] = None,
+                           max_step: Optional[float] = None,
+                           min_step: float = 0.0, t_eval=None,
+                           solver_options: Optional[dict] = None,
+                           max_restarts: int = 0, unroll: int = 1,
+                           time_dtype=None):
+    """Checkpointable ensemble integration (``ivp_tpu.batch.
+    build_resumable_solver``): the carry is the checkpoint.
+
+    Returns ``(start, resume, extract)``:
+
+    * ``start(y0_batch, t0, tf, rtol, atol, device=None) -> (carry, ra)``;
+      ``t0`` is a scalar or ``(B,)`` per-lane start times, ``tf`` a
+      scalar; ``device`` as for :func:`build_ensemble_solver`'s solver;
+    * ``resume(carry, ra) -> carry`` advances every lane by at most
+      ``chunk_steps`` counted attempts (``carry.done`` says which lanes are
+      finished); the carry given is not changed;
+    * ``extract(carry) -> EnsembleResult``.
+
+    ``carry`` is the plain driver's :class:`~ivp_tpu_torch.core.driver.Carry`
+    (a NamedTuple of tensors, the engine's state in ``carry.ms``) and ``ra``
+    its :class:`~ivp_tpu_torch.methods.base.RunArgs`: move them to the host
+    and back (or save them) and resume where they left off, on either
+    route; ``convert.py`` turns an ``ivp_tpu`` carry into one.  On the CPU
+    the plain driver's ``run_bounded`` runs each chunk (``unroll`` attempts
+    between its checks of the budget, as ivp_tpu's); on the card each
+    ``resume`` is one kernel launch (kernels/resumable.py), lean only:
+    ``t_eval`` and ``events`` raise NotImplementedError there (ROADMAP §1
+    item 16).  Other options as for :func:`build_ensemble_solver`."""
+    _later_slices(time_dtype, jac_sparsity)
+    method = _check_method(method)
+    dtype = resolve_auto_dtype(dtype)
+    args = tuple(args)
+    ev_list = as_list(events)
+    sample_grid = None if t_eval is None else _norm_sample_grid(t_eval)
+    sample_cap = 0 if sample_grid is None else int(sample_grid.shape[-1])
+    params = _solver_params(method, n, jac, solver_options,
+                            sample_cap > 0 or bool(ev_list))
+    drivers = {}   # the plain driver, per (device, dtype)
+
+    def plain(y0, ev):
+        key = (y0.device, y0.dtype)
+        if key not in drivers:
+            drivers[key] = E.plain_driver(method, fun, y0, args, sample_cap,
+                                          params, ev, bounded=True,
+                                          unroll=max(1, unroll))
+        return drivers[key]
+
+    def start(y0_batch, t0, tf, rtol, atol, device=None):
+        _refuse_f32_on_card(dtype, y0_batch, device)
+        ev = event_args(ev_list, event_capacity, max_restarts)
+        card = placement(y0_batch, device).type == "cuda"
+        if card and (ev is not None or sample_cap):
+            raise NotImplementedError(
+                "the resumable solver runs t_eval samples and events with "
+                "device='cpu'; on the card it runs the lean solve: ROADMAP "
+                "§1 item 16")
+        _refuse_stiff_on_card(method, params, fun, y0_batch, device)
+        if card and not isinstance(fun, CudaRHS):
+            raise NotImplementedError(E.NO_GPU_CALLABLE)
+        y0 = _as_state(y0_batch, dtype, device)
+        if y0.ndim != 2 or y0.shape[1] != n:
+            raise ValueError(f"y0_batch must have shape (B, {n}), "
+                             f"got {tuple(y0.shape)}")
+        B, dev = y0.shape[0], y0.device
+        kw = dict(dtype=dtype, device=dev)
+        t0_b = _lanes(t0, B, **kw)
+        t0_host = np.atleast_1d(np.asarray(
+            t0.cpu() if isinstance(t0, torch.Tensor) else t0, float))
+        hmax = float(np.max(np.abs(float(tf) - t0_host)))
+        if max_step is not None:
+            hmax = min(hmax, abs(float(max_step)))
+        grid = None
+        if sample_grid is not None:
+            grid = torch.broadcast_to(torch.as_tensor(sample_grid, **kw),
+                                      (B, sample_cap))
+        ra = run_args(_lanes(tf, B, **kw),
+                      _norm_tol(rtol, B, n, dtype, dev, "rtol"),
+                      _norm_tol(atol, B, n, dtype, dev, "atol"), hmax,
+                      abs(float(min_step)), max_steps, y0, t_grid=grid)
+        fs = (torch.full((B,), abs(float(first_step)), **kw)
+              if first_step is not None else None)
+        if card:
+            with torch.cuda.device(dev):
+                return RES.start_on_card(method, fun, y0, t0_b, fs, args, ra,
+                                         params), ra
+        init_carry, _ = plain(y0, ev)
+        return init_carry(t0_b, y0, fs, ra), ra
+
+    def resume(carry, ra):
+        if carry.y.device.type == "cuda":
+            with torch.cuda.device(carry.y.device):
+                return RES.resume_on_card(method, fun, carry, args, ra, params,
+                                          chunk_steps)
+        ev = event_args(ev_list, event_capacity, max_restarts)
+        _, run_bounded = plain(carry.y, ev)
+        return run_bounded(carry, ra, chunk_steps)
+
+    def extract(carry):
+        kw = {}
+        if ev_list:
+            kw = _event_fields(E.carry_events(carry))
+        if sample_cap:
+            kw.update(y_samples=carry.sample_y, n_samples=carry.s_cursor)
+        if max_restarts:
+            kw.update(n_restarts=carry.n_restarts)
+        if method in STIFF:
+            kw.update(njev=carry.njev, nlu=carry.nlu)
+        return EnsembleResult(t=carry.t, y=carry.y, status=carry.status,
+                              nfev=carry.nfev, nstep=carry.nstep,
+                              naccpt=carry.naccpt, nrejct=carry.nrejct, **kw)
+
+    return start, resume, extract
 
 
-def _recording_result(engine, method, rec, dense_output, t0,
+def _recording_result(interp, method, rec, dense_output, t0,
                       y0_batch) -> EnsembleResult:
     """Assemble the EnsembleResult of a drained recording run."""
     sol = None
     if dense_output:
-        sol = BatchOdeSolution(method, engine.interp, rec.rec_xold, rec.rec_h,
+        sol = BatchOdeSolution(method, interp, rec.rec_xold, rec.rec_h,
                                rec.rec_cont, rec.rec_t, rec.n_rec, t0,
                                y0_batch)
     # ivp_tpu's recording solver gives n_restarts always.
     n_restarts = (rec.events.n_restarts if rec.events is not None else
                   torch.zeros_like(rec.nstep))
+    counters = ({} if method not in STIFF else
+                dict(njev=rec.njev, nlu=rec.nlu))
     return EnsembleResult(rec.t, rec.y, rec.status, rec.nfev, rec.nstep,
                           rec.naccpt, rec.nrejct, y_samples=rec.y_samples,
                           n_samples=rec.n_samples, ts=rec.rec_t, ys=rec.rec_y,
                           n_steps_rec=rec.n_rec, sol=sol,
                           **_event_fields(rec.events),
-                          n_restarts=n_restarts)
+                          n_restarts=n_restarts, **counters)
 
 
 def _run_recording(solver, y0_batch, t_span, rtol, atol,

@@ -76,6 +76,8 @@ class Carry(NamedTuple):
     status: Any   # (B,) int32, Status.RUNNING while integrating
     done: Any     # (B,) bool
     nfev: Any     # (B,) int32
+    njev: Any     # (B,) int32 Jacobian evaluations (the stiff engines)
+    nlu: Any      # (B,) int32 decompositions
     nstep: Any
     naccpt: Any
     nrejct: Any
@@ -105,7 +107,8 @@ def tree_where(mask, a, b):
     if isinstance(a, EvState):
         return keep_state(mask, a, b, tree_where)
     if isinstance(a, tuple):
-        return type(a)(*(tree_where(mask, x, y) for x, y in zip(a, b)))
+        vals = [tree_where(mask, x, y) for x, y in zip(a, b)]
+        return type(a)(*vals) if hasattr(a, "_fields") else tuple(vals)
     return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
 
 
@@ -164,7 +167,8 @@ def make_driver(engine: Engine, p, cfg: DriverConfig, rhs, events_fn=None,
             status=torch.where(trivial, Status.SUCCESS,
                                Status.RUNNING).to(torch.int32),
             done=trivial,
-            nfev=_i32(y0, nfev0), nstep=_i32(y0, 0), naccpt=_i32(y0, 0),
+            nfev=_i32(y0, nfev0), njev=_i32(y0, 0), nlu=_i32(y0, 0),
+            nstep=_i32(y0, 0), naccpt=_i32(y0, 0),
             nrejct=_i32(y0, 0),
             n_rec=_i32(y0, 0),
             rec_t=y0.new_zeros((B, cap)), rec_y=y0.new_zeros((B, cap, n)),
@@ -192,7 +196,7 @@ def make_driver(engine: Engine, p, cfg: DriverConfig, rhs, events_fn=None,
         t_rec, y_rec = res.t_new, res.y_new
         ev_new, terminal = c.ev, torch.zeros_like(adv)
         ms_next, finished, n_restarts = res.ms, res.finished, c.n_restarts
-        nfev_inc = res.nfev_inc
+        nfev_inc, njev_inc = res.nfev_inc, res.njev_inc
         if has_events:
             out = process_events(
                 events_fn, engine.interp, res.cont, res.xold, res.h_used,
@@ -225,6 +229,8 @@ def make_driver(engine: Engine, p, cfg: DriverConfig, rhs, events_fn=None,
                                              ra, p)
                 ms_next = tree_where(do_restart, ms_re, ms_next)
                 nfev_inc = nfev_inc + nfev_re * do_restart.to(torch.int32)
+                njev_inc = (njev_inc + engine.init_njev
+                            * do_restart.to(torch.int32))
                 # Event values restart from the mapped state; only the
                 # restarting event's hit count goes back to 0.
                 E = spec.n_events
@@ -271,6 +277,8 @@ def make_driver(engine: Engine, p, cfg: DriverConfig, rhs, events_fn=None,
         naccpt = c.naccpt + (res.accepted & act).to(torch.int32)
         nrejct = c.nrejct + (res.count_reject & act).to(torch.int32)
         nfev = c.nfev + nfev_inc * act.to(torch.int32)
+        njev = c.njev + njev_inc * act.to(torch.int32)
+        nlu = c.nlu + res.nlu_inc * act.to(torch.int32)
 
         # Status priority: engine failure > terminal event > reached tend >
         # step budget.
@@ -295,7 +303,8 @@ def make_driver(engine: Engine, p, cfg: DriverConfig, rhs, events_fn=None,
         # In sample mode ``body`` decides ``done``: a lane whose engine is
         # finished may still owe due samples.
         return Carry(t=t_step, y=y_step, ms=ms_next, status=status,
-                     done=status != Status.RUNNING, nfev=nfev, nstep=nstep,
+                     done=status != Status.RUNNING, nfev=nfev, njev=njev,
+                     nlu=nlu, nstep=nstep,
                      naccpt=naccpt, nrejct=nrejct, n_rec=n_rec,
                      rec_t=c.rec_t, rec_y=c.rec_y, rec_xold=c.rec_xold,
                      rec_h=c.rec_h, rec_cont=c.rec_cont,

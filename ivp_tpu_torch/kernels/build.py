@@ -30,8 +30,20 @@ BUILD_DIR = PKG_DIR / "_build"
 
 # No --use_fast_math: logf, expf, sqrtf and division keep their IEEE
 # versions, which the float32 step controller needs to follow the reference.
+# -fno-gnu-unique keeps each library's template statics its own: by default
+# the dynamic linker merges them across every library loaded, so a second
+# build of the same source (an A/B's baseline) would read the first one's
+# "shared memory attribute set" flags (erk_common.cuh::allow_stage) and
+# launch without setting its own.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xcompiler",
+              "-fno-gnu-unique", "-Xptxas=-v")
+
+# Flags of one source beside NVCC_FLAGS.  The stiff kernels are built
+# without FMA contraction: each product and sum rounds once, as the plain
+# version's tensor operations do, so their step sequences follow it lane for
+# lane (csrc/stiff_common.cuh).
+SOURCE_FLAGS = {"radau": ("-fmad=false",), "bdf": ("-fmad=false",)}
 
 # The source of the lean DOPRI5 kernel, and the default of every ``name``.
 DOPRI5 = "dopri5_ensemble"
@@ -50,8 +62,14 @@ def names(src_dir: Path = SRC_DIR) -> list[str]:
     return sorted(p.stem for p in Path(src_dir).glob("*.cu"))
 
 
+def flags_of(name: str, defines=()) -> tuple:
+    """nvcc's flags for ``<name>.cu`` with ``-D`` ``defines``."""
+    return (NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+            + tuple(f"-D{d}" for d in defines))
+
+
 def library_path(src_dir: Path = SRC_DIR, defines=(), name: str = DOPRI5) -> Path:
-    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    flags = flags_of(name, defines)
     h = hashlib.sha256(" ".join(flags).encode())
     for p in _sources(Path(src_dir), name):
         h.update(str(p.relative_to(src_dir)).encode())
@@ -84,7 +102,7 @@ def build(src_dir: Path = SRC_DIR, defines=(), name: str = DOPRI5) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", tmp,
+        cmd = [_nvcc(), *flags_of(name, defines), "-o", tmp,
                str(src_dir / f"{name}.cu")]
         r = subprocess.run(cmd, capture_output=True, text=True)
         log = r.stdout + r.stderr

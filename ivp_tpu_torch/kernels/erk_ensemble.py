@@ -58,6 +58,7 @@ from ..core.driver import DriverConfig, make_driver, run_args
 from ..events import MAX_EVENTS, EventArgs, device_set
 from ..methods import get_engine
 from ..methods.erk import ERKParams
+from ..methods.jacobian import StiffSpec
 from ..rhs import CudaRHS
 from . import build
 from . import dopri5_ensemble as lean_dopri5
@@ -120,7 +121,8 @@ FLOPS = {
 }
 # float64 operations of one RHS evaluation (csrc/rhs/*.cuh; a square root
 # counts 1, as a division; the ball's is a negation and a copy).
-RHS_FLOPS = {"vdp": 5, "decay": 1, "lorenz": 8, "cr3bp": 39, "ball": 0}
+RHS_FLOPS = {"vdp": 5, "decay": 1, "lorenz": 8, "cr3bp": 39, "ball": 0,
+             "robertson": 13}
 
 
 class EventOut(NamedTuple):
@@ -212,11 +214,15 @@ def kernel_options(p: ERKParams) -> KernelOptions:
         state_precision=int(p.controller_precision != "float32"))
 
 
-def plain_driver(method, fun, y0, args, m, params, events, **cfg):
+def plain_driver(method, fun, y0, args, m, params, events, bounded=False,
+                 unroll=None, **cfg):
     """The plain version's driver for a solve: ``(init_carry, run_chunk)``
-    of the ported driver with ``method``'s engine (dense output where
-    samples, events or ``cfg``'s coefficient records need it) and the
-    events' functions, in ``y0``'s dtype and on its device."""
+    (``run_bounded`` for ``run_chunk`` with ``bounded``; ``unroll`` masked
+    attempts between two checks, 4 by default) of the ported
+    driver with ``method``'s engine (dense output where samples, events or
+    ``cfg``'s coefficient records need it) and the events' functions, in
+    ``y0``'s dtype and on its device.  ``params``: the explicit engines'
+    ERKParams, or a stiff solve's StiffSpec (methods/jacobian.py)."""
     dtype = y0.dtype
 
     def rhs(t, y):
@@ -224,16 +230,19 @@ def plain_driver(method, fun, y0, args, m, params, events, **cfg):
                                device=y.device).reshape(y.shape)
 
     need = m > 0 or events is not None or bool(cfg.get("record_cont"))
-    engine, p = _engine(method, need, params)
+    if isinstance(params, StiffSpec):
+        engine, p = params.engine(fun, rhs, args, dtype, need)
+    else:
+        engine, p = _engine(method, need, params)
     fns = ((None, None) if events is None else
            events.functions(args, dtype, y0.device))
-    init_carry, run_chunk, _ = make_driver(
+    init_carry, run_chunk, run_bounded = make_driver(
         engine, p, DriverConfig(
-            unroll=_UNROLL, sample_cap=m,
+            unroll=_UNROLL if unroll is None else unroll, sample_cap=m,
             event_spec=None if events is None else events.spec(),
             max_restarts=0 if events is None else events.max_restarts,
             **cfg), rhs, *fns)
-    return init_carry, run_chunk
+    return init_carry, run_bounded if bounded else run_chunk
 
 
 def carry_events(c) -> "EventOut":
@@ -245,20 +254,24 @@ def carry_events(c) -> "EventOut":
 
 def erk_ensemble_torch(method, fun, y0, t0, tf, hmax, first_step, rtol, atol,
                        args=(), max_steps=100_000, t_grid=None, params=None,
-                       events=None):
+                       events=None, hmin=0.0, counters=False):
     """Plain PyTorch version: the ported driver on the whole batch, on the
-    device of ``y0`` and in its dtype (float32 or float64)."""
+    device of ``y0`` and in its dtype (float32 or float64).  ``hmin``: the
+    least step size (the stiff engines read it); ``counters``: append the
+    ``(njev, nlu)`` counters to the result."""
     B = y0.shape[0]
     m = 0 if t_grid is None else int(t_grid.shape[-1])
     init_carry, run_chunk = plain_driver(method, fun, y0, args, m, params,
                                          events)
-    ra = run_args(tf, rtol, atol, hmax, 0.0, max_steps, y0, t_grid=t_grid)
+    ra = run_args(tf, rtol, atol, hmax, hmin, max_steps, y0, t_grid=t_grid)
     t0 = torch.broadcast_to(torch.as_tensor(t0, dtype=y0.dtype,
                                             device=y0.device), (B,))
     c = run_chunk(init_carry(t0, y0, first_step, ra), ra)
     samples = (c.sample_y, c.s_cursor) if m else (None, None)
     out = (c.t, c.y, c.status, c.nfev, c.nstep, c.naccpt, c.nrejct, *samples)
-    return out if events is None else (*out, carry_events(c))
+    if events is not None:
+        out = (*out, carry_events(c))
+    return (*out, (c.njev, c.nlu)) if counters else out
 
 
 def _engine(method, need_cont, params):

@@ -52,6 +52,7 @@ from typing import Any, NamedTuple
 import torch
 
 from ..core.driver import reset_records, run_args
+from ..methods.jacobian import StiffSpec
 from ..rhs import CudaRHS
 from ..types import NCOEFF, Status
 from . import build
@@ -63,6 +64,14 @@ from .dopri5_ensemble import FP64_PEAK, HBM_RATE
 # A caller may reset a count to 0.
 LAUNCHES = {f"{k}_record{c}{e}": 0 for k in ("dopri5", "dop853", "rk23", "rk4")
             for c in ("", "_cont") for e in ("", "_ev")}
+
+# The stiff methods' modes that wait for their kernels on the card.
+STIFF_MODES_ON_CARD = (
+    "Radau and BDF on the card run the final-state ensemble and the "
+    "resumable solver; with t_eval samples, events, recording or through "
+    "solve_ivp they run with device='cpu' until the stiff kernels' modes "
+    "land: ROADMAP §1 item 16 (the stiff kernels' sampled, event and "
+    "record modes)")
 
 # method -> the LAUNCHES prefix
 _NAMES = {"DOPRI5": "dopri5", "DOP853": "dop853", "RK23": "rk23", "RK4": "rk4"}
@@ -85,6 +94,9 @@ class RecordResult(NamedTuple):
     rec_h: Any    # (B, S)
     rec_cont: Any  # (B, S, C, n), or None without record_cont
     events: Any   # erk_ensemble.EventOut, or None without events
+    njev: Any     # (B,) int32 Jacobian evaluations (the plain version's
+    #               stiff solves), or None
+    nlu: Any      # (B,) int32 decompositions, or None
     chunks: int   # chunks run (kernel launches on the CUDA route)
 
 
@@ -107,7 +119,8 @@ def record_stride(method: str, n: int, record_cont: bool) -> int:
     return w + w % 2
 
 
-def _assemble(pieces, B, n, C, counts, last, chunks, events=None):
+def _assemble(pieces, B, n, C, counts, last, chunks, events=None,
+              counters=None):
     """Concatenate the chunks' rows, zero each lane's rows past its count
     and return the RecordResult, whose record fields are views of the rows.
     ``pieces``: per chunk, the ``(B, k, stride)`` rows ``[t, xold, h, y,
@@ -124,15 +137,19 @@ def _assemble(pieces, B, n, C, counts, last, chunks, events=None):
     rows.masked_fill_(past[:, :, None], 0.0)
     cont = rows[:, :, 3 + n:W].reshape(B, S, C, n) if C else None
     return RecordResult(*last, counts, rows[:, :, 0], rows[:, :, 3:3 + n],
-                        rows[:, :, 1], rows[:, :, 2], cont, events, chunks)
+                        rows[:, :, 1], rows[:, :, 2], cont, events,
+                        *(counters or (None, None)), chunks)
 
 
 def erk_record_torch(method, fun, y0, t0, tf, hmax, first_step, rtol, atol,
                      args=(), max_steps=100_000, t_grid=None, params=None,
                      rec_cap=1024, record_cont=False,
-                     events=None) -> RecordResult:
+                     events=None, hmin=0.0) -> RecordResult:
     """Plain PyTorch version: the ported driver in record mode on the whole
-    batch, chunk by chunk, on the device of ``y0`` and in its dtype."""
+    batch, chunk by chunk, on the device of ``y0`` and in its dtype.
+    ``params`` may be a stiff solve's StiffSpec; ``hmin``: the least step
+    size (the stiff engines read it).  The result holds the lanes' njev and
+    nlu."""
     method = method.upper()
     B, n = y0.shape
     dtype = y0.dtype
@@ -142,7 +159,7 @@ def erk_record_torch(method, fun, y0, t0, tf, hmax, first_step, rtol, atol,
     init_carry, run_chunk = E.plain_driver(
         method, fun, y0, args, m, p, events, rec_cap=int(rec_cap),
         record_cont=record_cont)
-    ra = run_args(tf, rtol, atol, hmax, 0.0, max_steps, y0, t_grid=t_grid)
+    ra = run_args(tf, rtol, atol, hmax, hmin, max_steps, y0, t_grid=t_grid)
     t0 = torch.broadcast_to(torch.as_tensor(t0, dtype=dtype, device=y0.device),
                             (B,))
     c = init_carry(t0, y0, first_step, ra)
@@ -165,13 +182,16 @@ def erk_record_torch(method, fun, y0, t0, tf, hmax, first_step, rtol, atol,
     samples = (c.sample_y, c.s_cursor) if m else (None, None)
     last = (c.t, c.y, c.status, c.nfev, c.nstep, c.naccpt, c.nrejct, *samples)
     return _assemble(pieces, B, n, C, counts, last, chunks,
-                     None if events is None else E.carry_events(c))
+                     None if events is None else E.carry_events(c),
+                     (c.njev, c.nlu))
 
 
 def _params(method, m, record_cont, params, events=None):
     """``method``'s params with dense output where samples, coefficient
     records or events need it: ``params`` if given (it must agree), else
-    the cached defaults."""
+    the cached defaults; a stiff solve's StiffSpec as it is."""
+    if isinstance(params, StiffSpec):
+        return params
     need = m > 0 or record_cont or events is not None
     if params is None:
         return E._default_params(method, need)
@@ -369,14 +389,18 @@ def record_launches(method, fun: CudaRHS, y0, t0, tf, hmax, first_step, rtol,
 
 def erk_record(method, fun, y0, t0, tf, hmax, first_step, rtol, atol,
                args=(), max_steps=100_000, t_grid=None, params=None,
-               rec_cap=1024, record_cont=False, events=None) -> RecordResult:
-    """Route by the device of ``y0``: CPU -> plain version, CUDA -> kernel."""
+               rec_cap=1024, record_cont=False, events=None,
+               hmin=0.0) -> RecordResult:
+    """Route by the device of ``y0``: CPU -> plain version, CUDA -> kernel.
+    A stiff solve (``params`` a StiffSpec) records on the CPU only."""
     method = method.upper()
     a = (fun, y0, t0, tf, hmax, first_step, rtol, atol, args, max_steps,
          t_grid, params)
     kw = dict(rec_cap=rec_cap, record_cont=record_cont, events=events)
     if y0.device.type == "cpu":
-        return erk_record_torch(method, *a, **kw)
+        return erk_record_torch(method, *a, **kw, hmin=hmin)
+    if isinstance(params, StiffSpec):
+        raise NotImplementedError(STIFF_MODES_ON_CARD)
     if y0.device.type != "cuda":
         raise NotImplementedError(f"no route for device {y0.device}")
     if not isinstance(fun, CudaRHS):

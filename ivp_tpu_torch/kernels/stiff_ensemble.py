@@ -1,0 +1,434 @@
+"""The stiff tier's fused ensemble kernels: router, launches, carry, plain
+version.
+
+``stiff_ensemble`` integrates a ``(B, n)`` ensemble with Radau or BDF to
+each lane's final state; :func:`stiff_launch` is one launch on a carry,
+which kernels/resumable.py runs in bounded launches for the resumable
+solver (batch.py).  The route follows the device of ``y0``:
+
+* a CPU tensor runs the plain version: the ported driver
+  (core/driver.py) around the ported engine (methods/radau.py,
+  methods/bdf.py) on the whole batch;
+* a CUDA tensor with a :class:`~ivp_tpu_torch.rhs.CudaRHS` that has a
+  Jacobian launches the hand-written kernel of the method:
+
+  ====== ================ ===============================================
+  kernel source           replaces (XLA-fused in ``ivp_tpu``)
+  ====== ================ ===============================================
+  radau  csrc/radau.cu    core/driver.py's loop around methods/radau.py::
+                          make_radau_attempt (:348) with core/linalg.py::
+                          inv (:280) and inv_complex (:327)
+  bdf    csrc/bdf.cu      the same loop around methods/bdf.py::
+                          make_bdf_attempt (:312), change_d (:232), inv
+  ====== ================ ===============================================
+
+  No TPU kernel stands behind either.  Each launch loads every lane's
+  carry (the plain driver's :class:`~ivp_tpu_torch.core.driver.Carry` with
+  its RadauState or BDFState: the very tensors, struct of arrays), runs
+  each lane until it is done or has made ``max_attempts`` counted attempts,
+  and stores the carry; a solve's first launch runs the method's init from
+  ``y0`` and ``t0`` instead of loading.  ``build_ensemble_solver`` makes
+  one launch with no budget;
+* anything else raises NotImplementedError.
+
+On the card only the inverse linear backend runs (n <= 8), with the
+functor's Jacobian and float64 state; ``linear_mode="lu"``, a callable or
+constant ``jac``, n > 8 and float32 raise NotImplementedError (ROADMAP §1
+item 15) before anything is placed, as the modes with samples, events or
+records do (item 16).  There is no fallback: a failed build or launch
+raises.
+
+:func:`stiff_bound` gives the least time an H100 could take for a solve
+from the float64 operations its lanes did (:func:`stiff_flops`).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..core.driver import Carry, run_args
+from ..methods.bdf import ROWS as BDF_ROWS, BDFState
+from ..methods.jacobian import StiffSpec
+from ..methods.radau import INV_AUTO_N, STIFF_REST_ITEM, RadauState
+from ..rhs import CudaRHS
+from . import build
+from .dopri5_ensemble import FP64_PEAK, HBM_RATE, _check
+from . import erk_ensemble as E
+
+# Launches made by this process, per kernel; stiff_launch adds one per
+# launch.  A caller may reset a count to 0.
+LAUNCHES = {"radau": 0, "bdf": 0}
+
+# The most attempts one launch may make (a solve's single launch).
+UNBOUNDED = 2**31 - 1
+
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+
+
+class KernelRun(ctypes.Structure):
+    """``StiffRun`` of csrc/stiff_common.cuh."""
+
+    _fields_ = [(f, _P) for f in ("tend", "rtol", "atol", "hmax", "hmin")] \
+        + [("max_steps", _I)]
+
+
+class KernelDriver(ctypes.Structure):
+    """``StiffDriver`` of csrc/stiff_common.cuh: the Carry's driver fields."""
+
+    _fields_ = [(f, _P) for f in ("t", "y", "status", "done", "nfev", "njev",
+                                  "nlu", "nstep", "naccpt", "nrejct")]
+
+
+class RadauOptions(ctypes.Structure):
+    """``RadauOptions`` of csrc/radau.cu."""
+
+    _fields_ = [(f, _D) for f in ("uround", "safety", "facl", "facr", "cfac",
+                                  "thet", "quot1", "quot2", "newton_tol")] \
+        + [(f, _I) for f in ("newton_maxiter", "predictive", "const_jac",
+                             "state_precision")]
+
+
+class BDFOptions(ctypes.Structure):
+    """``BDFOptions`` of csrc/bdf.cu."""
+
+    _fields_ = [("newton_tol", _D)] + [(f, _I) for f in (
+        "newton_maxiter", "const_jac", "state_precision")]
+
+
+RADAU_FIELDS = ("h", "hold", "posneg", "f0", "cont", "scal", "first",
+                "reject", "last", "faccon", "theta", "hhfac", "h_acc",
+                "err_acc", "call_jac", "call_decomp", "singular", "jac",
+                "inv1", "br", "bi")
+BDF_FIELDS = ("h_abs", "posneg", "D", "order", "n_equal", "jac", "inv",
+              "lu_current", "current_c")
+
+
+class RadauCarryArg(ctypes.Structure):
+    _fields_ = [(f, _P) for f in RADAU_FIELDS]
+
+
+class BDFCarryArg(ctypes.Structure):
+    _fields_ = [(f, _P) for f in BDF_FIELDS]
+
+
+def radau_options(p) -> RadauOptions:
+    """A RadauParams as the kernel's launch argument: each float is the
+    Python float the plain version hands to a tensor operation."""
+    return RadauOptions(
+        uround=p.uround, safety=p.safety, facl=1.0 / p.scale_min,
+        facr=1.0 / p.scale_max,
+        cfac=p.safety * (1.0 + 2.0 * p.newton_maxiter), thet=p.thet,
+        quot1=p.quot1, quot2=p.quot2,
+        newton_tol=float("nan") if p.newton_tol is None else p.newton_tol,
+        newton_maxiter=p.newton_maxiter, predictive=int(p.predictive),
+        const_jac=int(p.const_jac),
+        state_precision=int(p.controller_precision != "float32"))
+
+
+def bdf_options(p) -> BDFOptions:
+    return BDFOptions(newton_tol=p.newton_tol,
+                      newton_maxiter=p.newton_maxiter,
+                      const_jac=int(p.const_jac),
+                      state_precision=int(p.controller_precision != "float32"))
+
+
+def _ms_fields(method, ms) -> dict:
+    """The kernel's carry fields of a RadauState / BDFState (the inverse
+    backend's ``lin`` spelt out)."""
+    d = ms._asdict()
+    lin = d.pop("lin")
+    if method == "RADAU":
+        d.update(inv1=lin[0], br=lin[1], bi=lin[2])
+    else:
+        d.update(inv=lin[0])
+    return d
+
+
+def lean_carry(ms, B, n, device) -> Carry:
+    """A lean Carry of ``B`` lanes around the method state ``ms`` for a
+    kernel's init launch to fill (the fields a launch writes are allocated,
+    the sample, record and event fields zero-size)."""
+    f64, i32, u8 = torch.float64, torch.int32, torch.bool
+    e = lambda *s, dt=f64: torch.empty(s, dtype=dt, device=device)
+    z = lambda *s, dt=f64: torch.zeros(s, dtype=dt, device=device)
+    return Carry(
+        t=e(B), y=e(B, n), ms=ms, status=e(B, dt=i32), done=e(B, dt=u8),
+        nfev=e(B, dt=i32), njev=z(B, dt=i32), nlu=z(B, dt=i32),
+        nstep=e(B, dt=i32), naccpt=e(B, dt=i32), nrejct=e(B, dt=i32),
+        n_rec=z(B, dt=i32), rec_t=z(B, 0), rec_y=z(B, 0, n),
+        rec_xold=z(B, 0), rec_h=z(B, 0), rec_cont=z(B, 0, 0),
+        s_cursor=z(B, dt=i32), sample_y=z(B, 0, n), seg_cont=z(B, 0, n),
+        seg_xold=z(B), seg_h=z(B), seg_valid=z(B, dt=u8), ev=None,
+        n_restarts=z(B, dt=i32))
+
+
+def empty_carry(method, B, n, cdt, device) -> Carry:
+    """A lean Carry of ``B`` lanes with ``method``'s state (controller type
+    ``cdt``) for the stiff kernel's init launch to fill."""
+    f64, i32, u8 = torch.float64, torch.int32, torch.bool
+    e = lambda *s, dt=f64: torch.empty(s, dtype=dt, device=device)
+    if method == "RADAU":
+        ms = RadauState(
+            h=e(B), hold=e(B), posneg=e(B), f0=e(B, n), cont=e(B, 4, n),
+            scal=e(B, n), first=e(B, dt=u8), reject=e(B, dt=u8),
+            last=e(B, dt=u8), faccon=e(B, dt=cdt), theta=e(B, dt=cdt),
+            hhfac=e(B), h_acc=e(B), err_acc=e(B, dt=cdt),
+            call_jac=e(B, dt=u8), call_decomp=e(B, dt=u8),
+            singular=e(B, dt=i32), jac=e(B, n, n),
+            lin=(e(B, n, n), e(B, n, n), e(B, n, n)))
+    else:
+        ms = BDFState(h_abs=e(B), posneg=e(B), D=e(B, BDF_ROWS, n),
+                      order=e(B, dt=i32), n_equal=e(B, dt=i32),
+                      jac=e(B, n, n), lin=(e(B, n, n),),
+                      lu_current=e(B, dt=u8), current_c=e(B))
+    return lean_carry(ms, B, n, device)
+
+
+def clone_carry(c: Carry) -> Carry:
+    """A copy of a carry whose tensors a launch may overwrite (the one
+    given stays as it was: a checkpoint is not changed by resuming it)."""
+    def cl(x):
+        if x is None:
+            return None
+        if isinstance(x, tuple):
+            vals = [cl(v) for v in x]
+            return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+        return x.clone()
+    return cl(c)
+
+
+def check_card(spec: StiffSpec, fun) -> None:
+    """NotImplementedError for what the stiff kernels do not run: raised
+    before anything is placed."""
+    item = f"ROADMAP §1 {STIFF_REST_ITEM}"
+    if not isinstance(fun, CudaRHS) or fun.jac is None:
+        raise NotImplementedError(
+            f"Radau and BDF on the card run a CudaRHS with a Jacobian "
+            f"(rhs.vdp, rhs.decay, rhs.robertson); {fun!r} runs with "
+            f"device='cpu': {item}")
+    if spec.jac is not None:
+        raise NotImplementedError(
+            f"a callable or constant jac runs with device='cpu'; on the card "
+            f"the Jacobian is the CudaRHS's own: {item}")
+    if spec.n > INV_AUTO_N:
+        raise NotImplementedError(
+            f"Radau and BDF on the card run n <= {INV_AUTO_N} (the inverse "
+            f"backend), got n={spec.n}: {item}")
+    p = spec.params()
+    if p.linear_mode == "lu":
+        raise NotImplementedError(
+            f"linear_mode='lu' runs with device='cpu'; the kernels invert "
+            f"(n <= {INV_AUTO_N}): {item}")
+
+
+_ARGTYPES = [_I, _P, _P, _P, KernelRun, _P, None, KernelDriver, None, _I, _I,
+             _P]
+
+
+def stiff_launch(method, fun: CudaRHS, c: Carry, ra, y0, t0, first_step,
+                 args, params, init: bool, max_attempts: int, lib=None,
+                 stream=None) -> None:
+    """One launch of ``method``'s kernel on the carry ``c`` (updated in
+    place), from ``lib`` (default: the package's build of csrc/radau.cu or
+    csrc/bdf.cu) on ``stream`` (default: the current stream of the carry's
+    device; 0 for a build rehearsed without nvcc on CPU tensors).  ``ra``:
+    the batched RunArgs; ``params``: the engine's RadauParams / BDFParams;
+    ``init``: run the method's init from ``y0``, ``t0`` (and
+    ``first_step``, NaN where the method picks it) first."""
+    method = method.upper()
+    kernel = method.lower()
+    dev = c.y.device
+    B, n = c.y.shape
+    f64 = torch.float64
+    if B == 0:
+        return
+    _check("y0", y0, (B, fun.n), f64, dev)
+    for name, x in (("t0", t0), ("first_step", first_step),
+                    ("tend", ra.tend), ("hmax", ra.hmax), ("hmin", ra.hmin)):
+        _check(name, x, (B,), f64, dev)
+    _check("rtol", ra.rtol, (B, n), f64, dev)
+    _check("atol", ra.atol, (B, n), f64, dev)
+    kargs = fun.kernel_args(args, B, dev)
+    lib = build.library(kernel) if lib is None else lib
+    E.check_functor(lib, fun, kargs)
+    if method == "RADAU":
+        opts, carry_t, fields = radau_options(params), RadauCarryArg, \
+            RADAU_FIELDS
+    else:
+        opts, carry_t, fields = bdf_options(params), BDFCarryArg, BDF_FIELDS
+    ms = _ms_fields(method, c.ms)
+    for f in fields:
+        if not ms[f].is_contiguous() or ms[f].device != dev:
+            raise ValueError(f"carry field {f} must be contiguous on {dev}")
+    argtypes = list(_ARGTYPES)
+    argtypes[6], argtypes[8] = type(opts), carry_t
+    entry = build.entry(f"ivp_{kernel}_{fun.name}", argtypes, lib=lib)
+    run = KernelRun(ra.tend.data_ptr(), ra.rtol.data_ptr(),
+                    ra.atol.data_ptr(), ra.hmax.data_ptr(),
+                    ra.hmin.data_ptr(), int(ra.max_steps))
+    drv = KernelDriver(*(getattr(c, f).data_ptr() for f in (
+        "t", "y", "status", "done", "nfev", "njev", "nlu", "nstep", "naccpt",
+        "nrejct")))
+    carry = carry_t(*(ms[f].data_ptr() for f in fields))
+    if stream is None:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+    err = entry(B, y0.data_ptr(), t0.data_ptr(), first_step.data_ptr(), run,
+                kargs.data_ptr(), opts, drv, carry, int(bool(init)),
+                int(max_attempts), stream)
+    build.check(err, f"{kernel} kernel launch (B={B})", lib)
+    LAUNCHES[kernel] += 1
+
+
+def inverses(a, ai, lib=None, stream=None):
+    """The stiff kernels' own inverses of a batch, for checking them:
+    ``(inv, singular, (br, bi), csingular)`` of ``a (B, n, n)`` and of ``a +
+    i ai``, n = 1..8, from the ``ivp_stiff_inverses`` entry of
+    csrc/radau.cu (the device functions of csrc/stiff_common.cuh that
+    core/linalg.py::inv and inv_complex are on the CPU)."""
+    B, n = a.shape[0], a.shape[-1]
+    f64, dev = torch.float64, a.device
+    for name, x in (("a", a), ("ai", ai)):
+        _check(name, x, (B, n, n), f64, dev)
+    out = [torch.empty_like(a) for _ in range(3)]
+    s = [torch.empty(B, dtype=torch.bool, device=dev) for _ in range(2)]
+    lib = build.library("radau") if lib is None else lib
+    entry = build.entry("ivp_stiff_inverses", [_I, _I] + [_P] * 8, lib=lib)
+    if stream is None:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+    build.check(entry(n, B, a.data_ptr(), ai.data_ptr(),
+                      *(x.data_ptr() for x in out),
+                      *(x.data_ptr() for x in s), stream),
+                f"inverses (n={n}, B={B})", lib)
+    return out[0], s[0], (out[1], out[2]), s[1]
+
+
+def stiff_ensemble_cuda(method, fun: CudaRHS, y0, t0, tf, hmax, first_step,
+                        rtol, atol, args, max_steps, params, hmin,
+                        lib=None, stream=None) -> Carry:
+    """One launch with no budget from a fresh carry: the final-state
+    solve.  Returns the carry (its ``t``, ``y``, status and counters are
+    the result)."""
+    method = method.upper()
+    B, n = y0.shape
+    cdt = (torch.float32 if params.controller_precision == "float32"
+           else torch.float64)
+    c = empty_carry(method, B, n, cdt, y0.device)
+    ra = run_args(tf, rtol, atol, hmax, hmin, max_steps, y0)
+    if first_step is None:
+        first_step = torch.full((B,), float("nan"), dtype=torch.float64,
+                                device=y0.device)
+    stiff_launch(method, fun, c, ra, y0, t0, first_step, args, params, True,
+                 UNBOUNDED, lib, stream)
+    return c
+
+
+def stiff_ensemble(method, fun, y0, t0, tf, hmax, first_step, rtol, atol,
+                   args, max_steps, spec: StiffSpec, hmin=0.0):
+    """Route by the device of ``y0``: ``(t, y, status, nfev, nstep, naccpt,
+    nrejct, njev, nlu)``."""
+    method = method.upper()
+    if y0.device.type == "cpu":
+        out = E.erk_ensemble_torch(method, fun, y0, t0, tf, hmax, first_step,
+                                   rtol, atol, args, max_steps, None, spec,
+                                   None, hmin=hmin, counters=True)
+        return (*out[:7], *out[-1])
+    if y0.device.type != "cuda":
+        raise NotImplementedError(f"no route for device {y0.device}")
+    check_card(spec, fun)
+    B = y0.shape[0]
+    hmin_b = torch.broadcast_to(torch.as_tensor(
+        hmin, dtype=y0.dtype, device=y0.device), (B,)).contiguous()
+    with torch.cuda.device(y0.device):
+        c = stiff_ensemble_cuda(method, fun, y0, t0, tf, hmax, first_step,
+                                rtol, atol, args, max_steps, spec.params(),
+                                torch.abs(hmin_b))
+    return (c.t, c.y, c.status, c.nfev, c.nstep, c.naccpt, c.nrejct, c.njev,
+            c.nlu)
+
+
+# float64 operations of the stiff kernels, counted from csrc/radau.cu and
+# csrc/bdf.cu as kernels/erk_ensemble.py's FLOPS are (an add, subtract,
+# multiply, division or square root 1; compares, fabs, negations, selects
+# and the float32 controller 0), by state size n.  The inverses (n <= 3,
+# stiff_common.cuh): the real one divides the n*n entries by the scale, takes
+# its reciprocal, the determinant and the adjugate's products, and divides
+# and rescales every entry; the split-complex one the same in complex pairs
+# (a complex product 6).
+INV_REAL = {1: 4, 2: 16, 3: 60}
+INV_CPLX = {1: 16, 2: 66, 3: 260}
+
+
+def radau_flops(n: int) -> dict:
+    """Radau: ``attempt`` every attempt (the Newton tolerance, fac1, alphn
+    and betan, too_small, the start values from the last collocation
+    polynomial, the error estimate and its matvec, the step's divisions);
+    ``newton`` each Newton iteration besides its three RHS evaluations (the
+    stage arguments, the TI transform, the mass terms, one real and two
+    complex matvecs, the F update and the T back-transform);
+    ``decomp`` each decomposition pair (E1, E2 and their inverses);
+    ``accept`` an accepted attempt besides its RHS evaluation (the new state,
+    the four collocation rows, the scale, the next step's clamps)."""
+    mv = 2 * n * n - n
+    return dict(attempt=17 + 42 * n + mv,
+                newton=5 + 40 * n + 10 * n * n,
+                decomp=5 * n * n + INV_REAL[n] + INV_CPLX[n],
+                accept=7 + 13 * n)
+
+
+def bdf_flops(n: int) -> dict:
+    """BDF, at order 1 where the order's sums are longer (a lower bound):
+    ``attempt`` every attempt (the Newton tolerance, the step's end, the
+    predictor, psi and the scales); ``newton`` each Newton iteration besides
+    its RHS evaluation (the residual, a matvec, the updates); ``decomp``
+    each I - cJ and its inverse; ``accept`` the difference array's update;
+    ``rescale`` one change_d (the 6 x 6 polynomial in the factor and the
+    product with D's first six rows), counted on rejected attempts only."""
+    return dict(attempt=19 + 9 * n, newton=4 * n + 2 * n * n,
+                decomp=2 * n * n + INV_REAL[n], accept=3 * n,
+                rescale=184 + 72 * n)
+
+
+# float64 operations of one Jacobian of each functor (csrc/rhs/*.cuh).
+JAC_FLOPS = {"vdp": 7, "decay": 0, "robertson": 8}
+
+
+def stiff_flops(method, fun: CudaRHS, nstep, naccpt, nrejct, nfev, njev,
+                nlu) -> float:
+    """float64 operations of a solve from its counters: ``nfev`` RHS
+    evaluations, ``njev`` Jacobians, the decompositions (Radau: nlu / 2
+    pairs; BDF: nlu), and each attempt's, Newton iteration's and accepted
+    attempt's work (:func:`radau_flops`, :func:`bdf_flops`).  Newton
+    iterations are counted from nfev less the evaluations that are not
+    theirs (the init's, one an accepted Radau attempt, Radau's error
+    refinements, at most one a rejection), so the count is a lower bound."""
+    n, r = fun.n, E.RHS_FLOPS[fun.name]
+    tot = lambda x: float(torch.as_tensor(x).to(torch.float64).sum())
+    B = torch.as_tensor(nstep).numel()
+    if method.upper() == "RADAU":
+        f = radau_flops(n)
+        iters = max(0.0, tot(nfev) - tot(naccpt) - tot(nrejct) - 2 * B) / 3
+        flops = tot(nlu) / 2 * f["decomp"]
+    else:
+        f = bdf_flops(n)
+        iters = max(0.0, tot(nfev) - 2 * B)
+        flops = tot(nlu) * f["decomp"] + tot(nrejct) * f["rescale"]
+    flops += tot(nfev) * r + tot(njev) * JAC_FLOPS[fun.name]
+    flops += (tot(nstep) * f["attempt"] + iters * f["newton"]
+              + tot(naccpt) * f["accept"])
+    return flops
+
+
+def stiff_bound(method, fun: CudaRHS, nstep, naccpt, nrejct, nfev, njev,
+                nlu, peak=FP64_PEAK, rate=HBM_RATE):
+    """``(ms, bound_by)``: the least time a card with float64 rate ``peak``
+    and memory rate ``rate`` could take for the solve, the larger of
+    :func:`stiff_flops` over ``peak`` and, over ``rate``, each lane's
+    inputs read once (y0, rtol, atol, t0, tf, hmax, hmin, first step, args)
+    and its outputs written once (t, y, status and six counters)."""
+    B, n = torch.as_tensor(nstep).numel(), fun.n
+    flops = stiff_flops(method, fun, nstep, naccpt, nrejct, nfev, njev, nlu)
+    lane = 8 * (3 * n + 5 + len(fun.defaults)) + 8 * (1 + n) + 4 * 7
+    t_ops, t_bytes = flops / peak, B * lane / rate
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")

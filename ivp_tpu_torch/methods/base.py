@@ -44,8 +44,8 @@ class StepProposal(NamedTuple):
     cont: Any          # (B, C, n) dense coefficients (valid when advance),
     #                    None when the engine was built without them
     nfev_inc: Any      # int, or (B,) int32 where lanes differ (DOP853)
-    njev_inc: int
-    nlu_inc: int
+    njev_inc: Any      # int, or (B,) int32 (the stiff engines)
+    nlu_inc: Any
     count_step: Any    # bool — whether nstep increments for this attempt
     count_reject: Any  # bool — whether nrejct increments
     ms: Any            # updated method state
@@ -57,6 +57,9 @@ class Engine(NamedTuple):
     init: Callable
     attempt: Callable
     interp: Callable
+    # Jacobian evaluations inside ``init`` (BDF's), which the driver adds to
+    # njev on an event restart (a restart runs ``init`` again).
+    init_njev: int = 0
 
 
 def dotk(coeffs, ks):

@@ -6,16 +6,16 @@ from ..types import NCOEFF
 
 
 def get_interp(method: str):
-    """``(interp_fn, ncoeff)`` of a canonical method name.  The stiff
-    methods raise NotImplementedError naming their ROADMAP slice."""
+    """``(interp_fn, ncoeff)`` of a canonical method name."""
     method = method.upper()
-    if method in ("RADAU", "BDF"):
-        raise NotImplementedError(
-            f"method {method!r} is not ported yet: ROADMAP §1 item 7 "
-            f"(the stiff tier)")
-    if method not in ("RK4", "RK23", "DOPRI5", "DOP853"):
+    if method in ("RK4", "RK23", "DOPRI5", "DOP853"):
+        from . import erk
+        fn = {"RK4": erk.rk4_interp, "RK23": erk.rk23_interp,
+              "DOPRI5": erk.dopri5_interp, "DOP853": erk.dop853_interp}[method]
+    elif method == "RADAU":
+        from .radau import radau_interp as fn
+    elif method == "BDF":
+        from .bdf import bdf_interp as fn
+    else:
         raise ValueError(f"unknown method {method!r}")
-    from . import erk
-    fn = {"RK4": erk.rk4_interp, "RK23": erk.rk23_interp,
-          "DOPRI5": erk.dopri5_interp, "DOP853": erk.dop853_interp}[method]
     return fn, NCOEFF[method]

@@ -20,10 +20,28 @@ define it here.  A functor that runs only with its event sets (as
 ``IVP_ERK_EVENT_ENTRY`` lines declare it (ivp_tpu_torch/events.py says how
 to add an event set), and a launch without them finds no entry and raises
 NotImplementedError.
+
+The stiff methods (Radau, BDF) need the RHS's Jacobian.  A CudaRHS may bring
+its own: ``jac``, a torch function ``jac(t (B,), y (B, n), *args) -> (B,
+n, n)`` with ``J[b, i, j] = d f_i / d y_j``, twin of a ``jac(t, y, J, args)``
+method of the CUDA functor (``J`` row-major, ``n * n`` doubles), which the
+stiff kernels (csrc/radau.cu, csrc/bdf.cu) call.  Both compute each entry in
+the order of operations that forward-mode differentiation of the RHS
+(``jax.jacfwd`` in ``ivp_tpu``) produces, so the torch twin, the reference
+and the kernel round alike (the stiff kernels are built without FMA
+contraction, kernels/build.py).  A stiff solve on the card needs a CudaRHS
+with a Jacobian (``vdp``, ``decay``, ``robertson``); on the CPU any RHS runs,
+differentiated by ``torch.func`` where it brings no Jacobian.  To give a
+functor the stiff kernels: its ``jac`` method, an include in
+``csrc/stiff_common.cuh``, one ``IVP_RADAU_ENTRY`` line in ``csrc/radau.cu``
+and one ``IVP_BDF_ENTRY`` line in ``csrc/bdf.cu``, its two lines in
+``IVP_STIFF_LIBRARY``, and its operation counts in
+``kernels/stiff_ensemble.py::JAC_FLOPS`` and
+``kernels/erk_ensemble.py::RHS_FLOPS``.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -35,17 +53,25 @@ class CudaRHS:
     may give fewer args, and the rest take their defaults.
     """
 
-    def __init__(self, name: str, n: int, fn: Callable, defaults: tuple):
+    def __init__(self, name: str, n: int, fn: Callable, defaults: tuple,
+                 jac: Optional[Callable] = None):
         self.name = name
         self.n = n
         self.fn = fn
         self.defaults = tuple(float(d) for d in defaults)
+        self.jac = jac
 
     def __call__(self, t, y, *args):
         return self.fn(t, y, *self._full(args))
 
     def __repr__(self):
         return f"CudaRHS({self.name!r}, n={self.n})"
+
+    def jacobian(self, t, y, *args):
+        """The torch twin of the functor's Jacobian, ``(B, n, n)``."""
+        if self.jac is None:
+            raise NotImplementedError(f"{self.name} has no Jacobian")
+        return self.jac(t, y, *self._full(args))
 
     def _full(self, args):
         if len(args) > len(self.defaults):
@@ -80,8 +106,44 @@ def _vdp(t, y, mu=1.0):
     return torch.stack([y1, mu * (1.0 - y0 * y0) * y1 - y0], dim=-1)
 
 
+def _vdp_jac(t, y, mu=1.0):
+    # jax.jacfwd of _vdp: d/dy0 of mu (1 - y0 y0) y1 - y0 is
+    # mu * (-(y0 + y0)) * y1 - 1.0 (the product's tangent, then the
+    # subtraction's).
+    y0, y1 = y[:, 0], y[:, 1]
+    zero, one = torch.zeros_like(y0), torch.ones_like(y0)
+    return torch.stack([
+        torch.stack([zero, one], -1),
+        torch.stack([mu * (-(y0 + y0)) * y1 - 1.0, mu * (1.0 - y0 * y0)], -1),
+    ], 1)
+
+
 def _decay(t, y, k=1.0):
     return -k * y
+
+
+def _decay_jac(t, y, k=1.0):
+    return torch.full_like(y, -k)[:, :, None]
+
+
+def _robertson(t, y):
+    x, u, z = y[:, 0], y[:, 1], y[:, 2]
+    return torch.stack([-0.04 * x + 1e4 * u * z,
+                        0.04 * x - 1e4 * u * z - 3e7 * u * u,
+                        3e7 * u * u], dim=-1)
+
+
+def _robertson_jac(t, y):
+    # jax.jacfwd of _robertson: (3e7 u) u differentiates to 3e7 u + 3e7 u,
+    # and (1e4 u) z to 1e4 z and 1e4 u.
+    x, u, z = y[:, 0], y[:, 1], y[:, 2]
+    c = lambda v: torch.full_like(x, v)
+    du = 3e7 * u + 3e7 * u
+    return torch.stack([
+        torch.stack([c(-0.04), 1e4 * z, 1e4 * u], -1),
+        torch.stack([c(0.04), -(1e4 * z) - du, -(1e4 * u)], -1),
+        torch.stack([c(0.0), du, c(0.0)], -1),
+    ], 1)
 
 
 def _lorenz(t, y, sigma=10.0, rho=28.0, beta=8.0 / 3.0):
@@ -112,15 +174,18 @@ def _cr3bp(t, s, mu=0.012277471):
 
 
 # Van der Pol, y0' = y1, y1' = mu (1 - y0^2) y1 - y0 (mu = 1: non-stiff).
-vdp = CudaRHS("vdp", 2, _vdp, (1.0,))
+vdp = CudaRHS("vdp", 2, _vdp, (1.0,), _vdp_jac)
 # Exponential decay, y' = -k y.
-decay = CudaRHS("decay", 1, _decay, (1.0,))
+decay = CudaRHS("decay", 1, _decay, (1.0,), _decay_jac)
 # Lorenz 63.
 lorenz = CudaRHS("lorenz", 3, _lorenz, (10.0, 28.0, 8.0 / 3.0))
 # The circular restricted three-body problem in the rotating frame, state
 # (x, y, z, vx, vy, vz), mass ratio mu (default: Earth-Moon, the Arenstorf
 # orbit's).
 cr3bp = CudaRHS("cr3bp", 6, _cr3bp, (0.012277471,))
+# Robertson's chemical kinetics (tests/test_stiff.py), stiff over [0, 1e8];
+# no parameters.
+robertson = CudaRHS("robertson", 3, _robertson, (), _robertson_jac)
 # A ball in free fall, y = (height, velocity), y' = (v, -g).  On the card it
 # runs only with its event set ``events.ground`` (the bounce),
 # csrc/events/ground.cuh.

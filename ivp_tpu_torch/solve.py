@@ -25,12 +25,14 @@ too, ``g(t, y (n,), *args)`` with ``terminal``, ``direction`` and ``restart``
 route (on the card the events must form a declared event set of the
 CudaRHS).
 
-Ported: ``"RK45"``/``"DOPRI5"``, ``"DOP853"``, ``"RK23"`` and ``"RK4"``
-with ``t_eval``, ``dense_output``, ``first_step``, ``max_step``,
-``max_steps``, ``chunk_steps``, ``solver_options``, ``events``,
-``event_capacity`` and ``max_restarts``.  What a later slice
-brings raises NotImplementedError naming its ROADMAP item, checked before
-anything is placed on a device.  ``vectorized`` is accepted and ignored.
+Ported: ``"RK45"``/``"DOPRI5"``, ``"DOP853"``, ``"RK23"``, ``"RK4"``,
+``"Radau"`` and ``"BDF"`` with ``t_eval``, ``dense_output``,
+``first_step``, ``max_step``, ``min_step``, ``max_steps``, ``chunk_steps``,
+``solver_options``, ``jac``, ``events``, ``event_capacity`` and
+``max_restarts``; Radau and BDF run on the CPU (on the card: ROADMAP §1
+item 16).  What a later slice brings raises NotImplementedError naming its
+ROADMAP item, checked before anything is placed on a device.
+``vectorized`` is accepted and ignored.
 """
 from __future__ import annotations
 
@@ -48,7 +50,9 @@ from .events import EventArgs, as_list, device_set, lane_events
 from .methods import get_engine
 from .methods.ddtier import resolve_auto_dtype
 from .methods.interp import get_interp
-from .kernels.erk_record import erk_record
+from .kernels.erk_record import STIFF_MODES_ON_CARD, erk_record
+from .methods.jacobian import stiff_spec
+from .methods.radau import STIFF_REST_ITEM
 from .rhs import CudaRHS
 
 _TOL = 1e-12  # endpoint matching tolerance (ivp_tpu.solve._TOL)
@@ -182,14 +186,24 @@ class OdeSolution:
 # =============================================================================
 
 def _check_method(method):
-    """The canonical name of an explicit method; ``"auto"``, Radau and BDF
-    raise NotImplementedError naming their ROADMAP item."""
-    method = _check_auto(method)
-    if method in ("RADAU", "BDF"):
-        raise NotImplementedError(
-            f"method {method!r} is not ported yet: ROADMAP §1 item 7 "
-            f"(the stiff tier)")
-    return method
+    """The canonical name of a method; ``"auto"`` raises
+    NotImplementedError naming its ROADMAP item."""
+    return _check_auto(method)
+
+
+def _scipy_jac(jac, n):
+    """A SciPy-style ``jac(t, y (n,), *args) -> (n, n)`` as the batched
+    callable of one lane; a matrix stays as it is."""
+    if jac is None or not callable(jac):
+        return jac
+
+    def batched(t, y, *a):
+        j = jac(t[0], y[0], *a)
+        if hasattr(j, "toarray"):
+            j = j.toarray()
+        return torch.as_tensor(j, dtype=y.dtype, device=y.device).reshape(
+            1, n, n)
+    return batched
 
 
 # =============================================================================
@@ -251,25 +265,31 @@ def solve_ivp(
     up to that many times (``n_restarts``); the dense output and ``t_eval``
     follow the restarted solution.
 
-    ``jac``, ``jac_sparsity``, ``mass``, ``nind1..3``, ``time_dtype``,
-    ``method="auto"``, Radau and BDF raise NotImplementedError naming their
-    ROADMAP item; ``vectorized`` and ``min_step`` are accepted and unused.
+    ``jac`` (Radau, BDF): None (the CudaRHS's own Jacobian, else
+    forward-mode differentiation of ``fun``), a SciPy-style callable
+    ``jac(t, y (n,), *args) -> (n, n)`` or a constant matrix (then njev
+    stays 0); ``min_step`` bounds the stiff engines' steps.
+    ``jac_sparsity``, ``mass``, ``nind1..3``, ``time_dtype`` and
+    ``method="auto"`` raise NotImplementedError naming their ROADMAP item;
+    ``vectorized`` is accepted and unused.
     """
-    del vectorized, min_step
+    del vectorized
     method = _check_method(method)
     _unported(
-        jac=(jac is not None, "item 7 (the stiff tier)"),
-        jac_sparsity=(jac_sparsity is not None, "item 7 (the stiff tier)"),
-        mass=(mass is not None, "item 7 (the stiff tier)"),
+        jac_sparsity=(jac_sparsity is not None, STIFF_REST_ITEM),
+        mass=(mass is not None, STIFF_REST_ITEM),
         nind=(any(v is not None for v in (nind1, nind2, nind3)),
-              "item 7 (the stiff tier)"),
+              STIFF_REST_ITEM),
         time_dtype=(time_dtype is not None, TIME_DTYPE_ITEM))
+    stiff = method in ("RADAU", "BDF")
     dtype = resolve_auto_dtype(dtype)
     _refuse_f32_on_card(dtype, y0, device)
     ev_list = as_list(events)
     ev = (EventArgs(tuple(lane_events(ev_list)), int(event_capacity),
                     int(max_restarts)) if ev_list else None)
     if placement(y0, device).type == "cuda":
+        if stiff:
+            raise NotImplementedError(STIFF_MODES_ON_CARD)
         if not isinstance(fun, CudaRHS):
             raise NotImplementedError(
                 "solve_ivp on the card runs a CudaRHS (ivp_tpu_torch.rhs); a "
@@ -311,12 +331,17 @@ def solve_ivp(
 
     need_cont = bool(dense_output or t_eval_arr is not None or n_events
                      or first_step is not None)
-    key = ("solve", method, need_cont,
-           tuple(sorted((k, cache_token(v))
-                        for k, v in (solver_options or {}).items())))
-    engine, params = _SOLVER_CACHE.get_or_build(
-        key, lambda: get_engine(method, need_cont=need_cont,
-                                **(solver_options or {})))
+    if stiff:
+        params = stiff_spec(method, n, _scipy_jac(jac, n), solver_options)
+        interp, ncoeff = get_interp(method)
+    else:
+        key = ("solve", method, need_cont,
+               tuple(sorted((k, cache_token(v))
+                            for k, v in (solver_options or {}).items())))
+        engine, params = _SOLVER_CACHE.get_or_build(
+            key, lambda: get_engine(method, need_cont=need_cont,
+                                    **(solver_options or {})))
+        interp, ncoeff = engine.interp, engine.ncoeff
 
     # -- placement and the per-lane arguments (one lane) --
     dev = _place(y0, device)
@@ -339,7 +364,7 @@ def solve_ivp(
         None if fs is None else lane(abs(float(fs))),
         _broadcast_tol(rtol, n, **kw), _broadcast_tol(atol, n, **kw), args,
         nmax, None, params, rec_cap=int(chunk_steps), record_cont=need_cont,
-        events=ev)
+        events=ev, hmin=abs(float(min_step)) if stiff else 0.0)
 
     # -- the records on the host, as numpy --
     k = int(rec.n_rec[0])
@@ -348,7 +373,7 @@ def solve_ivp(
     rec_xold = rec.rec_xold[0, :k].cpu().numpy()
     rec_h = rec.rec_h[0, :k].cpu().numpy()
     rec_cont = (rec.rec_cont[0, :k].cpu().numpy() if need_cont
-                else np.zeros((0, engine.ncoeff, n)))
+                else np.zeros((0, ncoeff, n)))
     status = int(rec.status[0])
     terminated = status == Status.USER_INTERRUPT
     y0_np = y0_host
@@ -366,7 +391,7 @@ def solve_ivp(
         else:
             idx = np.searchsorted(-edges, -(ts + _TOL), side="left")
         idx = np.clip(idx, 0, len(edges) - 1)
-        return _interp_many(engine.interp, rec_cont[idx], rec_xold[idx],
+        return _interp_many(interp, rec_cont[idx], rec_xold[idx],
                             rec_h[idx], ts)
 
     if t_eval_arr is not None:
@@ -421,13 +446,15 @@ def solve_ivp(
     # The dense output's segments end at the recorded endpoints.
     sol = None
     if dense_output:
-        sol = OdeSolution(method, engine.interp, rec_xold, rec_h, rec_cont,
+        sol = OdeSolution(method, interp, rec_xold, rec_h, rec_cont,
                           t0, y0_np, t_ends=rec_t)
 
     scipy_status = Status.to_scipy(status)
     return OdeResult(
         t=t_arr, y=y_arr, sol=sol, t_events=t_events, y_events=y_events,
-        nfev=int(rec.nfev[0]), njev=0, nlu=0, nstep=int(rec.nstep[0]),
+        nfev=int(rec.nfev[0]),
+        njev=int(rec.njev[0]) if stiff else 0,
+        nlu=int(rec.nlu[0]) if stiff else 0, nstep=int(rec.nstep[0]),
         naccpt=int(rec.naccpt[0]), nrejct=int(rec.nrejct[0]),
         status=scipy_status, message=scipy_message(status),
         success=scipy_status >= 0, n_restarts=n_restarts,

@@ -87,7 +87,19 @@ instantiation), then the phases (all by default, ``ab`` only with
   Lorenz section (``dop853_ev``) at B=16384 and 262144, on chip_smoke.py's
   inputs, timed in ``turn_ms`` turns, with the bound (the kernel's own
   Brent count), its share, warp efficiency and the event work a lane; then
-  ptxas's registers and spills of every event instantiation.
+  ptxas's registers and spills of every event instantiation; and the
+  record-event instantiation of the recording ball (``dopri5_record_cont_ev``)
+  alone: one launch (the first chunk, from y0) at ``EVENT_RECORD``;
+* ``stiff``: the stiff kernels (csrc/radau.cu, csrc/bdf.cu) alone on
+  chip_smoke.py's stiff main path (bench.py's VdP mu=1000 to t = 3000, both
+  controller types) at each of ``STIFF_B``: one launch with no budget from
+  a fresh carry, in ``STIFF_ROUNDS`` turns, with the bound
+  (kernels/stiff_ensemble.py::stiff_bound, the operations counted from the
+  code an attempt, a Newton iteration, a decomposition and an accepted
+  step), the share of it reached, warp efficiency, the mean counters and
+  ptxas's registers and spills of every stiff instantiation; then the
+  explicit resumable mode alone on chip_smoke.py's resumable cases
+  (B=16384): one launch to the end from a started carry.
 
 The A/B, occupancy and two-kernel timings are turns of ``turn_ms``: five
 launches back to back between two CUDA events, so the host's work of a
@@ -128,7 +140,12 @@ FUNCTORS = ("VdP", "Decay", "Lorenz", "Cr3bp")
 OCC_THREADS, OCC_MIN_BLOCKS = (64, 128, 256), (6, 7, 8, 10, 12)
 OCC_ROUNDS = 10
 PHASES = ("sass", "settle", "sweep", "turns", "profile", "occupancy", "erk",
-          "erk_occupancy", "ab", "ab_record", "events")
+          "erk_occupancy", "ab", "ab_record", "events", "stiff")
+# The stiff phase: lanes, turns.
+STIFF_B = (16384, 131072)
+STIFF_ROUNDS = 3
+# The recording ball's record-event launch alone: (B, rec_cap).
+EVENT_RECORD = (16384, 256)
 # The events phase: each main-path event instantiation alone, (kernel, set,
 # lane counts): the bouncing ball and the Lorenz section of chip_smoke.py.
 EVENT_B = (("DOPRI5", "ground", (16384, 524288)),
@@ -274,18 +291,20 @@ _INS = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?"
 # before it), the event set (absent before the event modes; ivp::NoEvents or
 # a set's struct), then threads and min blocks.
 _ERK = re.compile(
-    r"erk_kernelINS_\d+(\w+?)E\d+(\w+?)([fd])Lb([01])E(?:Li([0-2])E)?"
+    r"erk_kernelINS_\d+(\w+?)E\d+(\w+?)([fd])Lb([01])E(?:Li([0-3])E)?"
     r"(?:NS_8NoEventsE|\d+([A-Z]\w*?)(?=Li\d+E))?")
 
 
 def instantiation(mangled):
-    """``Lorenz/f32/lean`` for an erk_kernel instantiation (``/record`` or
-    ``/record_cont`` after a record mode's, ``/ev_<Set>`` after an event
-    mode's), else the functor the name holds."""
+    """``Lorenz/f32/lean`` for an erk_kernel instantiation (``/record``,
+    ``/record_cont`` or ``/resume`` after a record or the resumable mode's,
+    ``/ev_<Set>`` after an event mode's), else the functor the name
+    holds."""
     m = _ERK.search(mangled)
     if not m:
         return next((f for f in FUNCTORS if f in mangled), mangled)
-    rec = {None: "", "0": "", "1": "/record", "2": "/record_cont"}[m.group(5)]
+    rec = {None: "", "0": "", "1": "/record", "2": "/record_cont",
+           "3": "/resume"}[m.group(5)]
     ev = f"/ev_{m.group(6)}" if m.group(6) else ""
     return (f"{m.group(2)}/{'f32' if m.group(3) == 'f' else 'f64'}/"
             f"{'sampled' if m.group(4) == '1' else 'lean'}{rec}{ev}")
@@ -1105,12 +1124,127 @@ def events_phase(build, dev):
                  brent_evals_per_lane=float(out[9].n_brent.double().mean()),
                  statuses=repr(dict(Counter(out[2].cpu().tolist()))))
             del out, a, y0
+    # The recording ball's kernel alone: one launch, the first chunk.
+    from ivp_tpu_torch.kernels import erk_record as R
+
+    B, cap = EVENT_RECORD
+    y0 = torch.as_tensor(cs.ball_y0(B), device=dev)
+    a = cs.solve_args(y0, cs.BALL_TF, cs.BALL_TOL, cs.BALL_TOL, None, dev)
+    ev = EventArgs((E.ground,), cs.BALL_CAP, cs.BALL_RESTARTS)
+    r = R.RecordLaunch("DOPRI5", rhs.ball, *a, (), 200_000, None, None, cap,
+                       True, None, torch.cuda.current_stream(dev).cuda_stream,
+                       ev)
+    run = lambda: r.launch(init=True)
+    run()
+    torch.cuda.synchronize()
+    ms = [turn_ms(run) for _ in range(EVENT_ROUNDS)]
+    rows = int(r.n_rec.sum())
+    b_ms, b_by = R.record_bound("DOPRI5", rhs.ball, r.ints[2], r.ints[3],
+                                r.n_rec, True, events=(SETS["ground"],
+                                                       r.ev_out))
+    med = float(np.median(ms))
+    line("events_record", kernel="dopri5_record_cont_ev", set="ground", B=B,
+         rec_cap=cap, turn_ms=[round(m, 4) for m in ms], median_ms=med,
+         rows=rows, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / med,
+         warp_efficiency=float(r.ints[2].double().sum())
+         / (32 * warp_attempts(r.ints[2])))
+    del r, a, y0
     for name in ERK_LIBS:
         path = build.library_path(name=name)
         for fn, regs, st, ld in build.ptxas_report(path):
             inst = instantiation(fn)
             if "/ev_" in inst:
                 line("ptxas_events", library=name, instantiation=inst,
+                     registers=regs, spill_stores=st, spill_loads=ld)
+
+
+def stiff_phase(build, dev):
+    """Each stiff kernel alone on the stiff main path's inputs (see the
+    module docstring)."""
+    import chip_smoke as cs
+    from ivp_tpu_torch import rhs
+    from ivp_tpu_torch.kernels import stiff_ensemble as S
+    from ivp_tpu_torch.methods.jacobian import stiff_spec
+
+    libs = {m: build.build(name=m) for m in ("radau", "bdf")}
+    for method in ("RADAU", "BDF"):
+        for cp in ("float32", "state"):
+            spec = stiff_spec(method, 2, None, {"controller_precision": cp})
+            p = spec.params()
+            for B in STIFF_B:
+                y0 = torch.as_tensor(cs.stiff_y0(B), device=dev)
+                a = cs.solve_args(y0, cs.STIFF_TF, *cs.STIFF_TOL, None, dev)
+                hmin = torch.zeros(B, dtype=torch.float64, device=dev)
+                run = lambda: S.stiff_ensemble_cuda(
+                    method, rhs.vdp, *a, (cs.STIFF_MU,), 100000, p, hmin)
+                c = run()
+                torch.cuda.synchronize()
+                ms = [turn_ms(run) for _ in range(STIFF_ROUNDS)]
+                med = float(np.median(ms))
+                b_ms, b_by = S.stiff_bound(method, rhs.vdp, c.nstep, c.naccpt,
+                                           c.nrejct, c.nfev, c.njev, c.nlu)
+                mean = lambda x: float(x.double().mean())
+                line("stiff", kernel=method.lower(), controller=cp, B=B,
+                     turn_ms=[round(m, 4) for m in ms], median_ms=med,
+                     bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / med,
+                     warp_efficiency=float(c.nstep.double().sum())
+                     / (32 * warp_attempts(c.nstep)),
+                     mean_nstep=mean(c.nstep), max_nstep=int(c.nstep.max()),
+                     mean_nfev=mean(c.nfev), mean_njev=mean(c.njev),
+                     mean_nlu=mean(c.nlu),
+                     statuses=repr(dict(Counter(c.status.cpu().tolist()))))
+                del c, a, y0
+    for name, path in libs.items():
+        for fn, regs, st, ld in build.ptxas_report(path):
+            line("ptxas_stiff", library=name, kernel=fn, registers=regs,
+                 spill_stores=st, spill_loads=ld)
+    resume_alone(build, dev)
+
+
+def resume_alone(build, dev):
+    """The explicit resumable mode alone on chip_smoke.py's resumable cases
+    (B=16384): from a started carry, one launch with no budget (the carry
+    cloned first, as ``resume`` does), in ``STIFF_ROUNDS`` turns, with the
+    bound, warp efficiency and ptxas's registers of the resumable
+    instantiations."""
+    import chip_smoke as cs
+    from ivp_tpu_torch import rhs
+    from ivp_tpu_torch.batch import _solver_params
+    from ivp_tpu_torch.core.driver import run_args
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+    from ivp_tpu_torch.kernels import resumable as RES
+    from ivp_tpu_torch.kernels import stiff_ensemble as S
+
+    for method, fname, tf, rt, at in cs.RESUME_CASES:
+        fun = getattr(rhs, fname)
+        B = cs.RESUME_B
+        y0 = torch.as_tensor(cs.lorenz_y0(B) if fun.n == 3 else
+                             cs.vdp_y0(B), device=dev)
+        a = cs.solve_args(y0, tf, rt, at, None, dev)
+        ra = run_args(a[2], a[5], a[6], tf, 0.0, 100_000, y0)
+        p = _solver_params(method, fun.n, None, None, False)
+        c0 = RES.start_on_card(method, fun, y0, a[1], None, (), ra, p)
+        run = lambda: RES.resume_on_card(method, fun, c0, (), ra, p,
+                                         S.UNBOUNDED)
+        c = run()
+        torch.cuda.synchronize()
+        ms = [turn_ms(run) for _ in range(STIFF_ROUNDS)]
+        med = float(np.median(ms))
+        b_ms, b_by = K.solve_bound(method, fun, c.nstep, c.naccpt)
+        line("resume", kernel=f"{K.KERNELS[method][0].replace('_sampled', '')}"
+             "_resume", rhs=fname, B=B, tf=tf,
+             turn_ms=[round(m, 4) for m in ms], median_ms=med,
+             bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / med,
+             warp_efficiency=float(c.nstep.double().sum())
+             / (32 * warp_attempts(c.nstep)),
+             mean_nstep=float(c.nstep.double().mean()))
+        del c, c0, y0
+    for name in ERK_LIBS:
+        for fn, regs, st, ld in build.ptxas_report(
+                build.library_path(name=name)):
+            inst = instantiation(fn)
+            if inst.endswith("/resume"):
+                line("ptxas_resume", library=name, instantiation=inst,
                      registers=regs, spill_stores=st, spill_loads=ld)
 
 
@@ -1217,6 +1351,8 @@ def main():
         erk_occupancy(build, rhs, dev, opts.occupancy_methods.split(","))
     if "events" in phases:
         events_phase(build, dev)
+    if "stiff" in phases:
+        stiff_phase(build, dev)
     for baseline in opts.baseline if phases & {"ab", "ab_record"} else ():
         label = (baseline.parent.name if baseline.name == "csrc"
                  else baseline.name)

@@ -173,16 +173,19 @@ def test_float32_on_the_card_raises_before_placement(entry, monkeypatch):
             calls[entry](device)
 
 
-# Events and restarts (item 5) are ported: those cases give a result.
+# Events and restarts (item 5) and the stiff tier's dense core (item 7: jac,
+# Radau, BDF) are ported: those cases give a result on the CPU.  The stiff
+# tier's remainder (mass, DAE, jac_sparsity) is item 15.
 @pytest.mark.parametrize("kw, item", [
     (dict(events=[lambda t, y: y[0]]), None),
     (dict(max_restarts=2), None),
-    (dict(jac=lambda t, y: None), "item 7"),
-    (dict(jac_sparsity=np.ones((2, 2))), "item 7"),
-    (dict(mass=np.eye(2)), "item 7"),
-    (dict(nind1=1), "item 7"),
-    (dict(method="Radau"), "item 7"),
-    (dict(method="BDF"), "item 7"),
+    (dict(jac=lambda t, y: -torch.eye(2, dtype=y.dtype), method="Radau"),
+     None),
+    (dict(jac_sparsity=np.ones((2, 2))), "item 15"),
+    (dict(mass=np.eye(2)), "item 15"),
+    (dict(nind1=1), "item 15"),
+    (dict(method="Radau"), None),
+    (dict(method="BDF"), None),
     (dict(method="auto"), "item 8"),
     (dict(time_dtype=torch.float64), "item 14"),
 ], ids=lambda v: "-".join(v) if isinstance(v, dict) else v)
@@ -192,6 +195,7 @@ def test_solve_ivp_refusals_name_their_item(kw, item, monkeypatch):
                            device="cpu", **kw)
         assert res.success and res.status == 0 and res.n_restarts == 0
         assert (res.t_events is None) == ("events" not in kw)
+        assert (res.nlu > 0) == (kw.get("method") in ("Radau", "BDF"))
         return
     monkeypatch.setattr(it.solve, "_place", lambda *a, **k: pytest.fail(
         "placed before the options were checked"))
@@ -210,12 +214,14 @@ def test_solve_ivp_on_the_card_refuses_a_plain_callable(monkeypatch):
         it.solve_ivp(lambda t, y: -y, (0.0, 1.0), [1.0])
 
 
-# Events with records (item 5) are ported: that case gives a result.
+# Events with records (item 5) are ported: that case gives a result.  An
+# integer lane_chunk (item 6) is ported; Radau and BDF record on the CPU, and
+# on the card they refuse (item 16).
 @pytest.mark.parametrize("kw, item", [
-    (dict(lane_chunk=16), "item 6"),
+    (dict(lane_chunk=16, method="Radau", t_eval=[0.0, 1.0]), "item 16"),
     (dict(dense_output=True, events=[lambda t, y: y[:, 0]]), None),
     (dict(record_trajectories=True, time_dtype=torch.float64), "item 14"),
-    (dict(dense_output=True, method="BDF"), "item 7"),
+    (dict(dense_output=True, method="BDF"), "item 16"),
 ], ids=["lane_chunk", "record-events", "record-time_dtype", "record-BDF"])
 def test_ensemble_refusals_name_their_item(kw, item, monkeypatch):
     if item is None:
@@ -232,19 +238,25 @@ def test_ensemble_refusals_name_their_item(kw, item, monkeypatch):
 
 
 def test_resumable_tier_refuses():
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 6"):
-        it.batch.build_resumable_solver(it.rhs.vdp, "RK45", n=2)
+    """The resumable solver (item 6) is ported; on the card its samples and
+    events refuse, naming item 16, before anything is placed."""
+    start, _, _ = it.batch.build_resumable_solver(
+        it.rhs.vdp, "RK45", n=2, events=[lambda t, y: y[:, 0]])
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 16"):
+        start(np.ones((4, 2)), 0.0, 1.0, 1e-6, 1e-8, device="cuda")
 
 
 def test_interp_registry_refuses_the_stiff_methods():
+    """Every method's interpolant is registered now (Radau, BDF: item 7);
+    an unknown name raises."""
     from ivp_tpu_torch.methods.interp import get_interp
 
-    for m, c in (("RK4", 4), ("RK23", 4), ("DOPRI5", 5), ("DOP853", 8)):
+    for m, c in (("RK4", 4), ("RK23", 4), ("DOPRI5", 5), ("DOP853", 8),
+                 ("RADAU", 4), ("BDF", 7)):
         fn, ncoeff = get_interp(m)
         assert ncoeff == c and callable(fn)
-    for m in ("RADAU", "BDF"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            get_interp(m)
+    with pytest.raises(ValueError, match="unknown method"):
+        get_interp("RADAU7")
 
 
 @pytest.mark.parametrize("method", sorted(K.KERNELS))

@@ -264,7 +264,7 @@ def test_unported_option_raises_before_any_device(device, monkeypatch):
     monkeypatch.setattr(it.batch, "_place", no_placement)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         it.solve_ivp_ensemble(it.rhs.vdp, (0.0, 1.0), np.ones((4, 2)),
-                              jac=lambda t, y: None, device=device)
+                              jac_sparsity=np.ones((2, 2)), device=device)
 
 
 def test_no_route_for_other_devices():
@@ -275,10 +275,12 @@ def test_no_route_for_other_devices():
 
 # Options of later slices raise; those of the explicit tier (t_eval,
 # solver_options, DOP853, RK23, RK4), of the recording tier (dense_output,
-# record_trajectories) and of events (events, max_restarts), which raised
+# record_trajectories), of events (events, max_restarts), of the resumable
+# tier (lane_chunk) and of the stiff tier (jac, Radau, BDF), which raised
 # before they were ported, give a result.
 PORTED = ("t_eval", "solver_options", "DOP853", "RK23", "RK4", "dense_output",
-          "record_trajectories", "events", "max_restarts")
+          "record_trajectories", "events", "max_restarts", "lane_chunk",
+          "jac", "Radau", "BDF")
 
 
 @pytest.mark.parametrize("opts", [
@@ -347,6 +349,11 @@ def test_unported_options_raise(opts):
         else:   # ivp_tpu's zeros
             assert res.t_events is None
             assert not bool(res.n_restarts.any())
+    elif "jac" in opts or "lane_chunk" in opts:
+        # The explicit engines read no Jacobian (as ivp_tpu's), and 4 lanes
+        # fit one sub-batch of 16: the plain solve's steps.
+        for f in ("t", "y", "status", "nfev", "nstep", "naccpt", "nrejct"):
+            assert torch.equal(getattr(res, f), getattr(plain, f)), f
     else:
         assert res.y_samples is None and res.n_samples is None
         # Another method or controller takes other steps to the same end.

@@ -130,3 +130,56 @@ def test_cuda_tableau_header_equals_the_python_tables(space):
     """Every constant the kernels read is the Python table's value to the
     last bit, and none is missing or left over."""
     assert _header_constants()[space] == _expected_header()[space]
+
+
+# ---------------------------------------------------------------------------
+# The stiff kernels' copy (csrc/stiff_tableaus.cuh)
+# ---------------------------------------------------------------------------
+
+def _stiff_header():
+    """``{name: value}`` of the header's scalars and ``{name: array}`` of
+    its tables, by namespace."""
+    import re
+    from pathlib import Path
+
+    text = (Path(ttab.__file__).parent / "csrc"
+            / "stiff_tableaus.cuh").read_text()
+    out, space = {}, None
+    for m in re.finditer(r"namespace (\w+) \{|(?:constexpr|__constant__) "
+                         r"(?:double|int) (\w+)((?:\[\d+\])*) = ([^;]+);",
+                         text):
+        if m.group(1):
+            if m.group(1) != "ivp":
+                space = out.setdefault(m.group(1), {})
+            continue
+        vals = [float(v) for v in re.findall(r"[-+0-9.eE]+", m.group(4))]
+        shape = [int(d) for d in re.findall(r"\d+", m.group(3))]
+        space[m.group(2)] = (np.array(vals).reshape(shape) if shape
+                             else vals[0])
+    return out
+
+
+def test_stiff_tableau_header_equals_the_python_tables():
+    """Every constant the stiff kernels read is the Python table's value to
+    the last bit: Radau IIA(5)'s nodes, T, TI, DD and eigenvalues, BDF's
+    kappa, gamma, alpha, error constants and change_d's matrices."""
+    from ivp_tpu_torch.methods.bdf import CHANGE_D_C
+
+    h = _stiff_header()
+    r = {k: getattr(ttab, f"RADAU_{k}") for k in (
+        "C1", "C2", "C1M1", "C2M1", "C1MC2", "U1", "ALPH", "BETA")}
+    r.update({f"DD_{i}": v for i, v in enumerate(ttab.RADAU_DD)})
+    for name in ("T", "TI"):
+        tab = getattr(ttab, f"RADAU_{name}")
+        r.update({f"{name}_{i}_{j}": tab[i, j] for i in range(3)
+                  for j in range(3)})
+    assert sorted(h["radau"]) == sorted(r)
+    for k, v in r.items():
+        assert h["radau"][k] == float(v), k
+    b = h["bdf"]
+    assert b["MAX_ORDER"] == ttab.BDF_MAX_ORDER
+    for name in ("KAPPA", "GAMMA", "ALPHA", "ERROR_CONST"):
+        np.testing.assert_array_equal(b[name], getattr(ttab, f"BDF_{name}"))
+    np.testing.assert_array_equal(b["CHANGE_D_C"], CHANGE_D_C)
+    from ivp_tpu.methods.bdf import _CHANGE_D_C as JC
+    np.testing.assert_array_equal(CHANGE_D_C, JC)
