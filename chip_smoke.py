@@ -2136,13 +2136,23 @@ def stiff_main_path(dev):
         bound_ms, bound_by = S.stiff_bound(method, rhs.vdp, res.nstep,
                                            res.naccpt, res.nrejct, res.nfev,
                                            res.njev, res.nlu)
+        # The instantiation the main path launched (the default float32
+        # controller), as the library reports it.
+        lay = S.layout(method, rhs.vdp, "float32", B)
         phase(f"{m}_main_path_B{B}", launches_per_solve=launches[-1],
               success_fraction=float(np.mean(st == Status.SUCCESS)),
               mean_nstep=float(ns.mean()), max_nstep=int(ns.max()),
               kernel_ms=kern_ms, solve_event_ms=[round(x, 3) for x in ev_ms],
               wall_ms=round(1e3 * wall, 3), ivps_per_sec=B / wall,
               bound_ms=bound_ms, bound_by=bound_by,
-              bound_share=bound_ms / kern_ms)
+              bound_share=bound_ms / kern_ms, registers=lay["registers"],
+              local_bytes=lay["local_bytes"],
+              smem_bytes_per_block=lay["block_bytes"],
+              threads=lay["threads"], min_blocks=lay["min_blocks"],
+              blocks_per_sm=lay["blocks_per_sm"])
+        if lay["blocks_per_sm"] < lay["min_blocks"]:
+            raise AssertionError(f"{method}: the card holds fewer blocks an "
+                                 f"SM than the launch bounds ask for: {lay}")
         if not np.all(st == Status.SUCCESS) or not bool(
                 torch.isfinite(res.y).all()) or min(launches) < 1:
             raise AssertionError(f"{method} main path: not every lane "
@@ -2178,6 +2188,9 @@ def stiff_main_path(dev):
                    "ms": kern_ms, "plain_ms": e0.elapsed_time(e1),
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "bound_share": bound_ms / kern_ms,
+                   "registers": lay["registers"],
+                   "smem_bytes_per_block": lay["block_bytes"],
+                   "blocks_per_sm": lay["blocks_per_sm"],
                    "solve_ms": float(np.median(ev_ms)), "wall_ms": 1e3 * wall}
     return rows
 

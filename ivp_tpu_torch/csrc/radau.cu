@@ -13,6 +13,17 @@
 // in CT (float under controller_precision="float32", double under "state")
 // through Ctl<CT>.
 //
+// What bounds it on an H100: each attempt is a chain of dependent float64
+// divisions and square roots and float32 pow, so the FP64 pipe waits on
+// latency unless many lanes are in flight.  The design: (1) a value that
+// only one path reads is computed on that path alone (the divergence
+// factor's pow, the convergence power theta^rem, the predictive
+// controller's guess), which changes no bit of any output; (2) the lane's
+// cold state (jac, inv1, br, bi, cont, f0, scal and its launch constants:
+// RadauCold) lives in its shared-memory slots, so a thread needs fewer
+// registers and more lanes are resident on an SM (IVP_RADAU_ENTRY's threads
+// and min blocks).
+//
 // The carry.  Each launch loads the lane's whole carry from device memory
 // (the plain driver's Carry and RadauState, struct of arrays, the tensors the
 // port's resumable solver holds) and stores it at the end; a solve's first
@@ -55,20 +66,33 @@ struct RadauCarry {
   double* bi;
 };
 
+// A lane's cold state in its slots (doubles): the Jacobian and the three
+// inverses (row-major N x N each), the collocation rows cont[4][N], f0 and
+// scal, and the launch's constants of the lane: the transformed rtol and
+// atol, tend, hmax and hmin.
+template <int N>
+struct RadauCold {
+  static constexpr int JAC = 0, INV1 = N * N, BR = 2 * N * N, BI = 3 * N * N,
+                       CONT = 4 * N * N, F0 = CONT + 4 * N, SCAL = F0 + N,
+                       RTOL = SCAL + N, ATOL = RTOL + N, TEND = ATOL + N,
+                       HMAX = TEND + 1, HMIN = TEND + 2;
+  static constexpr int DOUBLES = 4 * N * N + 8 * N + 3;
+};
+
 constexpr int NEWTON_CONTINUE = 0, NEWTON_CONVERGED = 1, NEWTON_DIVERGED = 2,
               NEWTON_BAD_THETA = 3, NEWTON_MAXITER = 4;
 
-template <int N, class CT>
+// The lane's warm state in registers, its cold state in slots s.
+template <int N, class CT, int T>
 struct RadauLane {
   double h, hold, posneg;
-  double f0[N], cont[4][N], scal[N];
   bool first, reject, last;
   CT faccon, theta;
   double hhfac, h_acc;
   CT err_acc;
   bool call_jac, call_decomp;
   int singular;
-  double jac[N * N], inv1[N * N], br[N * N], bi[N * N];
+  Slots<T> s;
 };
 
 template <int N, class CT>
@@ -95,34 +119,39 @@ __device__ __forceinline__ CT sumsq_c(const double* v, const CT* inv_scal) {
   return s;
 }
 
+// The Newton tolerance of a lane (lane-constant: its transformed rtol).
+template <class CT>
+__device__ __forceinline__ CT radau_newton_tol(const RadauOptions& o,
+                                               double tolst) {
+  if (!isnan(o.newton_tol)) return (CT)o.newton_tol;
+  return (CT)nmax((10.0 * o.uround) / tolst, nmin(sqrt(tolst), 0.03));
+}
+
 // One attempt of methods/radau.py::make_radau_attempt on lane L at (t, y)
 // (advanced in place when accepted).  Returns the engine's status; the
 // step's flags and counts go to the references.
-template <class F, class CT>
-__device__ int radau_attempt(const F& f, const double* a, double& t,
-                             double* y, int naccpt, RadauLane<F::N, CT>& L,
-                             const RadauOptions& o, const double* rtol_t,
-                             const double* atol_t, double tend, double hmax,
-                             double hmin, bool& accepted, bool& finished,
-                             bool& count_step, bool& count_reject, int& nfev,
-                             int& njev, int& nlu) {
+template <class F, class CT, int T>
+__device__ __forceinline__ int radau_attempt(
+    const F& f, const double* a, double& t, double* y, int naccpt,
+    RadauLane<F::N, CT, T>& L, const RadauOptions& o, CT newton_tol,
+    bool& accepted, bool& finished, bool& count_step, bool& count_reject,
+    int& nfev, int& njev, int& nlu) {
   constexpr int N = F::N;
   using C = Ctl<CT>;
+  using K = RadauCold<N>;
   using namespace radau;
   const int maxit = o.newton_maxiter;
-  CT newton_tol;
-  if (!isnan(o.newton_tol)) {
-    newton_tol = (CT)o.newton_tol;
-  } else {
-    const double tolst = rtol_t[0];
-    newton_tol = (CT)nmax((10.0 * o.uround) / tolst, nmin(sqrt(tolst), 0.03));
-  }
   const double h = L.h, posneg = L.posneg;
+  const Slots<T> s = L.s;
+  slots_fence();
 
   // ---- Jacobian (reused while theta stays small) ----
   njev = 0;
   if (L.call_jac) {
-    f.jac(t, y, L.jac, a);
+    double J[N * N];
+    f.jac(t, y, J, a);
+#pragma unroll
+    for (int q = 0; q < N * N; ++q) s[K::JAC + q] = J[q];
     njev = o.const_jac ? 0 : 1;
   }
   // ---- Decompositions (reused when the step ratio stays near 1) ----
@@ -136,12 +165,20 @@ __device__ int radau_attempt(const F& f, const double* a, double& t,
 #pragma unroll
       for (int j = 0; j < N; ++j) {
         const double eye = i == j ? 1.0 : 0.0;
-        e1[i * N + j] = fac1 * eye - L.jac[i * N + j];
-        e2r[i * N + j] = alphn * eye - L.jac[i * N + j];
+        const double jij = s[K::JAC + i * N + j];
+        e1[i * N + j] = fac1 * eye - jij;
+        e2r[i * N + j] = alphn * eye - jij;
         e2i[i * N + j] = betan * eye;
       }
-    const bool s1 = inv_real<N>(e1, L.inv1);
-    const bool s2 = inv_cplx<N>(e2r, e2i, L.br, L.bi);
+    double inv1[N * N], br[N * N], bi[N * N];
+    const bool s1 = inv_real<N>(e1, inv1);
+    const bool s2 = inv_cplx<N>(e2r, e2i, br, bi);
+#pragma unroll
+    for (int q = 0; q < N * N; ++q) {
+      s[K::INV1 + q] = inv1[q];
+      s[K::BR + q] = br[q];
+      s[K::BI + q] = bi[q];
+    }
     sing = s1 || s2;
     nlu = 2;
   }
@@ -157,7 +194,8 @@ __device__ int radau_attempt(const F& f, const double* a, double& t,
     const double c1q = C1 * c3q, c2q = C2 * c3q;
 #pragma unroll
     for (int j = 0; j < N; ++j) {
-      const double ak1 = L.cont[1][j], ak2 = L.cont[2][j], ak3 = L.cont[3][j];
+      const double ak1 = s[K::CONT + N + j], ak2 = s[K::CONT + 2 * N + j],
+                   ak3 = s[K::CONT + 3 * N + j];
       z1[j] = c1q * (ak1 + (c1q - C2M1) * (ak2 + (c1q - C1M1) * ak3));
       z2[j] = c2q * (ak1 + (c2q - C2M1) * (ak2 + (c2q - C1M1) * ak3));
       z3[j] = c3q * (ak1 + (c3q - C2M1) * (ak2 + (c3q - C1M1) * ak3));
@@ -171,8 +209,8 @@ __device__ int radau_attempt(const F& f, const double* a, double& t,
   CT faccon = C::pow(C::vmax(L.faccon, (CT)o.uround), (CT)0.8);
   CT inv_scal[N];
 #pragma unroll
-  for (int j = 0; j < N; ++j) inv_scal[j] = (CT)(1.0 / L.scal[j]);
-  CT dyno = 0, dynold = 0, thqold = 0, theta = (CT)fabs(o.thet);
+  for (int j = 0; j < N; ++j) inv_scal[j] = (CT)(1.0 / s[K::SCAL + j]);
+  CT dynold = 0, thqold = 0, theta = (CT)fabs(o.thet);
   double hhfac = L.hhfac;
   int code = (sing || too_small) ? NEWTON_MAXITER : NEWTON_CONTINUE;
   int it = 0;
@@ -204,13 +242,13 @@ __device__ int radau_attempt(const F& f, const double* a, double& t,
       r3[j] = r3[j] - alphn * f3[j] - betan * f2[j];
     }
     double x1[N], x2[N], x3[N], p1[N], p2[N];
-    matvec<N>(L.inv1, r1, x1);
-    matvec<N>(L.br, r2, p1);
-    matvec<N>(L.bi, r3, p2);
+    matvec<N>(s.at(K::INV1), r1, x1);
+    matvec<N>(s.at(K::BR), r2, p1);
+    matvec<N>(s.at(K::BI), r3, p2);
 #pragma unroll
     for (int j = 0; j < N; ++j) x2[j] = p1[j] - p2[j];
-    matvec<N>(L.bi, r2, p1);
-    matvec<N>(L.br, r3, p2);
+    matvec<N>(s.at(K::BI), r2, p1);
+    matvec<N>(s.at(K::BR), r3, p2);
 #pragma unroll
     for (int j = 0; j < N; ++j) x3[j] = p1[j] + p2[j];
 
@@ -220,28 +258,32 @@ __device__ int radau_attempt(const F& f, const double* a, double& t,
                sumsq_c<N, CT>(x3, inv_scal)) /
         (CT)(3.0 * N));
     const bool check = it_n > 1 && it_n < maxit;
-    const CT thq = dyno_n / C::vmax(dynold, tiny);
     CT theta_n = theta, thqold_n = thqold;
     if (check) {
+      const CT thq = dyno_n / C::vmax(dynold, tiny);
       theta_n = it_n == 2 ? thq : C::sqrt(C::mul(thq, C::vmax(thqold, tiny)));
       thqold_n = thq;
     }
     const bool ok_theta = theta_n < (CT)0.99;
     const CT faccon_n =
         (check && ok_theta) ? theta_n / C::sub((CT)1, theta_n) : faccon;
-    const CT rem = C::sub((CT)(maxit - 1), (CT)it_n);
-    const int rem_i = maxit - 1 - it_n;
-    CT theta_rem = 1, pw = 1;
-    for (int k = 1; k < (maxit - 1 > 1 ? maxit - 1 : 1); ++k) {
-      pw = C::mul(pw, theta_n);
-      if (rem_i >= k) theta_rem = pw;
+    // Divergence (read only when the rate was checked and is below 0.99):
+    // theta^rem as rem products from 1, then, only where the iteration
+    // diverges, the step's new factor.
+    bool diverged = false;
+    if (check && ok_theta) {
+      const int rem_i = maxit - 1 - it_n;
+      CT theta_rem = 1;
+      for (int k = 1; k <= rem_i; ++k) theta_rem = C::mul(theta_rem, theta_n);
+      const CT dyth = C::mul(C::mul(faccon_n, dyno_n), theta_rem) / newton_tol;
+      if (dyth >= (CT)1) {
+        diverged = true;
+        const CT rem = C::sub((CT)(maxit - 1), (CT)it_n);
+        const CT qnewt = C::vmin(C::vmax(dyth, (CT)1e-4), (CT)20);
+        hhfac = (double)C::mul((CT)0.8,
+                               C::pow(qnewt, (CT)-1 / C::add((CT)4, rem)));
+      }
     }
-    const CT dyth = C::mul(C::mul(faccon_n, dyno_n), theta_rem) / newton_tol;
-    const bool diverged = check && ok_theta && dyth >= (CT)1;
-    const CT qnewt = C::vmin(C::vmax(dyth, (CT)1e-4), (CT)20);
-    const double hhfac_div = (double)C::mul(
-        (CT)0.8, C::pow(qnewt, (CT)-1 / C::add((CT)4, rem)));
-    const double hhfac_n = diverged ? hhfac_div : hhfac;
     const bool bad_theta = check && !ok_theta;
     const CT dynold_n = C::vmax(dyno_n, (CT)o.uround);
 #pragma unroll
@@ -259,14 +301,13 @@ __device__ int radau_attempt(const F& f, const double* a, double& t,
            : converged ? NEWTON_CONVERGED
                        : NEWTON_CONTINUE;
     it = it_n;
-    dyno = dyno_n;
     dynold = dynold_n;
     thqold = thqold_n;
     theta = theta_n;
     faccon = faccon_n;
-    hhfac = hhfac_n;
     nfev += 3;
   }
+  slots_fence();
   const CT newt = (CT)it;
   const bool converged = code == NEWTON_CONVERGED;
 
@@ -276,9 +317,9 @@ __device__ int radau_attempt(const F& f, const double* a, double& t,
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     f1e[j] = hee0 * z1[j] + hee1 * z2[j] + hee2 * z3[j];
-    ev[j] = f1e[j] + L.f0[j];
+    ev[j] = f1e[j] + s[K::F0 + j];
   }
-  matvec<N>(L.inv1, ev, err_vec);
+  matvec<N>(s.at(K::INV1), ev, err_vec);
   CT err = rms_c<N, CT>(err_vec, inv_scal);
   if (converged && err >= (CT)1 && (L.first || L.reject)) {
     double yy[N], fr[N], e2[N];
@@ -287,7 +328,7 @@ __device__ int radau_attempt(const F& f, const double* a, double& t,
     f(t, yy, fr, a);
 #pragma unroll
     for (int j = 0; j < N; ++j) fr[j] = fr[j] + f1e[j];
-    matvec<N>(L.inv1, fr, e2);
+    matvec<N>(s.at(K::INV1), fr, e2);
     err = rms_c<N, CT>(e2, inv_scal);
     nfev += 1;
   }
@@ -297,24 +338,23 @@ __device__ int radau_attempt(const F& f, const double* a, double& t,
                          (CT)o.safety);
   CT quot = C::vmax(C::vmin(C::sqrt(C::sqrt(err)) / fac, (CT)o.facl),
                     (CT)o.facr);
-  double hnew = h / (double)quot;
   accepted = converged && err <= (CT)1 && !sing && !too_small;
   double h_acc = L.h_acc;
   CT err_acc = L.err_acc;
-  if (o.predictive) {
-    const bool can_pred = accepted && naccpt + 1 > 1;
-    const CT ratio =
-        C::vmin(C::mul(err, err) / C::vmax(L.err_acc, (CT)1e-30), (CT)1e30);
-    CT facgus = C::mul((CT)(L.h_acc / h), C::sqrt(C::sqrt(ratio))) /
-                (CT)o.safety;
-    facgus = C::vmax(C::vmin(facgus, (CT)o.facl), (CT)o.facr);
-    if (can_pred) quot = C::vmax(quot, facgus);
-    hnew = h / (double)quot;
-    if (accepted) {
-      h_acc = h;
-      err_acc = C::vmax(err, (CT)1e-2);
+  if (o.predictive && accepted) {
+    // The predictive guess counts only from the second accepted step on.
+    if (naccpt + 1 > 1) {
+      const CT ratio =
+          C::vmin(C::mul(err, err) / C::vmax(L.err_acc, (CT)1e-30), (CT)1e30);
+      CT facgus = C::mul((CT)(L.h_acc / h), C::sqrt(C::sqrt(ratio))) /
+                  (CT)o.safety;
+      facgus = C::vmax(C::vmin(facgus, (CT)o.facl), (CT)o.facr);
+      quot = C::vmax(quot, facgus);
     }
+    h_acc = h;
+    err_acc = C::vmax(err, (CT)1e-2);
   }
+  const double hnew = h / (double)quot;
 
   // ---- Accept and reject paths ----
   const bool diverged = code == NEWTON_DIVERGED;
@@ -326,20 +366,25 @@ __device__ int radau_attempt(const F& f, const double* a, double& t,
                  (diverged || (converged && err > (CT)1 && !L.first));
   double h_next, hhfac_next;
   if (accepted) {
+    const double tend = s[K::TEND];
     const double t_new = L.last ? tend : t + h;
-    double ynew[N], c1r[N], c2r[N], c3r[N];
+    double ynew[N];
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       ynew[j] = y[j] + z3[j];
       const double ak = (z1[j] - z2[j]) / C1MC2;
       const double acont3 = (ak - z1[j] / C1) / C2;
-      c1r[j] = (z2[j] - z3[j]) / C2M1;
-      c2r[j] = (ak - c1r[j]) / C1M1;
-      c3r[j] = c2r[j] - acont3;
+      const double c1r = (z2[j] - z3[j]) / C2M1;
+      const double c2r = (ak - c1r) / C1M1;
+      s[K::CONT + j] = ynew[j];
+      s[K::CONT + N + j] = c1r;
+      s[K::CONT + 2 * N + j] = c2r;
+      s[K::CONT + 3 * N + j] = c2r - acont3;
     }
-    f(t_new, ynew, L.f0, a);
+    double f0[N];
+    f(t_new, ynew, f0, a);
     nfev += 1;
-    double hnew_acc = nmin(nmax(fabs(hnew), hmin), hmax) * posneg;
+    double hnew_acc = nmin(nmax(fabs(hnew), s[K::HMIN]), s[K::HMAX]) * posneg;
     if (L.reject) hnew_acc = posneg * nmin(fabs(hnew_acc), fabs(h));
     const bool hit_end = (t_new + hnew_acc / o.quot1 - tend) * posneg >= 0.0;
     const double qt = hnew_acc / h;
@@ -353,11 +398,8 @@ __device__ int radau_attempt(const F& f, const double* a, double& t,
     L.hold = h;
 #pragma unroll
     for (int j = 0; j < N; ++j) {
-      L.cont[0][j] = ynew[j];
-      L.cont[1][j] = c1r[j];
-      L.cont[2][j] = c2r[j];
-      L.cont[3][j] = c3r[j];
-      L.scal[j] = atol_t[j] + rtol_t[j] * fabs(ynew[j]);
+      s[K::F0 + j] = f0[j];
+      s[K::SCAL + j] = s[K::ATOL + j] + s[K::RTOL + j] * fabs(ynew[j]);
       y[j] = ynew[j];
     }
     L.first = false;
@@ -385,13 +427,14 @@ __device__ int radau_attempt(const F& f, const double* a, double& t,
   return RUNNING;
 }
 
-template <class F, class CT>
-__global__ void __launch_bounds__(128) radau_kernel(
+template <class F, class CT, int T, int MB>
+__global__ void __launch_bounds__(T, MB) radau_kernel(
     int B, const double* __restrict__ y0, const double* __restrict__ t0,
     const double* __restrict__ first_step, const StiffRun ra,
     const double* __restrict__ args, const RadauOptions o, StiffDriver d,
     RadauCarry c, int init, int max_attempts) {
   constexpr int N = F::N;
+  using K = RadauCold<N>;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
   const F f{};
@@ -409,7 +452,17 @@ __global__ void __launch_bounds__(128) radau_kernel(
     atol_t[j] = rtol_t[j] * quot;
   }
   const double tend = ra.tend[i], hmax = fabs(ra.hmax[i]), hmin = fabs(ra.hmin[i]);
-  RadauLane<N, CT> L;
+  RadauLane<N, CT, T> L;
+  L.s = lane_slots<T>();
+  const Slots<T> s = L.s;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    s[K::RTOL + j] = rtol_t[j];
+    s[K::ATOL + j] = atol_t[j];
+  }
+  s[K::TEND] = tend;
+  s[K::HMAX] = hmax;
+  s[K::HMIN] = hmin;
   double t;
   int status, nfev, njev, nlu, nstep, naccpt, nrejct;
   CT* faccon_p = (CT*)c.faccon;
@@ -425,12 +478,14 @@ __global__ void __launch_bounds__(128) radau_kernel(
     double h = isnan(fs) ? 1.0e-6 * L.posneg : fabs(fs) * L.posneg;
     h = nmin(nmax(h, -hmax), hmax);
     L.h = L.hold = L.hhfac = h;
-    f(t, y, L.f0, a);
+    double f0[N];
+    f(t, y, f0, a);
 #pragma unroll
     for (int j = 0; j < N; ++j) {
-      L.scal[j] = atol_t[j] + rtol_t[j] * fabs(y[j]);
+      s[K::F0 + j] = f0[j];
+      s[K::SCAL + j] = atol_t[j] + rtol_t[j] * fabs(y[j]);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) L.cont[q][j] = 0.0;
+      for (int q = 0; q < 4; ++q) s[K::CONT + q * N + j] = 0.0;
     }
     L.first = true;
     L.reject = L.last = false;
@@ -441,7 +496,7 @@ __global__ void __launch_bounds__(128) radau_kernel(
     L.call_jac = L.call_decomp = true;
     L.singular = 0;
 #pragma unroll
-    for (int q = 0; q < N * N; ++q) L.jac[q] = L.inv1[q] = L.br[q] = L.bi[q] = 0.0;
+    for (int q = 0; q < 4 * N * N; ++q) s[K::JAC + q] = 0.0;
     status = fabs(tend - t) < 1e-15 ? SUCCESS : RUNNING;
     nfev = 1;
     njev = nlu = nstep = naccpt = nrejct = 0;
@@ -451,18 +506,19 @@ __global__ void __launch_bounds__(128) radau_kernel(
     for (int j = 0; j < N; ++j) {
       const size_t q = (size_t)i * N + j;
       y[j] = d.y[q];
-      L.f0[j] = c.f0[q];
-      L.scal[j] = c.scal[q];
+      s[K::F0 + j] = c.f0[q];
+      s[K::SCAL + j] = c.scal[q];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) L.cont[r][j] = c.cont[((size_t)i * 4 + r) * N + j];
+      for (int r = 0; r < 4; ++r)
+        s[K::CONT + r * N + j] = c.cont[((size_t)i * 4 + r) * N + j];
     }
 #pragma unroll
     for (int q = 0; q < N * N; ++q) {
       const size_t g = (size_t)i * N * N + q;
-      L.jac[q] = c.jac[g];
-      L.inv1[q] = c.inv1[g];
-      L.br[q] = c.br[g];
-      L.bi[q] = c.bi[g];
+      s[K::JAC + q] = c.jac[g];
+      s[K::INV1 + q] = c.inv1[g];
+      s[K::BR + q] = c.br[g];
+      s[K::BI + q] = c.bi[g];
     }
     L.h = c.h[i];
     L.hold = c.hold[i];
@@ -487,13 +543,14 @@ __global__ void __launch_bounds__(128) radau_kernel(
     nrejct = d.nrejct[i];
   }
 
+  const CT newton_tol = radau_newton_tol<CT>(o, rtol_t[0]);
   const int nstep0 = nstep;
   while (status == RUNNING && nstep - nstep0 < max_attempts) {
     bool accepted, finished, count_step, count_reject;
     int fe, je, le;
-    int st = radau_attempt<F, CT>(f, a, t, y, naccpt, L, o, rtol_t, atol_t,
-                                  tend, hmax, hmin, accepted, finished,
-                                  count_step, count_reject, fe, je, le);
+    int st = radau_attempt<F, CT, T>(f, a, t, y, naccpt, L, o, newton_tol,
+                                     accepted, finished, count_step,
+                                     count_reject, fe, je, le);
     // ---- core/driver.py: counters, then status priority ----
     nstep += count_step ? 1 : 0;
     naccpt += accepted ? 1 : 0;
@@ -511,18 +568,19 @@ __global__ void __launch_bounds__(128) radau_kernel(
   for (int j = 0; j < N; ++j) {
     const size_t q = (size_t)i * N + j;
     d.y[q] = y[j];
-    c.f0[q] = L.f0[j];
-    c.scal[q] = L.scal[j];
+    c.f0[q] = s[K::F0 + j];
+    c.scal[q] = s[K::SCAL + j];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) c.cont[((size_t)i * 4 + r) * N + j] = L.cont[r][j];
+    for (int r = 0; r < 4; ++r)
+      c.cont[((size_t)i * 4 + r) * N + j] = s[K::CONT + r * N + j];
   }
 #pragma unroll
   for (int q = 0; q < N * N; ++q) {
     const size_t g = (size_t)i * N * N + q;
-    c.jac[g] = L.jac[q];
-    c.inv1[g] = L.inv1[q];
-    c.br[g] = L.br[q];
-    c.bi[g] = L.bi[q];
+    c.jac[g] = s[K::JAC + q];
+    c.inv1[g] = s[K::INV1 + q];
+    c.br[g] = s[K::BR + q];
+    c.bi[g] = s[K::BI + q];
   }
   c.h[i] = L.h;
   c.hold[i] = L.hold;
@@ -548,40 +606,71 @@ __global__ void __launch_bounds__(128) radau_kernel(
   d.nrejct[i] = nrejct;
 }
 
-constexpr int RADAU_THREADS = 128;
+template <class F, class CT, int T, int MB>
+int radau_launch_as(int B, const double* y0, const double* t0,
+                    const double* first_step, StiffRun ra, const double* args,
+                    RadauOptions o, StiffDriver d, RadauCarry c, int init,
+                    int max_attempts, void* stream) {
+  constexpr int bytes = 8 * RadauCold<F::N>::DOUBLES * T;
+  static_assert(bytes <= SLOTS_BLOCK_MAX, "the slots exceed a block's");
+  auto kernel = radau_kernel<F, CT, T, MB>;
+  const int err = allow_slots(kernel, bytes);
+  if (err) return err;
+  kernel<<<(B + T - 1) / T, T, bytes, (cudaStream_t)stream>>>(
+      B, y0, t0, first_step, ra, args, o, d, c, init, max_attempts);
+  return (int)cudaGetLastError();
+}
 
-template <class F>
+// T, MB: threads a block and min blocks an SM, under either controller type.
+template <class F, int T, int MB>
 int radau_launch(int B, const double* y0, const double* t0,
                  const double* first_step, StiffRun ra, const double* args,
                  RadauOptions o, StiffDriver d, RadauCarry c, int init,
                  int max_attempts, void* stream) {
   if (B <= 0) return 0;
-  const int blocks = (B + RADAU_THREADS - 1) / RADAU_THREADS;
   if (o.state_precision)
-    radau_kernel<F, double><<<blocks, RADAU_THREADS, 0, (cudaStream_t)stream>>>(
-        B, y0, t0, first_step, ra, args, o, d, c, init, max_attempts);
-  else
-    radau_kernel<F, float><<<blocks, RADAU_THREADS, 0, (cudaStream_t)stream>>>(
-        B, y0, t0, first_step, ra, args, o, d, c, init, max_attempts);
-  return (int)cudaGetLastError();
+    return radau_launch_as<F, double, T, MB>(
+        B, y0, t0, first_step, ra, args, o, d, c, init, max_attempts, stream);
+  return radau_launch_as<F, float, T, MB>(
+      B, y0, t0, first_step, ra, args, o, d, c, init, max_attempts, stream);
+}
+
+template <class F, int T, int MB>
+int radau_layout(int state_precision, int* info) {
+  constexpr int lane = 8 * RadauCold<F::N>::DOUBLES;
+  if (state_precision)
+    return slots_layout(radau_kernel<F, double, T, MB>, T, MB, lane, info);
+  return slots_layout(radau_kernel<F, float, T, MB>, T, MB, lane, info);
 }
 
 }  // namespace ivp
 
-// One C entry per RHS functor with a Jacobian: ivp_radau_<name>.
-#define IVP_RADAU_ENTRY(NAME, FUNCTOR)                                        \
+// One C entry per RHS functor with a Jacobian: ivp_radau_<name>, and
+// ivp_radau_layout_<name> (slots_layout of the instantiation a launch under
+// a controller type takes, whatever its B).  T, MB: threads a block and min
+// blocks an SM under both controller types, from measure_kernel.py's stiff
+// occupancy sweep on an H100 (PERF.md); one instantiation serves every B,
+// since at (128, 3) Radau spills nothing either and runs no faster at
+// B=16384.  Robertson's slots (504 bytes a lane) leave room for 3 blocks.
+#define IVP_RADAU_ENTRY(NAME, FUNCTOR, T, MB)                                 \
   extern "C" int ivp_radau_##NAME(                                            \
       int B, const double* y0, const double* t0, const double* first_step,    \
       ivp::StiffRun ra, const double* args, ivp::RadauOptions o,              \
       ivp::StiffDriver d, ivp::RadauCarry c, int init, int max_attempts,      \
       void* stream) {                                                         \
-    return ivp::radau_launch<FUNCTOR>(B, y0, t0, first_step, ra, args, o, d,  \
-                                      c, init, max_attempts, stream);         \
+    return ivp::radau_launch<FUNCTOR, IVP_RADAU_BOUNDS(T, MB)>(               \
+        B, y0, t0, first_step, ra, args, o, d, c, init, max_attempts,         \
+        stream);                                                              \
+  }                                                                           \
+  extern "C" int ivp_radau_layout_##NAME(int state_precision, int B,        \
+                                         int* info) {                         \
+    return ivp::radau_layout<FUNCTOR, IVP_RADAU_BOUNDS(T, MB)>(               \
+        state_precision, info);                                               \
   }
 
-IVP_RADAU_ENTRY(vdp, VdP)
-IVP_RADAU_ENTRY(decay, Decay)
-IVP_RADAU_ENTRY(robertson, Robertson)
+IVP_RADAU_ENTRY(vdp, VdP, 128, 4)
+IVP_RADAU_ENTRY(decay, Decay, 128, 4)
+IVP_RADAU_ENTRY(robertson, Robertson, 128, 3)
 
 IVP_STIFF_INVERSES()
 IVP_STIFF_LIBRARY()

@@ -112,6 +112,29 @@ class BDFCarryArg(ctypes.Structure):
     _fields_ = [(f, _P) for f in BDF_FIELDS]
 
 
+# The keys of a stiff instantiation's layout, in the order
+# csrc/stiff_common.cuh::slots_layout fills them.
+LAYOUT_KEYS = ("threads", "min_blocks", "lane_bytes", "block_bytes",
+               "blocks_per_sm", "registers", "local_bytes")
+
+
+def layout(method, fun, controller="float32", B=1, lib=None) -> dict:
+    """The instantiation a launch of ``B`` lanes takes, as the library
+    reports it (``ivp_<kernel>_layout_<rhs>``): ``LAYOUT_KEYS``, blocks an
+    SM holds at once by cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+    registers and local-memory bytes a thread by cudaFuncGetAttributes.
+    Needs the card."""
+    kernel = method.lower()
+    lib = build.library(kernel) if lib is None else lib
+    entry = build.entry(f"ivp_{kernel}_layout_{fun.name}", [_I, _I, _P],
+                        lib=lib)
+    info = (ctypes.c_int * len(LAYOUT_KEYS))()
+    build.check(entry(int(controller != "float32"), int(B),
+                      ctypes.cast(info, ctypes.c_void_p)),
+                f"{kernel} layout", lib)
+    return dict(zip(LAYOUT_KEYS, info))
+
+
 def radau_options(p) -> RadauOptions:
     """A RadauParams as the kernel's launch argument: each float is the
     Python float the plain version hands to a tensor operation."""

@@ -1,5 +1,6 @@
 """Measurements of the port's ensemble kernels on one NVIDIA GPU (an H100):
-the lean DOPRI5 kernel in depth, the rest of the explicit tier by a sweep.
+the lean DOPRI5 kernel in depth, the rest of the explicit tier by a sweep,
+the stiff kernels alone, against an older build and by launch bounds.
 
     python3 measure_kernel.py [--baseline CSRC_DIR ...] [--phases a,b,...]
 
@@ -96,12 +97,33 @@ instantiation), then the phases (all by default, ``ab`` only with
   a fresh carry, in ``STIFF_ROUNDS`` turns, with the bound
   (kernels/stiff_ensemble.py::stiff_bound, the operations counted from the
   code an attempt, a Newton iteration, a decomposition and an accepted
-  step), the share of it reached, warp efficiency, the mean counters and
-  ptxas's registers and spills of every stiff instantiation; then the
+  step), the share of it reached, warp efficiency, the mean counters;
+  ptxas's registers, stack frame and spills of every stiff instantiation
+  (``stiff_ptxas``), each entry's layout as the library reports it
+  (``stiff_layout``: threads, min blocks, slot bytes a lane and a block,
+  blocks an SM, registers, local bytes) and the SASS walk of each stiff
+  instantiation (``stiff_sass``, ``stiff_loop``: one pass of the attempt
+  loop and of the Newton loop by class, with FP64 cycles); then the
   explicit resumable mode alone on chip_smoke.py's resumable cases
-  (B=16384): one launch to the end from a started carry.
+  (B=16384): one launch to the end from a started carry;
+* ``stiff_occupancy``: radau and bdf rebuilt under each ``STIFF_OCC``
+  (threads a block, min blocks an SM), their registers, frames and spills,
+  every field held bit for bit to the package build, and each timed in
+  turns on the stiff row at each of ``STIFF_B`` under both controller
+  types, ranked;
+* ``ab_stiff`` (needs ``--baseline``): radau and bdf built from another
+  source tree against the package's: ``ab_stiff_bitwise``, the lanes
+  differing in every output and carry field (bits; a NaN equals any NaN)
+  of each ``stiff_cases`` case under both controller types (the stiff row
+  at B=131072, Robertson, decay, the singular retry, a max_steps budget,
+  first_step / max_step lanes, chunk_steps 64 resumably; Robertson and
+  decay again at B=65536), then ``ab_stiff``: ``AB_STIFF_ROUNDS`` rounds of
+  old, new, new, old ``turn_ms`` on the stiff row at each of ``STIFF_B``
+  and on Robertson and decay at ``AB_STIFF_WIDE``, with the bound and each
+  side's share, and both sides' ptxas lines and SASS walks.
 
-The A/B, occupancy and two-kernel timings are turns of ``turn_ms``: five
+The A/B, occupancy and two-kernel timings (``ab_stiff`` and
+``stiff_occupancy`` too) are turns of ``turn_ms``: five
 launches back to back between two CUDA events, so the host's work of a
 call stays out of the time.  ``--sass-dir DIR`` writes each SASS listing
 read.
@@ -140,10 +162,21 @@ FUNCTORS = ("VdP", "Decay", "Lorenz", "Cr3bp")
 OCC_THREADS, OCC_MIN_BLOCKS = (64, 128, 256), (6, 7, 8, 10, 12)
 OCC_ROUNDS = 10
 PHASES = ("sass", "settle", "sweep", "turns", "profile", "occupancy", "erk",
-          "erk_occupancy", "ab", "ab_record", "events", "stiff")
+          "erk_occupancy", "ab", "ab_record", "events", "stiff",
+          "stiff_occupancy", "ab_stiff")
 # The stiff phase: lanes, turns.
 STIFF_B = (16384, 131072)
 STIFF_ROUNDS = 3
+# ab_stiff: each case's lanes (stiff_cases), and rounds of old, new, new, old.
+AB_STIFF_B = {"bench": 131072, "robertson": 1024, "decay": 4096,
+              "robertson_wide": 65536, "decay_wide": 65536,
+              "singular": 256, "max_steps": 4096, "limits": 4096,
+              "chunk": 16384}
+# ab_stiff's timed rows besides the stiff row at each of STIFF_B: lanes of
+# Robertson and decay above B=50688, where BDF takes its (128, 4)
+# instantiation (bdf_pick) and Radau Robertson its (128, 3).
+AB_STIFF_WIDE = {"robertson": 65536, "decay": 65536}
+AB_STIFF_ROUNDS = 5
 # The recording ball's record-event launch alone: (B, rec_cap).
 EVENT_RECORD = (16384, 256)
 # The events phase: each main-path event instantiation alone, (kernel, set,
@@ -295,11 +328,34 @@ _ERK = re.compile(
     r"(?:NS_8NoEventsE|\d+([A-Z]\w*?)(?=Li\d+E))?")
 
 
+# An instantiation of csrc/radau.cu's radau_kernel or csrc/bdf.cu's
+# bdf_kernel: the functor (length-prefixed), the controller type, then
+# threads and min blocks (absent in builds from before the launch bounds).
+_STIFF = re.compile(r"(radau|bdf)_kernelI(\d+)")
+
+
+def stiff_instantiation(mangled):
+    """``radau/VdP/f32/128x4`` for a stiff kernel instantiation, else
+    None."""
+    m = _STIFF.search(mangled)
+    if not m:
+        return None
+    rest = mangled[m.end():]
+    functor, rest = rest[:int(m.group(2))], rest[int(m.group(2)):]
+    b = re.match(r"[fd](?:Li(\d+)ELi(\d+)E)?", rest)
+    bounds = f"/{b.group(1)}x{b.group(2)}" if b and b.group(1) else ""
+    return (f"{m.group(1)}/{functor}/{'f32' if rest[:1] == 'f' else 'f64'}"
+            f"{bounds}")
+
+
 def instantiation(mangled):
     """``Lorenz/f32/lean`` for an erk_kernel instantiation (``/record``,
     ``/record_cont`` or ``/resume`` after a record or the resumable mode's,
-    ``/ev_<Set>`` after an event mode's), else the functor the name
-    holds."""
+    ``/ev_<Set>`` after an event mode's), ``radau/VdP/f32/128x4`` for a
+    stiff one, else the functor the name holds."""
+    stiff = stiff_instantiation(mangled)
+    if stiff:
+        return stiff
     m = _ERK.search(mangled)
     if not m:
         return next((f for f in FUNCTORS if f in mangled), mangled)
@@ -352,14 +408,20 @@ def _class(op):
     return next((c for c, ops in CLASSES if base in ops), "other")
 
 
-def loop_fast_path(ins):
-    """(opcodes on the loop's fast path, forward branches taken past a
-    region with a call, instructions they skip)."""
+def loops(ins):
+    """Every loop of a listing, largest first: ``(size, tail, head)`` of
+    each backward branch."""
+    return sorted(((a - t, a, t) for a, _, op, arg in ins
+                   if op.split(".")[0] == "BRA"
+                   and (t := _target(arg)) is not None and t < a),
+                  reverse=True)
+
+
+def loop_fast_path(ins, loop=None):
+    """(opcodes on the fast path of ``loop`` (default: the largest), forward
+    branches taken past a region with a call, instructions they skip)."""
     at = {a: i for i, (a, *_) in enumerate(ins)}
-    back = [(a - t, a, t) for a, _, op, arg in ins
-            if op.split(".")[0] == "BRA" and (t := _target(arg)) is not None
-            and t < a]
-    _, tail, head = max(back)
+    _, tail, head = loop or loops(ins)[0]
     path, skipped, skipped_ins = [], 0, 0
     i = at[head]
     while len(path) < 100000:
@@ -382,6 +444,17 @@ def loop_fast_path(ins):
     return path, skipped, skipped_ins
 
 
+def loop_line(tag, path, **kv):
+    """One line of a fast path's instructions by class and pipe cycles."""
+    classes = Counter(_class(op) for op in path)
+    pipes = {f"{k}_cycles": PIPE_CYCLES[k] * classes[k] for k in PIPE_CYCLES}
+    line(tag, **kv, issued=len(path),
+         UMOV=sum(op.split(".")[0] == "UMOV" for op in path),
+         **{k: classes[k] for k, _ in CLASSES}, uniform=classes["uniform"],
+         other=classes["other"], **pipes,
+         top=repr(dict(Counter(path).most_common(12))))
+
+
 def sass_report(lib, label, only=None):
     """Print the static mix and the loop's fast-path classes of each
     instantiation of ``lib`` (whose label starts with ``only``, a prefix or
@@ -398,14 +471,78 @@ def sass_report(lib, label, only=None):
         except (ValueError, KeyError) as e:   # no loop found, or a target
             line("loop", build=label, functor=name, error=repr(str(e)))
             continue
-        classes = Counter(_class(op) for op in path)
-        pipes = {f"{k}_cycles": PIPE_CYCLES[k] * classes[k] for k in PIPE_CYCLES}
-        line("loop", build=label, functor=name, issued=len(path),
-             UMOV=sum(op.split(".")[0] == "UMOV" for op in path),
-             **{k: classes[k] for k, _ in CLASSES}, uniform=classes["uniform"],
-             other=classes["other"], **pipes, branches_skipped=skipped,
-             instructions_skipped=skipped_ins,
-             top=repr(dict(Counter(path).most_common(12))))
+        loop_line("loop", path, build=label, functor=name,
+                  branches_skipped=skipped, instructions_skipped=skipped_ins)
+
+
+def stiff_sass_report(lib, label):
+    """Each stiff instantiation of ``lib``: its static mix, then the fast
+    path of one pass of its attempt loop (the largest loop: an attempt whose
+    inner loops run once, past every region that calls a division's or a
+    square root's slow path; decompositions hold such calls, so the path is
+    that of an attempt that reuses them) and of its Newton loop (the largest
+    loop inside it), by class, with the FP64 pipe's cycles."""
+    for name, ins in sass_functions(lib).items():
+        if not name.startswith(("radau/", "bdf/")):
+            continue
+        c = Counter(op.split(".")[0] for _, _, op, _ in ins)
+        line("stiff_sass", build=label, instantiation=name,
+             instructions=len(ins), DFMA=c["DFMA"], DMUL=c["DMUL"],
+             DADD=c["DADD"], MUFU=c["MUFU"], LDS=c["LDS"], STS=c["STS"],
+             LDL=c["LDL"], STL=c["STL"], CALL=c["CALL"])
+        found = loops(ins)
+        if not found:
+            line("stiff_loop", build=label, instantiation=name,
+                 error="'no loop'")
+            continue
+        outer = found[0]
+        inner = [lp for lp in found[1:] if outer[2] < lp[2] and lp[1] < outer[1]]
+        for what, lp in (("attempt", outer),
+                         ("newton", inner[0] if inner else None)):
+            if lp is None:
+                continue
+            try:
+                path, skipped, skipped_ins = loop_fast_path(ins, lp)
+            except (ValueError, KeyError) as e:
+                line("stiff_loop", build=label, instantiation=name, loop=what,
+                     error=repr(str(e)))
+                continue
+            loop_line("stiff_loop", path, build=label, instantiation=name,
+                      loop=what, branches_skipped=skipped,
+                      instructions_skipped=skipped_ins)
+
+
+def ptxas_frames(path):
+    """``[(function, registers, stack frame bytes, spill store bytes, spill
+    load bytes)]`` from the nvcc log beside a built library: every entry and
+    every function ptxas kept out of line."""
+    out, fn, frame = [], "?", (0, 0, 0)
+    for ln in Path(path).with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn, frame = m.group(1), (0, 0, 0)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            frame = tuple(int(g) for g in m.groups())
+            if not fn.startswith("_ZN3ivp") or "_kernel" not in fn:
+                out.append((fn, None, *frame))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.append((fn, int(m.group(1)), *frame))
+    return out
+
+
+def stiff_ptxas(label, paths):
+    """ptxas's registers, stack frame and spills of every stiff
+    instantiation (and out-of-line function) of ``paths``."""
+    for lib, path in paths.items():
+        for fn, regs, frame, st, ld in ptxas_frames(path):
+            line("stiff_ptxas", build=label, library=lib,
+                 instantiation=instantiation(fn), registers=regs,
+                 stack_frame=frame, spill_stores=st, spill_loads=ld)
 
 
 # ---- phases ----
@@ -1194,10 +1331,15 @@ def stiff_phase(build, dev):
                      mean_nlu=mean(c.nlu),
                      statuses=repr(dict(Counter(c.status.cpu().tolist()))))
                 del c, a, y0
+    stiff_ptxas("new", libs)
+    for method in ("RADAU", "BDF"):
+        for fun in (rhs.vdp, rhs.decay, rhs.robertson):
+            for cp in ("float32", "state"):
+                for B in STIFF_B:
+                    line("stiff_layout", kernel=method.lower(), rhs=fun.name,
+                         controller=cp, B=B, **S.layout(method, fun, cp, B))
     for name, path in libs.items():
-        for fn, regs, st, ld in build.ptxas_report(path):
-            line("ptxas_stiff", library=name, kernel=fn, registers=regs,
-                 spill_stores=st, spill_loads=ld)
+        stiff_sass_report(path, "new")
     resume_alone(build, dev)
 
 
@@ -1248,6 +1390,303 @@ def resume_alone(build, dev):
                      registers=regs, spill_stores=st, spill_loads=ld)
 
 
+STIFF_FIELDS = ("t", "y", "status", "done", "nfev", "njev", "nlu", "nstep",
+                "naccpt", "nrejct")
+
+
+def stiff_carry_fields(method, c):
+    """{field: tensor} of a stiff carry: the driver's fields and every field
+    of the method state the kernel reads and writes."""
+    from ivp_tpu_torch.kernels import stiff_ensemble as S
+
+    out = {f: getattr(c, f) for f in STIFF_FIELDS}
+    out.update(S._ms_fields(method, c.ms))
+    return out
+
+
+def carry_lanes_differing(new, old):
+    """{field: lanes on which its bits differ} of two carries' fields
+    (stiff_carry_fields); a NaN equals any NaN, a signed zero only
+    itself."""
+    diff = {}
+    for f, x in new.items():
+        y = old[f]
+        if x.is_floating_point():
+            ints = torch.int64 if x.dtype == torch.float64 else torch.int32
+            ne = x.view(ints) != y.view(ints)
+            ne &= ~(torch.isnan(x) & torch.isnan(y))
+        else:
+            ne = x != y
+        diff[f] = int(ne.reshape(x.shape[0], -1).any(dim=1).sum())
+    return diff
+
+
+def stiff_inputs(case, B, dev):
+    """``(fun, solve arguments, RHS arguments)`` of ``B`` lanes of
+    ``stiff_cases``'s "robertson" (over [0, 1e8]) or "decay" (per-lane
+    rates, t0, spans, some backward, and per-component tolerances)."""
+    import chip_smoke as cs
+    from ivp_tpu_torch import rhs
+
+    def T(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=dev).contiguous()
+
+    if case == "robertson":
+        return rhs.robertson, cs.solve_args(
+            T(cs.robertson_y0(B)), cs.ROB_TF, 1e-6, 1e-6, None, dev), ()
+    rng = np.random.default_rng(5)
+    t0 = rng.uniform(-1.0, 1.0, B)
+    dt = 5.0 * rng.uniform(0.5, 1.0, B)
+    dt[1::4] *= -1.0
+    dt[0] = 0.0
+    a = (T(rng.uniform(0.5, 2.0, (B, 1))), T(t0), T(t0 + dt), T(np.abs(dt)),
+         None, T(10.0 ** rng.uniform(-8, -4, (B, 1))),
+         T(10.0 ** rng.uniform(-10, -6, (B, 1))))
+    return rhs.decay, a, (T(rng.uniform(0.5, 50.0, B)),)
+
+
+def stiff_cases(dev, sizes=AB_STIFF_B):
+    """The bit-for-bit cases of the stiff kernels: ``[(case, B, run)]``,
+    ``run(method, controller, lib) -> (carry, launches)`` one solve through
+    ``lib``'s kernel of ``method`` under ``controller`` ("float32" or
+    "state").  bench.py's stiff row (chip_smoke.py's stiff main path's
+    inputs, one launch with no budget); Robertson and decay
+    (``stiff_inputs``), each also at ``sizes``' "_wide" lanes; the singular
+    retry (decay at rate -1 from a first step whose first
+    decomposition is exactly singular, and a NaN rate, singular at every
+    attempt, on alternate lanes); a max_steps-bounded launch on the stiff
+    row; chip_smoke.py's ``vdp_limits`` lanes (first_step, max_step, t0 =
+    1e6); and the stiff row resumably, chunk_steps 64."""
+    import chip_smoke as cs
+    from ivp_tpu_torch import rhs, tableaus
+    from ivp_tpu_torch.core.driver import run_args
+    from ivp_tpu_torch.kernels import resumable as RES
+    from ivp_tpu_torch.kernels import stiff_ensemble as S
+    from ivp_tpu_torch.methods.jacobian import stiff_spec
+
+    f64 = torch.float64
+
+    def T(a):
+        return torch.as_tensor(a, dtype=f64, device=dev).contiguous()
+
+    def spec(method, n, cp):
+        return stiff_spec(method, n, None, {"controller_precision": cp})
+
+    def one(fun, a, args, max_steps=100000):
+        def run(method, cp, lib):
+            hmin = torch.zeros(a[0].shape[0], dtype=f64, device=dev)
+            return S.stiff_ensemble_cuda(
+                method, fun, *a, args, max_steps,
+                spec(method, fun.n, cp).params(), hmin, lib=lib), 1
+        return run
+
+    out = []
+    B = sizes["bench"]
+    bench = cs.solve_args(T(cs.stiff_y0(B)), cs.STIFF_TF, *cs.STIFF_TOL, None,
+                          dev)
+    out.append(("vdp_bench", B, one(rhs.vdp, bench, (cs.STIFF_MU,))))
+    for case in ("robertson", "decay", "robertson_wide", "decay_wide"):
+        if case in sizes:
+            B = sizes[case]
+            out.append((case, B, one(*stiff_inputs(case.split("_")[0], B,
+                                                   dev))))
+    B = sizes["singular"]
+    odd = np.arange(B) % 2 == 1
+    rate = T(np.where(odd, np.nan, -1.0))
+    for method, first in (("RADAU", tableaus.RADAU_U1),
+                          ("BDF", float(tableaus.BDF_ALPHA[1]))):
+        a = (T(np.ones((B, 1))), T(np.zeros(B)), T(np.where(odd, 1.0, 30.0)),
+             T(np.where(odd, 1.0, 30.0)), T(np.where(odd, 0.01, first)),
+             T(np.full((B, 1), 1e-6)), T(np.full((B, 1), 1e-9)))
+        out.append((f"singular_{method.lower()}", B,
+                    one(rhs.decay, a, (rate,))))
+    B = sizes["max_steps"]
+    out.append(("vdp_max_steps", B, one(rhs.vdp, tuple(
+        x[:B] if torch.is_tensor(x) else x for x in bench), (cs.STIFF_MU,),
+        max_steps=50)))
+    B = sizes["limits"]
+    _, a, kw, _ = cs.edge_cases(B, dev)[1]
+    out.append(("vdp_limits", B, one(rhs.vdp, a, (), kw["max_steps"])))
+    B = sizes["chunk"]
+
+    def chunked(method, cp, lib):
+        a = tuple(x[:B] if torch.is_tensor(x) else x for x in bench)
+        ra = run_args(a[2], a[5], a[6], a[3], 0.0, 100000, a[0])
+        sp = spec(method, 2, cp)
+        c = RES.start_on_card(method, rhs.vdp, a[0], a[1], None,
+                              (cs.STIFF_MU,), ra, sp, lib=lib)
+        launches = 1
+        while not bool(c.done.all()):
+            c = RES.resume_on_card(method, rhs.vdp, c, (cs.STIFF_MU,), ra, sp,
+                                   64, lib=lib)
+            launches += 1
+        return c, launches
+    out.append(("vdp_chunk64", B, chunked))
+    return out
+
+
+def ab_stiff(build, dev, baseline, label):
+    """The stiff kernels built from ``baseline`` against the package's:
+    the lanes differing in every output and carry field of each
+    ``stiff_cases`` case under both controller types, then
+    ``AB_STIFF_ROUNDS`` rounds of old, new, new, old ``turn_ms`` of one
+    launch with no budget on the stiff row at each of ``STIFF_B`` and on
+    ``stiff_inputs``' Robertson and decay at ``AB_STIFF_WIDE``, with each
+    side's registers and spills and the new side's layout."""
+    import chip_smoke as cs
+    from ivp_tpu_torch import rhs
+    from ivp_tpu_torch.kernels import stiff_ensemble as S
+    from ivp_tpu_torch.methods.jacobian import stiff_spec
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+        futs = {m: ex.submit(build.build, src_dir=baseline, name=m)
+                for m in ("radau", "bdf")}
+        paths = {m: f.result() for m, f in futs.items()}
+    old = {m: build.load(p) for m, p in paths.items()}
+    line("ab_stiff_build", old=label, seconds=round(time.perf_counter() - t0, 3))
+    new_paths = {m: build.build(name=m) for m in ("radau", "bdf")}
+    for side, ps in (("new", new_paths), (label, paths)):
+        stiff_ptxas(side, ps)
+        for p in ps.values():
+            stiff_sass_report(p, side)
+    for case, B, run in stiff_cases(dev):
+        for method in ("RADAU", "BDF"):
+            if case.startswith("singular_") and case != \
+                    f"singular_{method.lower()}":
+                continue
+            for cp in ("float32", "state"):
+                new, ln = run(method, cp, None)
+                ref, lo = run(method, cp, old[method.lower()])
+                torch.cuda.synchronize()
+                diff = carry_lanes_differing(stiff_carry_fields(method, new),
+                                             stiff_carry_fields(method, ref))
+                diff["launches"] = int(ln != lo)
+                line("ab_stiff_bitwise", old=label, kernel=method.lower(),
+                     controller=cp, case=case, B=B,
+                     identical=all(v == 0 for v in diff.values()),
+                     lanes_differing=repr(diff), launches=ln,
+                     statuses=repr(dict(Counter(new.status.cpu().tolist()))))
+                del new, ref
+    rows = [(f"vdp_B{B}", B, lambda B=B: (
+        rhs.vdp, cs.solve_args(torch.as_tensor(cs.stiff_y0(B), device=dev),
+                               cs.STIFF_TF, *cs.STIFF_TOL, None, dev),
+        (cs.STIFF_MU,))) for B in STIFF_B]
+    rows += [(f"{case}_B{B}", B, lambda case=case, B=B: stiff_inputs(
+        case, B, dev)) for case, B in AB_STIFF_WIDE.items()]
+    for row, B, inputs in rows:
+        fun, a, fargs = inputs()
+        hmin = torch.zeros(B, dtype=torch.float64, device=dev)
+        for method in ("RADAU", "BDF"):
+            for cp in ("float32", "state"):
+                p = stiff_spec(method, fun.n, None,
+                               {"controller_precision": cp}).params()
+                libs = {"new": None, "old": old[method.lower()]}
+                run = {w: (lambda lib=lib: S.stiff_ensemble_cuda(
+                    method, fun, *a, fargs, 100000, p, hmin,
+                    lib=lib)) for w, lib in libs.items()}
+                ms = {"old": [], "new": []}
+                for r in range(AB_STIFF_ROUNDS):
+                    for what in ("old", "new", "new", "old"):
+                        ms[what].append(turn_ms(run[what]))
+                c = run["new"]()
+                torch.cuda.synchronize()
+                med = {w: float(np.median(v)) for w, v in ms.items()}
+                pairs = zip(zip(ms["new"][::2], ms["new"][1::2]),
+                            zip(ms["old"][::2], ms["old"][1::2]))
+                b_ms, b_by = S.stiff_bound(method, fun, c.nstep, c.naccpt,
+                                           c.nrejct, c.nfev, c.njev, c.nlu)
+                lay = S.layout(method, fun, cp, B)
+                line("ab_stiff", old=label, kernel=method.lower(),
+                     controller=cp, row=row, B=B,
+                     old_ms=[round(x, 4) for x in ms["old"]],
+                     new_ms=[round(x, 4) for x in ms["new"]],
+                     old_median=round(med["old"], 4),
+                     new_median=round(med["new"], 4),
+                     new_over_old=round(med["new"] / med["old"], 4),
+                     rounds_new_won=f"{sum(sum(n) < sum(o) for n, o in pairs)}"
+                                    f"/{AB_STIFF_ROUNDS}",
+                     bound_ms=round(b_ms, 6), bound_by=b_by,
+                     share_new=round(b_ms / med["new"], 4),
+                     share_old=round(b_ms / med["old"], 4),
+                     warp_efficiency=round(float(c.nstep.double().sum())
+                                           / (32 * warp_attempts(c.nstep)), 5),
+                     **{f"new_{k}": v for k, v in lay.items()})
+                del c
+        del a, hmin
+
+
+# The stiff occupancy sweep: (threads a block, min blocks an SM) of every
+# entry of csrc/radau.cu and csrc/bdf.cu, -DIVP_THREADS/-DIVP_MIN_BLOCKS.
+STIFF_OCC = ((64, 8), (128, 1), (128, 3), (128, 4), (256, 2))
+STIFF_OCC_ROUNDS = 4
+
+
+def stiff_occupancy(build, dev):
+    """radau and bdf built under every ``STIFF_OCC`` setting in parallel:
+    ptxas's registers, frame and spills and the layout of each VdP
+    instantiation; each timed under every setting in turns on the stiff row
+    at each of ``STIFF_B`` under both controller types, every field held
+    bit for bit to the package build; the settings ranked."""
+    import chip_smoke as cs
+    from ivp_tpu_torch import rhs
+    from ivp_tpu_torch.kernels import stiff_ensemble as S
+    from ivp_tpu_torch.methods.jacobian import stiff_spec
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2 * len(STIFF_OCC)) as ex:
+        futs = {(m, st): ex.submit(build.build, defines=(
+            f"IVP_THREADS={st[0]}", f"IVP_MIN_BLOCKS={st[1]}"), name=m)
+            for m in ("radau", "bdf") for st in STIFF_OCC}
+        libs = {key: f.result() for key, f in futs.items()}
+    line("stiff_occupancy_build", libraries=len(libs),
+         seconds=round(time.perf_counter() - t0, 3))
+    loaded = {key: build.load(path) for key, path in libs.items()}
+    for (m, st), path in sorted(libs.items()):
+        for fn, regs, frame, sst, sld in ptxas_frames(path):
+            name = instantiation(fn)
+            if name.startswith(f"{m}/VdP"):
+                line("stiff_occupancy_ptxas", threads=st[0], min_blocks=st[1],
+                     instantiation=name, registers=regs, stack_frame=frame,
+                     spill_stores=sst, spill_loads=sld)
+    for B in STIFF_B:
+        y0 = torch.as_tensor(cs.stiff_y0(B), device=dev)
+        a = cs.solve_args(y0, cs.STIFF_TF, *cs.STIFF_TOL, None, dev)
+        hmin = torch.zeros(B, dtype=torch.float64, device=dev)
+        for m in ("radau", "bdf"):
+            for cp in ("float32", "state"):
+                p = stiff_spec(m.upper(), 2, None,
+                               {"controller_precision": cp}).params()
+                run = {st: (lambda lib=loaded[m, st]: S.stiff_ensemble_cuda(
+                    m.upper(), rhs.vdp, *a, (cs.STIFF_MU,), 100000, p, hmin,
+                    lib=lib)) for st in STIFF_OCC}
+                ref = stiff_carry_fields(m.upper(), S.stiff_ensemble_cuda(
+                    m.upper(), rhs.vdp, *a, (cs.STIFF_MU,), 100000, p, hmin))
+                equal = {}
+                for st in STIFF_OCC:
+                    got = stiff_carry_fields(m.upper(), run[st]())
+                    equal[st] = not any(carry_lanes_differing(got, ref).values())
+                del got, ref
+                ms = {st: [] for st in STIFF_OCC}
+                for r in range(STIFF_OCC_ROUNDS):
+                    for st in (STIFF_OCC if r % 2 == 0 else STIFF_OCC[::-1]):
+                        ms[st].append(turn_ms(run[st]))
+                ranked = sorted(STIFF_OCC, key=lambda st: np.median(ms[st]))
+                lay = {st: S.layout(m, rhs.vdp, cp, B, lib=loaded[m, st])
+                       for st in STIFF_OCC}
+                line("stiff_occupancy", kernel=m, controller=cp, B=B,
+                     rounds=STIFF_OCC_ROUNDS,
+                     bitwise_equal=all(equal.values()),
+                     ms_median={f"{t}x{mb}": round(float(np.median(ms[t, mb])), 4)
+                                for t, mb in STIFF_OCC},
+                     blocks_per_sm={f"{t}x{mb}": lay[t, mb]["blocks_per_sm"]
+                                    for t, mb in STIFF_OCC},
+                     registers={f"{t}x{mb}": lay[t, mb]["registers"]
+                                for t, mb in STIFF_OCC},
+                     fastest=[f"{t}x{mb}" for t, mb in ranked[:3]])
+        del y0, a
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, action="append", default=[],
@@ -1256,7 +1695,7 @@ def main():
     ap.add_argument("--phases",
                     help=f"comma-separated subset of {','.join(PHASES)} "
                          "(default: all; ab, which includes ab_record, "
-                         "only with --baseline)")
+                         "and ab_stiff only with --baseline)")
     ap.add_argument("--occupancy-methods", default="DOP853,RK23,RK4,DOPRI5",
                     help="methods whose libraries erk_occupancy sweeps")
     ap.add_argument("--sass-dir", type=Path,
@@ -1265,11 +1704,11 @@ def main():
     global SASS_DIR
     SASS_DIR = opts.sass_dir
     phases = (set(opts.phases.split(",")) if opts.phases else
-              set(PHASES) - ({"ab_record"} if opts.baseline
-                             else {"ab", "ab_record"}))
+              set(PHASES) - ({"ab_record", "ab_stiff"} if opts.baseline
+                             else {"ab", "ab_record", "ab_stiff"}))
     if not phases <= set(PHASES):
         ap.error(f"unknown phases {sorted(phases - set(PHASES))}")
-    if phases & {"ab", "ab_record"} and not opts.baseline:
+    if phases & {"ab", "ab_record", "ab_stiff"} and not opts.baseline:
         ap.error("the ab phases need --baseline")
     if not torch.cuda.is_available():
         print("measure_kernel: no CUDA device", file=sys.stderr)
@@ -1306,6 +1745,8 @@ def main():
         for name in ERK_LIBS:
             sass_report(erk_libs[name], f"new:{name}",
                         only=("Lorenz/f32", "VdP/f32/lean"))
+        for name in ("radau", "bdf"):
+            stiff_sass_report(erk_libs[name], "new")
 
     solver = build_ensemble_solver(rhs.vdp, "RK45", n=2)
     y0 = torch.as_tensor(vdp_y0(MAIN_B), device=dev)
@@ -1353,13 +1794,19 @@ def main():
         events_phase(build, dev)
     if "stiff" in phases:
         stiff_phase(build, dev)
-    for baseline in opts.baseline if phases & {"ab", "ab_record"} else ():
+    for baseline in (opts.baseline if phases & {"ab", "ab_record", "ab_stiff"}
+                     else ()):
         label = (baseline.parent.name if baseline.name == "csrc"
                  else baseline.name)
+        if "ab_stiff" in phases:
+            ab_stiff(build, dev, baseline, label)
         if "ab" in phases:
             ab(k, build, rhs, dev, baseline, label)
             ab_erk(build, rhs, dev, baseline, label)
-        ab_record(build, rhs, dev, baseline, label)
+        if phases & {"ab", "ab_record"}:
+            ab_record(build, rhs, dev, baseline, label)
+    if "stiff_occupancy" in phases:
+        stiff_occupancy(build, dev)
     return 0
 
 
