@@ -1445,22 +1445,22 @@ def events_vs_plain(dev):
             b_ms, b_by = R.record_bound(method, fun, got.nstep, got.naccpt,
                                         got.n_rec, True,
                                         events=(SETS[set_name], g_ev))
+            b_every = b_ms   # coefficient records: rows on every step
         else:
             g_ev, r_ev = got[9], ref[9]
             err = compare(tag, got[:9], ref[:9], scaled=True,
                           count_fraction=gate)
-            fl, by = K.event_work(method, fun, SETS[set_name], got[5], g_ev)
             m = 0 if grid is None else grid.shape[1]
-            b_ms, b_by = K.solve_bound(
-                method, fun, got[4], got[5], got[8], m, dense_steps=got[5],
-                extra_flops=fl, extra_bytes=by)
+            b_ms, b_by, b_every = K.event_bound(
+                method, fun, SETS[set_name], got[4], got[5], g_ev, got[8], m)
         shares, eerrs = event_errors(g_ev, r_ev)
         phase(tag + "_events", **{f"{k}_equal": v for k, v in shares.items()},
               **{f"max_err_{k}": v for k, v in eerrs.items()},
               brent_kernel=int(g_ev.n_brent.sum()),
               brent_plain=int(r_ev.n_brent.sum()),
               mean_events=float(g_ev.n_events.double().mean()),
-              kernel_ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+              kernel_ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+              bound_ms_rows_every_accept=b_every)
         check_events(tag, shares, eerrs)
         err = max(err, eerrs["y_events"])
         row = rows.setdefault(name, {"max_abs_err": 0.0})
@@ -1468,6 +1468,7 @@ def events_vs_plain(dev):
         if set_name == "ground" and mode != "sampled":
             row.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                        bound_share=b_ms / k_ms,
+                       bound_ms_rows_every_accept=b_every,
                        inputs=f"ball B={CHECK_B}, t in [0, {BALL_CHECK_TF:g}], "
                               f"rtol=atol={BALL_TOL:g}"
                               + (f", rec_cap={REC_CAP_CHECK}"
@@ -1580,11 +1581,8 @@ def ball_main_path(dev):
           brent_plain=int(ref[9].n_brent.sum()), plain_ms=plain_ms)
     check_events(tag, shares, eerrs)
     del ref
-    fl, by = K.event_work("DOPRI5", rhs.ball, SETS["ground"], res.naccpt,
-                          out[9])
-    bound_ms, bound_by = K.solve_bound("DOPRI5", rhs.ball, res.nstep,
-                                       res.naccpt, dense_steps=res.naccpt,
-                                       extra_flops=fl, extra_bytes=by)
+    bound_ms, bound_by, bound_every = K.event_bound(
+        "DOPRI5", rhs.ball, SETS["ground"], res.nstep, res.naccpt, out[9])
     ok_status = bool(((status == Status.SUCCESS)
                       | (status == Status.USER_INTERRUPT)).all())
     stopped = status == Status.USER_INTERRUPT
@@ -1600,7 +1598,8 @@ def ball_main_path(dev):
           kernel_ms=k_ms, device_ms=dev_ms,
           walls_ms=[round(1e3 * w, 3) for w in walls],
           event_buffer_bytes=ev_bytes, bound_ms=bound_ms, bound_by=bound_by,
-          bound_share=bound_ms / k_ms, rerun_bitwise=same)
+          bound_share=bound_ms / k_ms,
+          bound_ms_rows_every_accept=bound_every, rerun_bitwise=same)
     if (not ok_status or not bool((nr[stopped] == BALL_RESTARTS).all())
             or not bool((nr <= BALL_RESTARTS).all()) or err1 > 1e-9
             or err2 > 1e-9 or not bool(torch.isfinite(res.y).all())
@@ -1611,6 +1610,7 @@ def ball_main_path(dev):
                 wall_ms=1e3 * float(np.median(walls)), plain_ms=plain_ms,
                 max_abs_err=max(err, eerrs["y_events"]), bound_ms=bound_ms,
                 bound_by=bound_by, bound_share=bound_ms / k_ms,
+                bound_ms_rows_every_accept=bound_every,
                 event_buffer_bytes=ev_bytes)
 
 
@@ -1674,16 +1674,14 @@ def section_main_path(dev):
     tag = f"section_vs_plain_B{B}_tf{LORENZ_T_LANES:g}"
     err = compare(tag, got[:9], ref[:9], scaled=True)
     shares, eerrs = event_errors(got[9], ref[9])
-    fl, by = K.event_work("DOP853", rhs.lorenz, SETS["section"], got[5],
-                          got[9])
-    b5_ms, b5_by = K.solve_bound("DOP853", rhs.lorenz, got[4], got[5],
-                                 dense_steps=got[5], extra_flops=fl,
-                                 extra_bytes=by)
+    b5_ms, b5_by, b5_every = K.event_bound(
+        "DOP853", rhs.lorenz, SETS["section"], got[4], got[5], got[9])
     phase(tag + "_events", **{f"{k}_equal": v for k, v in shares.items()},
           **{f"max_err_{k}": v for k, v in eerrs.items()},
           brent_kernel=int(got[9].n_brent.sum()),
           brent_plain=int(ref[9].n_brent.sum()), kernel_ms=lane_ms,
-          plain_ms=lane_plain_ms, bound_ms=b5_ms, bound_by=b5_by)
+          plain_ms=lane_plain_ms, bound_ms=b5_ms, bound_by=b5_by,
+          bound_ms_rows_every_accept=b5_every)
     check_events(tag, shares, eerrs)
     # The terminal variant, lane by lane on the first 4096 lanes.
     rs = res["stop5"][0]
@@ -1701,11 +1699,8 @@ def section_main_path(dev):
     out = K.erk_ensemble_cuda("DOP853", rhs.lorenz, *a20, (), 200_000,
                               events=ev)
     torch.cuda.synchronize()
-    fl, by = K.event_work("DOP853", rhs.lorenz, SETS["section"], r.naccpt,
-                          out[9])
-    bound_ms, bound_by = K.solve_bound("DOP853", rhs.lorenz, r.nstep,
-                                       r.naccpt, dense_steps=r.naccpt,
-                                       extra_flops=fl, extra_bytes=by)
+    bound_ms, bound_by, bound_every = K.event_bound(
+        "DOP853", rhs.lorenz, SETS["section"], r.nstep, r.naccpt, out[9])
     phase(f"section_main_path_B{B}", launches=launches,
           success_share=float((r.status == Status.SUCCESS).double().mean()),
           crossings=(int(r.n_events.min()), int(r.n_events.max())),
@@ -1716,6 +1711,7 @@ def section_main_path(dev):
           device_ms=dev_ms, wall_ms=1e3 * wall,
           brent_evals_per_lane=float(out[9].n_brent.double().mean()),
           bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / k_ms,
+          bound_ms_rows_every_accept=bound_every,
           stop5_interrupt_share=float(
               (rs.status == Status.USER_INTERRUPT).double().mean()),
           stop5_kernel_ms=res["stop5"][1],
@@ -1727,7 +1723,8 @@ def section_main_path(dev):
         raise AssertionError("section main path: gate failed")
     return dict(launches=sum(launches.values()), ms=lane_ms,
                 plain_ms=lane_plain_ms, bound_ms=b5_ms, bound_by=b5_by,
-                bound_share=b5_ms / lane_ms, max_abs_err=max(
+                bound_share=b5_ms / lane_ms,
+                bound_ms_rows_every_accept=b5_every, max_abs_err=max(
                     err, eerrs["y_events"]),
                 inputs=f"Lorenz B={B}, t in [0, {LORENZ_T_LANES:g}]",
                 main_path_kernel_ms=k_ms, main_path_wall_ms=1e3 * wall,

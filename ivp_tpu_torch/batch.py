@@ -121,17 +121,62 @@ def _refuse_stiff_on_card(method, spec, fun, y0, device, modes=False):
         S.check_card(spec, fun)
 
 
-def _auto_event_capacity(y0_shape, events, dtype) -> int:
+def _auto_lane_chunk(method, n, B, dtype, solver_options) -> Optional[int]:
+    """Default lane-chunk size of ``lane_chunk="auto"``: the base table of
+    ``ivp_tpu.batch._auto_lane_chunk`` (its off-TPU reading; the halving
+    for a TPU kind it has not measured is not ported).  Radau and BDF
+    (and ``method="auto"``, whose stiff leg needs it) at ``n >= 16`` solve
+    in sub-batches of 8192 lanes (n < 48), 1024 (n < 96; 2048 with float32
+    factors: float32 or double-float state, ``newton_precision="mixed"``
+    or ``factor_f32``) or 256, where ``B`` exceeds the chunk; None (no
+    chunking) otherwise."""
+    m = str(method).upper() if isinstance(method, str) else ""
+    if m == "AUTO":
+        m = "RADAU"
+    else:
+        m = canonical_method(method) if isinstance(method, str) else ""
+    if m not in ("RADAU", "BDF") or n < 16:
+        return None
+    so = solver_options or {}
+    f32_factor = ((isinstance(dtype, str)
+                   and dtype.lower() in ("dd", "ddf32", "double-float"))
+                  or (dtype is not None and not isinstance(dtype, str)
+                      and _is_float32(dtype))
+                  or so.get("newton_precision") == "mixed"
+                  or so.get("factor_f32"))
+    if n < 48:
+        chunk = 8192
+    elif n < 96:
+        chunk = 2048 if f32_factor else 1024
+    else:
+        chunk = 256
+    return chunk if B > chunk else None
+
+
+def _is_float32(dtype) -> bool:
+    """Whether a dtype object (torch's or numpy's) is float32."""
+    if isinstance(dtype, torch.dtype):
+        return dtype == torch.float32
+    try:
+        return np.dtype(dtype) == np.float32
+    except TypeError:
+        return False
+
+
+def _auto_event_capacity(y0_shape, events, dtype, lane_chunk=None) -> int:
     """Default per-event record capacity of the ensemble tier
-    (``ivp_tpu.batch._auto_event_capacity``): the buffers hold ``B * E *
-    cap * (n + 1)`` values, so budget ~32 MiB for them and clamp to [16,
-    512]; small ensembles get the single-IVP facade's 512, huge ones 16
-    (overflow is flagged on ``EnsembleResult.event_overflow`` and warned
-    about)."""
+    (``ivp_tpu.batch._auto_event_capacity``): the buffers of one solve (a
+    sub-batch of ``lane_chunk`` lanes where the lanes are chunked) hold
+    ``B * E * cap * (n + 1)`` values, so budget ~32 MiB for them and clamp
+    to [16, 512]; small ensembles get the single-IVP facade's 512, huge
+    ones 16 (overflow is flagged on ``EnsembleResult.event_overflow`` and
+    warned about)."""
     if not events:
         return 16
     n_ev = 1 if callable(events) else max(1, len(list(events)))
     B, n = int(y0_shape[0]), max(1, int(y0_shape[1]))
+    if lane_chunk is not None:
+        B = min(B, int(lane_chunk))
     itemsize = 4 if dtype == torch.float32 else 8
     cap = (32 * 1024 * 1024) // max(1, B * n_ev * (n + 1) * itemsize)
     return int(min(512, max(16, cap)))
@@ -486,9 +531,11 @@ def solve_ivp_ensemble(fun, t_span, y0_batch, method="RK45", *, rtol=1e-3,
     device call to that many attempts; the kernel runs each lane to its
     end in one launch).  ``lane_chunk``: an integer solves the lanes in
     sub-batches of that many, one after another, and concatenates the
-    results (``sol`` becomes a :class:`ChunkedBatchSolution`); ``"auto"``
-    and ``None`` mean no chunking (``ivp_tpu``'s auto table sizes TPU
-    sub-batches).  ``device`` is as for :func:`build_ensemble_solver`'s
+    results (``sol`` becomes a :class:`ChunkedBatchSolution`), and the
+    default event capacity is sized for one sub-batch; ``None`` means no
+    chunking; ``"auto"`` takes :func:`_auto_lane_chunk`'s table (Radau and
+    BDF at ``n >= 16`` only; on the card those raise NotImplementedError
+    first, ROADMAP §1 item 15).  ``device`` is as for :func:`build_ensemble_solver`'s
     solver: a tensor ``y0_batch`` keeps its device (a conflicting
     ``device`` raises ValueError), anything else goes to the card unless
     ``device="cpu"``.  The options :func:`build_ensemble_solver` does not
@@ -509,9 +556,11 @@ def solve_ivp_ensemble(fun, t_span, y0_batch, method="RK45", *, rtol=1e-3,
         finite = bool(np.isfinite(y0).all())
     B, n = y0.shape
     record = bool(dense_output or record_trajectories)
+    if isinstance(lane_chunk, str):
+        lane_chunk = _auto_lane_chunk(method, n, B, dtype, solver_options)
     if event_capacity is None:
         event_capacity = _auto_event_capacity(
-            (B, n), events, resolve_auto_dtype(dtype))
+            (B, n), events, resolve_auto_dtype(dtype), lane_chunk)
     opts = dict(
         n=n, dtype=dtype, args=tuple(args), jac=jac,
         jac_sparsity=jac_sparsity, max_steps=max_steps, first_step=first_step,

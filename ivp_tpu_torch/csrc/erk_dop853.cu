@@ -22,12 +22,14 @@ namespace ivp {
 struct Dop853 {
   static constexpr int NCOEFF = 8;
   static constexpr bool HAS_CONTROLLER = true;
+  static constexpr bool DEFERS = true;   // erk_common.cuh's DEFER
 
-  template <class F, int DENSE, class CT>
+  template <class F, int DENSE, class CT, class W>
   static __device__ double attempt(const F& f, const double* a, double t,
                                    const double* y, const double* k1,
                                    Lane<F::N, CT>& c, const ErkOptions& o,
-                                   Step<F::N, DENSE ? NCOEFF : 0>& s) {
+                                   Step<F::N, DENSE ? NCOEFF : 0>& s,
+                                   const W& want) {
     constexpr bool CONT = DENSE != DENSE_NONE;
     using namespace dop853;
     using C = Ctl<CT>;
@@ -105,6 +107,8 @@ struct Dop853 {
     s.nfev = 11;
     if (accepted) {
       f(t + h, s.ynew, k[12], a);
+      // ivp_tpu's count (methods/erk.py: 11 + 4 on an accepted step with
+      // dense output), also where DENSE_EVENTS builds no rows on the step.
       s.nfev += CONT ? 4 : 1;
       if ((c.naccpt + 1) % o.stiff_test == 0 || c.iasti > 0) {
         CT stnum = (CT)0, stden = (CT)0;
@@ -121,7 +125,8 @@ struct Dop853 {
     const bool advance = accepted && !stiff_fail;
 
     if constexpr (CONT) {
-      if (advance) {
+      if (DENSE == DENSE_EVENTS ? advance && want(last ? c.tend : t + h, s.ynew)
+                                : advance) {
         double yd[N];
         IVP_EACH(j) yd[j] = y[j] + h * (A14_0 * k[0][j] + A14_6 * k[6][j]
             + A14_7 * k[7][j] + A14_8 * k[8][j] + A14_9 * k[9][j]

@@ -44,12 +44,14 @@ __constant__ Weights weights = {IVP_DOPRI5_WEIGHTS(IVP_WEIGHT_VALUE)};
 struct Dopri5 {
   static constexpr int NCOEFF = 5;
   static constexpr bool HAS_CONTROLLER = true;
+  static constexpr bool DEFERS = true;   // erk_common.cuh's DEFER
 
-  template <class F, int DENSE, class CT>
+  template <class F, int DENSE, class CT, class W>
   static __device__ double attempt(const F& f, const double* a, double t,
                                    const double* y, const double* k1,
                                    Lane<F::N, CT>& c, const ErkOptions& o,
-                                   Step<F::N, DENSE ? NCOEFF : 0>& s) {
+                                   Step<F::N, DENSE ? NCOEFF : 0>& s,
+                                   const W& want) {
     constexpr bool CONT = DENSE != DENSE_NONE;
     using namespace dopri5;
     using C = Ctl<CT>;
@@ -66,7 +68,8 @@ struct Dopri5 {
     if (last) h = c.tend - t;
     const double t_new = last ? c.tend : t + h;
     // Whether the dense rows are built if this step advances: on every step
-    // when they are recorded, else only on a step that emits a sample.
+    // when they are recorded, else only on a step that emits a sample (with
+    // events: where the kernel's test of the step's end wants them).
     const bool due = DENSE == DENSE_EVERY ||
                      (DENSE == DENSE_SAMPLES && covers(c, t_new));
     // The stiffness test runs on this attempt if it is accepted.
@@ -133,7 +136,8 @@ struct Dopri5 {
     }
 
     if constexpr (CONT) {
-      if (due && advance) {
+      if (DENSE == DENSE_EVENTS ? advance && want(t_new, s.ynew)
+                                : due && advance) {
         IVP_EACH(j) {
           const double ydiff = s.ynew[j] - y[j];
           const double bspl = h * k[0][j] - ydiff;
@@ -200,12 +204,13 @@ struct Dopri5 {
 // an SM for VdP (80 registers, 12 bytes spilled: 1.5% faster than 8 blocks
 // on the headline) and 8 for the rest; sampled, 4 (at 8 the Lorenz
 // instantiation takes all 128 registers, spills 124 bytes and runs 18%
-// slower at B=16384).
+// slower at B=16384).  Events: lean on the ball, 10 (96 registers; 0.87 of
+// 4 blocks' time at B=524288, PERF.md §6); else 4, as sampled.
 IVP_ERK_ENTRY(dopri5_sampled, vdp, ivp::Dopri5, VdP, 64, 12, 64, 4)
 IVP_ERK_ENTRY(dopri5_sampled, decay, ivp::Dopri5, Decay, 64, 8, 64, 4)
 IVP_ERK_ENTRY(dopri5_sampled, lorenz, ivp::Dopri5, Lorenz, 64, 8, 64, 4)
 IVP_ERK_ENTRY(dopri5_sampled, cr3bp, ivp::Dopri5, Cr3bp, 64, 8, 64, 4)
 // The event modes, for the declared event sets (ivp_tpu_torch/events.py).
-IVP_ERK_EVENT_ENTRY(dopri5_sampled, ball, ground, ivp::Dopri5, Ball, Ground, 64, 8, 64, 4)
-IVP_ERK_EVENT_ENTRY(dopri5_sampled, lorenz, section, ivp::Dopri5, Lorenz, Section, 64, 8, 64, 4)
+IVP_ERK_EVENT_ENTRY(dopri5_sampled, ball, ground, ivp::Dopri5, Ball, Ground, 64, 10, 64, 4)
+IVP_ERK_EVENT_ENTRY(dopri5_sampled, lorenz, section, ivp::Dopri5, Lorenz, Section, 64, 4, 64, 4)
 IVP_ERK_LIBRARY()

@@ -21,12 +21,14 @@ namespace ivp {
 struct Rk4 {
   static constexpr int NCOEFF = 0;   // interp reads the segment's ends
   static constexpr bool HAS_CONTROLLER = false;   // nothing to run in CT
+  static constexpr bool DEFERS = true;   // erk_common.cuh's DEFER
 
-  template <class F, int DENSE, class CT>
+  template <class F, int DENSE, class CT, class W>
   static __device__ double attempt(const F& f, const double* a, double t,
                                    const double* y, const double* k1,
                                    Lane<F::N, CT>& c, const ErkOptions& o,
-                                   Step<F::N, DENSE ? NCOEFF : 0>& s) {
+                                   Step<F::N, DENSE ? NCOEFF : 0>& s,
+                                   const W&) {
     using namespace rk4;
     constexpr int N = F::N;
     const double h = c.h;

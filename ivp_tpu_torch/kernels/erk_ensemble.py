@@ -32,8 +32,11 @@ detects events and restarts lanes in the loop: the plain version runs the
 driver with events (core/events.py), and on the card each kernel's event
 mode runs (entries ``ivp_<kernel>_ev_<rhs>_<set>``, one per declared event
 set of the RHS, ivp_tpu_torch/events.py), still one launch a solve, the lean
-DOPRI5 solve included.  The event modes build the step's dense rows on every
-advanced step, where an event's Brent iteration reads them.
+DOPRI5 solve included.  An event mode builds the step's dense rows, which
+Brent's iteration reads, only on a step where an event crosses for a set
+without a restart map, and on every advanced step for one with a restart
+map (the ball); a lean solve of a set without one queues its crossing
+steps and rebuilds their rows later (csrc/erk_common.cuh, DEFER).
 
 There is no fallback: a failed build or launch raises.  Every route takes
 the same per-lane arguments, already broadcast by the caller: ``y0 (B, n)``,
@@ -516,6 +519,47 @@ def event_work(method, fun: CudaRHS, ev_set, naccpt, out: EventOut):
     nbytes = (8.0 * (1 + n) * tot(out.n_events)
               + B * (E * (4 + 1) + 4 + 4))
     return flops, nbytes
+
+
+def crossing_steps(out: EventOut):
+    """``(B,)`` float64: the steps of each lane on which an event crossed,
+    as few as its recorded occurrences allow (a step where several events
+    cross counts once, so the most occurrences of one event)."""
+    return out.n_events.to(torch.float64).amax(dim=1)
+
+
+def event_dense_steps(out: EventOut, naccpt, n_samples=None):
+    """``(B,)``: the steps whose dense rows an event solve needs, as few as
+    the outputs allow: each crossing step (:func:`crossing_steps`), whose
+    Brent iteration reads them, and, sampled, the steps that emit (at least
+    min(naccpt, n_samples), as :func:`solve_flops` takes them), whichever
+    is more.  A kernel may build more (csrc/erk_common.cuh: every advanced
+    step of a set with a restart map, a deferred crossing's step twice);
+    the bound counts what the function needs."""
+    steps = crossing_steps(out)
+    if n_samples is not None:
+        steps = torch.maximum(steps, torch.minimum(
+            torch.as_tensor(naccpt).to(steps), torch.as_tensor(
+                n_samples).to(steps)))
+    return steps
+
+
+def event_bound(method, fun: CudaRHS, ev_set, nstep, naccpt, out: EventOut,
+                n_samples=None, m=0, peak=FP64_PEAK, rate=HBM_RATE):
+    """``(ms, bound_by, ms_rows_every_accept)``: :func:`solve_bound` of an
+    event-mode solve (no record) with the event work (:func:`event_work`)
+    and the dense rows on the steps that need them
+    (:func:`event_dense_steps`); and the same bound with rows on every
+    accepted step (the kernels' own count before the rows were lazy).
+    ``ev_set``: the declared set (events.SETS)."""
+    fl, by = event_work(method, fun, ev_set, naccpt, out)
+    dense = event_dense_steps(out, naccpt, n_samples)
+    ms, bound_by = solve_bound(method, fun, nstep, naccpt, n_samples, m, peak,
+                               rate, dense_steps=dense, extra_bytes=by,
+                               extra_flops=fl)
+    every = solve_bound(method, fun, nstep, naccpt, n_samples, m, peak, rate,
+                        dense_steps=naccpt, extra_bytes=by, extra_flops=fl)[0]
+    return ms, bound_by, every
 
 
 def solve_bound(method, fun: CudaRHS, nstep, naccpt, n_samples=None, m=0,

@@ -360,7 +360,7 @@ def record_launches(method, fun: CudaRHS, y0, t0, tf, hmax, first_step, rtol,
     launched until no lane runs, and the drain.  ``carry_out``: a dict to
     receive the lane carry after the last launch (``k1``, ``h``,
     ``facold``, ``hlamb``, ``reject``, ``iasti``, ``nonstiff``,
-    ``stiff_in``)."""
+    ``stiff_in``; with events also ``g_prev`` and ``hits``)."""
     r = RecordLaunch(method, fun, y0, t0, tf, hmax, first_step, rtol, atol,
                      args, max_steps, t_grid, params, rec_cap, record_cont,
                      lib, stream, events)
@@ -383,6 +383,8 @@ def record_launches(method, fun: CudaRHS, y0, t0, tf, hmax, first_step, rtol,
             break
     if carry_out is not None:
         carry_out.update(r.lane_carry)
+        if r.ev_out is not None:
+            carry_out.update(zip(("g_prev", "hits"), r.ev_keep))
     return _assemble(pieces, r.B, r.n, r.C, counts, r.last(), chunks,
                      r.ev_out)
 
@@ -415,8 +417,9 @@ def record_bound(method, fun: CudaRHS, nstep, naccpt, n_rec, record_cont,
     solve whose lanes made ``nstep`` attempts, ``naccpt`` accepted, and
     recorded ``n_rec`` rows: :func:`erk_ensemble.solve_bound`'s work and
     bytes, with the dense rows built on every recorded step when
-    ``record_cont`` or with events (else on the emitting steps as for
-    samples), each recorded row of ``3 + n + C*n`` doubles written once,
+    ``record_cont``, else with events on the steps that need them
+    (:func:`erk_ensemble.event_dense_steps`), else on the emitting steps
+    as for samples, each recorded row of ``3 + n + C*n`` doubles written once,
     and with ``events`` ``(set, EventOut)`` the event work
     (:func:`erk_ensemble.event_work`)."""
     C = record_coeffs(method) if record_cont else 0
@@ -425,7 +428,8 @@ def record_bound(method, fun: CudaRHS, nstep, naccpt, n_rec, record_cont,
         method, fun, events[0], naccpt, events[1])
     return E.solve_bound(
         method, fun, nstep, naccpt, n_samples, m, peak, rate,
-        dense_steps=n_rec if record_cont or events is not None else None,
+        dense_steps=(n_rec if record_cont else None if events is None else
+                     E.event_dense_steps(events[1], naccpt, n_samples)),
         extra_bytes=8.0 * rows * (3 + fun.n + C * fun.n) + ev_bytes,
         extra_flops=ev_flops)
 

@@ -86,11 +86,16 @@ instantiation), then the phases (all by default, ``ab`` only with
 * ``events``: each main-path event instantiation alone (``EVENT_B``): the
   bouncing ball (``dopri5_sampled_ev``) at B=16384 and 524288 and the
   Lorenz section (``dop853_ev``) at B=16384 and 262144, on chip_smoke.py's
-  inputs, timed in ``turn_ms`` turns, with the bound (the kernel's own
-  Brent count), its share, warp efficiency and the event work a lane; then
-  ptxas's registers and spills of every event instantiation; and the
-  record-event instantiation of the recording ball (``dopri5_record_cont_ev``)
-  alone: one launch (the first chunk, from y0) at ``EVENT_RECORD``;
+  inputs, timed in ``turn_ms`` turns, with the bound by both counts (rows
+  on the steps that need them, and on every accepted step), its share,
+  warp efficiency, the event work a lane, Brent's evaluations and the
+  attempts a crossing, the lean solve over the same span (the section),
+  and where the lanes cross (``events_crossings``: the share of a lane's
+  steps and of a warp's iterations with a crossing, from a record-event
+  run); then ptxas's registers and spills of every event instantiation;
+  and the record-event instantiation of the recording ball
+  (``dopri5_record_cont_ev``) alone: one launch (the first chunk, from y0)
+  at ``EVENT_RECORD``;
 * ``stiff``: the stiff kernels (csrc/radau.cu, csrc/bdf.cu) alone on
   chip_smoke.py's stiff main path (bench.py's VdP mu=1000 to t = 3000, both
   controller types) at each of ``STIFF_B``: one launch with no budget from
@@ -120,7 +125,15 @@ instantiation), then the phases (all by default, ``ab`` only with
   decay again at B=65536), then ``ab_stiff``: ``AB_STIFF_ROUNDS`` rounds of
   old, new, new, old ``turn_ms`` on the stiff row at each of ``STIFF_B``
   and on Robertson and decay at ``AB_STIFF_WIDE``, with the bound and each
-  side's share, and both sides' ptxas lines and SASS walks.
+  side's share, and both sides' ptxas lines and SASS walks;
+* ``ab_events`` (needs ``--baseline``): every event instantiation built
+  from another source tree against the package's: ``ab_events_bitwise``,
+  the lanes differing in every output, event buffer and carry field of
+  each ``event_ab_cases`` case (B=4096) and of each main path at its
+  ``EVENT_B`` lanes, then ``ab_events``: ``AB_EVENTS_ROUNDS`` rounds of
+  old, new, new, old ``turn_ms`` of each main path, each side's kernel
+  alone by torch.profiler (``kernel_ms``), the bound by both counts and
+  each side's share, and both sides' registers and spills.
 
 The A/B, occupancy and two-kernel timings (``ab_stiff`` and
 ``stiff_occupancy`` too) are turns of ``turn_ms``: five
@@ -163,7 +176,7 @@ OCC_THREADS, OCC_MIN_BLOCKS = (64, 128, 256), (6, 7, 8, 10, 12)
 OCC_ROUNDS = 10
 PHASES = ("sass", "settle", "sweep", "turns", "profile", "occupancy", "erk",
           "erk_occupancy", "ab", "ab_record", "events", "stiff",
-          "stiff_occupancy", "ab_stiff")
+          "stiff_occupancy", "ab_stiff", "ab_events")
 # The stiff phase: lanes, turns.
 STIFF_B = (16384, 131072)
 STIFF_ROUNDS = 3
@@ -184,6 +197,13 @@ EVENT_RECORD = (16384, 256)
 EVENT_B = (("DOPRI5", "ground", (16384, 524288)),
            ("DOP853", "section", (16384, 262144)))
 EVENT_ROUNDS = 5
+# ab_events: the bit-for-bit cases' lanes (event_ab_cases), their record
+# chunks, and the rounds of old, new, new, old at EVENT_B.
+AB_EVENTS_B = 4096
+AB_EVENTS_CAPS = (37, 4096)
+AB_EVENTS_ROUNDS = 10
+# About 60% of each method's attempts on the section to t = 2.
+AB_EVENTS_BUDGET = {"DOPRI5": 120, "DOP853": 36, "RK23": 300, "RK4": 240}
 # The erk phase: lanes, and (method, tf, rtol, atol, first_step) on Lorenz
 # with y0 = [1, 1, 1] + 1e-3 N(0, 1), as chip_smoke.py's main path.
 ERK_B = (4096, 16384, 65536, 262144)
@@ -325,7 +345,7 @@ _INS = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?"
 # a set's struct), then threads and min blocks.
 _ERK = re.compile(
     r"erk_kernelINS_\d+(\w+?)E\d+(\w+?)([fd])Lb([01])E(?:Li([0-3])E)?"
-    r"(?:NS_8NoEventsE|\d+([A-Z]\w*?)(?=Li\d+E))?")
+    r"(?:NS_8NoEventsE|\d+([A-Z]\w*?)(?=Li\d+E))?(?:Li(\d+)ELi(\d+)E)?")
 
 
 # An instantiation of csrc/radau.cu's radau_kernel or csrc/bdf.cu's
@@ -351,7 +371,8 @@ def stiff_instantiation(mangled):
 def instantiation(mangled):
     """``Lorenz/f32/lean`` for an erk_kernel instantiation (``/record``,
     ``/record_cont`` or ``/resume`` after a record or the resumable mode's,
-    ``/ev_<Set>`` after an event mode's), ``radau/VdP/f32/128x4`` for a
+    ``/ev_<Set>/<threads>x<min blocks>`` after an event mode's),
+    ``radau/VdP/f32/128x4`` for a
     stiff one, else the functor the name holds."""
     stiff = stiff_instantiation(mangled)
     if stiff:
@@ -361,7 +382,8 @@ def instantiation(mangled):
         return next((f for f in FUNCTORS if f in mangled), mangled)
     rec = {None: "", "0": "", "1": "/record", "2": "/record_cont",
            "3": "/resume"}[m.group(5)]
-    ev = f"/ev_{m.group(6)}" if m.group(6) else ""
+    ev = (f"/ev_{m.group(6)}/{m.group(7)}x{m.group(8)}" if m.group(6)
+          else "")
     return (f"{m.group(2)}/{'f32' if m.group(3) == 'f' else 'f64'}/"
             f"{'sampled' if m.group(4) == '1' else 'lean'}{rec}{ev}")
 
@@ -757,6 +779,28 @@ def profile_solves(solver, dev):
         line("profile", error="'no device time in key_averages()'")
 
 
+def kernel_ms(fn, n=TURN_LAUNCHES, match="erk_kernel"):
+    """Device ms of one launch of ``fn``'s kernels whose name holds
+    ``match``, from torch.profiler over ``n`` launches after an untimed
+    one: the kernel alone, where a turn's time (``turn_ms``) is held by the
+    host's work around a short launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        outs = [fn() for _ in range(n)]
+        torch.cuda.synchronize()
+    del outs
+    us = sum(getattr(e, "self_device_time_total", None)
+             or getattr(e, "self_cuda_time_total", 0)
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and match in e.key)
+    return 1e-3 * float(us) / n
+
+
 def same_counters(a, b):
     return all(torch.equal(x, y) for x, y in zip(a[2:], b[2:]))
 
@@ -854,7 +898,8 @@ ERK_OCC_ROUNDS = 5
 def erk_occupancy(build, rhs, dev, methods):
     """Each of ``methods``' lean and sampled instantiations on Lorenz under
     every ERK_OCC setting, at each of AB_ERK_B, in turns (and lean DOPRI5
-    on the VdP headline at MAIN_B, its main path); counters held to the
+    on the VdP headline at MAIN_B, its main path; and each main-path event
+    instantiation of EVENT_B at its lane counts); counters held to the
     package build; ranked."""
     from ivp_tpu_torch.kernels import erk_ensemble as K
 
@@ -870,7 +915,8 @@ def erk_occupancy(build, rhs, dev, methods):
     for (src, s), path in sorted(libs.items()):
         for fn, regs, st, ld in build.ptxas_report(path):
             name = instantiation(fn)
-            if name.startswith(("Lorenz/f32", "VdP/f32/lean")):
+            if (name.startswith(("Lorenz/f32", "VdP/f32/lean"))
+                    or "/ev_" in name):
                 line("erk_occupancy_ptxas", source=src, threads=s[0],
                      min_blocks=s[1], instantiation=name, registers=regs,
                      spill_stores=st, spill_loads=ld)
@@ -883,10 +929,19 @@ def erk_occupancy(build, rhs, dev, methods):
         if method == "DOPRI5":
             cases.append(("vdp_lean", MAIN_B,
                           (rhs.vdp, *problem_args("vdp", MAIN_B, dev))))
+        kws = {}
+        for m, set_name, Bs in EVENT_B:
+            if m == method:
+                for B in Bs:
+                    fun, a, ev = event_main_inputs(m, set_name, B, dev)
+                    case = f"{set_name}_events"
+                    cases.append((case, B, (fun, *a, (), 200_000)))
+                    kws[case, B] = dict(events=ev)
         for case, B, args in cases:
-            ref = K.erk_ensemble_cuda(method, *args)
+            kw = kws.get((case, B), {})
+            ref = K.erk_ensemble_cuda(method, *args, **kw)
             run = {s: (lambda lib=loaded[src, s]: K.erk_ensemble_cuda(
-                method, *args, lib=lib)) for s in ERK_OCC}
+                method, *args, lib=lib, **kw)) for s in ERK_OCC}
             equal = {}
             for s in ERK_OCC:
                 out = run[s]()
@@ -1211,57 +1266,109 @@ def ab_record_summary(label, method, cont, new, ms, B, cap, regs, old_lib):
          **lay)
 
 
+def crossing_share(method, fun, a, ev, dev):
+    """Where a solve's lanes cross, from a record-event run on the same
+    inputs (steps records, ``rec_cap=1024``: the same steps as the lean
+    solve's): ``{lane_share, warp_share, ...}``, the share of the lanes'
+    advanced steps on which some event of the lane crosses, and of the
+    warps' advanced-step iterations (32 consecutive lanes a warp, each warp
+    iterating to its longest lane's rows) on which some lane of the warp
+    crosses, the iterations a warp runs the rows and Brent at once.  A
+    crossing's step is the row whose span holds its time (xold < t_ev <=
+    t).  Rejected attempts are left out: the iteration of a lane's k-th
+    step is k."""
+    from ivp_tpu_torch.kernels import erk_record as R
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    r = R.record_launches(method, fun, *a, (), 200_000, None, None, 1024,
+                          False, None, stream, events=ev)
+    B, S = r.rec_t.shape
+    valid = torch.arange(S, device=dev)[None] < r.n_rec[:, None]
+    ts = torch.where(valid, r.rec_t, torch.inf).contiguous()
+    E, cap = r.events.t_events.shape[1:]
+    tev = r.events.t_events.reshape(B, E * cap).contiguous()
+    ok = (torch.arange(cap, device=dev)[None, None]
+          < r.events.n_events[:, :, None]).reshape(B, E * cap)
+    idx = torch.searchsorted(ts, tev).clamp(max=max(S - 1, 0))
+    mark = torch.zeros((B, S + 1), dtype=torch.bool, device=dev)
+    mark.scatter_(1, torch.where(ok, idx, S), True)
+    mark = mark[:, :S]
+    W = B // 32
+    warp_mark = mark[:W * 32].reshape(W, 32, S).any(1)
+    warp_rows = r.n_rec[:W * 32].reshape(W, 32).max(1).values
+    out = dict(lane_share=float(mark.sum()) / float(r.n_rec.sum()),
+               warp_share=float(warp_mark.sum()) / float(warp_rows.sum()),
+               crossing_steps_per_lane=float(mark.sum()) / B,
+               rows_per_lane=float(r.n_rec.double().mean()),
+               warp_iterations_per_warp=float(warp_rows.double().mean()),
+               warp_iterations_crossing_per_warp=float(warp_mark.sum()) / W)
+    del r, ts, tev, mark, warp_mark
+    return out
+
+
 def events_phase(build, dev):
     """Each main-path event instantiation alone (chip_smoke.py's inputs:
     the ball from heights 2..20 with 8 restarts, the Lorenz section to t =
     20) at each of its EVENT_B lane counts: ``EVENT_ROUNDS`` turns, the
-    bound from the kernel's own Brent count (erk_ensemble.event_work), the
-    share of it reached, warp efficiency and the event work a lane; then
-    ptxas's registers and spills of every event instantiation."""
-    import chip_smoke as cs
-    from ivp_tpu_torch import events as E
-    from ivp_tpu_torch import rhs
-    from ivp_tpu_torch.events import SETS, EventArgs
+    bound by both counts (erk_ensemble.event_bound: rows on the steps the
+    function needs them on, and on every accepted step), its share, warp efficiency,
+    the event work a lane, Brent's evaluations a crossing and steps a
+    crossing, and where the lanes cross (crossing_share); the Lorenz
+    section's lean DOP853 solve over the same span beside it; then ptxas's
+    registers and spills of every event instantiation."""
+    from ivp_tpu_torch.events import SETS
     from ivp_tpu_torch.kernels import erk_ensemble as K
 
     for method, set_name, Bs in EVENT_B:
         for B in Bs:
-            if set_name == "ground":
-                y0 = torch.as_tensor(cs.ball_y0(B), device=dev)
-                a = cs.solve_args(y0, cs.BALL_TF, cs.BALL_TOL,
-                                         cs.BALL_TOL, None, dev)
-                fun, ev = rhs.ball, EventArgs((E.ground,), cs.BALL_CAP,
-                                              cs.BALL_RESTARTS)
-            else:
-                y0 = torch.as_tensor(cs.lorenz_y0(B, seed=9), device=dev)
-                a = cs.solve_args(y0, cs.SECTION_TF, *cs.LORENZ_TOL,
-                                         None, dev)
-                fun, ev = rhs.lorenz, EventArgs((E.lorenz_section,),
-                                                cs.SECTION_CAP, 0)
+            fun, a, ev = event_main_inputs(method, set_name, B, dev)
             run = lambda: K.erk_ensemble_cuda(method, fun, *a, (), 200_000,
                                               events=ev)
             out = run()
             torch.cuda.synchronize()
             ms = [turn_ms(run) for _ in range(EVENT_ROUNDS)]
-            fl, by = K.event_work(method, fun, SETS[set_name], out[5], out[9])
-            b_ms, b_by = K.solve_bound(method, fun, out[4], out[5],
-                                       dense_steps=out[5], extra_flops=fl,
-                                       extra_bytes=by)
+            b_ms, b_by, every = K.event_bound(method, fun, SETS[set_name],
+                                              out[4], out[5], out[9])
+            fl, _ = K.event_work(method, fun, SETS[set_name], out[5], out[9])
             med = float(np.median(ms))
+            crossings = float(out[9].n_events.double().sum())
+            extra = {}
+            if set_name == "section":
+                lean = lambda: K.erk_ensemble_cuda(method, fun, *a, (),
+                                                   200_000)
+                lean()
+                extra["lean_same_span_ms"] = float(np.median(
+                    [turn_ms(lean) for _ in range(EVENT_ROUNDS)]))
             line("events", kernel=f"{K.KERNELS[method][0]}_ev", set=set_name,
                  B=B, turn_ms=[round(m, 4) for m in ms], median_ms=med,
                  bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / med,
+                 bound_ms_rows_every_accept=every,
+                 bound_share_rows_every_accept=every / med,
                  event_flops_share=fl / (fl + K.solve_flops(
-                     method, fun, out[4], out[5], dense_steps=out[5])),
+                     method, fun, out[4], out[5],
+                     dense_steps=K.crossing_steps(out[9]))),
                  mean_nstep=float(out[4].double().mean()),
                  warp_efficiency=float(out[4].double().sum())
                  / (32 * warp_attempts(out[4])),
                  mean_events=float(out[9].n_events.double().mean()),
                  mean_restarts=float(out[9].n_restarts.double().mean()),
                  brent_evals_per_lane=float(out[9].n_brent.double().mean()),
-                 statuses=repr(dict(Counter(out[2].cpu().tolist()))))
-            del out, a, y0
+                 brent_evals_per_crossing=float(out[9].n_brent.double().sum())
+                 / crossings,
+                 attempts_per_crossing=float(out[4].double().sum())
+                 / crossings,
+                 statuses=repr(dict(Counter(out[2].cpu().tolist()))),
+                 **extra)
+            del out
+            line("events_crossings", kernel=f"{K.KERNELS[method][0]}_ev",
+                 set=set_name, B=B,
+                 **crossing_share(method, fun, a, ev, dev))
+            del a
     # The recording ball's kernel alone: one launch, the first chunk.
+    import chip_smoke as cs
+    from ivp_tpu_torch import events as E
+    from ivp_tpu_torch import rhs
+    from ivp_tpu_torch.events import EventArgs
     from ivp_tpu_torch.kernels import erk_record as R
 
     B, cap = EVENT_RECORD
@@ -1293,6 +1400,235 @@ def events_phase(build, dev):
             if "/ev_" in inst:
                 line("ptxas_events", library=name, instantiation=inst,
                      registers=regs, spill_stores=st, spill_loads=ld)
+
+
+ENSEMBLE_FIELDS = ("t", "y", "status", "nfev", "nstep", "naccpt", "nrejct",
+                   "y_samples", "n_samples")
+
+
+def event_ab_cases(dev, B=None, caps=AB_EVENTS_CAPS):
+    """The bit-for-bit cases of every event instantiation at ``B`` lanes:
+    ``[(case, kernel, method, run)]``, ``run(lib, stream) -> {field:
+    tensor}``
+    every output, event buffer and (record modes) lane and event carry
+    field of one solve through ``lib``'s entry (None: the package's) on
+    ``stream``; on CPU tensors with stream 0 it runs a g++ build (the
+    rehearsal).  For each method, chip_smoke.py's event checks: the ball
+    (heights 2..20, t in [0, 8], 8 restarts; sampled with 2) and the Lorenz
+    section on t in [0, 2] (every crossing; sampled with the third
+    terminal), lean, sampled, and recorded in both record modes at each of
+    ``caps`` rows a chunk; and lean on the section: the third crossing
+    terminal, both directions, 2 occurrences a lane (overflow), and a
+    step budget that stops each lane after about 60% of its attempts
+    (``AB_EVENTS_BUDGET``; ``method``: the kernel's)."""
+    import chip_smoke as cs
+    from ivp_tpu_torch import events as E
+    from ivp_tpu_torch import rhs
+    from ivp_tpu_torch.events import EventArgs
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+    from ivp_tpu_torch.kernels import erk_record as R
+
+    B = AB_EVENTS_B if B is None else B
+    T = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+    yb, yl = T(cs.ball_y0(B)), T(cs.lorenz_y0(B, seed=11))
+    grids = {"ground": torch.broadcast_to(
+        T(np.linspace(0.0, cs.BALL_CHECK_TF, 31)), (B, 31)),
+        "section": torch.broadcast_to(
+        T(np.linspace(0.0, cs.EVENT_CHECK_TF, 21)), (B, 21))}
+    sec = E.lorenz_section
+
+    def lean(method, fun, a, ev, grid=None, max_steps=200_000):
+        def run(lib, stream):
+            out = K.ensemble_launch(method, fun, *a, (), max_steps, grid,
+                                    None, lib, stream, ev)
+            return {**dict(zip(ENSEMBLE_FIELDS, out[:9])),
+                    **out[9]._asdict()}
+        return run
+
+    def record(method, fun, a, ev, cap, cont):
+        def run(lib, stream):
+            carry = {}
+            r = R.record_launches(method, fun, *a, (), 200_000, None, None,
+                                  cap, cont, lib, stream, carry_out=carry,
+                                  events=ev)
+            out = {f: getattr(r, f) for f in r._fields
+                   if f not in ("events", "chunks")}
+            out.update(r.events._asdict())
+            out.update({f"carry_{k}": v for k, v in carry.items()})
+            out["chunks"] = torch.full((B,), r.chunks, device=dev)
+            return out
+        return run
+
+    out = []
+    for method, (rtol, atol, h) in cs.EVENT_LORENZ.items():
+        kern = K.KERNELS[method][0]
+        ab = cs.solve_args(yb, cs.BALL_CHECK_TF, cs.BALL_TOL, cs.BALL_TOL,
+                           cs.RK4_BALL_STEP if method == "RK4" else None, dev)
+        al = cs.solve_args(yl, cs.EVENT_CHECK_TF, rtol, atol, h, dev)
+        full = EventArgs((E.ground,), cs.BALL_CAP, cs.BALL_RESTARTS)
+        every = EventArgs((sec,), cs.SECTION_CAP, 0)
+        cases = [
+            ("ground_lean", f"{kern}_ev", lean(method, rhs.ball, ab, full)),
+            ("ground_sampled", f"{kern}_ev", lean(
+                method, rhs.ball, ab, EventArgs((E.ground,), cs.BALL_CAP, 2),
+                grids["ground"])),
+            ("section_lean", f"{kern}_ev", lean(method, rhs.lorenz, al,
+                                                every)),
+            ("section_terminal3", f"{kern}_ev", lean(
+                method, rhs.lorenz, al,
+                EventArgs((sec.replace(terminal=3),), cs.SECTION_CAP, 0))),
+            ("section_both_directions", f"{kern}_ev", lean(
+                method, rhs.lorenz, al,
+                EventArgs((sec.replace(direction=0),), cs.SECTION_CAP, 0))),
+            ("section_cap2", f"{kern}_ev", lean(
+                method, rhs.lorenz, al, EventArgs((sec,), 2, 0))),
+            ("section_budget", f"{kern}_ev", lean(
+                method, rhs.lorenz, al, every,
+                max_steps=AB_EVENTS_BUDGET[method])),
+            ("section_sampled", f"{kern}_ev", lean(
+                method, rhs.lorenz, al,
+                EventArgs((sec.replace(terminal=3),), cs.SECTION_CAP, 0),
+                grids["section"]))]
+        for cap in caps:
+            for cont in (False, True):
+                name = R.record_kernel(method, cont, True)
+                cases += [(f"ground_record_cap{cap}", name,
+                         record(method, rhs.ball, ab, full, cap, cont)),
+                        (f"section_record_cap{cap}", name,
+                         record(method, rhs.lorenz, al, every, cap, cont))]
+        out += [(case, kernel, method, run) for case, kernel, run in cases]
+    return out
+
+
+def event_main_inputs(method, set_name, B, dev):
+    """``(fun, kernel args, EventArgs)`` of a main-path event solve at B
+    lanes (chip_smoke.py's inputs): the ball from heights 2..20 to t = 15
+    with 8 restarts, the Lorenz section to t = 20."""
+    import chip_smoke as cs
+    from ivp_tpu_torch import events as E
+    from ivp_tpu_torch import rhs
+    from ivp_tpu_torch.events import EventArgs
+
+    if set_name == "ground":
+        y0 = torch.as_tensor(cs.ball_y0(B), device=dev)
+        return rhs.ball, cs.solve_args(y0, cs.BALL_TF, cs.BALL_TOL,
+                                       cs.BALL_TOL, None, dev), EventArgs(
+            (E.ground,), cs.BALL_CAP, cs.BALL_RESTARTS)
+    y0 = torch.as_tensor(cs.lorenz_y0(B, seed=9), device=dev)
+    return rhs.lorenz, cs.solve_args(y0, cs.SECTION_TF, *cs.LORENZ_TOL, None,
+                                     dev), EventArgs(
+        (E.lorenz_section,), cs.SECTION_CAP, 0)
+
+
+def ab_events(build, dev, baseline, label):
+    """The event instantiations built from ``baseline`` against the
+    package's: ``ab_events_bitwise``, the lanes differing in every output,
+    event buffer and carry field (bits; a NaN equals any NaN) of each
+    ``event_ab_cases`` case and of each main path at its EVENT_B lanes;
+    then ``ab_events``: ``AB_EVENTS_ROUNDS`` rounds of old, new, new, old
+    ``turn_ms`` of each main path at each of its EVENT_B and each side's
+    kernel alone by torch.profiler (old, new, new, old: ``kernel_ms``), with
+    the bound by both counts (erk_ensemble.event_bound) and each side's
+    share, and both sides' registers and spills of every event
+    instantiation."""
+    from ivp_tpu_torch.events import SETS
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(4) as ex:
+        futs = {m: ex.submit(build.build, src_dir=baseline,
+                             name=K.KERNELS[m][1]) for m in K.KERNELS}
+        paths = {m: f.result() for m, f in futs.items()}
+    old = {m: build.load(p) for m, p in paths.items()}
+    line("ab_events_build", old=label,
+         seconds=round(time.perf_counter() - t0, 3))
+    for side, src in (("new", build.SRC_DIR), (label, baseline)):
+        for m in K.KERNELS:
+            p = build.library_path(src, (), K.KERNELS[m][1])
+            for fn, regs, st, ld in build.ptxas_report(p):
+                inst = instantiation(fn)
+                if "/ev_" in inst:
+                    line("ab_events_ptxas", side=side, library=p.name,
+                         instantiation=inst, registers=regs,
+                         spill_stores=st, spill_loads=ld)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for case, kernel, m, run in event_ab_cases(dev):
+        new, ref = run(None, stream), run(old[m], stream)
+        torch.cuda.synchronize()
+        diff = fields_lanes_differing(new, ref)
+        line("ab_events_bitwise", old=label, kernel=kernel, case=case,
+             B=int(new["t"].shape[0]), identical=not any(diff.values()),
+             fields=len(diff),
+             lanes_differing=repr({k: v for k, v in diff.items() if v}),
+             mean_events=float(new["n_events"].double().mean()))
+        del new, ref
+    for method, set_name, Bs in EVENT_B:
+        for B in Bs:
+            fun, a, ev = event_main_inputs(method, set_name, B, dev)
+            run = {"new": lambda: K.erk_ensemble_cuda(
+                method, fun, *a, (), 200_000, events=ev),
+                "old": lambda: K.erk_ensemble_cuda(
+                method, fun, *a, (), 200_000, lib=old[method], events=ev)}
+            outs = {w: run[w]() for w in run}
+            torch.cuda.synchronize()
+            diff = fields_lanes_differing(
+                *({**dict(zip(ENSEMBLE_FIELDS, o[:9])), **o[9]._asdict()}
+                  for o in (outs["new"], outs["old"])))
+            line("ab_events_bitwise", old=label,
+                 kernel=f"{K.KERNELS[method][0]}_ev",
+                 case=f"{set_name}_main", B=B,
+                 identical=not any(diff.values()), fields=len(diff),
+                 lanes_differing=repr({k: v for k, v in diff.items() if v}),
+                 mean_events=float(outs["new"][9].n_events.double().mean()))
+            out = outs["new"]
+            del outs
+            ms = {"old": [], "new": []}
+            for r in range(AB_EVENTS_ROUNDS):
+                for what in ("old", "new", "new", "old"):
+                    ms[what].append(turn_ms(run[what]))
+            med = {w: float(np.median(v)) for w, v in ms.items()}
+            prof = {"old": [], "new": []}
+            for what in ("old", "new", "new", "old"):
+                prof[what].append(kernel_ms(run[what]))
+            pairs = zip(zip(ms["new"][::2], ms["new"][1::2]),
+                        zip(ms["old"][::2], ms["old"][1::2]))
+            b_ms, b_by, every = K.event_bound(method, fun, SETS[set_name],
+                                              out[4], out[5], out[9])
+            line("ab_events", old=label, kernel=f"{K.KERNELS[method][0]}_ev",
+                 set=set_name, B=B,
+                 old_ms=[round(x, 4) for x in ms["old"]],
+                 new_ms=[round(x, 4) for x in ms["new"]],
+                 old_median=round(med["old"], 4),
+                 new_median=round(med["new"], 4),
+                 new_over_old=round(med["new"] / med["old"], 4),
+                 rounds_new_won=f"{sum(sum(n) < sum(o) for n, o in pairs)}"
+                                f"/{AB_EVENTS_ROUNDS}",
+                 profiler_kernel_ms_old=[round(x, 4) for x in prof["old"]],
+                 profiler_kernel_ms_new=[round(x, 4) for x in prof["new"]],
+                 bound_ms=round(b_ms, 6), bound_by=b_by,
+                 share_new=round(b_ms / med["new"], 4),
+                 share_old=round(b_ms / med["old"], 4),
+                 bound_ms_rows_every_accept=round(every, 6),
+                 share_new_rows_every_accept=round(every / med["new"], 4),
+                 warp_efficiency=round(float(out[4].double().sum())
+                                       / (32 * warp_attempts(out[4])), 5))
+            del out, a
+
+
+def fields_lanes_differing(new, old):
+    """{field: lanes on which it differs} of two dicts of per-lane tensors
+    (carry_lanes_differing's bits; a field of another shape differs on
+    every lane, None equals None)."""
+    diff = {}
+    for f, x in new.items():
+        y = old[f]
+        if x is None or y is None:
+            diff[f] = 0 if x is None and y is None else -1
+        elif x.shape != y.shape:
+            diff[f] = x.shape[0]
+        else:
+            diff.update(carry_lanes_differing({f: x}, {f: y}))
+    return diff
 
 
 def stiff_phase(build, dev):
@@ -1704,11 +2040,12 @@ def main():
     global SASS_DIR
     SASS_DIR = opts.sass_dir
     phases = (set(opts.phases.split(",")) if opts.phases else
-              set(PHASES) - ({"ab_record", "ab_stiff"} if opts.baseline
-                             else {"ab", "ab_record", "ab_stiff"}))
+              set(PHASES) - ({"ab_record", "ab_stiff", "ab_events"}
+                             if opts.baseline else
+                             {"ab", "ab_record", "ab_stiff", "ab_events"}))
     if not phases <= set(PHASES):
         ap.error(f"unknown phases {sorted(phases - set(PHASES))}")
-    if phases & {"ab", "ab_record", "ab_stiff"} and not opts.baseline:
+    if phases & {"ab", "ab_record", "ab_stiff", "ab_events"} and not opts.baseline:
         ap.error("the ab phases need --baseline")
     if not torch.cuda.is_available():
         print("measure_kernel: no CUDA device", file=sys.stderr)
@@ -1731,7 +2068,7 @@ def main():
     for functor, info in ptxas_lines(lib.with_suffix(".log").read_text()):
         line("ptxas", build="new", functor=functor, info=repr(info))
     if phases & {"sass", "erk", "erk_occupancy", "ab", "ab_record",
-                 "events"}:
+                 "events", "ab_events"}:
         t = time.perf_counter()
         erk_libs = build.build_all()
         line("build_all", seconds=round(time.perf_counter() - t, 3),
@@ -1794,12 +2131,14 @@ def main():
         events_phase(build, dev)
     if "stiff" in phases:
         stiff_phase(build, dev)
-    for baseline in (opts.baseline if phases & {"ab", "ab_record", "ab_stiff"}
-                     else ()):
+    for baseline in (opts.baseline if phases & {"ab", "ab_record", "ab_stiff",
+                                                "ab_events"} else ()):
         label = (baseline.parent.name if baseline.name == "csrc"
                  else baseline.name)
         if "ab_stiff" in phases:
             ab_stiff(build, dev, baseline, label)
+        if "ab_events" in phases:
+            ab_events(build, dev, baseline, label)
         if "ab" in phases:
             ab(k, build, rhs, dev, baseline, label)
             ab_erk(build, rhs, dev, baseline, label)
