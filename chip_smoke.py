@@ -29,6 +29,7 @@ error, times and bound, then the card, and last ``{"ok": true, "device":
 {...}}``.  Any failure raises: the exit code is not 0 and no result line is
 printed.  Needs one CUDA device; fails without one.
 """
+import contextlib
 import json
 import subprocess
 import sys
@@ -648,17 +649,15 @@ def check_record(name, counters, errs):
 
 
 def launches_of(fn):
-    """``(fn(), {kernel: launches})``: every kernel's count (the lean
-    DOPRI5 kernel's, the erk kernels' and the record kernels') set to 0
-    just before ``fn`` and read just after it (only kernels it launched)."""
+    """``(fn(), {kernel: launches})``: every kernel's count set to 0 just
+    before ``fn`` and the lean DOPRI5 kernel's, the erk kernels' and the
+    record kernels' read just after it (only kernels it launched).  Around
+    ``kernel_device_ms``, the counts of its measured call."""
     from ivp_tpu_torch.kernels import dopri5_ensemble as k
     from ivp_tpu_torch.kernels import erk_ensemble as K
     from ivp_tpu_torch.kernels import erk_record as R
 
-    k.LAUNCHES = 0
-    for d in (K.LAUNCHES, R.LAUNCHES):
-        for name in d:
-            d[name] = 0
+    zero_counts()
     out = fn()
     torch.cuda.synchronize()
     seen = {n: v for d in (K.LAUNCHES, R.LAUNCHES) for n, v in d.items() if v}
@@ -789,34 +788,134 @@ def record_chunking_bitwise(dev):
                 raise AssertionError(f"{method} {mode}: {n} lanes differ")
 
 
-def kernel_device_ms(fn, match="erk_kernel"):
-    """``(result, device ms of the kernels whose name holds ``match``,
-    device ms of every kernel)`` of one call of ``fn``, from
-    torch.profiler; raises if the profiler saw none."""
+# How long a profile waits after it starts, between its warm-up and the
+# call it measures, and after that call.  On an H100 a trace lost kernels
+# at both ends: the first launches of a chunked solve soon after the
+# profile started, and, about one profile in ten in the smoke, some of the
+# kernels of the call just before the profile stopped (none in 216 profiles
+# that ran a tiny kernel after the measured call).  So each profile runs its
+# work once before the call it measures and a tiny kernel after it.
+PROFILE_SETTLE_S = 0.02
+# The record_function range of the measured call: a profile counts the
+# device events that start inside it.
+PROFILE_WINDOW = "chip_smoke.measured"
+
+
+@contextlib.contextmanager
+def settled_profile():
+    """torch.profiler over CPU and CUDA, entered, the card idle and
+    ``PROFILE_SETTLE_S`` gone by before the body runs."""
     from torch.profiler import ProfilerActivity, profile
 
-    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        e0.record()
-        out = fn()
-        e1.record()
         torch.cuda.synchronize()
-    mine = total = 0.0
-    for ev in prof.key_averages():
-        t = getattr(ev, "device_time_total", None)
-        if t is None:
-            t = getattr(ev, "cuda_time_total", 0.0)
-        if getattr(ev, "device_type", None) is not None and \
-                str(ev.device_type).endswith("CPU"):
-            continue
-        total += t
-        if match in ev.key:
-            mine += t
-    if mine <= 0.0:
-        raise AssertionError(f"torch.profiler saw no device time of {match}; "
-                             f"events around the call: {e0.elapsed_time(e1)}")
-    return out, mine / 1e3, total / 1e3
+        time.sleep(PROFILE_SETTLE_S)
+        yield prof
+
+
+def window_profile(warm, run):
+    """``(run(), window events, device events, start)``: one settled
+    profile in which ``warm()`` runs first, then, ``PROFILE_SETTLE_S``
+    later, ``run()`` inside the ``PROFILE_WINDOW`` range, then,
+    ``PROFILE_SETTLE_S`` later, a one-element fill.  The device events
+    (kernels, copies, fills) of the whole profile, the window events among
+    them (those that started inside the range), and the range's start (µs,
+    the events' clock)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import record_function
+
+    with settled_profile() as prof:
+        warm()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_SETTLE_S)
+        with record_function(PROFILE_WINDOW):
+            out = run()
+            torch.cuda.synchronize()
+        time.sleep(PROFILE_SETTLE_S)
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+    events = prof.events()
+    window = [e for e in events if e.name == PROFILE_WINDOW
+              and e.device_type == DeviceType.CPU]
+    if len(window) != 1:
+        raise AssertionError(f"the profile held {len(window)} "
+                             f"{PROFILE_WINDOW} ranges")
+    begin, end = window[0].time_range.start, window[0].time_range.end
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and e.name != PROFILE_WINDOW]
+    return (out, [e for e in device if begin <= e.time_range.start <= end],
+            device, begin)
+
+
+def zero_counts():
+    """Set every kernel's launch count to 0."""
+    from ivp_tpu_torch.kernels import dopri5_ensemble as k
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+    from ivp_tpu_torch.kernels import erk_record as R
+    from ivp_tpu_torch.kernels import resumable as RES
+    from ivp_tpu_torch.kernels import stiff_ensemble as S
+
+    k.LAUNCHES = 0
+    for d in (K.LAUNCHES, R.LAUNCHES, RES.LAUNCHES, S.LAUNCHES):
+        for name in d:
+            d[name] = 0
+
+
+def launch_total(match):
+    """The launches this process has counted of the kernels whose device
+    name holds ``match``: ``erk_kernel`` (the lean, recording, event and
+    resumable entries of csrc/erk_*.cu) or a stiff kernel."""
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+    from ivp_tpu_torch.kernels import erk_record as R
+    from ivp_tpu_torch.kernels import resumable as RES
+    from ivp_tpu_torch.kernels import stiff_ensemble as S
+
+    if match == "erk_kernel":
+        return sum(sum(d.values()) for d in (K.LAUNCHES, R.LAUNCHES,
+                                             RES.LAUNCHES))
+    return S.LAUNCHES[match.removesuffix("_kernel")]
+
+
+def kernel_device_ms(fn, match="erk_kernel", attempts=5):
+    """``(result, device ms of the kernels whose name holds ``match``,
+    device ms of every kernel)`` of one call of ``fn``, from
+    torch.profiler (``window_profile``: ``fn`` runs once more before it
+    inside the profile).  Every launch count is set to 0 just before the
+    measured call, so a caller reads that call's counts after this returns.
+    The profile must hold one kernel event for each launch the call counted
+    (``launch_total``); one that holds fewer or more is printed and taken
+    again, and after ``attempts`` it raises."""
+    for attempt in range(attempts):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+        def run():
+            zero_counts()
+            e0.record()
+            out = fn()
+            e1.record()
+            torch.cuda.synchronize()
+            return out, launch_total(match)
+
+        (out, launched), events, device, begin = window_profile(fn, run)
+        mine = [e for e in events if match in e.name]
+        k_ms = sum(e.time_range.elapsed_us() for e in mine) / 1e3
+        all_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+        phase("kernel_device_ms", match=match, attempt=attempt,
+              kernel_events=len(mine), launches=launched, kernel_ms=k_ms)
+        if len(mine) == launched and launched > 0:
+            return out, k_ms, all_ms
+        phase("profiler_missed_launches", match=match, attempt=attempt,
+              kernel_events=len(mine), launches=launched,
+              device_ms_seen=all_ms, events_around_ms=e0.elapsed_time(e1),
+              device_events_in_profile=len(device),
+              match_starts_ms_from_window=[
+                  round((e.time_range.start - begin) / 1e3, 3)
+                  for e in device if match in e.name])
+        del out
+    raise AssertionError(f"torch.profiler held {len(mine)} {match} events "
+                         f"for {launched} launches in the last of "
+                         f"{attempts} profiles")
 
 
 def solve_ivp_cr3bp(dev):
@@ -1928,6 +2027,55 @@ ROB_B, ROB_TF, ROB_NFEV, ROB_NJEV = 1024, 1e8, 5000, {"RADAU": 200,
                                                       "BDF": 600}
 
 
+def carry_tensors(c):
+    """``{name: tensor}`` of every tensor of a resumable carry, the method
+    state's fields (``ms.<field>``, ``lin`` by index) included."""
+    out = {}
+
+    def walk(prefix, x):
+        if torch.is_tensor(x):
+            out[prefix] = x
+        elif isinstance(x, tuple):
+            names = getattr(x, "_fields", range(len(x)))
+            for k, v in zip(names, x):
+                walk(f"{prefix}.{k}" if prefix else str(k), v)
+    walk("", c)
+    return out
+
+
+def tensors_differing(ta, tb):
+    """The names of two ``{name: tensor}`` whose bits differ anywhere."""
+    def bits(x):
+        if not x.is_floating_point():
+            return x
+        return x.view({8: torch.int64, 4: torch.int32}[x.element_size()])
+    return sorted(k for k in ta.keys() | tb.keys()
+                  if k not in ta or k not in tb or ta[k].shape != tb[k].shape
+                  or not torch.equal(bits(ta[k]), bits(tb[k])))
+
+
+def checkpoint_contract(name, start, resume, y0, *run):
+    """The resumable solver's checkpoint contract on the card: from the
+    carry after one ``resume``, two more resumes of it give bit-equal
+    carries, and it equals, field for field, a copy taken before them."""
+    c0, ra = start(y0, *run)
+    c1 = resume(c0, ra)
+    before = {k: v.clone() for k, v in carry_tensors(c1).items()}
+    c2, c3 = resume(c1, ra), resume(c1, ra)
+    torch.cuda.synchronize()
+    given = tensors_differing(carry_tensors(c1), before)
+    twice = tensors_differing(carry_tensors(c2), carry_tensors(c3))
+    shared = sorted(k for k, v in carry_tensors(c2).items()
+                    if v.data_ptr() == carry_tensors(c1)[k].data_ptr()
+                    and v.numel())
+    phase(f"{name}_checkpoint_contract", given_unchanged=not given,
+          given_fields_changed=given, resumed_twice_equal=not twice,
+          fields_differing=twice, fields_shared_with_given=shared)
+    if given or twice:
+        raise AssertionError(f"{name}: the carry given changed in {given}, "
+                             f"two resumes of it differ in {twice}")
+
+
 def stiff_y0(B):
     rng = np.random.default_rng(0)
     return np.array([2.0, 0.0]) + 0.02 * rng.standard_normal((B, 2))
@@ -2099,6 +2247,8 @@ def stiff_main_path(dev):
     for method in ("RADAU", "BDF"):
         m = method.lower()
 
+        host_us = []
+
         def solver(chunk):
             start, resume, extract = build_resumable_solver(
                 rhs.vdp, method, n=2, args=(STIFF_MU,), chunk_steps=chunk)
@@ -2106,7 +2256,9 @@ def stiff_main_path(dev):
             def run(y):
                 carry, ra = start(y, 0.0, STIFF_TF, *STIFF_TOL)
                 while not bool(carry.done.all()):
+                    t = time.perf_counter()
                     carry = resume(carry, ra)
+                    host_us.append(1e6 * (time.perf_counter() - t))
                 return extract(carry)
             return run
 
@@ -2136,10 +2288,13 @@ def stiff_main_path(dev):
         # The instantiation the main path launched (the default float32
         # controller), as the library reports it.
         lay = S.layout(method, rhs.vdp, "float32", B)
+        solve_ms = float(np.median(ev_ms))
         phase(f"{m}_main_path_B{B}", launches_per_solve=launches[-1],
               success_fraction=float(np.mean(st == Status.SUCCESS)),
               mean_nstep=float(ns.mean()), max_nstep=int(ns.max()),
               kernel_ms=kern_ms, solve_event_ms=[round(x, 3) for x in ev_ms],
+              solve_ms=solve_ms, solve_less_kernel_ms=solve_ms - kern_ms,
+              host_us_per_resume=float(np.mean(host_us)),
               wall_ms=round(1e3 * wall, 3), ivps_per_sec=B / wall,
               bound_ms=bound_ms, bound_by=bound_by,
               bound_share=bound_ms / kern_ms, registers=lay["registers"],
@@ -2181,6 +2336,10 @@ def stiff_main_path(dev):
         phase(f"{m}_chunk64_vs_chunk{STIFF_CHUNK}_bitwise", fields_differing=diff)
         if diff:
             raise AssertionError(f"{method}: chunk_steps=64 differs in {diff}")
+        start, resume, _ = build_resumable_solver(
+            rhs.vdp, method, n=2, args=(STIFF_MU,), chunk_steps=64)
+        checkpoint_contract(f"{m}_B{B}", start, resume, y0, 0.0, STIFF_TF,
+                            *STIFF_TOL)
         rows[m] = {"launches": launches[-1], "max_abs_err": err,
                    "ms": kern_ms, "plain_ms": e0.elapsed_time(e1),
                    "bound_ms": bound_ms, "bound_by": bound_by,
@@ -2188,7 +2347,8 @@ def stiff_main_path(dev):
                    "registers": lay["registers"],
                    "smem_bytes_per_block": lay["block_bytes"],
                    "blocks_per_sm": lay["blocks_per_sm"],
-                   "solve_ms": float(np.median(ev_ms)), "wall_ms": 1e3 * wall}
+                   "solve_ms": solve_ms, "wall_ms": 1e3 * wall,
+                   "host_us_per_resume": float(np.mean(host_us))}
     return rows
 
 
@@ -2206,8 +2366,11 @@ RESUME_B, RESUME_CHUNK = 16384, 256
 def resumable_phase(dev):
     """The explicit resumable solver on the card: chunk_steps=256 against
     one unbounded launch bit for bit, counters against the plain version on
-    every lane; its launches counted from 0 around the chunked solve.  The
-    JSON rows of the four resumable instantiations."""
+    every lane; its launches counted from 0 around the chunked solve, its
+    solve ms (CUDA events), kernel ms (torch.profiler) and host µs a
+    ``resume``; the checkpoint contract.  The JSON rows of the four
+    resumable instantiations (``ms`` the kernels' device time of the
+    chunked solve)."""
     from ivp_tpu_torch import rhs
     from ivp_tpu_torch.batch import build_resumable_solver
     from ivp_tpu_torch.kernels import erk_ensemble as K
@@ -2219,12 +2382,15 @@ def resumable_phase(dev):
         y0 = torch.as_tensor(lorenz_y0(RESUME_B) if fun.n == 3 else
                              vdp_y0(RESUME_B), device=dev)
 
-        def solve(chunk):
+        def solve(chunk, host=None):
             start, resume, extract = build_resumable_solver(
                 fun, method, n=fun.n, chunk_steps=chunk)
             carry, ra = start(y0, 0.0, tf, rt, at)
             while not bool(carry.done.all()):
+                t = time.perf_counter()
                 carry = resume(carry, ra)
+                if host is not None:
+                    host.append(1e6 * (time.perf_counter() - t))
             return extract(carry)
 
         name = f"{K.KERNELS[method][0].replace('_sampled', '')}_resume"
@@ -2232,17 +2398,25 @@ def resumable_phase(dev):
         torch.cuda.synchronize()
         for k in RES.LAUNCHES:
             RES.LAUNCHES[k] = 0
-        res, ms = event_call(lambda: solve(RESUME_CHUNK))
+        host = []
+        res, solve_ms = event_call(lambda: solve(RESUME_CHUNK, host))
         launches = RES.LAUNCHES[name]
+        _, ms, _ = kernel_device_ms(lambda: solve(RESUME_CHUNK))
         one = solve(2**31 - 1)
         torch.cuda.synchronize()
         diff = [f for f in ("t", "y", "status", "nfev", "nstep", "naccpt",
                             "nrejct") if not torch.equal(getattr(res, f),
                                                          getattr(one, f))]
         phase(f"{name}_chunk{RESUME_CHUNK}_vs_unbounded_bitwise_B{RESUME_B}",
-              launches=launches, fields_differing=diff)
+              launches=launches, fields_differing=diff, solve_ms=solve_ms,
+              kernel_ms=ms, host_us_per_resume=float(np.mean(host)),
+              besides_kernel_ms_per_launch=(solve_ms - ms) / launches)
         if diff or launches < 2:
             raise AssertionError(f"{name}: chunked differs in {diff}")
+        start, resume, _ = build_resumable_solver(
+            fun, method, n=fun.n, chunk_steps=RESUME_CHUNK)
+        checkpoint_contract(f"{name}_B{RESUME_B}", start, resume, y0, 0.0,
+                            tf, rt, at)
         a = solve_args(y0, tf, rt, at, None, dev)
         ref, plain_ms = event_call(lambda: K.erk_ensemble_torch(method, fun,
                                                                 *a))
@@ -2258,7 +2432,8 @@ def resumable_phase(dev):
                      "launches": launches, "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "bound_share": bound_ms / ms,
-                     "library_ms": None})
+                     "library_ms": None, "solve_ms": solve_ms,
+                     "host_us_per_resume": float(np.mean(host))})
     return rows
 
 
@@ -2279,7 +2454,7 @@ def stiff_phase(dev):
              "source": f"ivp_tpu_torch/csrc/{m}.cu", "replaces": replaces[m],
              "library_ms": None,
              **{k: v for k, v in main[m].items()
-                if k not in ("solve_ms", "wall_ms")}}
+                if k not in ("solve_ms", "wall_ms", "host_us_per_resume")}}
             for m in ("radau", "bdf")]
 
 

@@ -923,6 +923,12 @@ def build_resumable_solver(fun, method="RK45", *, n, dtype=None, args=(),
     params = _solver_params(method, n, jac, solver_options,
                             sample_cap > 0 or bool(ev_list))
     drivers = {}   # the plain driver, per (device, dtype)
+    solves = []    # the launches on the card, made at the first start there
+
+    def on_card():
+        if not solves:
+            solves.append(RES.CardSolve(method, fun, args, params))
+        return solves[0]
 
     def plain(y0, ev):
         key = (y0.device, y0.dtype)
@@ -951,9 +957,12 @@ def build_resumable_solver(fun, method="RK45", *, n, dtype=None, args=(),
         B, dev = y0.shape[0], y0.device
         kw = dict(dtype=dtype, device=dev)
         t0_b = _lanes(t0, B, **kw)
-        t0_host = np.atleast_1d(np.asarray(
-            t0.cpu() if isinstance(t0, torch.Tensor) else t0, float))
-        hmax = float(np.max(np.abs(float(tf) - t0_host)))
+        if isinstance(t0, (int, float)):
+            hmax = abs(float(tf) - float(t0))
+        else:
+            t0_host = np.atleast_1d(np.asarray(
+                t0.cpu() if isinstance(t0, torch.Tensor) else t0, float))
+            hmax = float(np.max(np.abs(float(tf) - t0_host)))
         if max_step is not None:
             hmax = min(hmax, abs(float(max_step)))
         grid = None
@@ -968,16 +977,14 @@ def build_resumable_solver(fun, method="RK45", *, n, dtype=None, args=(),
               if first_step is not None else None)
         if card:
             with torch.cuda.device(dev):
-                return RES.start_on_card(method, fun, y0, t0_b, fs, args, ra,
-                                         params), ra
+                return on_card().start(y0, t0_b, fs, ra), ra
         init_carry, _ = plain(y0, ev)
         return init_carry(t0_b, y0, fs, ra), ra
 
     def resume(carry, ra):
         if carry.y.device.type == "cuda":
             with torch.cuda.device(carry.y.device):
-                return RES.resume_on_card(method, fun, carry, args, ra, params,
-                                          chunk_steps)
+                return on_card().resume(carry, ra, chunk_steps)
         ev = event_args(ev_list, event_capacity, max_restarts)
         _, run_bounded = plain(carry.y, ev)
         return run_bounded(carry, ra, chunk_steps)

@@ -379,15 +379,26 @@ def run_args(tend, rtol, atol, hmax, hmin, max_steps, y0,
     B, n = y0.shape
     kw = dict(dtype=y0.dtype, device=y0.device)
 
-    def lane(v):
-        return torch.broadcast_to(torch.as_tensor(v, **kw), (B,)).contiguous()
+    # A Python number is filled on the device (a host-to-device copy of a
+    # pageable scalar would wait for the work queued on the stream); a
+    # tensor already of its shape is taken as it is.
+    def batched(v, shape):
+        if isinstance(v, (int, float)):
+            return torch.full(shape, float(v), **kw)
+        v = torch.as_tensor(v, **kw)
+        if v.shape == shape and v.is_contiguous():
+            return v
+        return torch.broadcast_to(v, shape).contiguous()
 
-    def comp(v):
-        return torch.broadcast_to(torch.as_tensor(v, **kw), (B, n)).contiguous()
+    def positive(v):
+        if isinstance(v, (int, float)):
+            return batched(abs(float(v)), (B,))
+        return torch.abs(batched(v, (B,)))
 
     if t_grid is not None:
         t_grid = torch.as_tensor(t_grid, **kw)
         t_grid = torch.broadcast_to(t_grid, (B, t_grid.shape[-1]))
-    return RunArgs(tend=lane(tend), rtol=comp(rtol), atol=comp(atol),
-                   hmax=torch.abs(lane(hmax)), hmin=torch.abs(lane(hmin)),
-                   max_steps=int(max_steps), t_grid=t_grid)
+    return RunArgs(tend=batched(tend, (B,)), rtol=batched(rtol, (B, n)),
+                   atol=batched(atol, (B, n)), hmax=positive(hmax),
+                   hmin=positive(hmin), max_steps=int(max_steps),
+                   t_grid=t_grid)

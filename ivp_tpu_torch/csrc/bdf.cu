@@ -444,8 +444,9 @@ template <class F, class CT, int T, int MB>
 __global__ void __launch_bounds__(T, MB) bdf_kernel(
     int B, const double* __restrict__ y0, const double* __restrict__ t0,
     const double* __restrict__ first_step, const StiffRun ra,
-    const double* __restrict__ args, const BDFOptions o, StiffDriver d,
-    BDFCarry c, int init, int max_attempts) {
+    const double* __restrict__ args, const BDFOptions o,
+    const StiffDriver d_in, const BDFCarry c_in, StiffDriver d, BDFCarry c,
+    int init, int max_attempts) {
   constexpr int N = F::N;
   using K = BDFCold<N>;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -504,32 +505,32 @@ __global__ void __launch_bounds__(T, MB) bdf_kernel(
     status = fabs(tend - t) < 1e-15 ? SUCCESS : RUNNING;
     njev = nlu = nstep = naccpt = nrejct = 0;
   } else {
-    t = d.t[i];
+    t = d_in.t[i];
 #pragma unroll
     for (int j = 0; j < N; ++j) {
-      y[j] = d.y[(size_t)i * N + j];
+      y[j] = d_in.y[(size_t)i * N + j];
 #pragma unroll
       for (int k = 0; k < BDF_ROWS; ++k)
-        L.d(k, j) = c.D[((size_t)i * BDF_ROWS + k) * N + j];
+        L.d(k, j) = c_in.D[((size_t)i * BDF_ROWS + k) * N + j];
     }
 #pragma unroll
     for (int q = 0; q < N * N; ++q) {
-      s[K::JAC + q] = c.jac[(size_t)i * N * N + q];
-      s[K::INV + q] = c.inv[(size_t)i * N * N + q];
+      s[K::JAC + q] = c_in.jac[(size_t)i * N * N + q];
+      s[K::INV + q] = c_in.inv[(size_t)i * N * N + q];
     }
-    L.h_abs = c.h_abs[i];
-    L.posneg = c.posneg[i];
-    L.order = c.order[i];
-    L.n_equal = c.n_equal[i];
-    L.lu_current = c.lu_current[i] != 0;
-    L.current_c = c.current_c[i];
-    status = d.status[i];
-    nfev = d.nfev[i];
-    njev = d.njev[i];
-    nlu = d.nlu[i];
-    nstep = d.nstep[i];
-    naccpt = d.naccpt[i];
-    nrejct = d.nrejct[i];
+    L.h_abs = c_in.h_abs[i];
+    L.posneg = c_in.posneg[i];
+    L.order = c_in.order[i];
+    L.n_equal = c_in.n_equal[i];
+    L.lu_current = c_in.lu_current[i] != 0;
+    L.current_c = c_in.current_c[i];
+    status = d_in.status[i];
+    nfev = d_in.nfev[i];
+    njev = d_in.njev[i];
+    nlu = d_in.nlu[i];
+    nstep = d_in.nstep[i];
+    naccpt = d_in.naccpt[i];
+    nrejct = d_in.nrejct[i];
   }
 
   const CT newton_tol = bdf_newton_tol<N, CT>(o, rtol);
@@ -586,7 +587,8 @@ __global__ void __launch_bounds__(T, MB) bdf_kernel(
 // would spill; else (T, MB).
 using BDFKernelPtr = void (*)(int, const double*, const double*,
                               const double*, StiffRun, const double*,
-                              BDFOptions, StiffDriver, BDFCarry, int, int);
+                              BDFOptions, StiffDriver, BDFCarry, StiffDriver,
+                              BDFCarry, int, int);
 
 template <class F, class CT, int T, int MB, int MB1>
 int bdf_pick(int B, int* min_blocks, BDFKernelPtr* kernel) {
@@ -602,8 +604,8 @@ int bdf_pick(int B, int* min_blocks, BDFKernelPtr* kernel) {
 template <class F, class CT, int T, int MB, int MB1>
 int bdf_launch_as(int B, const double* y0, const double* t0,
                   const double* first_step, StiffRun ra, const double* args,
-                  BDFOptions o, StiffDriver d, BDFCarry c, int init,
-                  int max_attempts, void* stream) {
+                  BDFOptions o, StiffDriver d_in, BDFCarry c_in, StiffDriver d,
+                  BDFCarry c, int init, int max_attempts, void* stream) {
   constexpr int bytes = 8 * BDFCold<F::N>::DOUBLES * T;
   static_assert(bytes <= SLOTS_BLOCK_MAX, "the slots exceed a block's");
   int min_blocks = 0;
@@ -612,7 +614,8 @@ int bdf_launch_as(int B, const double* y0, const double* t0,
   if (!err) err = allow_slots(kernel, bytes);
   if (err) return err;
   kernel<<<(B + T - 1) / T, T, bytes, (cudaStream_t)stream>>>(
-      B, y0, t0, first_step, ra, args, o, d, c, init, max_attempts);
+      B, y0, t0, first_step, ra, args, o, d_in, c_in, d, c, init,
+      max_attempts);
   return (int)cudaGetLastError();
 }
 
@@ -621,14 +624,16 @@ int bdf_launch_as(int B, const double* y0, const double* t0,
 template <class F, int T, int MB, int MB1>
 int bdf_launch(int B, const double* y0, const double* t0,
                const double* first_step, StiffRun ra, const double* args,
-               BDFOptions o, StiffDriver d, BDFCarry c, int init,
-               int max_attempts, void* stream) {
+               BDFOptions o, StiffDriver d_in, BDFCarry c_in, StiffDriver d,
+               BDFCarry c, int init, int max_attempts, void* stream) {
   if (B <= 0) return 0;
   if (o.state_precision)
-    return bdf_launch_as<F, double, T, MB, MB1>(
-        B, y0, t0, first_step, ra, args, o, d, c, init, max_attempts, stream);
-  return bdf_launch_as<F, float, T, MB, MB1>(
-      B, y0, t0, first_step, ra, args, o, d, c, init, max_attempts, stream);
+    return bdf_launch_as<F, double, T, MB, MB1>(B, y0, t0, first_step, ra,
+                                                args, o, d_in, c_in, d, c,
+                                                init, max_attempts, stream);
+  return bdf_launch_as<F, float, T, MB, MB1>(B, y0, t0, first_step, ra, args,
+                                             o, d_in, c_in, d, c, init,
+                                             max_attempts, stream);
 }
 
 template <class F, class CT, int T, int MB, int MB1>
@@ -649,7 +654,8 @@ int bdf_layout(int state_precision, int B, int* info) {
 
 }  // namespace ivp
 
-// One C entry per RHS functor with a Jacobian: ivp_bdf_<name>, and
+// One C entry per RHS functor with a Jacobian: ivp_bdf_<name> (the carry it
+// loads, d_in and c_in, and the one it stores, d and c), and
 // ivp_bdf_layout_<name> (slots_layout of the instantiation a launch of B
 // lanes under a controller type takes).  T, MB and MB1 (one round,
 // bdf_pick): threads a block and min blocks an SM under both controller
@@ -658,11 +664,11 @@ int bdf_layout(int state_precision, int B, int* info) {
   extern "C" int ivp_bdf_##NAME(                                              \
       int B, const double* y0, const double* t0, const double* first_step,    \
       ivp::StiffRun ra, const double* args, ivp::BDFOptions o,                \
-      ivp::StiffDriver d, ivp::BDFCarry c, int init, int max_attempts,        \
-      void* stream) {                                                         \
+      ivp::StiffDriver d_in, ivp::BDFCarry c_in, ivp::StiffDriver d,          \
+      ivp::BDFCarry c, int init, int max_attempts, void* stream) {            \
     return ivp::bdf_launch<FUNCTOR, IVP_BDF_BOUNDS(T, MB, MB1)>(              \
-        B, y0, t0, first_step, ra, args, o, d, c, init, max_attempts,         \
-        stream);                                                              \
+        B, y0, t0, first_step, ra, args, o, d_in, c_in, d, c, init,           \
+        max_attempts, stream);                                                \
   }                                                                           \
   extern "C" int ivp_bdf_layout_##NAME(int state_precision, int B,            \
                                        int* info) {                           \

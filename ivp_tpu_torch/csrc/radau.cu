@@ -431,8 +431,9 @@ template <class F, class CT, int T, int MB>
 __global__ void __launch_bounds__(T, MB) radau_kernel(
     int B, const double* __restrict__ y0, const double* __restrict__ t0,
     const double* __restrict__ first_step, const StiffRun ra,
-    const double* __restrict__ args, const RadauOptions o, StiffDriver d,
-    RadauCarry c, int init, int max_attempts) {
+    const double* __restrict__ args, const RadauOptions o,
+    const StiffDriver d_in, const RadauCarry c_in, StiffDriver d, RadauCarry c,
+    int init, int max_attempts) {
   constexpr int N = F::N;
   using K = RadauCold<N>;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -468,6 +469,9 @@ __global__ void __launch_bounds__(T, MB) radau_kernel(
   CT* faccon_p = (CT*)c.faccon;
   CT* theta_p = (CT*)c.theta;
   CT* err_acc_p = (CT*)c.err_acc;
+  const CT* faccon_in = (const CT*)c_in.faccon;
+  const CT* theta_in = (const CT*)c_in.theta;
+  const CT* err_acc_in = (const CT*)c_in.err_acc;
   if (init) {
     // methods/radau.py::make_radau_init, then the driver's init_carry.
     t = t0[i];
@@ -501,46 +505,46 @@ __global__ void __launch_bounds__(T, MB) radau_kernel(
     nfev = 1;
     njev = nlu = nstep = naccpt = nrejct = 0;
   } else {
-    t = d.t[i];
+    t = d_in.t[i];
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       const size_t q = (size_t)i * N + j;
-      y[j] = d.y[q];
-      s[K::F0 + j] = c.f0[q];
-      s[K::SCAL + j] = c.scal[q];
+      y[j] = d_in.y[q];
+      s[K::F0 + j] = c_in.f0[q];
+      s[K::SCAL + j] = c_in.scal[q];
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-        s[K::CONT + r * N + j] = c.cont[((size_t)i * 4 + r) * N + j];
+        s[K::CONT + r * N + j] = c_in.cont[((size_t)i * 4 + r) * N + j];
     }
 #pragma unroll
     for (int q = 0; q < N * N; ++q) {
       const size_t g = (size_t)i * N * N + q;
-      s[K::JAC + q] = c.jac[g];
-      s[K::INV1 + q] = c.inv1[g];
-      s[K::BR + q] = c.br[g];
-      s[K::BI + q] = c.bi[g];
+      s[K::JAC + q] = c_in.jac[g];
+      s[K::INV1 + q] = c_in.inv1[g];
+      s[K::BR + q] = c_in.br[g];
+      s[K::BI + q] = c_in.bi[g];
     }
-    L.h = c.h[i];
-    L.hold = c.hold[i];
-    L.posneg = c.posneg[i];
-    L.first = c.first[i] != 0;
-    L.reject = c.reject[i] != 0;
-    L.last = c.last[i] != 0;
-    L.faccon = faccon_p[i];
-    L.theta = theta_p[i];
-    L.hhfac = c.hhfac[i];
-    L.h_acc = c.h_acc[i];
-    L.err_acc = err_acc_p[i];
-    L.call_jac = c.call_jac[i] != 0;
-    L.call_decomp = c.call_decomp[i] != 0;
-    L.singular = c.singular[i];
-    status = d.status[i];
-    nfev = d.nfev[i];
-    njev = d.njev[i];
-    nlu = d.nlu[i];
-    nstep = d.nstep[i];
-    naccpt = d.naccpt[i];
-    nrejct = d.nrejct[i];
+    L.h = c_in.h[i];
+    L.hold = c_in.hold[i];
+    L.posneg = c_in.posneg[i];
+    L.first = c_in.first[i] != 0;
+    L.reject = c_in.reject[i] != 0;
+    L.last = c_in.last[i] != 0;
+    L.faccon = faccon_in[i];
+    L.theta = theta_in[i];
+    L.hhfac = c_in.hhfac[i];
+    L.h_acc = c_in.h_acc[i];
+    L.err_acc = err_acc_in[i];
+    L.call_jac = c_in.call_jac[i] != 0;
+    L.call_decomp = c_in.call_decomp[i] != 0;
+    L.singular = c_in.singular[i];
+    status = d_in.status[i];
+    nfev = d_in.nfev[i];
+    njev = d_in.njev[i];
+    nlu = d_in.nlu[i];
+    nstep = d_in.nstep[i];
+    naccpt = d_in.naccpt[i];
+    nrejct = d_in.nrejct[i];
   }
 
   const CT newton_tol = radau_newton_tol<CT>(o, rtol_t[0]);
@@ -609,15 +613,17 @@ __global__ void __launch_bounds__(T, MB) radau_kernel(
 template <class F, class CT, int T, int MB>
 int radau_launch_as(int B, const double* y0, const double* t0,
                     const double* first_step, StiffRun ra, const double* args,
-                    RadauOptions o, StiffDriver d, RadauCarry c, int init,
-                    int max_attempts, void* stream) {
+                    RadauOptions o, StiffDriver d_in, RadauCarry c_in,
+                    StiffDriver d, RadauCarry c, int init, int max_attempts,
+                    void* stream) {
   constexpr int bytes = 8 * RadauCold<F::N>::DOUBLES * T;
   static_assert(bytes <= SLOTS_BLOCK_MAX, "the slots exceed a block's");
   auto kernel = radau_kernel<F, CT, T, MB>;
   const int err = allow_slots(kernel, bytes);
   if (err) return err;
   kernel<<<(B + T - 1) / T, T, bytes, (cudaStream_t)stream>>>(
-      B, y0, t0, first_step, ra, args, o, d, c, init, max_attempts);
+      B, y0, t0, first_step, ra, args, o, d_in, c_in, d, c, init,
+      max_attempts);
   return (int)cudaGetLastError();
 }
 
@@ -625,14 +631,17 @@ int radau_launch_as(int B, const double* y0, const double* t0,
 template <class F, int T, int MB>
 int radau_launch(int B, const double* y0, const double* t0,
                  const double* first_step, StiffRun ra, const double* args,
-                 RadauOptions o, StiffDriver d, RadauCarry c, int init,
-                 int max_attempts, void* stream) {
+                 RadauOptions o, StiffDriver d_in, RadauCarry c_in,
+                 StiffDriver d, RadauCarry c, int init, int max_attempts,
+                 void* stream) {
   if (B <= 0) return 0;
   if (o.state_precision)
-    return radau_launch_as<F, double, T, MB>(
-        B, y0, t0, first_step, ra, args, o, d, c, init, max_attempts, stream);
-  return radau_launch_as<F, float, T, MB>(
-      B, y0, t0, first_step, ra, args, o, d, c, init, max_attempts, stream);
+    return radau_launch_as<F, double, T, MB>(B, y0, t0, first_step, ra, args,
+                                             o, d_in, c_in, d, c, init,
+                                             max_attempts, stream);
+  return radau_launch_as<F, float, T, MB>(B, y0, t0, first_step, ra, args, o,
+                                          d_in, c_in, d, c, init,
+                                          max_attempts, stream);
 }
 
 template <class F, int T, int MB>
@@ -645,7 +654,8 @@ int radau_layout(int state_precision, int* info) {
 
 }  // namespace ivp
 
-// One C entry per RHS functor with a Jacobian: ivp_radau_<name>, and
+// One C entry per RHS functor with a Jacobian: ivp_radau_<name> (the carry
+// it loads, d_in and c_in, and the one it stores, d and c), and
 // ivp_radau_layout_<name> (slots_layout of the instantiation a launch under
 // a controller type takes, whatever its B).  T, MB: threads a block and min
 // blocks an SM under both controller types, from measure_kernel.py's stiff
@@ -656,11 +666,11 @@ int radau_layout(int state_precision, int* info) {
   extern "C" int ivp_radau_##NAME(                                            \
       int B, const double* y0, const double* t0, const double* first_step,    \
       ivp::StiffRun ra, const double* args, ivp::RadauOptions o,              \
-      ivp::StiffDriver d, ivp::RadauCarry c, int init, int max_attempts,      \
-      void* stream) {                                                         \
+      ivp::StiffDriver d_in, ivp::RadauCarry c_in, ivp::StiffDriver d,        \
+      ivp::RadauCarry c, int init, int max_attempts, void* stream) {          \
     return ivp::radau_launch<FUNCTOR, IVP_RADAU_BOUNDS(T, MB)>(               \
-        B, y0, t0, first_step, ra, args, o, d, c, init, max_attempts,         \
-        stream);                                                              \
+        B, y0, t0, first_step, ra, args, o, d_in, c_in, d, c, init,           \
+        max_attempts, stream);                                                \
   }                                                                           \
   extern "C" int ivp_radau_layout_##NAME(int state_precision, int B,        \
                                          int* info) {                         \

@@ -4,164 +4,212 @@ build_resumable_solver): the carry is the plain driver's
 launch that runs every lane until it is done or has made ``chunk_steps``
 counted attempts, as ``core/driver.py::run_bounded`` counts them.
 
-* Radau and BDF: the stiff kernels (kernels/stiff_ensemble.py), which read
-  and write the carry's tensors, RadauState or BDFState included, in place.
+* Radau and BDF: the stiff kernels (kernels/stiff_ensemble.py,
+  :class:`~ivp_tpu_torch.kernels.stiff_ensemble.StiffLaunch`).
 * RK45, DOP853, RK23, RK4: the resumable mode of ``csrc/erk_common.cuh::
   erk_kernel`` (entries ``ivp_<kernel>_resume_<rhs>`` of each
   ``csrc/erk_*.cu``), which replaces ``ivp_tpu/core/driver.py::run_bounded``
-  (:478-489) for the explicit engines.  It keeps the record mode's lane
-  carry (``ErkCarry``: k1, h, the controller's facold and hlamb widened to
-  double, the stiffness counters) with no rows; this module moves the
-  carry's ERKState in and out of it (the widening is exact), and derives
-  DOPRI5's countdown to its periodic stiffness test from ``naccpt``.
+  (:478-489) for the explicit engines.  It loads and stores the carry's
+  ERKState as the carry holds it (``ErkResumeCarry``: the controller in its
+  own type, ``reject`` as bool bytes) and derives DOPRI5's countdown to its
+  periodic stiffness test from ``naccpt``.
 
-A launch never changes the carry it is given: ``resume`` clones it first, so
-an older carry stays a valid checkpoint.  The card runs the lean solve;
+A launch reads one carry and writes another, as ``ivp_tpu``'s jitted
+``resume`` writes fresh buffers and leaves its input alone: the carry given
+to ``resume`` is never written, and stays a valid checkpoint.  The new carry
+holds the fields a launch writes in one fresh buffer per dtype, split into
+views, and shares with the carry given the tensors no resumable launch
+writes: the zero-size record, sample and event fields, ``n_restarts``, and
+``njev`` and ``nlu`` of the explicit methods.  A carry's tensors must not
+be written in place by the caller either.
+
+A resumable solver keeps one :class:`CardSolve` for its launches on the
+card (batch.py::build_resumable_solver's closure).  What every launch of a
+solve passes the same (the run arguments checked and their addresses) is
+made when a solve's ``ra`` is first seen and kept while the solver is given
+the same ``ra``; what its solves share (the entry, the options; the
+functor's arguments and the NaN first step of the last size and device) is
+made once.  The functor's arguments are read once, as
+``ivp_tpu``'s ``resume`` closes over them.  The card runs the lean solve;
 ``t_eval`` samples and events in the resumable solver run with
 ``device='cpu'`` (ROADMAP §1 item 16).
 """
 from __future__ import annotations
 
+import ctypes
+import operator
+
 import torch
 
 from ..core.driver import Carry
-from ..methods.erk import ERKState
 from ..rhs import CudaRHS
-from ..types import Status
 from . import build
+from . import carry as K
 from . import erk_ensemble as E
-from . import erk_record as R
 from . import stiff_ensemble as S
+from .carry import F64, STIFF
+from .dopri5_ensemble import _check
 
 # Launches made by this process, per explicit kernel in resumable mode (the
 # stiff kernels count theirs in stiff_ensemble.LAUNCHES).  A caller may
 # reset a count to 0.
 LAUNCHES = {f"{k}_resume": 0 for k in ("dopri5", "dop853", "rk23", "rk4")}
 
-_ARGTYPES = E._ARGTYPES[:-1] + [R.KernelCarry, E._I, E._P]
+
+class ResumeCarry(ctypes.Structure):
+    """``ErkResumeCarry`` of csrc/erk_common.cuh (same layout): the fields
+    an explicit resumable launch loads and stores."""
+
+    _fields_ = [(f, ctypes.c_void_p) for f in (
+        "t", "y", "status", "done", "nfev", "nstep", "naccpt", "nrejct",
+        "k1", "h", "facold", "hlamb", "reject", "iasti", "nonstiff",
+        "posneg")]
 
 
-def _direction_t0(c: Carry, tend):
-    """A start time whose direction to ``tend`` is the lane's ``posneg``
-    (the kernel reads the direction from ``sign(tend - t0)``)."""
-    d = c.ms.posneg * torch.clamp_min(torch.abs(tend), 1.0)
-    return (tend - d).contiguous()
+ERK_FIELDS = tuple(f for f, _ in ResumeCarry._fields_)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# B; y0, t0, tf, hmax, first_step, rtol, atol, args; max_steps; options; the
+# carry loaded, the carry stored; init; max_attempts; stream.
+_ARGTYPES = ([_I] + [_P] * 8 + [_I, E.KernelOptions, ResumeCarry,
+                                ResumeCarry, _I, _I, _P])
 
 
-def stiff_in(naccpt, stiff_test: int):
-    """DOPRI5's accepted attempts until its periodic stiffness test, 0
-    exactly where ``(naccpt + 1) % stiff_test == 0``
-    (``csrc/erk_dopri5.cu``, ``Lane::stiff_in``)."""
-    s = abs(int(stiff_test))
-    if s == 0:
-        return (-1 - naccpt).to(torch.int32)
-    return torch.remainder(s - 1 - naccpt, s).to(torch.int32)
+class CardSolve:
+    """The launches on the card of one resumable solver of ``method`` on
+    the functor ``fun`` with its arguments ``args`` and the options of
+    ``params`` (an ERKParams, or a StiffSpec), from ``lib`` (default: the
+    package's build of the method's source).  :meth:`start` and
+    :meth:`resume` take a solve's batched RunArgs ``ra`` (float64, shaped
+    ``(B,)`` and ``(B, n)`` for ``fun``, contiguous on one device), checked
+    once while the same ``ra`` comes back (:meth:`bind`), and launch on
+    ``stream`` (default: the current stream; 0 for a build rehearsed
+    without nvcc on CPU tensors)."""
 
+    def __init__(self, method, fun: CudaRHS, args, params, lib=None):
+        self.method = method = method.upper()
+        self.stiff = method in STIFF
+        self.fun, self.fargs, self.lib = fun, args, lib
+        self.p = p = params.params() if self.stiff else params
+        self.cdt = (torch.float32 if p.controller_precision == "float32"
+                    else F64)
+        self.state = [f for f, *_ in K.state_specs(method, fun.n, self.cdt)]
+        self.ra = self.lanes = None
+        self.fields = ERK_FIELDS if not self.stiff else S.DRIVER_FIELDS + (
+            S.RADAU_FIELDS if method == "RADAU" else S.BDF_FIELDS)
+        # Each field of the carry given, in the order of the kernel's
+        # structs, with the dtype the kernel reads.
+        dtypes = {f: dt for f, _, dt in K.driver_specs(fun.n, self.stiff)
+                  + K.state_specs(method, fun.n, self.cdt)}
+        lin = {"RADAU": ("inv1", "br", "bi"), "BDF": ("inv",)}.get(method, ())
 
-def empty_erk_carry(B, n, cdt, device) -> Carry:
-    """A lean explicit-tier Carry of ``B`` lanes for the init launch."""
-    e = lambda *s, dt=torch.float64: torch.empty(s, dtype=dt, device=device)
-    ms = ERKState(h=e(B), k1=e(B, n), facold=e(B, dt=cdt),
-                  reject=e(B, dt=torch.bool), iasti=e(B, dt=torch.int32),
-                  nonstiff=e(B, dt=torch.int32), hlamb=e(B, dt=cdt),
-                  posneg=e(B))
-    return S.lean_carry(ms, B, n, device)
+        def getter(f):
+            if f in Carry._fields:
+                return operator.attrgetter(f)
+            if f in lin:   # the inverse backend's lin tuple, spelt out
+                return lambda c, j=lin.index(f): c.ms.lin[j]
+            return operator.attrgetter(f"ms.{f}")
+        self.read = [(getter(f), dtypes[f]) for f in self.fields]
+        if self.stiff:
+            return
+        kernel, source = E.KERNELS[method]
+        self.name = f"{kernel.replace('_sampled', '')}_resume"
+        if lib is None:
+            self.lib = build.library(source)
+        self.entry = build.entry(f"ivp_{kernel}_resume_{fun.name}",
+                                 _ARGTYPES, lib=self.lib)
+        self.opts = E.kernel_options(p)
 
+    def bind(self, ra) -> None:
+        """Make what every launch with ``ra`` passes the same, unless the
+        last launch had this very ``ra``."""
+        if ra is self.ra:
+            return
+        dev = ra.rtol.device
+        B, n = ra.rtol.shape
+        if self.lanes is None or self.lanes[0] != (B, dev):
+            # The NaN first step and the functor's arguments of B lanes on
+            # dev.
+            nan = torch.full((B,), float("nan"), dtype=F64, device=dev)
+            kargs = None
+            if not self.stiff:
+                kargs = self.fun.kernel_args(self.fargs, B, dev)
+                E.check_functor(self.lib, self.fun, kargs)
+            self.lanes = ((B, dev), nan, kargs)
+        self.B, self.n, self.dev = B, n, dev
+        self.new = K.layout(self.method, n, self.cdt, B)
+        if self.stiff:
+            self.launch = S.StiffLaunch(self.method, self.fun, ra, self.fargs,
+                                        self.p, self.lib)
+        else:
+            for name, x in (("tf", ra.tend), ("hmax", ra.hmax)):
+                _check(name, x, (B,), F64, dev)
+            _check("rtol", ra.rtol, (B, self.fun.n), F64, dev)
+            _check("atol", ra.atol, (B, self.fun.n), F64, dev)
+            self.args = (ra.tend.data_ptr(), ra.hmax.data_ptr(),
+                         ra.rtol.data_ptr(), ra.atol.data_ptr(),
+                         self.lanes[2].data_ptr(), int(ra.max_steps))
+        # Held: the launches read its tensors at these addresses.
+        self.ra = ra
 
-def erk_resume_launch(method, fun: CudaRHS, c: Carry, ra, y0, t0, first_step,
-                      args, params, init: bool, max_attempts: int, lib=None,
-                      stream=None) -> None:
-    """One launch of ``method``'s kernel in resumable mode on the carry
-    ``c`` (updated in place), from ``lib`` (default: the package's build of
-    the method's source) on ``stream`` (default: the current stream; 0 for a
-    build rehearsed without nvcc on CPU tensors).  ``init``: run the
-    method's init from ``y0``, ``t0`` (``first_step`` NaN where hinit picks
-    it) first."""
-    method = method.upper()
-    kernel, source = E.KERNELS[method]
-    dev = c.y.device
-    B, n = c.y.shape
-    if B == 0:
-        return
-    f64, i32 = torch.float64, torch.int32
-    ms = c.ms
-    if init:
-        t0_arg = t0
-    else:
-        t0_arg = _direction_t0(c, ra.tend)
-        y0 = c.y
-        first_step = torch.full((B,), float("nan"), dtype=f64, device=dev)
-    first_step, _, _ = E.check_inputs(fun, y0, t0_arg, ra.tend, ra.hmax,
-                                      first_step, ra.rtol, ra.atol, None)
-    kargs = fun.kernel_args(args, B, dev)
-    lib = build.library(source) if lib is None else lib
-    E.check_functor(lib, fun, kargs)
-    # The lane carry as the kernel keeps it: the controller widened to
-    # double, the reject flag as int.
-    facold, hlamb = ms.facold.to(f64), ms.hlamb.to(f64)
-    reject = ms.reject.to(i32)
-    countdown = (stiff_in(c.naccpt, params.stiff_test) if not init
-                 else torch.empty((B,), dtype=i32, device=dev))
-    iasti, nonstiff = ms.iasti.contiguous(), ms.nonstiff.contiguous()
-    carry = R.KernelCarry(ms.k1.data_ptr(), ms.h.data_ptr(),
-                          facold.data_ptr(), hlamb.data_ptr(),
-                          reject.data_ptr(), iasti.data_ptr(),
-                          nonstiff.data_ptr(), countdown.data_ptr(),
-                          int(bool(init)))
-    entry = build.entry(f"ivp_{kernel}_resume_{fun.name}", _ARGTYPES, lib=lib)
-    if stream is None:
-        stream = torch.cuda.current_stream(dev).cuda_stream
-    err = entry(B, y0.data_ptr(), t0_arg.data_ptr(), ra.tend.data_ptr(),
-                ra.hmax.data_ptr(), first_step.data_ptr(), ra.rtol.data_ptr(),
-                ra.atol.data_ptr(), kargs.data_ptr(), int(ra.max_steps),
-                E.kernel_options(params), 0, 0, 0, c.t.data_ptr(),
-                c.y.data_ptr(), c.status.data_ptr(), c.nfev.data_ptr(),
-                c.nstep.data_ptr(), c.naccpt.data_ptr(), c.nrejct.data_ptr(),
-                0, 0, carry, int(max_attempts), stream)
-    build.check(err, f"{kernel} resumable launch (B={B})", lib)
-    LAUNCHES[f"{E.KERNELS[method][0].replace('_sampled', '')}_resume"] += 1
-    ms.facold.copy_(facold)
-    ms.hlamb.copy_(hlamb)
-    ms.reject.copy_(reject != 0)
-    if init:
-        ms.posneg.copy_(torch.sign(ra.tend - t0))
-    torch.ne(c.status, Status.RUNNING, out=c.done)
+    def start(self, y0, t0, first_step, ra, stream=None) -> Carry:
+        """The carry of a fresh solve: the init launch (no attempts) from
+        ``y0`` ``(B, n)``, ``t0`` and ``first_step`` ``(B,)`` (None: the
+        method picks it)."""
+        self.bind(ra)
+        B, dev = self.B, self.dev
+        fs = self.lanes[1] if first_step is None else first_step
+        _check("y0", y0, (B, self.n), F64, dev)
+        for name, x in (("t0", t0), ("first_step", fs)):
+            _check(name, x, (B,), F64, dev)
+        c, ptrs = K.new(self.method, B, self.n, self.cdt, dev)
+        out = [ptrs[k] for k in self.fields]
+        self._launch(out, out, y0, t0, fs, True, 0, stream)
+        return c
 
+    def resume(self, carry: Carry, ra, max_attempts: int,
+               stream=None) -> Carry:
+        """One launch of at most ``max_attempts`` counted attempts a lane
+        from ``carry`` (not changed) to a new carry."""
+        self.bind(ra)
+        if carry.y.shape[0] != self.B:
+            raise ValueError(f"the carry has {carry.y.shape[0]} lanes, the "
+                             f"run arguments {self.B}")
+        # A field that is not as the kernel reads it (contiguous, of its
+        # dtype, on the device) is read from a copy, held until the launch
+        # is queued: the carry given is not changed.
+        dev, held, ins = self.dev, [], []
+        for get, dt in self.read:
+            x = get(carry)
+            if x.dtype != dt or x.device != dev or not x.is_contiguous():
+                x = x.to(device=dev, dtype=dt).contiguous()
+                held.append(x)
+            ins.append(x.data_ptr())
+        f, ptrs = self.new.alloc(dev)
+        c = carry._replace(
+            ms=K.state(self.method, {k: f.pop(k) for k in self.state}), **f)
+        self._launch(ins, [ptrs[k] for k in self.fields], None, None, None,
+                     False, max_attempts, stream)
+        return c
 
-def start_on_card(method, fun, y0, t0, first_step, args, ra, params,
-                  lib=None, stream=None):
-    """The carry of a fresh solve on the card: the init launch (no
-    attempts).  ``lib``, ``stream``: as the launches take them."""
-    B, n = y0.shape
-    fs = (first_step if first_step is not None else
-          torch.full((B,), float("nan"), dtype=torch.float64,
-                     device=y0.device))
-    stiff = method in ("RADAU", "BDF")
-    p = params.params() if stiff else params
-    cdt = (torch.float32 if p.controller_precision == "float32"
-           else torch.float64)
-    if stiff:
-        c = S.empty_carry(method, B, n, cdt, y0.device)
-        S.stiff_launch(method, fun, c, ra, y0, t0, fs, args, p, True, 0, lib,
-                       stream)
-    else:
-        c = empty_erk_carry(B, n, cdt, y0.device)
-        erk_resume_launch(method, fun, c, ra, y0, t0, fs, args, p, True, 0,
-                          lib, stream)
-    return c
-
-
-def resume_on_card(method, fun, carry: Carry, args, ra, params,
-                   max_attempts: int, lib=None, stream=None) -> Carry:
-    """One bounded launch on a copy of ``carry``."""
-    c = S.clone_carry(carry)
-    B = c.y.shape[0]
-    nan = torch.full((B,), float("nan"), dtype=torch.float64,
-                     device=c.y.device)
-    if method in ("RADAU", "BDF"):
-        S.stiff_launch(method, fun, c, ra, c.y, c.t, nan, args,
-                       params.params(), False, max_attempts, lib, stream)
-    else:
-        erk_resume_launch(method, fun, c, ra, c.y, c.t, nan, args, params,
-                          False, max_attempts, lib, stream)
-    return c
+    def _launch(self, ins, outs, y0, t0, fs, init, max_attempts, stream):
+        """One launch from the carry at addresses ``ins`` to the one at
+        ``outs``."""
+        if self.B == 0:
+            return
+        if stream is None:
+            # The current stream's handle, without the torch.cuda.Stream
+            # that current_stream() builds (~10 µs of a launch's host time).
+            stream = torch._C._cuda_getCurrentRawStream(self.dev.index)
+        if self.stiff:
+            nd = len(S.DRIVER_FIELDS)
+            self.launch.raw(ins[:nd], ins[nd:], outs[:nd], outs[nd:], y0, t0,
+                            fs, init, max_attempts, stream)
+            return
+        ptr = lambda v: 0 if v is None else v.data_ptr()
+        tend, hmax, rtol, atol, kargs, max_steps = self.args
+        err = self.entry(self.B, ptr(y0), ptr(t0), tend, hmax, ptr(fs), rtol,
+                         atol, kargs, max_steps, self.opts,
+                         ResumeCarry(*ins), ResumeCarry(*outs), int(init),
+                         int(max_attempts), stream)
+        build.check(err, f"{self.name} launch (B={self.B})", self.lib)
+        LAUNCHES[self.name] += 1

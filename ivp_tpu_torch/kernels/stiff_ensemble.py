@@ -2,9 +2,9 @@
 version.
 
 ``stiff_ensemble`` integrates a ``(B, n)`` ensemble with Radau or BDF to
-each lane's final state; :func:`stiff_launch` is one launch on a carry,
-which kernels/resumable.py runs in bounded launches for the resumable
-solver (batch.py).  The route follows the device of ``y0``:
+each lane's final state; a :class:`StiffLaunch` launches the kernel of one
+solve, from one carry to another, which kernels/resumable.py runs in
+bounded launches for the resumable solver (batch.py).  The route follows the device of ``y0``:
 
 * a CPU tensor runs the plain version: the ported driver
   (core/driver.py) around the ported engine (methods/radau.py,
@@ -26,9 +26,10 @@ solver (batch.py).  The route follows the device of ``y0``:
   carry (the plain driver's :class:`~ivp_tpu_torch.core.driver.Carry` with
   its RadauState or BDFState: the very tensors, struct of arrays), runs
   each lane until it is done or has made ``max_attempts`` counted attempts,
-  and stores the carry; a solve's first launch runs the method's init from
-  ``y0`` and ``t0`` instead of loading.  ``build_ensemble_solver`` makes
-  one launch with no budget;
+  and stores the carry whole to another carry, or to the same one; a
+  solve's first launch runs the method's init from ``y0`` and ``t0``
+  instead of loading.  ``build_ensemble_solver`` makes one launch with no
+  budget;
 * anything else raises NotImplementedError.
 
 On the card only the inverse linear backend runs (n <= 8), with the
@@ -48,15 +49,14 @@ import ctypes
 import torch
 
 from ..core.driver import Carry, run_args
-from ..methods.bdf import ROWS as BDF_ROWS, BDFState
 from ..methods.jacobian import StiffSpec
-from ..methods.radau import INV_AUTO_N, STIFF_REST_ITEM, RadauState
+from ..methods.radau import INV_AUTO_N, STIFF_REST_ITEM
 from ..rhs import CudaRHS
-from . import build
+from . import build, carry
 from .dopri5_ensemble import FP64_PEAK, HBM_RATE, _check
 from . import erk_ensemble as E
 
-# Launches made by this process, per kernel; stiff_launch adds one per
+# Launches made by this process, per kernel; a StiffLaunch adds one per
 # launch.  A caller may reset a count to 0.
 LAUNCHES = {"radau": 0, "bdf": 0}
 
@@ -168,57 +168,11 @@ def _ms_fields(method, ms) -> dict:
     return d
 
 
-def lean_carry(ms, B, n, device) -> Carry:
-    """A lean Carry of ``B`` lanes around the method state ``ms`` for a
-    kernel's init launch to fill (the fields a launch writes are allocated,
-    the sample, record and event fields zero-size)."""
-    f64, i32, u8 = torch.float64, torch.int32, torch.bool
-    e = lambda *s, dt=f64: torch.empty(s, dtype=dt, device=device)
-    z = lambda *s, dt=f64: torch.zeros(s, dtype=dt, device=device)
-    return Carry(
-        t=e(B), y=e(B, n), ms=ms, status=e(B, dt=i32), done=e(B, dt=u8),
-        nfev=e(B, dt=i32), njev=z(B, dt=i32), nlu=z(B, dt=i32),
-        nstep=e(B, dt=i32), naccpt=e(B, dt=i32), nrejct=e(B, dt=i32),
-        n_rec=z(B, dt=i32), rec_t=z(B, 0), rec_y=z(B, 0, n),
-        rec_xold=z(B, 0), rec_h=z(B, 0), rec_cont=z(B, 0, 0),
-        s_cursor=z(B, dt=i32), sample_y=z(B, 0, n), seg_cont=z(B, 0, n),
-        seg_xold=z(B), seg_h=z(B), seg_valid=z(B, dt=u8), ev=None,
-        n_restarts=z(B, dt=i32))
-
-
 def empty_carry(method, B, n, cdt, device) -> Carry:
     """A lean Carry of ``B`` lanes with ``method``'s state (controller type
-    ``cdt``) for the stiff kernel's init launch to fill."""
-    f64, i32, u8 = torch.float64, torch.int32, torch.bool
-    e = lambda *s, dt=f64: torch.empty(s, dtype=dt, device=device)
-    if method == "RADAU":
-        ms = RadauState(
-            h=e(B), hold=e(B), posneg=e(B), f0=e(B, n), cont=e(B, 4, n),
-            scal=e(B, n), first=e(B, dt=u8), reject=e(B, dt=u8),
-            last=e(B, dt=u8), faccon=e(B, dt=cdt), theta=e(B, dt=cdt),
-            hhfac=e(B), h_acc=e(B), err_acc=e(B, dt=cdt),
-            call_jac=e(B, dt=u8), call_decomp=e(B, dt=u8),
-            singular=e(B, dt=i32), jac=e(B, n, n),
-            lin=(e(B, n, n), e(B, n, n), e(B, n, n)))
-    else:
-        ms = BDFState(h_abs=e(B), posneg=e(B), D=e(B, BDF_ROWS, n),
-                      order=e(B, dt=i32), n_equal=e(B, dt=i32),
-                      jac=e(B, n, n), lin=(e(B, n, n),),
-                      lu_current=e(B, dt=u8), current_c=e(B))
-    return lean_carry(ms, B, n, device)
-
-
-def clone_carry(c: Carry) -> Carry:
-    """A copy of a carry whose tensors a launch may overwrite (the one
-    given stays as it was: a checkpoint is not changed by resuming it)."""
-    def cl(x):
-        if x is None:
-            return None
-        if isinstance(x, tuple):
-            vals = [cl(v) for v in x]
-            return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
-        return x.clone()
-    return cl(c)
+    ``cdt``) for the stiff kernel's init launch to fill (kernels/
+    carry.py)."""
+    return carry.new(method, B, n, cdt, device)[0]
 
 
 def check_card(spec: StiffSpec, fun) -> None:
@@ -245,62 +199,99 @@ def check_card(spec: StiffSpec, fun) -> None:
             f"(n <= {INV_AUTO_N}): {item}")
 
 
-_ARGTYPES = [_I, _P, _P, _P, KernelRun, _P, None, KernelDriver, None, _I, _I,
-             _P]
+# B; y0, t0, first_step; the run; args; options; the driver and method
+# carry loaded (d_in, c_in), then stored (d, c); init, max_attempts; stream.
+_ARGTYPES = [_I, _P, _P, _P, KernelRun, _P, None, KernelDriver, None,
+             KernelDriver, None, _I, _I, _P]
+DRIVER_FIELDS = tuple(f for f, _ in KernelDriver._fields_)
 
 
-def stiff_launch(method, fun: CudaRHS, c: Carry, ra, y0, t0, first_step,
-                 args, params, init: bool, max_attempts: int, lib=None,
-                 stream=None) -> None:
-    """One launch of ``method``'s kernel on the carry ``c`` (updated in
-    place), from ``lib`` (default: the package's build of csrc/radau.cu or
-    csrc/bdf.cu) on ``stream`` (default: the current stream of the carry's
-    device; 0 for a build rehearsed without nvcc on CPU tensors).  ``ra``:
-    the batched RunArgs; ``params``: the engine's RadauParams / BDFParams;
-    ``init``: run the method's init from ``y0``, ``t0`` (and
-    ``first_step``, NaN where the method picks it) first."""
-    method = method.upper()
-    kernel = method.lower()
-    dev = c.y.device
-    B, n = c.y.shape
-    f64 = torch.float64
-    if B == 0:
-        return
-    _check("y0", y0, (B, fun.n), f64, dev)
-    for name, x in (("t0", t0), ("first_step", first_step),
-                    ("tend", ra.tend), ("hmax", ra.hmax), ("hmin", ra.hmin)):
-        _check(name, x, (B,), f64, dev)
-    _check("rtol", ra.rtol, (B, n), f64, dev)
-    _check("atol", ra.atol, (B, n), f64, dev)
-    kargs = fun.kernel_args(args, B, dev)
-    lib = build.library(kernel) if lib is None else lib
-    E.check_functor(lib, fun, kargs)
-    if method == "RADAU":
-        opts, carry_t, fields = radau_options(params), RadauCarryArg, \
-            RADAU_FIELDS
-    else:
-        opts, carry_t, fields = bdf_options(params), BDFCarryArg, BDF_FIELDS
-    ms = _ms_fields(method, c.ms)
-    for f in fields:
-        if not ms[f].is_contiguous() or ms[f].device != dev:
-            raise ValueError(f"carry field {f} must be contiguous on {dev}")
-    argtypes = list(_ARGTYPES)
-    argtypes[6], argtypes[8] = type(opts), carry_t
-    entry = build.entry(f"ivp_{kernel}_{fun.name}", argtypes, lib=lib)
-    run = KernelRun(ra.tend.data_ptr(), ra.rtol.data_ptr(),
-                    ra.atol.data_ptr(), ra.hmax.data_ptr(),
-                    ra.hmin.data_ptr(), int(ra.max_steps))
-    drv = KernelDriver(*(getattr(c, f).data_ptr() for f in (
-        "t", "y", "status", "done", "nfev", "njev", "nlu", "nstep", "naccpt",
-        "nrejct")))
-    carry = carry_t(*(ms[f].data_ptr() for f in fields))
-    if stream is None:
-        stream = torch.cuda.current_stream(dev).cuda_stream
-    err = entry(B, y0.data_ptr(), t0.data_ptr(), first_step.data_ptr(), run,
-                kargs.data_ptr(), opts, drv, carry, int(bool(init)),
-                int(max_attempts), stream)
-    build.check(err, f"{kernel} kernel launch (B={B})", lib)
-    LAUNCHES[kernel] += 1
+class StiffLaunch:
+    """The launches of one solve of ``method``'s kernel (csrc/radau.cu or
+    csrc/bdf.cu, from ``lib``, default the package's build): what each
+    launch passes the same is made once here (the batched RunArgs ``ra``
+    checked, the functor's arguments, the options of the engine's
+    RadauParams / BDFParams ``params``, the entry).  A call is one launch
+    from the carry ``c_in`` to the carry ``c`` (which may be the same)."""
+
+    def __init__(self, method, fun: CudaRHS, ra, args, params, lib=None):
+        method = method.upper()
+        self.kernel = kernel = method.lower()
+        self.method, self.fun = method, fun
+        self.dev = dev = ra.rtol.device
+        self.B = B = ra.rtol.shape[0]
+        f64 = torch.float64
+        for name, x in (("tend", ra.tend), ("hmax", ra.hmax),
+                        ("hmin", ra.hmin)):
+            _check(name, x, (B,), f64, dev)
+        _check("rtol", ra.rtol, (B, fun.n), f64, dev)
+        _check("atol", ra.atol, (B, fun.n), f64, dev)
+        self.kargs = fun.kernel_args(args, B, dev)
+        self.lib = build.library(kernel) if lib is None else lib
+        E.check_functor(self.lib, fun, self.kargs)
+        if method == "RADAU":
+            self.opts, self.carry_t, self.fields = (
+                radau_options(params), RadauCarryArg, RADAU_FIELDS)
+        else:
+            self.opts, self.carry_t, self.fields = (
+                bdf_options(params), BDFCarryArg, BDF_FIELDS)
+        argtypes = list(_ARGTYPES)
+        argtypes[6], argtypes[8], argtypes[10] = (type(self.opts),
+                                                  self.carry_t, self.carry_t)
+        self.entry = build.entry(f"ivp_{kernel}_{fun.name}", argtypes,
+                                 lib=self.lib)
+        self.run = KernelRun(ra.tend.data_ptr(), ra.rtol.data_ptr(),
+                             ra.atol.data_ptr(), ra.hmax.data_ptr(),
+                             ra.hmin.data_ptr(), int(ra.max_steps))
+
+    def pointers(self, c: Carry):
+        """``(driver addresses, carry addresses)`` of the carry ``c``, in
+        the order of StiffDriver and of the method's carry struct;
+        ValueError for a field that is not contiguous on the launch's
+        device."""
+        ms = _ms_fields(self.method, c.ms)
+        drv = [getattr(c, f) for f in DRIVER_FIELDS]
+        mine = [ms[f] for f in self.fields]
+        for f, x in zip(DRIVER_FIELDS + self.fields, drv + mine):
+            if not x.is_contiguous() or x.device != self.dev:
+                raise ValueError(f"carry field {f} must be contiguous on "
+                                 f"{self.dev}")
+        return [x.data_ptr() for x in drv], [x.data_ptr() for x in mine]
+
+    def __call__(self, c_in, c, y0, t0, first_step, init: bool,
+                 max_attempts: int, stream=None) -> None:
+        """One launch on ``stream`` (default: the current stream of the
+        device; 0 for a build rehearsed without nvcc on CPU tensors) that
+        loads ``c_in`` (or, with ``init``, runs the method's init from
+        ``y0``, ``t0`` and ``first_step``, NaN where the method picks it)
+        and stores to ``c``."""
+        if init:
+            f64 = torch.float64
+            _check("y0", y0, (self.B, self.fun.n), f64, self.dev)
+            _check("t0", t0, (self.B,), f64, self.dev)
+            _check("first_step", first_step, (self.B,), f64, self.dev)
+        drv, carry = self.pointers(c)
+        drv_in, carry_in = (drv, carry) if c_in is c else self.pointers(c_in)
+        if stream is None:
+            stream = torch.cuda.current_stream(self.dev).cuda_stream
+        self.raw(drv_in, carry_in, drv, carry, y0, t0, first_step, init,
+                 max_attempts, stream)
+
+    def raw(self, drv_in, carry_in, drv, carry, y0, t0, first_step, init,
+            max_attempts, stream) -> None:
+        """The launch of :meth:`__call__` from the carries' addresses
+        (``pointers``), unchecked."""
+        B = self.B
+        if B == 0:
+            return
+        ptr = lambda x: 0 if x is None else x.data_ptr()
+        err = self.entry(B, ptr(y0), ptr(t0), ptr(first_step), self.run,
+                         self.kargs.data_ptr(), self.opts,
+                         KernelDriver(*drv_in), self.carry_t(*carry_in),
+                         KernelDriver(*drv), self.carry_t(*carry),
+                         int(bool(init)), int(max_attempts), stream)
+        build.check(err, f"{self.kernel} kernel launch (B={B})", self.lib)
+        LAUNCHES[self.kernel] += 1
 
 
 def inverses(a, ai, lib=None, stream=None):
@@ -341,8 +332,8 @@ def stiff_ensemble_cuda(method, fun: CudaRHS, y0, t0, tf, hmax, first_step,
     if first_step is None:
         first_step = torch.full((B,), float("nan"), dtype=torch.float64,
                                 device=y0.device)
-    stiff_launch(method, fun, c, ra, y0, t0, first_step, args, params, True,
-                 UNBOUNDED, lib, stream)
+    StiffLaunch(method, fun, ra, args, params, lib)(c, c, y0, t0, first_step,
+                                                    True, UNBOUNDED, stream)
     return c
 
 

@@ -83,8 +83,12 @@ class CudaRHS:
         """The args as the kernel reads them: a contiguous ``(B, nargs)``
         float64 tensor.  Each arg is one number shared by every lane or a
         ``(B,)`` tensor of per-lane values."""
+        full = self._full(args)
+        if len(full) == 1 and isinstance(full[0], (int, float)):
+            return torch.full((B, 1), float(full[0]), dtype=torch.float64,
+                              device=device)
         cols = []
-        for i, a in enumerate(self._full(args)):
+        for i, a in enumerate(full):
             if isinstance(a, (int, float)):   # filled on the device, no copy
                 cols.append(torch.full((B,), float(a), dtype=torch.float64,
                                        device=device))

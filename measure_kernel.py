@@ -134,6 +134,24 @@ instantiation), then the phases (all by default, ``ab`` only with
   old, new, new, old ``turn_ms`` of each main path, each side's kernel
   alone by torch.profiler (``kernel_ms``), the bound by both counts and
   each side's share, and both sides' registers and spills.
+* ``resume_profile``: chip_smoke.py's resumable solves (its
+  ``RESUME_CASES`` and bench.py's stiff row) through
+  ``build_resumable_solver``: launches, solve ms, the host µs of a
+  ``start``, a ``resume`` and an ``extract``, each kernel's device ms and
+  the card's idle µs between them, the host time of ``start`` and
+  ``resume`` split by part under torch.profiler and of ``start`` by
+  function under cProfile; with ``--baseline`` also the older tree's own
+  solver (``side_modules``);
+* ``ab_resume`` (needs ``--baseline``, a ``csrc`` inside a copy of an
+  older package): ``ab_resume_bitwise``, the lanes differing in every
+  carry field at every chunk boundary of each ``resume_ab_cases`` case,
+  both trees' own wrappers in step; ``ab_resume`` and
+  ``ab_resume_solver``, old, new, new, old whole chunked solves, with the
+  kernels' profiler ms, the host µs a ``resume`` and the time besides the
+  kernels; both sides' registers of the resumable instantiations;
+* ``rehearse`` (alone, needs ``--baseline``, no card): both trees'
+  resumable and stiff kernels built with g++ (gxx.py) and held
+  field by field on CPU tensors.
 
 The A/B, occupancy and two-kernel timings (``ab_stiff`` and
 ``stiff_occupancy`` too) are turns of ``turn_ms``: five
@@ -153,6 +171,9 @@ Imports neither jax nor ivp_tpu.  Needs one CUDA device; exits 1 without one.
 """
 import argparse
 import concurrent.futures
+import contextlib
+import cProfile
+import pstats
 import re
 import shutil
 import subprocess
@@ -176,7 +197,8 @@ OCC_THREADS, OCC_MIN_BLOCKS = (64, 128, 256), (6, 7, 8, 10, 12)
 OCC_ROUNDS = 10
 PHASES = ("sass", "settle", "sweep", "turns", "profile", "occupancy", "erk",
           "erk_occupancy", "ab", "ab_record", "events", "stiff",
-          "stiff_occupancy", "ab_stiff", "ab_events")
+          "stiff_occupancy", "ab_stiff", "ab_events", "resume_profile",
+          "ab_resume", "rehearse")
 # The stiff phase: lanes, turns.
 STIFF_B = (16384, 131072)
 STIFF_ROUNDS = 3
@@ -779,26 +801,32 @@ def profile_solves(solver, dev):
         line("profile", error="'no device time in key_averages()'")
 
 
-def kernel_ms(fn, n=TURN_LAUNCHES, match="erk_kernel"):
+def kernel_ms(fn, n=TURN_LAUNCHES, match="erk_kernel", retry=True,
+              launches=None):
     """Device ms of one launch of ``fn``'s kernels whose name holds
     ``match``, from torch.profiler over ``n`` launches after an untimed
-    one: the kernel alone, where a turn's time (``turn_ms``) is held by the
-    host's work around a short launch."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    one in the same profile (chip_smoke.py's ``window_profile``): the
+    kernel alone, where a turn's time (``turn_ms``) is held by the host's
+    work around a short launch.  ``launches``: the number of those kernels
+    a result of ``fn`` launched, which the profile must hold as many events
+    of, or it raises; a profile that holds none of them, or not as many, is
+    taken again once."""
+    import chip_smoke as cs
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        outs = [fn() for _ in range(n)]
-        torch.cuda.synchronize()
+    outs, events, _, _ = cs.window_profile(
+        fn, lambda: [fn() for _ in range(n)])
+    want = sum(launches(o) for o in outs) if launches else None
     del outs
-    us = sum(getattr(e, "self_device_time_total", None)
-             or getattr(e, "self_cuda_time_total", 0)
-             for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and match in e.key)
-    return 1e-3 * float(us) / n
+    mine = [e for e in events if match in e.name]
+    if not mine or want is not None and len(mine) != want:
+        line("kernel_ms_missed", match=match, kernel_events=len(mine),
+             launches=want, retry=retry)
+        if retry:
+            return kernel_ms(fn, n, match, False, launches)
+        if want is not None:
+            raise AssertionError(f"torch.profiler held {len(mine)} {match} "
+                                 f"events for {want} launches")
+    return 1e-3 * sum(e.time_range.elapsed_us() for e in mine) / n
 
 
 def same_counters(a, b):
@@ -1681,10 +1709,10 @@ def stiff_phase(build, dev):
 
 def resume_alone(build, dev):
     """The explicit resumable mode alone on chip_smoke.py's resumable cases
-    (B=16384): from a started carry, one launch with no budget (the carry
-    cloned first, as ``resume`` does), in ``STIFF_ROUNDS`` turns, with the
-    bound, warp efficiency and ptxas's registers of the resumable
-    instantiations."""
+    (B=16384): from a started carry, one launch with no budget, the
+    kernel's device ms by torch.profiler (``kernel_ms``, in
+    ``STIFF_ROUNDS`` rounds), with the bound, warp efficiency and ptxas's
+    registers of the resumable instantiations."""
     import chip_smoke as cs
     from ivp_tpu_torch import rhs
     from ivp_tpu_torch.batch import _solver_params
@@ -1701,17 +1729,17 @@ def resume_alone(build, dev):
         a = cs.solve_args(y0, tf, rt, at, None, dev)
         ra = run_args(a[2], a[5], a[6], tf, 0.0, 100_000, y0)
         p = _solver_params(method, fun.n, None, None, False)
-        c0 = RES.start_on_card(method, fun, y0, a[1], None, (), ra, p)
-        run = lambda: RES.resume_on_card(method, fun, c0, (), ra, p,
-                                         S.UNBOUNDED)
+        start, resume = card_route(RES, method, fun, (), p)
+        c0 = start(y0, a[1], None, ra)
+        run = lambda: resume(c0, ra, S.UNBOUNDED)
         c = run()
         torch.cuda.synchronize()
-        ms = [turn_ms(run) for _ in range(STIFF_ROUNDS)]
+        ms = [kernel_ms(run) for _ in range(STIFF_ROUNDS)]
         med = float(np.median(ms))
         b_ms, b_by = K.solve_bound(method, fun, c.nstep, c.naccpt)
         line("resume", kernel=f"{K.KERNELS[method][0].replace('_sampled', '')}"
              "_resume", rhs=fname, B=B, tf=tf,
-             turn_ms=[round(m, 4) for m in ms], median_ms=med,
+             profiler_ms=[round(m, 4) for m in ms], median_ms=med,
              bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / med,
              warp_efficiency=float(c.nstep.double().sum())
              / (32 * warp_attempts(c.nstep)),
@@ -1724,6 +1752,244 @@ def resume_alone(build, dev):
             if inst.endswith("/resume"):
                 line("ptxas_resume", library=name, instantiation=inst,
                      registers=regs, spill_stores=st, spill_loads=ld)
+
+
+# resume_profile: the chunked solves timed unprofiled (CUDA events, the
+# median of these after a warm-up) besides the one profiled.
+RESUME_PROFILE_ROUNDS = 3
+# The wrapper functions whose host time resume_profile names, where a tree
+# has them: (module, attribute, part).
+RESUME_PARTS = (
+    ("stiff_ensemble", "clone_carry", "clone"),
+    ("erk_ensemble", "check_inputs", "checks"),
+    ("stiff_ensemble", "_check", "checks"),
+    ("resumable", "_direction_t0", "args"),
+    ("resumable", "stiff_in", "conversions"),
+)
+
+
+def _part_wrappers(side):
+    """Wrap ``RESUME_PARTS`` of ``side``'s modules (``side_modules``; and
+    every RHS's ``kernel_args`` as "args", and each C entry ``build.entry``
+    hands out as "ctypes") in torch.profiler ranges named
+    ``part:<part>``; returns the undo."""
+    from torch.profiler import record_function
+
+    rhs, build = side.rhs, side.build
+    mods = {"erk_ensemble": side.E, "resumable": side.RES,
+            "stiff_ensemble": side.S}
+    undo = []
+
+    def wrap(owner, attr, part):
+        fn = getattr(owner, attr, None)
+        if fn is None:
+            return
+
+        def ranged(*a, **kw):
+            with record_function(f"part:{part}"):
+                return fn(*a, **kw)
+        setattr(owner, attr, ranged)
+        undo.append((owner, attr, fn))
+
+    for mod, attr, part in RESUME_PARTS:
+        wrap(mods[mod], attr, part)
+    wrap(rhs.CudaRHS, "kernel_args", "args")
+    entry = build.entry
+
+    def ranged_entry(*a, **kw):
+        fn = entry(*a, **kw)
+
+        def call(*args):
+            with record_function("part:ctypes"):
+                return fn(*args)
+        return call
+    build.entry = ranged_entry
+    undo.append((build, "entry", entry))
+
+    def restore():
+        for owner, attr, fn in reversed(undo):
+            setattr(owner, attr, fn)
+    return restore
+
+
+def _resume_events(prof, match):
+    """From one profiled chunked solve: ``(host, kernels)``: ``host`` the
+    µs of each top-level range (``start``, ``resume``, ``sync``,
+    ``extract``) and, under ``start`` and ``resume``, of each direct child
+    (a ``part:`` range or an aten op) and of the rest ("python": the range
+    less its children), summed over the calls; ``kernels`` the device
+    ``(start µs, µs)`` of each kernel whose name holds ``match``, in
+    order."""
+    from torch.autograd import DeviceType
+
+    host, kernels = Counter(), []
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            if match in ev.name:
+                kernels.append((ev.time_range.start,
+                                ev.time_range.elapsed_us()))
+            continue
+        if ev.name in ("start", "resume", "sync", "extract"):
+            host[ev.name] += ev.cpu_time_total
+            host[f"n_{ev.name}"] += 1
+            if ev.name not in ("start", "resume"):
+                continue
+            inner = 0.0
+            for ch in ev.cpu_children:
+                key = ch.name[5:] if ch.name.startswith("part:") else ch.name
+                host[f"{ev.name}/{key}"] += ch.cpu_time_total
+                inner += ch.cpu_time_total
+            host[f"{ev.name}/python"] += ev.cpu_time_total - inner
+    return host, sorted(kernels)
+
+
+def resume_profile(dev, side=None, label="new"):
+    """A chunked solve's time, split (``side``: an older tree's modules,
+    ``side_modules``; default this tree's): each of chip_smoke.py's
+    ``RESUME_CASES`` (B=16384, chunk 256) and bench.py's stiff row (Radau
+    and BDF, B=131072, chunk 4096) solved through
+    ``build_resumable_solver``'s start / resume until ``carry.done.all()``
+    / extract.  One line a solve (``resume_profile``): launches, solve ms
+    (CUDA events, the median of ``RESUME_PROFILE_ROUNDS`` after a warm-up),
+    host µs of a ``start``, a ``resume`` and an ``extract`` (perf_counter
+    around the call, unprofiled), then from one solve under torch.profiler
+    (CPU and CUDA): each kernel's device ms (the init launch, then each
+    chunk), their sum, the device's idle µs between consecutive kernels,
+    and the host µs of ``start`` and ``resume`` (each split by part: the
+    wrapper functions of ``RESUME_PARTS``, the ctypes call and each
+    top-level aten op), the ``done`` syncs and ``extract``.  Then, where
+    the tree has it (an older resumable tier cloned the carry given), the
+    host µs of one ``clone_carry`` of a stiff carry at B=131072."""
+    import chip_smoke as cs
+    from torch.profiler import record_function
+
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+
+    side = side or side_modules()
+    rhs, S = side.rhs, side.S
+    cases = [(method, getattr(rhs, fname), (), tf, (rt, at), cs.RESUME_B,
+              cs.RESUME_CHUNK, "erk_kernel",
+              f"{K.KERNELS[method][0].replace('_sampled', '')}_resume")
+             for method, fname, tf, rt, at in cs.RESUME_CASES]
+    cases += [(m, rhs.vdp, (cs.STIFF_MU,), cs.STIFF_TF, cs.STIFF_TOL,
+               cs.STIFF_B, cs.STIFF_CHUNK, f"{m.lower()}_kernel", m.lower())
+              for m in ("RADAU", "BDF")]
+    for method, fun, args, tf, tol, B, chunk, match, name in cases:
+        if fun is rhs.vdp and not args:
+            y0 = torch.as_tensor(cs.vdp_y0(B), device=dev)
+        elif fun is rhs.vdp:
+            y0 = torch.as_tensor(cs.stiff_y0(B), device=dev)
+        else:
+            y0 = torch.as_tensor(cs.lorenz_y0(B), device=dev)
+        start, resume, extract = side.batch.build_resumable_solver(
+            fun, method, n=fun.n, args=args, chunk_steps=chunk)
+        host_us = {"start": [], "resume": [], "extract": []}
+
+        def solve(ranged=False, timed=False):
+            def rng(label):
+                return record_function(label) if ranged else \
+                    contextlib.nullcontext()
+
+            def clock(label, t):
+                if timed:
+                    host_us[label].append(1e6 * (time.perf_counter() - t))
+            t = time.perf_counter()
+            with rng("start"):
+                carry, ra = start(y0, 0.0, tf, *tol)
+            clock("start", t)
+            launches = 1
+            while True:
+                with rng("sync"):
+                    if bool(carry.done.all()):
+                        break
+                t = time.perf_counter()
+                with rng("resume"):
+                    carry = resume(carry, ra)
+                clock("resume", t)
+                launches += 1
+            t = time.perf_counter()
+            with rng("extract"):
+                out = extract(carry)
+            clock("extract", t)
+            return out, launches
+
+        solve()
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(RESUME_PROFILE_ROUNDS):
+            (res, launches), m_, _ = timed(lambda: solve(timed=True))
+            ms.append(m_)
+            del res
+        restore = _part_wrappers(side)
+        try:
+            solve()   # the entries handed out again, wrapped
+            torch.cuda.synchronize()
+            with cs.settled_profile() as prof:
+                solve(ranged=True)
+                torch.cuda.synchronize()
+        finally:
+            restore()
+        host, kern = _resume_events(prof, match)
+        # The start's host time by function (cProfile over a few starts,
+        # the card unprofiled): each function's own µs a start.
+        pr = cProfile.Profile()
+        starts = 10
+        for _ in range(starts):
+            pr.enable()
+            start(y0, 0.0, tf, *tol)
+            pr.disable()
+            torch.cuda.synchronize()
+        st = pstats.Stats(pr).stats
+        top = sorted(((v[2], k) for k, v in st.items()), reverse=True)[:16]
+        line("resume_profile_start", tree=label, kernel=name, B=B,
+             own_us_per_start={f"{Path(k[0]).name}:{k[1]}:{k[2]}":
+                               round(1e6 * t / starts, 1) for t, k in top})
+        gaps = [b[0] - (a[0] + a[1]) for a, b in zip(kern, kern[1:])]
+        n_res = max(1, host["n_resume"])
+        line("resume_profile", tree=label, kernel=name, B=B, chunk=chunk,
+             launches=launches, solve_ms=[round(x, 4) for x in ms],
+             solve_median_ms=round(float(np.median(ms)), 4),
+             host_us={k: round(float(np.mean(v)), 1) if v else None
+                      for k, v in host_us.items()},
+             kernel_ms=round(1e-3 * sum(d for _, d in kern), 4),
+             kernel_ms_each=[round(1e-3 * d, 4) for _, d in kern],
+             idle_us_between=[round(g, 1) for g in gaps],
+             profiled_host_us={k: round(v, 1) for k, v in sorted(host.items())
+                               if "/" not in k and not k.startswith("n_")},
+             profiled_start_us={
+                 k[6:]: round(v, 1) for k, v in sorted(
+                     host.items(), key=lambda kv: -kv[1])
+                 if k.startswith("start/")},
+             profiled_resume_us_per_call={
+                 k[7:]: round(v / n_res, 1) for k, v in sorted(
+                     host.items(), key=lambda kv: -kv[1])
+                 if k.startswith("resume/")},
+             resumes=host["n_resume"], syncs=host["n_sync"])
+        if hasattr(S, "clone_carry") and B == cs.STIFF_B:
+            carry, _ = start(y0, 0.0, tf, *tol)
+            torch.cuda.synchronize()
+            us, dev_ms = [], []
+            for _ in range(10):
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                t = time.perf_counter()
+                e0.record()
+                c2 = S.clone_carry(carry)
+                e1.record()
+                us.append(1e6 * (time.perf_counter() - t))
+                torch.cuda.synchronize()
+                dev_ms.append(e0.elapsed_time(e1))
+                del c2
+            nbytes = sum(x.numel() * x.element_size() for x in
+                         torch.utils._pytree.tree_leaves(carry)
+                         if torch.is_tensor(x))
+            line("resume_profile_clone", tree=label, kernel=name, B=B,
+                 host_us=[round(x, 1) for x in us],
+                 host_us_median=round(float(np.median(us)), 1),
+                 device_ms_median=round(float(np.median(dev_ms)), 4),
+                 bytes=nbytes)
+            del carry
+        del y0
 
 
 STIFF_FIELDS = ("t", "y", "status", "done", "nfev", "njev", "nlu", "nstep",
@@ -1781,11 +2047,13 @@ def stiff_inputs(case, B, dev):
     return rhs.decay, a, (T(rng.uniform(0.5, 50.0, B)),)
 
 
-def stiff_cases(dev, sizes=AB_STIFF_B):
+def stiff_cases(dev, sizes=AB_STIFF_B, stream=None):
     """The bit-for-bit cases of the stiff kernels: ``[(case, B, run)]``,
-    ``run(method, controller, lib) -> (carry, launches)`` one solve through
-    ``lib``'s kernel of ``method`` under ``controller`` ("float32" or
-    "state").  bench.py's stiff row (chip_smoke.py's stiff main path's
+    ``run(method, controller, lib, side=None) -> (carry, launches)`` one
+    solve through ``lib``'s kernel of ``method`` under ``controller``
+    ("float32" or "state"), launched by ``side``'s modules (default this
+    tree's; ``side_modules``) on ``stream`` (0: a g++ build on CPU
+    tensors).  bench.py's stiff row (chip_smoke.py's stiff main path's
     inputs, one launch with no budget); Robertson and decay
     (``stiff_inputs``), each also at ``sizes``' "_wide" lanes; the singular
     retry (decay at rate -1 from a first step whose first
@@ -1796,8 +2064,6 @@ def stiff_cases(dev, sizes=AB_STIFF_B):
     import chip_smoke as cs
     from ivp_tpu_torch import rhs, tableaus
     from ivp_tpu_torch.core.driver import run_args
-    from ivp_tpu_torch.kernels import resumable as RES
-    from ivp_tpu_torch.kernels import stiff_ensemble as S
     from ivp_tpu_torch.methods.jacobian import stiff_spec
 
     f64 = torch.float64
@@ -1809,11 +2075,12 @@ def stiff_cases(dev, sizes=AB_STIFF_B):
         return stiff_spec(method, n, None, {"controller_precision": cp})
 
     def one(fun, a, args, max_steps=100000):
-        def run(method, cp, lib):
+        def run(method, cp, lib, side=None):
             hmin = torch.zeros(a[0].shape[0], dtype=f64, device=dev)
-            return S.stiff_ensemble_cuda(
+            return (side or side_modules()).S.stiff_ensemble_cuda(
                 method, fun, *a, args, max_steps,
-                spec(method, fun.n, cp).params(), hmin, lib=lib), 1
+                spec(method, fun.n, cp).params(), hmin, lib=lib,
+                stream=stream), 1
         return run
 
     out = []
@@ -1845,16 +2112,17 @@ def stiff_cases(dev, sizes=AB_STIFF_B):
     out.append(("vdp_limits", B, one(rhs.vdp, a, (), kw["max_steps"])))
     B = sizes["chunk"]
 
-    def chunked(method, cp, lib):
+    def chunked(method, cp, lib, side=None):
+        RES = (side or side_modules()).RES
         a = tuple(x[:B] if torch.is_tensor(x) else x for x in bench)
         ra = run_args(a[2], a[5], a[6], a[3], 0.0, 100000, a[0])
         sp = spec(method, 2, cp)
-        c = RES.start_on_card(method, rhs.vdp, a[0], a[1], None,
-                              (cs.STIFF_MU,), ra, sp, lib=lib)
+        start, resume = card_route(RES, method, rhs.vdp, (cs.STIFF_MU,), sp,
+                                   lib, stream)
+        c = start(a[0], a[1], None, ra)
         launches = 1
         while not bool(c.done.all()):
-            c = RES.resume_on_card(method, rhs.vdp, c, (cs.STIFF_MU,), ra, sp,
-                                   64, lib=lib)
+            c = resume(c, ra, 64)
             launches += 1
         return c, launches
     out.append(("vdp_chunk64", B, chunked))
@@ -1880,6 +2148,7 @@ def ab_stiff(build, dev, baseline, label):
                 for m in ("radau", "bdf")}
         paths = {m: f.result() for m, f in futs.items()}
     old = {m: build.load(p) for m, p in paths.items()}
+    old_side = side_modules(baseline)
     line("ab_stiff_build", old=label, seconds=round(time.perf_counter() - t0, 3))
     new_paths = {m: build.build(name=m) for m in ("radau", "bdf")}
     for side, ps in (("new", new_paths), (label, paths)):
@@ -1893,7 +2162,7 @@ def ab_stiff(build, dev, baseline, label):
                 continue
             for cp in ("float32", "state"):
                 new, ln = run(method, cp, None)
-                ref, lo = run(method, cp, old[method.lower()])
+                ref, lo = run(method, cp, old[method.lower()], old_side)
                 torch.cuda.synchronize()
                 diff = carry_lanes_differing(stiff_carry_fields(method, new),
                                              stiff_carry_fields(method, ref))
@@ -1917,10 +2186,11 @@ def ab_stiff(build, dev, baseline, label):
             for cp in ("float32", "state"):
                 p = stiff_spec(method, fun.n, None,
                                {"controller_precision": cp}).params()
-                libs = {"new": None, "old": old[method.lower()]}
-                run = {w: (lambda lib=lib: S.stiff_ensemble_cuda(
+                libs = {"new": (S, None),
+                        "old": (old_side.S, old[method.lower()])}
+                run = {w: (lambda M=M, lib=lib: M.stiff_ensemble_cuda(
                     method, fun, *a, fargs, 100000, p, hmin,
-                    lib=lib)) for w, lib in libs.items()}
+                    lib=lib)) for w, (M, lib) in libs.items()}
                 ms = {"old": [], "new": []}
                 for r in range(AB_STIFF_ROUNDS):
                     for what in ("old", "new", "new", "old"):
@@ -1950,6 +2220,393 @@ def ab_stiff(build, dev, baseline, label):
                      **{f"new_{k}": v for k, v in lay.items()})
                 del c
         del a, hmin
+
+
+# ab_resume: rounds of old, new, new, old whole chunked solves; the lanes,
+# chunk and step budget of the decay cases (per-lane t0 and spans, some
+# backward, one of length 0; stiff lanes stop at the budget).
+AB_RESUME_ROUNDS = 5
+AB_RESUME_DECAY = (4096, 64, 2000)
+
+
+def side_modules(baseline=None):
+    """The modules (``S``: stiff_ensemble, ``RES``: resumable, ``E``:
+    erk_ensemble, ``build``, ``batch``, ``rhs``) that launch a baseline's
+    kernels: where its ``csrc`` sits in a copy of the
+    package (``git archive <commit> ivp_tpu_torch``), that copy's own,
+    imported under another name, since its entries may take other
+    arguments; else (and with no baseline) this tree's."""
+    import importlib
+    import importlib.util
+    import types
+
+    pkg = None if baseline is None else Path(baseline).resolve().parent
+    if pkg is None or not (pkg / "__init__.py").exists():
+        from ivp_tpu_torch import batch, rhs
+        from ivp_tpu_torch.kernels import build, erk_ensemble, resumable
+        from ivp_tpu_torch.kernels import stiff_ensemble
+        return types.SimpleNamespace(S=stiff_ensemble, RES=resumable,
+                                     E=erk_ensemble, build=build,
+                                     batch=batch, rhs=rhs)
+    alias = f"_side_{pkg.parent.name}_{pkg.name}"
+    if alias not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            alias, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[alias] = mod
+        spec.loader.exec_module(mod)
+    return types.SimpleNamespace(
+        S=importlib.import_module(f"{alias}.kernels.stiff_ensemble"),
+        RES=importlib.import_module(f"{alias}.kernels.resumable"),
+        E=importlib.import_module(f"{alias}.kernels.erk_ensemble"),
+        build=importlib.import_module(f"{alias}.kernels.build"),
+        batch=importlib.import_module(f"{alias}.batch"),
+        rhs=importlib.import_module(f"{alias}.rhs"))
+
+
+def side_libraries(build, side, baseline) -> dict:
+    """Build the resumable and stiff libraries of ``baseline`` (a ``csrc``)
+    with this tree's build (nvcc, all at once) and hand them to ``side``'s
+    own ``build.library``, so that its solvers launch them;
+    ``{name: path}``."""
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+
+    names = sorted({K.KERNELS[m][1] for m in K.KERNELS} | {"radau", "bdf"})
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
+        paths = dict(zip(names, ex.map(
+            lambda n: build.build(src_dir=baseline, name=n), names)))
+    for n, p in paths.items():
+        side.build._libs.setdefault(n, build.load(p))
+    return paths
+
+
+def baseline_label(baseline):
+    """A baseline's label: the directory above its ``csrc``, or above the
+    package copy that holds it."""
+    above = Path(baseline).parent
+    return (above.parent.name if (above / "__init__.py").exists()
+            else above.name if Path(baseline).name == "csrc"
+            else Path(baseline).name)
+
+
+def resume_carry_fields(method, c):
+    """{field: tensor} of a resumable carry: the driver's fields and the
+    method state's (``lin`` spelt out)."""
+    from ivp_tpu_torch.kernels import stiff_ensemble as S
+
+    out = {f: getattr(c, f) for f in STIFF_FIELDS}
+    out.update(S._ms_fields(method, c.ms) if method in ("RADAU", "BDF")
+               else c.ms._asdict())
+    return out
+
+
+def resume_ab_cases(dev, B=None):
+    """The resumable solver's A/B cases: ``[(case, method, fun, solve
+    arguments, RHS arguments, params, chunk_steps, max_steps)]``.  chip_smoke.py's
+    ``RESUME_CASES`` (B=16384, chunk 256); DOPRI5 on VdP and RK4 on Lorenz
+    with the controller in double (RK4 keeps it in float, stored double);
+    DOPRI5, DOP853 and RK4 on ``stiff_inputs``' decay lanes (per-lane t0,
+    spans some backward, one of length 0, per-lane rates and tolerances;
+    ``AB_RESUME_DECAY``'s chunk and step budget); Radau and BDF on bench.py's stiff
+    row at B=16384, chunk 64, both controller types.  ``B`` replaces every
+    lane count (a rehearsal on the CPU)."""
+    import chip_smoke as cs
+    from ivp_tpu_torch import rhs
+    from ivp_tpu_torch.batch import _solver_params
+    from ivp_tpu_torch.methods.jacobian import stiff_spec
+
+    def params(method, n, cp=None):
+        so = None if cp is None else {"controller_precision": cp}
+        if method in ("RADAU", "BDF"):
+            return stiff_spec(method, n, None, so)
+        return _solver_params(method, n, None, so, False)
+
+    out = []
+    explicit = [(m, f, tf, rt, at, None)
+                for m, f, tf, rt, at in cs.RESUME_CASES]
+    explicit += [("DOPRI5", "vdp", 20.0, 1e-6, 1e-8, "state"),
+                 ("RK4", "lorenz", 2.0, 1e-6, 1e-8, "state")]
+    for method, fname, tf, rt, at, cp in explicit:
+        fun = getattr(rhs, fname)
+        Bc = B or cs.RESUME_B
+        y0 = torch.as_tensor(cs.lorenz_y0(Bc) if fun.n == 3 else
+                             cs.vdp_y0(Bc), device=dev)
+        out.append((f"{method.lower()}_{fname}" + (f"_{cp}" if cp else ""),
+                    method, fun, cs.solve_args(y0, tf, rt, at, None, dev), (),
+                    params(method, fun.n, cp), cs.RESUME_CHUNK, 100000))
+    Bd, chunk, budget = AB_RESUME_DECAY
+    fun, a, fargs = stiff_inputs("decay", B or Bd, dev)
+    # Not RK23: a backward lane of these overflows, and RK23 counts only
+    # accepted attempts, so a lane whose error estimate is NaN is rejected
+    # forever within one launch (the plain version loops too; ROADMAP §3).
+    for method in ("DOPRI5", "DOP853", "RK4"):
+        out.append((f"{method.lower()}_decay", method, fun, a, fargs,
+                    params(method, 1), chunk, budget))
+    Bs = B or AB_STIFF_B["chunk"]
+    y0 = torch.as_tensor(cs.stiff_y0(Bs), device=dev)
+    for method in ("RADAU", "BDF"):
+        for cp in ("float32", "state"):
+            out.append((f"{method.lower()}_stiff_row_{cp}", method, rhs.vdp,
+                        cs.solve_args(y0, cs.STIFF_TF, *cs.STIFF_TOL, None,
+                                      dev), (cs.STIFF_MU,),
+                        params(method, 2, cp), 64, 100000))
+    return out
+
+
+def card_route(RES, method, fun, args, params, lib=None, stream=None):
+    """``(start(y0, t0, first_step, ra), resume(carry, ra, max_attempts))``:
+    the resumable launches on the card of a tree's ``RES`` (its
+    ``CardSolve``; an older tree's ``start_on_card`` /
+    ``resume_on_card``)."""
+    if hasattr(RES, "CardSolve"):
+        s = RES.CardSolve(method, fun, args, params, lib)
+        return (lambda y0, t0, fs, ra: s.start(y0, t0, fs, ra, stream),
+                lambda c, ra, k: s.resume(c, ra, k, stream))
+    return (lambda y0, t0, fs, ra: RES.start_on_card(
+                method, fun, y0, t0, fs, args, ra, params, lib=lib,
+                stream=stream),
+            lambda c, ra, k: RES.resume_on_card(
+                method, fun, c, args, ra, params, k, lib=lib, stream=stream))
+
+
+def chunked_solve(RES, method, fun, a, args, params, chunk, max_steps,
+                  lib=None, stream=None, host_us=None):
+    """``(carry, launches)``: one solve through ``RES``'s resumable launches
+    (``card_route``) until ``carry.done.all()``, the host µs of each resume
+    call appended to ``host_us``."""
+    from ivp_tpu_torch.core.driver import run_args
+
+    y0, t0, tf, hmax, fs, rtol, atol = a
+    ra = run_args(tf, rtol, atol, hmax, 0.0, max_steps, y0)
+    start, resume = card_route(RES, method, fun, args, params, lib, stream)
+    c = start(y0, t0, fs, ra)
+    launches = 1
+    while not bool(c.done.all()):
+        t = time.perf_counter()
+        c = resume(c, ra, chunk)
+        if host_us is not None:
+            host_us.append(1e6 * (time.perf_counter() - t))
+        launches += 1
+    return c, launches
+
+
+def resume_bitwise(cases, new_libs, old_libs, new_side, old_side, stream,
+                   label):
+    """``ab_resume_bitwise`` lines: each case solved by both sides in step,
+    the lanes differing in each field of their carries summed over every
+    chunk boundary (the start's carry first), and whether they made the
+    same launches.  ``*_libs(method)``: a side's library; ``*_side``: its
+    modules (``side_modules``).  True if every case is identical."""
+    from ivp_tpu_torch.core.driver import run_args
+
+    same = True
+    for case, method, fun, a, args, params, chunk, max_steps in cases:
+        y0, t0, tf, hmax, fs, rtol, atol = a
+        ra = run_args(tf, rtol, atol, hmax, 0.0, max_steps, y0)
+        sides = [card_route(R, method, fun, args, params, lib, stream)
+                 for R, lib in ((new_side.RES, new_libs(method)),
+                                (old_side.RES, old_libs(method)))]
+        cs_ = [start(y0, t0, fs, ra) for start, _ in sides]
+        diff, launches, boundaries = Counter(), 1, 0
+        while True:
+            boundaries += 1
+            diff.update(carry_lanes_differing(
+                resume_carry_fields(method, cs_[0]),
+                resume_carry_fields(method, cs_[1])))
+            done = [bool(c.done.all()) for c in cs_]
+            if done[0] != done[1]:
+                diff["launches"] += 1
+            if any(done):
+                break
+            cs_ = [resume(c, ra, chunk) for (_, resume), c in zip(sides, cs_)]
+            launches += 1
+        diff = dict(diff, launches=diff["launches"])
+        ok = all(v == 0 for v in diff.values())
+        same &= ok
+        line("ab_resume_bitwise", old=label, case=case, B=y0.shape[0],
+             chunk=chunk, launches=launches, boundaries=boundaries,
+             identical=ok, lanes_differing=repr(diff),
+             statuses=repr(dict(Counter(cs_[0].status.cpu().tolist()))))
+        del cs_
+    return same
+
+
+def ab_resume(build, dev, baseline, label):
+    """The resumable tier against a baseline (``side_modules``: an older
+    tree's wrapper and kernels): ``ab_resume_bitwise`` on every
+    ``resume_ab_cases`` case, then for each ``AB_RESUME_ROUNDS`` rounds
+    of old, new, new, old whole chunked solves through ``RES``'s
+    resumable launches (``card_route``; CUDA events around the start, every
+    resume and every read of ``done``), with each side's kernels' device ms
+    by torch.profiler over one more solve, launches, host µs a resume, and
+    the time besides the kernels a launch (``ab_resume``); then the same
+    through each side's ``batch.build_resumable_solver`` (built, started,
+    resumed and extracted inside the time, as chip_smoke.py's phases 12
+    and 13 run it) on chip_smoke.py's ``RESUME_CASES`` and bench.py's stiff
+    row uncut (B=131072, chunk 4096): ``ab_resume_solver``."""
+    import chip_smoke as cs
+    from ivp_tpu_torch import rhs
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+
+    old_side, new_side = side_modules(baseline), side_modules()
+    t0 = time.perf_counter()
+    old_paths = side_libraries(build, old_side, baseline)
+    old = {n: old_side.build.library(n) for n in old_paths}
+    sources = sorted(old_paths)
+    line("ab_resume_build", old=label,
+         seconds=round(time.perf_counter() - t0, 3))
+    for side, paths in (("new", {n: build.build(name=n) for n in sources}),
+                        (label, old_paths)):
+        for n_, path in paths.items():
+            for fn, regs, st, ld in build.ptxas_report(path):
+                if instantiation(fn).endswith("/resume"):
+                    line("ab_resume_ptxas", build=side, library=n_,
+                         instantiation=instantiation(fn), registers=regs,
+                         spill_stores=st, spill_loads=ld)
+    src = (lambda m: m.lower() if m in ("RADAU", "BDF")
+           else K.KERNELS[m][1])
+    cases = resume_ab_cases(dev)
+    resume_bitwise(cases, lambda m: None, lambda m: old[src(m)], new_side,
+                   old_side, None, label)
+    for case, method, fun, a, args, params, chunk, max_steps in cases:
+        match = (f"{method.lower()}_kernel" if method in ("RADAU", "BDF")
+                 else "erk_kernel")
+        sides = {"new": (new_side, None), "old": (old_side, old[src(method)])}
+        ms, host = {"old": [], "new": []}, {"old": [], "new": []}
+        for r in range(AB_RESUME_ROUNDS):
+            for w in ("old", "new", "new", "old"):
+                side, lib = sides[w]
+                (c, launches), m_, _ = timed(lambda: chunked_solve(
+                    side.RES, method, fun, a, args, params, chunk, max_steps,
+                    lib, host_us=host[w]))
+                ms[w].append(m_)
+                del c
+        kern = {w: kernel_ms(lambda side=side, lib=lib: chunked_solve(
+            side.RES, method, fun, a, args, params, chunk, max_steps, lib),
+            n=1, match=match, launches=lambda o: o[1])
+            for w, (side, lib) in sides.items()}
+        ab_resume_line("ab_resume", label, case, a[0].shape[0], chunk,
+                       launches, ms, kern, host)
+    solver_cases = [(m, getattr(rhs, f), (), tf, (rt, at), cs.RESUME_B,
+                     cs.RESUME_CHUNK) for m, f, tf, rt, at in cs.RESUME_CASES]
+    solver_cases += [(m, rhs.vdp, (cs.STIFF_MU,), cs.STIFF_TF, cs.STIFF_TOL,
+                      cs.STIFF_B, cs.STIFF_CHUNK) for m in ("RADAU", "BDF")]
+    for method, fun, args, tf, tol, B, chunk in solver_cases:
+        y0 = torch.as_tensor(cs.stiff_y0(B) if args else cs.lorenz_y0(B)
+                             if fun.n == 3 else cs.vdp_y0(B), device=dev)
+        match = (f"{method.lower()}_kernel" if method in ("RADAU", "BDF")
+                 else "erk_kernel")
+        ms, host = {"old": [], "new": []}, {"old": [], "new": []}
+
+        def solve(side, host_us=None):
+            start, resume, extract = side.batch.build_resumable_solver(
+                getattr(side.rhs, fun.name), method, n=fun.n, args=args,
+                chunk_steps=chunk)
+            carry, ra = start(y0, 0.0, tf, *tol)
+            launches = 1
+            while not bool(carry.done.all()):
+                t = time.perf_counter()
+                carry = resume(carry, ra)
+                if host_us is not None:
+                    host_us.append(1e6 * (time.perf_counter() - t))
+                launches += 1
+            return extract(carry), launches
+        sides = {"new": new_side, "old": old_side}
+        for w in sides:
+            solve(sides[w])
+        for r in range(AB_RESUME_ROUNDS):
+            for w in ("old", "new", "new", "old"):
+                (res, launches), m_, _ = timed(
+                    lambda: solve(sides[w], host[w]))
+                ms[w].append(m_)
+                del res
+        kern = {w: kernel_ms(lambda side=side: solve(side), n=1, match=match,
+                             launches=lambda o: o[1])
+                for w, side in sides.items()}
+        ab_resume_line("ab_resume_solver", label,
+                       f"{method.lower()}_{fun.name}", B, chunk, launches, ms,
+                       kern, host)
+        del y0
+
+
+def ab_resume_line(what, label, case, B, chunk, launches, ms, kern, host):
+    """One line of ab_resume's turns: each side's solve ms, their medians,
+    the kernels' ms, host µs a resume and ms besides the kernels a
+    launch."""
+    med = {w: float(np.median(v)) for w, v in ms.items()}
+    pairs = zip(zip(ms["new"][::2], ms["new"][1::2]),
+                zip(ms["old"][::2], ms["old"][1::2]))
+    line(what, old=label, case=case, B=B, chunk=chunk,
+         launches=launches, old_ms=[round(x, 4) for x in ms["old"]],
+         new_ms=[round(x, 4) for x in ms["new"]],
+         old_median=round(med["old"], 4), new_median=round(med["new"], 4),
+         new_over_old=round(med["new"] / med["old"], 4),
+         rounds_new_won=f"{sum(sum(n) < sum(o) for n, o in pairs)}"
+                        f"/{AB_RESUME_ROUNDS}",
+         old_kernel_ms=round(kern["old"], 4),
+         new_kernel_ms=round(kern["new"], 4),
+         old_host_us_per_resume=round(float(np.mean(host["old"])), 1),
+         new_host_us_per_resume=round(float(np.mean(host["new"])), 1),
+         old_besides_kernel_ms=round(med["old"] - kern["old"], 4),
+         new_besides_kernel_ms=round(med["new"] - kern["new"], 4),
+         old_besides_kernel_ms_per_launch=round(
+             (med["old"] - kern["old"]) / launches, 4),
+         new_besides_kernel_ms_per_launch=round(
+             (med["new"] - kern["new"]) / launches, 4))
+
+
+# rehearse: the lanes of every case, and the stiff_cases sizes, of the CPU
+# rehearsal on g++ builds (a lane count that fills no block).
+REHEARSE_B = 37
+REHEARSE_STIFF = {"bench": 40, "robertson": 24, "decay": 40, "singular": 16,
+                  "max_steps": 40, "limits": 40, "chunk": 40}
+
+
+def rehearse(baseline, label):
+    """On the CPU, no card: the resumable and stiff kernels of this tree and
+    of ``baseline`` built with g++ (gxx.py) into ``_build/gxx/``,
+    held field by field on CPU tensors: ``ab_resume_bitwise`` on every
+    ``resume_ab_cases`` case at ``REHEARSE_B`` lanes, then ``rehearse_stiff``
+    on every ``stiff_cases`` case at ``REHEARSE_STIFF`` under both
+    controller types.  True if every case is identical."""
+    import gxx
+    from ivp_tpu_torch.kernels import build
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+
+    dev = torch.device("cpu")
+    names = sorted({K.KERNELS[m][1] for m in K.KERNELS} | {"radau", "bdf"})
+    t0 = time.perf_counter()
+    libs = {w: {n: build.load(p) for n, p in gxx.build_all(
+        src, build.BUILD_DIR / "gxx" / w, names).items()}
+        for w, src in (("new", build.SRC_DIR), (label, baseline))}
+    line("rehearse_build", old=label, seconds=round(time.perf_counter() - t0, 3))
+    src = (lambda m: m.lower() if m in ("RADAU", "BDF")
+           else K.KERNELS[m][1])
+    old_side = side_modules(baseline)
+    same = resume_bitwise(resume_ab_cases(dev, REHEARSE_B),
+                          lambda m: libs["new"][src(m)],
+                          lambda m: libs[label][src(m)], side_modules(),
+                          old_side, 0, label)
+    for case, B, run in stiff_cases(dev, REHEARSE_STIFF, stream=0):
+        for method in ("RADAU", "BDF"):
+            if case.startswith("singular_") and case != \
+                    f"singular_{method.lower()}":
+                continue
+            for cp in ("float32", "state"):
+                new, ln = run(method, cp, libs["new"][method.lower()])
+                ref, lo = run(method, cp, libs[label][method.lower()],
+                              old_side)
+                diff = carry_lanes_differing(stiff_carry_fields(method, new),
+                                             stiff_carry_fields(method, ref))
+                diff["launches"] = int(ln != lo)
+                ok = all(v == 0 for v in diff.values())
+                same &= ok
+                line("rehearse_stiff", old=label, kernel=method.lower(),
+                     controller=cp, case=case, B=B, identical=ok,
+                     lanes_differing=repr({k: v for k, v in diff.items()
+                                           if v}))
+    line("rehearse", old=label, identical=same)
+    return same
 
 
 # The stiff occupancy sweep: (threads a block, min blocks an SM) of every
@@ -2040,13 +2697,19 @@ def main():
     global SASS_DIR
     SASS_DIR = opts.sass_dir
     phases = (set(opts.phases.split(",")) if opts.phases else
-              set(PHASES) - ({"ab_record", "ab_stiff", "ab_events"}
-                             if opts.baseline else
-                             {"ab", "ab_record", "ab_stiff", "ab_events"}))
+              set(PHASES) - ({"ab_record", "ab_stiff", "ab_events",
+                              "ab_resume", "rehearse"} if opts.baseline else
+                             {"ab", "ab_record", "ab_stiff", "ab_events",
+                              "ab_resume", "rehearse"}))
     if not phases <= set(PHASES):
         ap.error(f"unknown phases {sorted(phases - set(PHASES))}")
-    if phases & {"ab", "ab_record", "ab_stiff", "ab_events"} and not opts.baseline:
-        ap.error("the ab phases need --baseline")
+    if phases & {"ab", "ab_record", "ab_stiff", "ab_events",
+                 "ab_resume", "rehearse"} and not opts.baseline:
+        ap.error("the ab phases and rehearse need --baseline")
+    if phases == {"rehearse"}:
+        torch.set_num_threads(2)
+        return int(not all([rehearse(b, baseline_label(b))
+                            for b in opts.baseline]))
     if not torch.cuda.is_available():
         print("measure_kernel: no CUDA device", file=sys.stderr)
         return 1
@@ -2068,7 +2731,7 @@ def main():
     for functor, info in ptxas_lines(lib.with_suffix(".log").read_text()):
         line("ptxas", build="new", functor=functor, info=repr(info))
     if phases & {"sass", "erk", "erk_occupancy", "ab", "ab_record",
-                 "events", "ab_events"}:
+                 "events", "ab_events", "resume_profile"}:
         t = time.perf_counter()
         erk_libs = build.build_all()
         line("build_all", seconds=round(time.perf_counter() - t, 3),
@@ -2131,14 +2794,22 @@ def main():
         events_phase(build, dev)
     if "stiff" in phases:
         stiff_phase(build, dev)
-    for baseline in (opts.baseline if phases & {"ab", "ab_record", "ab_stiff",
-                                                "ab_events"} else ()):
-        label = (baseline.parent.name if baseline.name == "csrc"
-                 else baseline.name)
+    if "resume_profile" in phases:
+        resume_profile(dev)
+    for baseline in (opts.baseline if phases & {
+            "ab", "ab_record", "ab_stiff", "ab_events", "ab_resume",
+            "resume_profile"} else ()):
+        label = baseline_label(baseline)
         if "ab_stiff" in phases:
             ab_stiff(build, dev, baseline, label)
         if "ab_events" in phases:
             ab_events(build, dev, baseline, label)
+        if "ab_resume" in phases:
+            ab_resume(build, dev, baseline, label)
+        if "resume_profile" in phases:
+            side = side_modules(baseline)
+            side_libraries(build, side, baseline)
+            resume_profile(dev, side, label)
         if "ab" in phases:
             ab(k, build, rhs, dev, baseline, label)
             ab_erk(build, rhs, dev, baseline, label)
