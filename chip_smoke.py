@@ -300,8 +300,41 @@ def erk_kernels_vs_plain(dev):
               max_abs_err_samples=float((got[7] - ref[7]).abs().max()),
               max_abs_err_t=float((got[0] - ref[0]).abs().max()),
               seconds_for_method=round(time.perf_counter() - t_method, 3))
+        if method == "DOP853":
+            worst = max(worst, dense_grid_vs_plain(dev))
         errs[kernel] = worst
     return errs
+
+
+def dense_grid_vs_plain(dev):
+    """The deferred samples' queue of the sampled DOP853 kernel (erk_common.
+    cuh's DEFER_SAMPLES) against the plain version at B=4096: Lorenz on t in
+    [0, 1] with a per-lane grid of 400 sorted times, denser than the steps,
+    so that each step emits several samples and every lane's slots fill
+    (and the warp resolves its queue) every few steps.  Status, counters and
+    n_samples equal on every lane, y and y_samples within 1e-8 of max(1,
+    |y|).  The max_abs_err."""
+    from ivp_tpu_torch import Status, rhs
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+
+    Bc, m = CHECK_B, 400
+    rng = np.random.default_rng(6)
+    T = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+    a = (T(1.0 + rng.standard_normal((Bc, 3))), lanes(Bc, 0.0, dev),
+         lanes(Bc, 1.0, dev), lanes(Bc, 1.0, dev), None,
+         T(np.full((Bc, 3), 1e-8)), T(np.full((Bc, 3), 1e-10)))
+    kw = dict(t_grid=T(np.sort(rng.uniform(0.0, 1.0, (Bc, m)), axis=1)))
+    got = K.erk_ensemble_cuda("DOP853", rhs.lorenz, *a, **kw)
+    ref = K.erk_ensemble_torch("DOP853", rhs.lorenz, *a, **kw)
+    torch.cuda.synchronize()
+    err = compare(f"dop853_vs_plain_dense_grid_B{Bc}", got, ref, scaled=True)
+    naccpt = got[5].double()
+    if (set(got[2].cpu().tolist()) != {Status.SUCCESS}
+            or not bool((got[8] == m).all()) or float(naccpt.min()) <= 8
+            or float((m / naccpt).min()) <= 2.0):
+        raise AssertionError("dense grid: a lane did not emit every sample "
+                             "from more than 8 steps of several samples each")
+    return err
 
 
 def erk_golden_and_scipy(dev):

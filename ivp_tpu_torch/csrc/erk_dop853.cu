@@ -10,11 +10,22 @@
 // default controller (beta == 0) as three square roots with no log or exp and
 // facold left alone, the DOPRI5 controller otherwise.
 //
-// Registers: twelve stage vectors (sixteen when sampled) of n doubles each
-// sit beside the state, so the entries ask for 64 x 4 launch bounds, which
-// leave ptxas all 255 registers a thread may have: with the float controller
-// Lorenz (n = 3) takes 128 lean and 195 sampled and spills nothing
-// (kernels/build.py keeps ptxas's report; PERF.md states it).
+// A sampled solve (no events, no records) builds the dense stages and rows
+// of no step in its loop: a step that covers a grid time is queued, and the
+// warp rebuilds its queued steps together with the rows built and emits
+// their samples (erk_common.cuh's DEFER_SAMPLES, DEFERS_SAMPLES below).  On
+// the Lorenz main path the rows ran on about 97% of a lane's steps that
+// emit nothing; covers() alone would still run them on most of a warp's
+// iterations.  nfev keeps ivp_tpu's 11 + 4 on each accepted step and does
+// not count the rebuild.
+//
+// Registers: twelve stage vectors (sixteen where rows are built) of n
+// doubles each sit beside the state, so the entries ask for 64 x 4 launch
+// bounds, which leave ptxas all 255 registers a thread may have: with the
+// float controller Lorenz (n = 3) takes 128 lean and 215 sampled (the
+// rebuild's attempt with its rows beside the loop's state; 197 when the
+// loop built the rows) and spills nothing (kernels/build.py keeps ptxas's
+// report; PERF.md states it).
 #include "erk_common.cuh"
 
 namespace ivp {
@@ -23,6 +34,7 @@ struct Dop853 {
   static constexpr int NCOEFF = 8;
   static constexpr bool HAS_CONTROLLER = true;
   static constexpr bool DEFERS = true;   // erk_common.cuh's DEFER
+  static constexpr bool DEFERS_SAMPLES = true;   // and DEFER_SAMPLES
 
   template <class F, int DENSE, class CT, class W>
   static __device__ double attempt(const F& f, const double* a, double t,

@@ -45,6 +45,8 @@ struct Dopri5 {
   static constexpr int NCOEFF = 5;
   static constexpr bool HAS_CONTROLLER = true;
   static constexpr bool DEFERS = true;   // erk_common.cuh's DEFER
+  // Its five rows cost no RHS evaluation and are built under covers().
+  static constexpr bool DEFERS_SAMPLES = false;
 
   template <class F, int DENSE, class CT, class W>
   static __device__ double attempt(const F& f, const double* a, double t,

@@ -22,6 +22,7 @@ struct Rk4 {
   static constexpr int NCOEFF = 0;   // interp reads the segment's ends
   static constexpr bool HAS_CONTROLLER = false;   // nothing to run in CT
   static constexpr bool DEFERS = true;   // erk_common.cuh's DEFER
+  static constexpr bool DEFERS_SAMPLES = false;   // it has no rows
 
   template <class F, int DENSE, class CT, class W>
   static __device__ double attempt(const F& f, const double* a, double t,

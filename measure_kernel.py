@@ -68,8 +68,11 @@ instantiation), then the phases (all by default, ``ab`` only with
   kernels at each of ``AB_ERK_B``: the lanes differing in each output of
   every method's ``erk_cases`` (lean and sampled, float and double
   controller, Lorenz, VdP and decay, the edge cases with and without a
-  grid), then old, new, new, old rounds of each method's Lorenz
-  configurations, lean and sampled.  Then the eight record-mode
+  grid; DOP853 also the deferred samples' queue cases, ``queue_cases``),
+  then old, new, new, old rounds of each method's Lorenz configurations,
+  lean and sampled, with each side's median, cycles and the bound, and the
+  new build's registers, spills, static shared memory a block and (sampled
+  DOP853) slots a lane.  Then the eight record-mode
   instantiations (``<method>_record`` and ``_record_cont``; an old build
   without the staged stores writes unpadded rows, kernels/erk_record.py's
   ``RecordLaunch``):
@@ -150,8 +153,19 @@ instantiation), then the phases (all by default, ``ab`` only with
   kernels' profiler ms, the host µs a ``resume`` and the time besides the
   kernels; both sides' registers of the resumable instantiations;
 * ``rehearse`` (alone, needs ``--baseline``, no card): both trees'
-  resumable and stiff kernels built with g++ (gxx.py) and held
-  field by field on CPU tensors.
+  resumable, stiff and erk kernels built with g++ (gxx.py) and held
+  field by field on CPU tensors (every ``erk_cases`` case too);
+* ``cover_share``: where the sampled DOP853 solve's lanes cover a grid
+  time: a copy of the sources with a warp-vote counter in erk_kernel's
+  loop (``COVER_PATCH``) runs the Lorenz main path (B=16384, 100 samples)
+  over each of ``COVER_SPANS``: the share of a warp's iterations on which
+  some lane's step advances and covers its next grid time (the iterations
+  on which the rows run at once, or under ``covers()`` alone), the share
+  of lane attempts that do, and the instrumented outputs held bit for bit
+  to the package build's; then ``cover_split``: the package build's lean
+  solve, its sampled solve on a grid past tf (nothing queued) and on the
+  main path's grid, in turns at each of ``AB_ERK_B``, and the same of each
+  ``--baseline``'s erk_dop853 build.
 
 The A/B, occupancy and two-kernel timings (``ab_stiff`` and
 ``stiff_occupancy`` too) are turns of ``turn_ms``: five
@@ -159,8 +173,9 @@ launches back to back between two CUDA events, so the host's work of a
 call stays out of the time.  ``--sass-dir DIR`` writes each SASS listing
 read.
 
-The fast path of the loop is walked from the loop head to its back edge.  A
-forward branch whose skipped region calls a subroutine is taken: that skips
+The fast path of the stepping loop (``step_loop``) is walked from the loop
+head to its back edge.  A forward branch whose skipped region calls a
+subroutine is taken: that skips
 the IEEE slow paths of f32/f64 division and sqrt, and the stiffness test
 (run on ~1 accepted attempt in 1000), which holds such calls of its own.
 Every other conditional branch falls through, so the path is an accepted
@@ -198,7 +213,7 @@ OCC_ROUNDS = 10
 PHASES = ("sass", "settle", "sweep", "turns", "profile", "occupancy", "erk",
           "erk_occupancy", "ab", "ab_record", "events", "stiff",
           "stiff_occupancy", "ab_stiff", "ab_events", "resume_profile",
-          "ab_resume", "rehearse")
+          "ab_resume", "rehearse", "cover_share")
 # The stiff phase: lanes, turns.
 STIFF_B = (16384, 131072)
 STIFF_ROUNDS = 3
@@ -243,6 +258,9 @@ ERK_CONFIGS = (("DOP853", 100.0, 1e-8, 1e-10, None),
                ("RK4", 20.0, 1e-6, 1e-8, 2e-3),
                ("DOPRI5", 20.0, 1e-6, 1e-8, None))
 ERK_SAMPLES = 100
+# cover_share: the Lorenz sampled DOP853 main path's lanes, and its spans.
+COVER_B = 16384
+COVER_SPANS = (100.0, 20.0)
 # The erk libraries whose registers and loop SASS are printed.
 ERK_LIBS = ("erk_dop853", "erk_rk23", "erk_rk4", "erk_dopri5")
 
@@ -461,11 +479,30 @@ def loops(ins):
                   reverse=True)
 
 
+def step_loop(ins):
+    """The stepping loop of an erk instantiation: the largest loop, or, where
+    that loop holds two or more disjoint loops of a quarter its size or
+    more, the first of them, and so on down.  The deferred samples'
+    instantiation holds its stepping loop and the resolution's, about as
+    large, in an outer loop (erk_common.cuh's DEFER_SAMPLES); every other
+    one's stepping loop is its largest."""
+    found = loops(ins)
+    within = lambda o, lp: o is not lp and lp[2] <= o[2] and o[1] <= lp[1]
+    lp = found[0]
+    while True:
+        big = [o for o in found if within(o, lp) and 4 * o[0] >= lp[0]]
+        tops = [o for o in big if not any(within(o, q) for q in big)]
+        if len(tops) < 2:
+            return lp
+        lp = min(tops, key=lambda o: o[2])
+
+
 def loop_fast_path(ins, loop=None):
-    """(opcodes on the fast path of ``loop`` (default: the largest), forward
-    branches taken past a region with a call, instructions they skip)."""
+    """(opcodes on the fast path of ``loop`` (default: ``step_loop``),
+    forward branches taken past a region with a call, instructions they
+    skip)."""
     at = {a: i for i, (a, *_) in enumerate(ins)}
-    _, tail, head = loop or loops(ins)[0]
+    _, tail, head = loop or step_loop(ins)
     path, skipped, skipped_ins = [], 0, 0
     i = at[head]
     while len(path) < 100000:
@@ -639,12 +676,14 @@ def sweep(k, rhs, dev):
     return rows
 
 
-def lorenz_args(method, B, dev, sampled):
+def lorenz_args(method, B, dev, sampled, tf=None):
     """erk_ensemble_cuda's arguments after ``method`` for an ``ERK_CONFIGS``
-    solve of Lorenz over B lanes, lean or with ``ERK_SAMPLES`` samples."""
+    solve of Lorenz over B lanes, lean or with ``ERK_SAMPLES`` samples; its
+    span cut to [0, tf] if given."""
     from ivp_tpu_torch import rhs
 
-    _, tf, rtol, atol, first = next(c for c in ERK_CONFIGS if c[0] == method)
+    _, tf0, rtol, atol, first = next(c for c in ERK_CONFIGS if c[0] == method)
+    tf = tf0 if tf is None else tf
     f64 = torch.float64
     rng = np.random.default_rng(0)
     y0 = torch.as_tensor(np.array([1.0, 1.0, 1.0])
@@ -702,6 +741,112 @@ def erk_sweep(rhs, dev):
                      bound_share=round(bound / med, 4), sm_mhz=mhz,
                      cycles_per_warp_attempt_per_scheduler=round(
                          med * 1e-3 * mhz * 1e6 * 132 * 4 / wa, 1))
+
+
+# cover_share's instrumentation, patched into a copy of csrc: per warp
+# iteration of a sampled lean loop, one count from the warp's first active
+# lane of the iteration, of it when some lane's step advanced and covers
+# its next grid time, and of the warp's active lanes and covering lanes;
+# then an entry that reads the counts and zeroes them.
+COVER_PATCH = (
+    ("erk_common.cuh", "namespace ivp {\n",
+     "namespace ivp {\n__device__ unsigned long long ivp_cover_counts[4];\n"),
+    ("erk_common.cuh", "    nfev += s.nfev;\n", """    nfev += s.nfev;
+    if constexpr (SAMPLED && NE == 0 && REC == REC_NONE) {
+      const unsigned am = __activemask();
+      const unsigned cv = __ballot_sync(am, s.advance && covers(c, s.t_new));
+      if ((threadIdx.x & 31) == __ffs(am) - 1) {
+        atomicAdd(&ivp_cover_counts[0], 1ull);
+        atomicAdd(&ivp_cover_counts[1], cv ? 1ull : 0ull);
+        atomicAdd(&ivp_cover_counts[2], (unsigned long long)__popc(am));
+        atomicAdd(&ivp_cover_counts[3], (unsigned long long)__popc(cv));
+      }
+    }
+"""),
+    ("erk_dop853.cu", "IVP_ERK_LIBRARY()\n", """IVP_ERK_LIBRARY()
+extern "C" int ivp_cover_counts_take(unsigned long long* out) {
+  static const unsigned long long zero[4] = {0, 0, 0, 0};
+  int err = (int)cudaMemcpyFromSymbol(out, ivp::ivp_cover_counts,
+                                      sizeof(zero));
+  return err ? err
+             : (int)cudaMemcpyToSymbol(ivp::ivp_cover_counts, zero,
+                                       sizeof(zero));
+}
+"""),
+)
+
+
+def cover_share(build, dev, baselines=()):
+    """Step 0 of the deferred samples (see the module's head): the Lorenz
+    sampled DOP853 solve at ``COVER_B`` lanes over each of ``COVER_SPANS``
+    through an instrumented build (``COVER_PATCH``) of this tree's
+    erk_dop853.cu, its outputs held bit for bit to the package build's;
+    then ``cover_split`` of the package build and of each of ``baselines``
+    (csrc directories)."""
+    import ctypes
+
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+
+    src = build.BUILD_DIR / "cover_src"
+    shutil.rmtree(src, ignore_errors=True)
+    shutil.copytree(build.SRC_DIR, src)
+    for name, old, new in COVER_PATCH:
+        text = (src / name).read_text()
+        if text.count(old) != 1:
+            raise RuntimeError(f"cover_share: {old!r} is not once in {name}")
+        (src / name).write_text(text.replace(old, new))
+    t = time.perf_counter()
+    lib = build.load(build.build(src_dir=src, name="erk_dop853"))
+    line("cover_share_build", seconds=round(time.perf_counter() - t, 3))
+    take = lib.ivp_cover_counts_take
+    take.argtypes, take.restype = [ctypes.c_void_p], ctypes.c_int
+    counts = (ctypes.c_ulonglong * 4)()
+    for tf in COVER_SPANS:
+        a = lorenz_args("DOP853", COVER_B, dev, True, tf=tf)
+        build.check(take(counts), "ivp_cover_counts_take", lib)
+        got = K.erk_ensemble_cuda("DOP853", *a[:-1], t_grid=a[-1], lib=lib)
+        torch.cuda.synchronize()
+        build.check(take(counts), "ivp_cover_counts_take", lib)
+        ref = K.erk_ensemble_cuda("DOP853", *a[:-1], t_grid=a[-1])
+        torch.cuda.synchronize()
+        diff = lanes_differing(got, ref)
+        iters, cover, lanes, lane_cover = (int(x) for x in counts)
+        line("cover_share", B=COVER_B, tf=tf, samples=ERK_SAMPLES,
+             warp_share=round(cover / iters, 5),
+             lane_share=round(lane_cover / lanes, 5),
+             warp_iterations_per_warp=round(iters / (COVER_B // 32), 2),
+             covering_iterations_per_warp=round(cover / (COVER_B // 32), 2),
+             mean_nstep=round(float(got[4].double().mean()), 3),
+             covering_steps_per_lane=round(lane_cover / COVER_B, 3),
+             identical_to_package=all(v == 0 for v in diff.values()),
+             lanes_differing=repr({k: v for k, v in diff.items() if v}))
+    with concurrent.futures.ThreadPoolExecutor(4) as ex:
+        libs = [("new", None)] + [
+            (baseline_label(b), build.load(f.result())) for b, f in
+            [(b, ex.submit(build.build, src_dir=b, name="erk_dop853"))
+             for b in baselines]]
+    # Where the sampled solve's time goes: the lean solve, the sampled one
+    # on a grid past tf (its loop with the covers() test, no step queued,
+    # no sample) and on the main path's grid, in rounds of turns (forward,
+    # then backward), each build's.
+    for B in AB_ERK_B:
+        lean = lorenz_args("DOP853", B, dev, False)
+        samp = lorenz_args("DOP853", B, dev, True)
+        past = torch.broadcast_to(samp[-1][0] + 1000.0, samp[-1].shape)
+        for label, lib in libs:
+            runs = {"lean": lambda: K.erk_ensemble_cuda(
+                        "DOP853", *lean, lib=lib),
+                    "no_cover": lambda: K.erk_ensemble_cuda(
+                        "DOP853", *samp[:-1], past, lib=lib),
+                    "sampled": lambda: K.erk_ensemble_cuda(
+                        "DOP853", *samp, lib=lib)}
+            ms = {k: [] for k in runs}
+            for r in range(AB_ERK_ROUNDS // 2):
+                for k in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+                    ms[k].append(turn_ms(runs[k]))
+            line("cover_split", build=label, B=B, rounds=AB_ERK_ROUNDS // 2,
+                 **{f"{k}_ms": round(float(np.median(v)), 4)
+                    for k, v in ms.items()})
 
 
 OUTPUTS = ("t", "y", "status", "nfev", "nstep", "naccpt", "nrejct",
@@ -1034,7 +1179,42 @@ def erk_cases(method, B, dev):
         name, a, kw, _ = edge_cases(B, dev)[0]
         out.append((f"{name}_stiff_test7", (rhs.vdp, *a), dict(kw, params=(
             get_engine(method, need_cont=False, stiff_test=7)[1]))))
+    if method == "DOP853":
+        out += queue_cases(B, dev)
     return out
+
+
+def queue_cases(B, dev):
+    """Sampled cases that fill the deferred samples' queue (erk_common.cuh's
+    DEFER_SAMPLES), as ``erk_cases`` gives them: Lorenz on t in [0, 1] with
+    a per-lane grid of 400 sorted times inside it, denser than the steps
+    (every step covers several, the slots fill every few steps); decay with
+    every other lane backward and a per-lane grid of 64 times from t0 to tf;
+    Lorenz on t in [0, 2] with a grid of t0 and tf alone."""
+    from ivp_tpu_torch import rhs
+
+    def T(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=dev).contiguous()
+
+    rng = np.random.default_rng(7)
+    tol = lambda n, r, a: (T(np.full((B, n), r)), T(np.full((B, n), a)))
+    zero = T(np.zeros(B))
+    y0 = 1.0 + rng.standard_normal((B, 3))
+    one, two = T(np.ones(B)), T(np.full(B, 2.0))
+    dense = T(np.sort(rng.uniform(0.0, 1.0, (B, 400)), axis=1))
+    span = np.where(np.arange(B) % 2 == 1, -5.0, 5.0)
+    back = T(span[:, None] * np.linspace(0.0, 1.0, 64))
+    ends = T(np.stack([np.zeros(B), np.full(B, 2.0)], axis=1))
+    return [
+        ("lorenz_dense_grid", (rhs.lorenz, T(y0), zero, one, one, None,
+                               *tol(3, 1e-8, 1e-10)), dict(t_grid=dense)),
+        ("decay_backward_grid", (rhs.decay, T(rng.uniform(0.5, 2.0, (B, 1))),
+                                 zero, T(span), T(np.abs(span)), None,
+                                 *tol(1, 1e-8, 1e-10)),
+         dict(args=(0.7,), t_grid=back)),
+        ("lorenz_grid_ends", (rhs.lorenz, T(y0), zero, two, two, None,
+                              *tol(3, 1e-8, 1e-10)), dict(t_grid=ends)),
+    ]
 
 
 def ab_erk(build, rhs, dev, baseline, label):
@@ -1088,12 +1268,31 @@ def ab_erk(build, rhs, dev, baseline, label):
                                ms, B)
 
 
+def ptxas_smem(path):
+    """``{kernel: static shared memory bytes}`` from the nvcc log beside a
+    built library, the kernel as ptxas mangles it."""
+    out, fn = {}, "?"
+    for text in Path(path).with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", text)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes smem", text)
+        if m:
+            out[fn] = int(m.group(1))
+    return out
+
+
 def ab_erk_summary(label, method, sampled, a, out, ms, B):
     """One line per A/B: each side's median, the rounds the new side won
     (its two turns against the old side's two), the cycles a warp-attempt
     per scheduler of each median at the SM clock read now, and the bound
     of this solve (``out``, the new build's) with its share of the new
-    median; sampled, also with dense rows on every accepted step."""
+    median; sampled, also with dense rows on every accepted step.  Then the
+    new build's registers, spills and static shared memory a block of the
+    Lorenz float-controller instantiation, and where that memory is the
+    deferred samples' queue (sampled DOP853) its slots a lane: the bytes
+    over 8 x (3 + 2n) x the block's threads."""
+    from ivp_tpu_torch.kernels import build
     from ivp_tpu_torch.kernels import erk_ensemble as K
 
     fun, m = a[0], ERK_SAMPLES if sampled else 0
@@ -1117,7 +1316,31 @@ def ab_erk_summary(label, method, sampled, a, out, ms, B):
          bound_ms=round(bound, 6), bound_by=by,
          bound_share=round(bound / med["new"], 4),
          bound_ms_rows_every_accept=round(every, 6),
-         bound_share_rows_every_accept=round(every / med["new"], 4))
+         bound_share_rows_every_accept=round(every / med["new"], 4),
+         **new_layout(build, method, sampled))
+
+
+def new_layout(build, method, sampled):
+    """The package build's registers, spills, static shared memory a block
+    and threads a block of ``method``'s Lorenz float-controller
+    instantiation (lean or sampled), and for sampled DOP853 the slots a
+    lane (ab_erk_summary)."""
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+
+    path = build.library_path(name=K.KERNELS[method][1])
+    want = f"Lorenz/f32/{'sampled' if sampled else 'lean'}"
+    smem = ptxas_smem(path)
+    for fn, regs, st, ld in build.ptxas_report(path):
+        if instantiation(fn) != want:
+            continue
+        m = _ERK.search(fn)
+        threads = int(m.group(7)) if m and m.group(7) else None
+        lay = dict(registers=regs, spill_stores=st, spill_loads=ld,
+                   smem_block=smem.get(fn), threads=threads)
+        if method == "DOP853" and sampled and threads and smem.get(fn):
+            lay["slots_q"] = smem[fn] / (8 * (3 + 2 * 3) * threads)
+        return lay
+    return {}
 
 
 def blocks_by_registers(regs, threads):
@@ -2563,12 +2786,14 @@ REHEARSE_STIFF = {"bench": 40, "robertson": 24, "decay": 40, "singular": 16,
 
 
 def rehearse(baseline, label):
-    """On the CPU, no card: the resumable and stiff kernels of this tree and
-    of ``baseline`` built with g++ (gxx.py) into ``_build/gxx/``,
+    """On the CPU, no card: the resumable, stiff and erk kernels of this
+    tree and of ``baseline`` built with g++ (gxx.py) into ``_build/gxx/``,
     held field by field on CPU tensors: ``ab_resume_bitwise`` on every
-    ``resume_ab_cases`` case at ``REHEARSE_B`` lanes, then ``rehearse_stiff``
+    ``resume_ab_cases`` case at ``REHEARSE_B`` lanes, ``rehearse_stiff``
     on every ``stiff_cases`` case at ``REHEARSE_STIFF`` under both
-    controller types.  True if every case is identical."""
+    controller types, then ``rehearse_erk`` on every ``erk_cases`` case of
+    every erk kernel (lean and sampled; DOP853's queue cases) at
+    ``REHEARSE_B`` lanes.  True if every case is identical."""
     import gxx
     from ivp_tpu_torch.kernels import build
     from ivp_tpu_torch.kernels import erk_ensemble as K
@@ -2605,6 +2830,22 @@ def rehearse(baseline, label):
                      controller=cp, case=case, B=B, identical=ok,
                      lanes_differing=repr({k: v for k, v in diff.items()
                                            if v}))
+    for method, (kernel, source) in K.KERNELS.items():
+        for case, a, kw in erk_cases(method, REHEARSE_B, dev):
+            kw = dict(kw)
+            fun, y0, t0, tf, hmax, fs, rtol, atol = a[:8]
+            run = (lambda lib: K.ensemble_launch(
+                method, fun, y0, t0, tf, hmax, fs, rtol, atol,
+                a[8] if len(a) > 8 else kw.get("args", ()),
+                a[9] if len(a) > 9 else kw.get("max_steps", 100_000),
+                kw.get("t_grid"), kw.get("params"), lib, 0))
+            diff = lanes_differing(run(libs["new"][source]),
+                                   run(libs[label][source]))
+            ok = all(v == 0 for v in diff.values())
+            same &= ok
+            line("rehearse_erk", old=label, kernel=kernel, case=case,
+                 B=REHEARSE_B, identical=ok,
+                 lanes_differing=repr({k: v for k, v in diff.items() if v}))
     line("rehearse", old=label, identical=same)
     return same
 
@@ -2731,7 +2972,7 @@ def main():
     for functor, info in ptxas_lines(lib.with_suffix(".log").read_text()):
         line("ptxas", build="new", functor=functor, info=repr(info))
     if phases & {"sass", "erk", "erk_occupancy", "ab", "ab_record",
-                 "events", "ab_events", "resume_profile"}:
+                 "cover_share", "events", "ab_events", "resume_profile"}:
         t = time.perf_counter()
         erk_libs = build.build_all()
         line("build_all", seconds=round(time.perf_counter() - t, 3),
@@ -2792,6 +3033,8 @@ def main():
         erk_occupancy(build, rhs, dev, opts.occupancy_methods.split(","))
     if "events" in phases:
         events_phase(build, dev)
+    if "cover_share" in phases:
+        cover_share(build, dev, opts.baseline)
     if "stiff" in phases:
         stiff_phase(build, dev)
     if "resume_profile" in phases:
