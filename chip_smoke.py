@@ -372,6 +372,11 @@ def erk_golden_and_scipy(dev):
     return gold
 
 
+# The lean DOP853 main path's median solve ms (CUDA events) on an H100 80GB
+# HBM3 at 700 W before its attempt's chain was shortened (PERF.md §6).
+DOP853_LEAN_BEFORE_MS = 4.670
+
+
 def erk_main_path(dev, gold):
     """The explicit tier's main path at full width: Lorenz, B=16384, numpy
     y0 and no ``device``, through build_ensemble_solver.  bench.py's two
@@ -474,6 +479,10 @@ def erk_main_path(dev, gold):
               bound_by=bound_by, bound_share=bound_ms / ms,
               bound_ms_rows_every_accept=every,
               finite=bool(torch.isfinite(res.y).all()))
+        if kernel == "dop853" and not sampled:
+            phase("dop853_lean_main_path", ms=ms,
+                  before_redesign_ms=DOP853_LEAN_BEFORE_MS,
+                  over_before=ms / DOP853_LEAN_BEFORE_MS)
         if n_launch != 4:
             raise AssertionError(f"{tag}: {n_launch} launches in 4 solves")
         if not np.all(status == Status.SUCCESS) or not bool(

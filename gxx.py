@@ -86,6 +86,30 @@ inline float __fsub_rn(float a, float b) { return a - b; }
 inline double __dmul_rn(double a, double b) { return a * b; }
 inline double __dadd_rn(double a, double b) { return a + b; }
 inline double __dsub_rn(double a, double b) { return a - b; }
+inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
+inline double __fma_rn(double a, double b, double c) { return fma(a, b, c); }
+inline unsigned __float_as_uint(float x) {
+  unsigned u;
+  memcpy(&u, &x, 4);
+  return u;
+}
+inline int __double2hiint(double x) {
+  long long u;
+  memcpy(&u, &x, 8);
+  return (int)(u >> 32);
+}
+inline int __double2loint(double x) {
+  long long u;
+  memcpy(&u, &x, 8);
+  return (int)u;
+}
+inline double __hiloint2double(int hi, int lo) {
+  const long long u = (long long)((unsigned long long)(unsigned)hi << 32 |
+                                  (unsigned)lo);
+  double x;
+  memcpy(&x, &u, 8);
+  return x;
+}
 inline unsigned __activemask() { return 0xffffffffu; }
 inline bool __any_sync(unsigned, bool p) { return p; }
 inline void __trap() { abort(); }

@@ -4,11 +4,30 @@
 // bounds them and which semantics they keep).
 //
 // Kept from the engine: the dual 8(5,3) error norm with deno <= 0 -> 1 and
-// sqrt(1 / (n * deno)) in the controller's type; f(ynew) and the three dense stages on
-// accepted attempts only, so nfev is 11 + (4 if sampled else 1) on accept
-// and 11 on reject; the stiffness test on f(ynew) - k12 and ynew - y12; the
-// default controller (beta == 0) as three square roots with no log or exp and
-// facold left alone, the DOPRI5 controller otherwise.
+// sqrt(1 / (n * deno)) in the controller's type; nfev 11 + (4 if sampled
+// else 1) on accept and 11 on reject; the stiffness test on f(ynew) - k12
+// and ynew - y12 at the reference's cadence, counted down (Lane::stiff_in,
+// as DOPRI5 does) where the reference takes (naccpt + 1) % stiff_test; the
+// default controller (beta == 0) as three square roots with no log or exp
+// and facold left alone, the DOPRI5 controller otherwise; the dense stages
+// on accepted attempts only.
+//
+// The attempt's chain.  At the main path's B=16384 each scheduler holds one
+// warp, which waits on its own dependent chain: on an H100 the twelve stages
+// took about 590 cycles of a 2490-cycle attempt, the norm with f(ynew) 1040
+// and the controller 700 (PERF.md §6), where ptxas had cut the attempt's
+// tail into small blocks: a fast path, a test and a branch to a slow-path
+// subroutine for each of the norm's and the controller's divisions and
+// square roots, f(ynew) behind the acceptance, the stiffness test's modulo
+// and its sums.  So everything after the twelfth stage is one straight-line
+// block for each form of the controller (o.sqrt_chain, the same on every
+// lane; the branch between the two comes before it): ynew, the error
+// vectors, f(ynew) on every attempt (counted on an accepted one only), and
+// the norm and the controller on their fast paths (FastCtl), done once more
+// through the library's operations, behind one branch, on a lane where an
+// input leaves their range; the stiffness test's sums run with the test,
+// where it is due on an accepted attempt.  Every output is the same, bit for
+// bit; the attempt takes about 1600 cycles there.
 //
 // A sampled solve (no events, no records) builds the dense stages and rows
 // of no step in its loop: a step that covers a grid time is queued, and the
@@ -22,10 +41,9 @@
 // Registers: twelve stage vectors (sixteen where rows are built) of n
 // doubles each sit beside the state, so the entries ask for 64 x 4 launch
 // bounds, which leave ptxas all 255 registers a thread may have: with the
-// float controller Lorenz (n = 3) takes 128 lean and 215 sampled (the
-// rebuild's attempt with its rows beside the loop's state; 197 when the
-// loop built the rows) and spills nothing (kernels/build.py keeps ptxas's
-// report; PERF.md states it).
+// float controller Lorenz (n = 3) takes 115 lean and 219 sampled (the
+// rebuild's attempt with its rows beside the loop's state) and spills
+// nothing (kernels/build.py keeps ptxas's report; PERF.md states it).
 #include "erk_common.cuh"
 
 namespace ivp {
@@ -35,6 +53,62 @@ struct Dop853 {
   static constexpr bool HAS_CONTROLLER = true;
   static constexpr bool DEFERS = true;   // erk_common.cuh's DEFER
   static constexpr bool DEFERS_SAMPLES = true;   // and DEFER_SAMPLES
+
+  // What the error norm and the controller give the attempt: the error, the
+  // acceptance, the facold memory after the attempt, and the next step size
+  // before the accepted attempt's hmax and reject clamps.
+  template <class CT>
+  struct Control {
+    CT err, facold;
+    double h_next;
+    bool accepted;
+  };
+
+  // The dual 8(5,3) error norm of (e2, e5) and the controller (the three
+  // square roots where SQRT, else the DOPRI5 form), in the operations of O:
+  // FastCtl<CT> (the fast paths, which clear op.ok where an input leaves
+  // their range) or Ctl<CT>.
+  template <bool SQRT, int N, class CT, class O>
+  static __device__ __forceinline__ Control<CT> control(
+      O&& op, const Lane<N, CT>& c, const ErkOptions& o, const double* y,
+      const double* ynew, const double* e2, const double* e5, double h,
+      bool too_small) {
+    CT err2 = (CT)0, err5 = (CT)0;
+    IVP_EACH(j) {
+      const CT sk = op.add(
+          c.atol[j],
+          op.mul(c.rtol[j], op.vmax(op.abs((CT)y[j]), op.abs((CT)ynew[j]))));
+      const Divisor<CT> d = op.divisor(sk);
+      const CT r2 = op.div_by((CT)e2[j], d), r5 = op.div_by((CT)e5[j], d);
+      err2 = op.add(err2, op.mul(r2, r2));
+      err5 = op.add(err5, op.mul(r5, r5));
+    }
+    CT deno = op.add(err5, op.mul((CT)0.01, err2));
+    if (deno <= (CT)0) deno = (CT)1;
+    Control<CT> r;
+    r.err = op.mul(op.mul((CT)fabs(h), err5),
+                   op.sqrt(op.div((CT)1, op.mul((CT)N, deno))));
+    r.accepted = (r.err <= (CT)1) && !too_small;
+    // The controller factors: fac with the facold memory, for an accepted
+    // attempt; fac11 without.
+    CT fac, fac11;
+    r.facold = c.facold;
+    if constexpr (SQRT) {
+      fac11 = op.sqrt(op.sqrt(op.sqrt(r.err)));
+      fac = fac11;
+    } else {
+      const CT log_err = op.log(op.vmax(r.err, (CT)1e-35));
+      const CT e1 = op.mul((CT)o.expo1, log_err);
+      fac11 = op.exp(e1);
+      fac = op.exp(op.sub(e1, op.mul((CT)o.beta, c.facold)));
+      if (r.accepted) r.facold = op.vmax(log_err, (CT)LOG_FACOLD_FLOOR);
+    }
+    const CT facc1 = (CT)o.facc1;
+    const CT q = op.div(r.accepted ? fac : fac11, (CT)o.safety);
+    r.h_next = op.hdiv(h, r.accepted ? op.vmax((CT)o.facc2, op.vmin(facc1, q))
+                                     : op.vmin(facc1, q));
+    return r;
+  }
 
   template <class F, int DENSE, class CT, class W>
   static __device__ double attempt(const F& f, const double* a, double t,
@@ -50,6 +124,8 @@ struct Dop853 {
     const bool too_small = 0.1 * fabs(h) <= fabs(t) * o.uround;
     const bool last = (t + 1.01 * h - c.tend) * c.posneg > 0.0;
     if (last) h = c.tend - t;
+    // The stiffness test runs on this attempt if it is accepted.
+    const bool stiff_due = stiff_test_due(c);
 
     // k[0..11] = k1..k12, k[12] = f(ynew), k[13..15] = dense stages 14-16.
     double k[CONT ? 16 : 13][N], ys[N], kb[N];
@@ -88,41 +164,42 @@ struct Dop853 {
         + A10_7 * k[7][j] + A10_8 * k[8][j] + A10_9 * k[9][j]
         + A10_10 * k[10][j]);
     f(t + C11 * h, ys, k[11], a);
-    // ys is now the stage-12 state y12 of the stiffness test.
-    IVP_EACH(j) kb[j] = B_0 * k[0][j] + B_5 * k[5][j] + B_6 * k[6][j]
-        + B_7 * k[7][j] + B_8 * k[8][j] + B_9 * k[9][j] + B_10 * k[10][j]
-        + B_11 * k[11][j];
-    IVP_EACH(j) s.ynew[j] = y[j] + h * kb[j];
-
-    // Error norm in CT: the vectors in double, cast; sk and sums in CT.
-    CT err2 = (CT)0, err5 = (CT)0;
-    IVP_EACH(j) {
-      const CT sk = C::add(
-          c.atol[j], C::mul(c.rtol[j], C::vmax(C::abs((CT)y[j]),
-                                               C::abs((CT)s.ynew[j]))));
-      const double e2 =
-          kb[j] - BH1 * k[0][j] - BH2 * k[8][j] - BH3 * k[11][j];
-      const double e5 = ER_0 * k[0][j] + ER_5 * k[5][j] + ER_6 * k[6][j]
-          + ER_7 * k[7][j] + ER_8 * k[8][j] + ER_9 * k[9][j]
-          + ER_10 * k[10][j] + ER_11 * k[11][j];
-      const CT r2 = (CT)e2 / sk, r5 = (CT)e5 / sk;
-      err2 = C::add(err2, C::mul(r2, r2));
-      err5 = C::add(err5, C::mul(r5, r5));
-    }
-    CT deno = C::add(err5, C::mul((CT)0.01, err2));
-    if (deno <= (CT)0) deno = (CT)1;
-    const CT err = C::mul(C::mul((CT)fabs(h), err5),
-                          C::sqrt((CT)1 / C::mul((CT)N, deno)));
-    const bool accepted = (err <= (CT)1) && !too_small;
+    // ys is now the stage-12 state y12 of the stiffness test.  The rest of
+    // the attempt up to the next step size, one block for each form of the
+    // controller (see the head).
+    const auto tail = [&](auto sqrt_chain) {
+      constexpr bool SQRT = decltype(sqrt_chain)::value;
+      IVP_EACH(j) kb[j] = B_0 * k[0][j] + B_5 * k[5][j] + B_6 * k[6][j]
+          + B_7 * k[7][j] + B_8 * k[8][j] + B_9 * k[9][j] + B_10 * k[10][j]
+          + B_11 * k[11][j];
+      IVP_EACH(j) s.ynew[j] = y[j] + h * kb[j];
+      double e2[N], e5[N];
+      IVP_EACH(j) {
+        e2[j] = kb[j] - BH1 * k[0][j] - BH2 * k[8][j] - BH3 * k[11][j];
+        e5[j] = ER_0 * k[0][j] + ER_5 * k[5][j] + ER_6 * k[6][j]
+            + ER_7 * k[7][j] + ER_8 * k[8][j] + ER_9 * k[9][j]
+            + ER_10 * k[10][j] + ER_11 * k[11][j];
+      }
+      f(t + h, s.ynew, k[12], a);
+      FastCtl<CT> fast;
+      Control<CT> r =
+          control<SQRT, N>(fast, c, o, y, s.ynew, e2, e5, h, too_small);
+      if (!fast.ok)
+        r = control<SQRT, N>(C{}, c, o, y, s.ynew, e2, e5, h, too_small);
+      return r;
+    };
+    Control<CT> ctl;
+    if (o.sqrt_chain) ctl = tail(std::true_type{});
+    else ctl = tail(std::false_type{});
+    const bool accepted = ctl.accepted;
+    c.facold = ctl.facold;
+    double h_next = ctl.h_next;
 
     bool stiff_fail = false;
-    s.nfev = 11;
     if (accepted) {
-      f(t + h, s.ynew, k[12], a);
-      // ivp_tpu's count (methods/erk.py: 11 + 4 on an accepted step with
-      // dense output), also where DENSE_EVENTS builds no rows on the step.
-      s.nfev += CONT ? 4 : 1;
-      if ((c.naccpt + 1) % o.stiff_test == 0 || c.iasti > 0) {
+      if (fabs(h_next) > c.hmax) h_next = c.posneg * c.hmax;
+      if (c.reject) h_next = c.posneg * nmin(fabs(h_next), fabs(h));
+      if (stiff_due) {
         CT stnum = (CT)0, stden = (CT)0;
         IVP_EACH(j) {
           const CT dk = (CT)(k[12][j] - k[11][j]);
@@ -132,8 +209,12 @@ struct Dop853 {
         }
         stiff_fail = stiffness(c, o, stnum, stden, h);
       }
-      IVP_EACH(j) s.knew[j] = k[12][j];
+      count_down_stiff(c, o);
     }
+    // ivp_tpu's count (methods/erk.py: 11 + 4 on an accepted step with
+    // dense output), also where DENSE_EVENTS builds no rows on the step.
+    s.nfev = accepted ? (CONT ? 15 : 12) : 11;
+    IVP_EACH(j) s.knew[j] = k[12][j];
     const bool advance = accepted && !stiff_fail;
 
     if constexpr (CONT) {
@@ -182,20 +263,6 @@ struct Dop853 {
         }
       }
     }
-
-    // Controller.
-    CT fac, fac11;
-    if (o.sqrt_chain) {
-      fac11 = C::sqrt(C::sqrt(C::sqrt(err)));
-      fac = fac11;
-    } else {
-      const CT log_err = C::log(C::vmax(err, (CT)1e-35));
-      const CT e1 = C::mul((CT)o.expo1, log_err);
-      fac11 = C::exp(e1);
-      fac = C::exp(C::sub(e1, C::mul((CT)o.beta, c.facold)));
-      if (accepted) c.facold = C::vmax(log_err, (CT)LOG_FACOLD_FLOOR);
-    }
-    const double h_next = pi_next_step(c, o, h, accepted, fac, fac11);
 
     s.accepted = accepted;
     s.advance = advance;

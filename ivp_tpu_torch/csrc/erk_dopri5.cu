@@ -75,7 +75,7 @@ struct Dopri5 {
     const bool due = DENSE == DENSE_EVERY ||
                      (DENSE == DENSE_SAMPLES && covers(c, t_new));
     // The stiffness test runs on this attempt if it is accepted.
-    const bool stiff_due = c.stiff_in == 0 || c.iasti > 0;
+    const bool stiff_due = stiff_test_due(c);
 
     // k[0..6] = k1..k7; ys ends as the stage-6 state of the stiffness test.
     double k[7][N], ys[N];
@@ -171,7 +171,7 @@ struct Dopri5 {
       if (fabs(h_next) > c.hmax) h_next = c.posneg * c.hmax;
       if (c.reject) h_next = c.posneg * nmin(fabs(h_next), fabs(h));
       c.facold = C::vmax(log_err, (CT)LOG_FACOLD_FLOOR);
-      c.stiff_in = c.stiff_in == 0 ? abs(o.stiff_test) - 1 : c.stiff_in - 1;
+      count_down_stiff(c, o);
     }
 
     s.accepted = accepted;

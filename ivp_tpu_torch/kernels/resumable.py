@@ -11,8 +11,8 @@ counted attempts, as ``core/driver.py::run_bounded`` counts them.
   ``csrc/erk_*.cu``), which replaces ``ivp_tpu/core/driver.py::run_bounded``
   (:478-489) for the explicit engines.  It loads and stores the carry's
   ERKState as the carry holds it (``ErkResumeCarry``: the controller in its
-  own type, ``reject`` as bool bytes) and derives DOPRI5's countdown to its
-  periodic stiffness test from ``naccpt``.
+  own type, ``reject`` as bool bytes) and derives DOPRI5's and DOP853's
+  countdown to their periodic stiffness test from ``naccpt``.
 
 A launch reads one carry and writes another, as ``ivp_tpu``'s jitted
 ``resume`` writes fresh buffers and leaves its input alone: the carry given

@@ -16,7 +16,9 @@ instantiation), then the phases (all by default, ``ab`` only with
   loop body's fast path, by class (below; UMOVs apart), with the cycles
   each pipe needs for them; for the lean DOPRI5 library and, of each erk
   library (``ERK_LIBS``), the Lorenz float-controller instantiations and
-  the lean VdP one (``Lorenz/f32/lean``: functor, controller type, mode);
+  the lean VdP one (``Lorenz/f32/lean``: functor, controller type, mode),
+  each with its stepping loop's static branches (``loop_body``: ``BRA``,
+  ``BSSY``, ``BSYNC``, ``CALL`` and basic blocks);
 * ``settle``: 10 back-to-back main-path solves at B=524288, every one timed
   with CUDA events and none discarded, once with each result held until the
   next solve returns and once with it dropped before;
@@ -167,6 +169,23 @@ instantiation), then the phases (all by default, ``ab`` only with
   main path's grid, in turns at each of ``AB_ERK_B``, and the same of each
   ``--baseline``'s erk_dop853 build.
 
+* ``ab_erk`` (needs ``--baseline``): ``ab``'s erk part alone, for the
+  methods of ``--ab-methods`` (default all);
+* ``cycle_split`` (needs ``--baseline``: the variant trees to split, never
+  the package's own csrc): where a lean DOP853 attempt's cycles go.  A copy
+  of each tree with clock64() stamps (``STAMP_PATCH``) under
+  ``_variants/<label>-stamps/csrc`` runs the lean Lorenz main path at each
+  of ``AB_ERK_B``, its outputs held bit for bit to the tree's own build:
+  the cycles an attempt of its stages 2-12, of the norm with f(ynew), of
+  the controller through h_next and of the loop's bookkeeping between two
+  attempts, their sum, and the cycles a warp-attempt a scheduler of both
+  builds from ``turn_ms`` (what the stamps cost);
+* ``fast_paths``: erk_common.cuh's ``FastCtl<float>`` (the controller's
+  divisions and square roots on their fast paths, behind one branch) held
+  to the IEEE operations on the card: the square root on every float its
+  range admits, the division (a divisor shared by two quotients) and the
+  step size over a float factor on ``FAST_DRAWS`` random operands each.
+
 The A/B, occupancy and two-kernel timings (``ab_stiff`` and
 ``stiff_occupancy`` too) are turns of ``turn_ms``: five
 launches back to back between two CUDA events, so the host's work of a
@@ -213,7 +232,8 @@ OCC_ROUNDS = 10
 PHASES = ("sass", "settle", "sweep", "turns", "profile", "occupancy", "erk",
           "erk_occupancy", "ab", "ab_record", "events", "stiff",
           "stiff_occupancy", "ab_stiff", "ab_events", "resume_profile",
-          "ab_resume", "rehearse", "cover_share")
+          "ab_resume", "rehearse", "cover_share", "ab_erk", "cycle_split",
+          "fast_paths")
 # The stiff phase: lanes, turns.
 STIFF_B = (16384, 131072)
 STIFF_ROUNDS = 3
@@ -525,6 +545,29 @@ def loop_fast_path(ins, loop=None):
     return path, skipped, skipped_ins
 
 
+def loop_body(ins, loop=None):
+    """The static branches of ``loop`` (default: ``step_loop``): its
+    instructions, ``BRA``, ``BSSY``, ``BSYNC`` and ``CALL`` (``CALL.REL``, a
+    slow path's subroutine), and its basic blocks: the leaders are the
+    loop head, every branch target inside the loop and every instruction
+    after a branch or a predicated exit."""
+    _, tail, head = loop or step_loop(ins)
+    body = [x for x in ins if head <= x[0] <= tail]
+    ops = Counter(op.split(".")[0] for _, _, op, _ in body)
+    leaders = {head}
+    for k, (a, pred, op, arg) in enumerate(body):
+        base = op.split(".")[0]
+        if base in ("BRA", "CALL", "RET", "EXIT", "BRX", "JMP"):
+            t = _target(arg)
+            if t is not None and head <= t <= tail:
+                leaders.add(t)
+            if k + 1 < len(body):
+                leaders.add(body[k + 1][0])
+    return dict(body_instructions=len(body), body_BRA=ops["BRA"],
+                body_BSSY=ops["BSSY"], body_BSYNC=ops["BSYNC"],
+                body_CALL=ops["CALL"], body_blocks=len(leaders))
+
+
 def loop_line(tag, path, **kv):
     """One line of a fast path's instructions by class and pipe cycles."""
     classes = Counter(_class(op) for op in path)
@@ -553,7 +596,8 @@ def sass_report(lib, label, only=None):
             line("loop", build=label, functor=name, error=repr(str(e)))
             continue
         loop_line("loop", path, build=label, functor=name,
-                  branches_skipped=skipped, instructions_skipped=skipped_ins)
+                  branches_skipped=skipped, instructions_skipped=skipped_ins,
+                  **loop_body(ins))
 
 
 def stiff_sass_report(lib, label):
@@ -847,6 +891,312 @@ def cover_share(build, dev, baselines=()):
             line("cover_split", build=label, B=B, rounds=AB_ERK_ROUNDS // 2,
                  **{f"{k}_ms": round(float(np.median(v)), 4)
                     for k, v in ms.items()})
+
+
+# cycle_split's instrumentation, patched into a copy of a csrc tree's
+# erk_dop853.cu and erk_common.cuh: clock64() stamps at an attempt's start
+# (0), after its twelfth stage (1), where the norm and f(ynew) are done
+# (2: before the first anchor of STAMP_NORM found, the controller's start in
+# the older design or the accepted attempt's clamps in this one, else stamp
+# 1 again) and at its end (3); the lean loop of a lane adds each
+# attempt's parts and the time from the previous attempt's end to this
+# one's start (the loop's bookkeeping), and the lane's attempts, to the
+# sums an entry reads and zeroes; where the tree has FastCtl's one branch,
+# the attempts that take it (every mode's, an atomic each).  A lane's parts are its warp's while it
+# is active (the warp runs in step).
+STAMP_NORM = ("    // Controller.\n",
+              "    bool stiff_fail = false;\n    if (accepted) {\n")
+STAMP_PATCH = (
+    ("erk_common.cuh", "namespace ivp {\n",
+     "namespace ivp {\n__device__ unsigned long long ivp_stamp_sums[6];\n"),
+    ("erk_common.cuh", "  int status, nfev;\n};",
+     "  int status, nfev;\n  long long st[4];\n};"),
+    ("erk_common.cuh", "step_on:\n",
+     "  unsigned long long stamp_acc[5] = {0, 0, 0, 0, 0};\n"
+     "  long long stamp_prev = 0;\nstep_on:\n"),
+    ("erk_common.cuh", "    nfev += s.nfev;\n", """    nfev += s.nfev;
+    if constexpr (!SAMPLED && NE == 0 && REC == REC_NONE) {
+      if (stamp_prev != 0) stamp_acc[3] += s.st[0] - stamp_prev;
+      stamp_acc[0] += s.st[1] - s.st[0];
+      stamp_acc[1] += s.st[2] - s.st[1];
+      stamp_acc[2] += s.st[3] - s.st[2];
+      stamp_acc[4] += 1;
+      stamp_prev = s.st[3];
+    }
+"""),
+    ("erk_common.cuh", "  t_out[i] = t;\n", """  if constexpr (!SAMPLED && NE == 0 && REC == REC_NONE) {
+    for (int q = 0; q < 5; ++q) atomicAdd(&ivp_stamp_sums[q], stamp_acc[q]);
+  }
+  t_out[i] = t;
+"""),
+    ("erk_dop853.cu", "    double h = c.h;\n",
+     "    s.st[0] = clock64();\n    double h = c.h;\n"),
+    ("erk_dop853.cu", "    f(t + C11 * h, ys, k[11], a);\n",
+     "    f(t + C11 * h, ys, k[11], a);\n    s.st[1] = clock64();\n"
+     "    s.st[2] = s.st[1];\n"),
+    ("erk_dop853.cu", STAMP_NORM, "    s.st[2] = clock64();\n"),
+    ("erk_dop853.cu", "    s.accepted = accepted;\n",
+     "    s.st[3] = clock64();\n    s.accepted = accepted;\n"),
+    ("erk_dop853.cu", ("      if (!fast.ok)\n",),
+     "      if (!fast.ok) atomicAdd(&ivp_stamp_sums[5], 1ull);\n"),
+    ("erk_dop853.cu", "IVP_ERK_LIBRARY()\n", """IVP_ERK_LIBRARY()
+extern "C" int ivp_stamp_sums_take(unsigned long long* out) {
+  static const unsigned long long zero[6] = {0, 0, 0, 0, 0, 0};
+  int err = (int)cudaMemcpyFromSymbol(out, ivp::ivp_stamp_sums, sizeof(zero));
+  return err ? err
+             : (int)cudaMemcpyToSymbol(ivp::ivp_stamp_sums, zero,
+                                       sizeof(zero));
+}
+"""),
+)
+STAMP_PARTS = ("stages", "norm_fynew", "controller", "bookkeeping")
+
+
+def stamped_copy(src, dst):
+    """A copy of the csrc tree ``src`` at ``dst`` with ``STAMP_PATCH``
+    applied (a tuple of anchors: the first one found, inserted before it)."""
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, dst)
+    for name, old, new in STAMP_PATCH:
+        text = (dst / name).read_text()
+        if isinstance(old, tuple):
+            old = next((o for o in old if text.count(o) == 1), None)
+            if old is None:
+                continue
+            new = new + old
+        elif text.count(old) != 1:
+            raise RuntimeError(f"cycle_split: {old!r} is not once in {name}")
+        (dst / name).write_text(text.replace(old, new))
+
+
+def cycle_split(build, dev, variants):
+    """Step 0 of the lean DOP853 redesign (see the module's head): for each
+    of ``variants`` (csrc directories, never the package's own), a copy
+    with ``STAMP_PATCH`` under ``_variants/<label>-stamps/csrc`` and the
+    variant as it is, both built; the lean Lorenz main path (B from
+    ``AB_ERK_B``) through each: the stamped build's outputs held bit for bit
+    to the variant's, the cycles of each part an attempt (``STAMP_PARTS``,
+    the mean over lane-attempts) and their sum, beside the variant's cycles
+    a warp-attempt a scheduler from its ``turn_ms`` median and the stamped
+    build's (what the stamps cost)."""
+    import ctypes
+
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+
+    root = Path(__file__).resolve().parent / "_variants"
+    for variant in variants:
+        label = baseline_label(variant)
+        stamped = root / f"{label}-stamps" / "csrc"
+        stamped_copy(Path(variant), stamped)
+        t = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(2) as ex:
+            fs = [ex.submit(build.build, src_dir=d, name="erk_dop853")
+                  for d in (stamped, Path(variant))]
+            lib_st, lib_v = (build.load(f.result()) for f in fs)
+        line("cycle_split_build", variant=label,
+             seconds=round(time.perf_counter() - t, 3))
+        take = lib_st.ivp_stamp_sums_take
+        take.argtypes, take.restype = [ctypes.c_void_p], ctypes.c_int
+        sums = (ctypes.c_ulonglong * 6)()
+        for B in AB_ERK_B:
+            a = lorenz_args("DOP853", B, dev, False)
+            build.check(take(sums), "ivp_stamp_sums_take", lib_st)
+            got = K.erk_ensemble_cuda("DOP853", *a, lib=lib_st)
+            torch.cuda.synchronize()
+            build.check(take(sums), "ivp_stamp_sums_take", lib_st)
+            parts = [int(x) for x in sums]
+            ref = K.erk_ensemble_cuda("DOP853", *a, lib=lib_v)
+            torch.cuda.synchronize()
+            diff = lanes_differing(got, ref)
+            ms = {"variant": [], "stamped": []}
+            for r in range(AB_ERK_ROUNDS // 2):
+                for w in (("variant", "stamped") if r % 2 == 0
+                          else ("stamped", "variant")):
+                    lib = lib_v if w == "variant" else lib_st
+                    ms[w].append(turn_ms(
+                        lambda: K.erk_ensemble_cuda("DOP853", *a, lib=lib)))
+            mhz, wa = sm_mhz(), warp_attempts(ref[4])
+            cyc = {w: round(float(np.median(v)) * 1e-3 * mhz * 1e6 * 132 * 4
+                            / wa, 1) for w, v in ms.items()}
+            n = max(parts[4], 1)
+            split = {p: round(parts[q] / n, 1)
+                     for q, p in enumerate(STAMP_PARTS)}
+            line("cycle_split", variant=label, B=B, **split,
+                 sum_of_parts=round(sum(parts[:4]) / n, 1),
+                 lane_attempts=parts[4], slow_path_attempts=parts[5],
+                 variant_ms=round(float(np.median(ms["variant"])), 4),
+                 stamped_ms=round(float(np.median(ms["stamped"])), 4),
+                 cycles_variant=cyc["variant"], cycles_stamped=cyc["stamped"],
+                 sm_mhz=mhz,
+                 identical_to_variant=all(v == 0 for v in diff.values()),
+                 lanes_differing=repr({k: v for k, v in diff.items() if v}))
+
+
+# fast_paths' checks of erk_common.cuh's FastCtl<float> and FastCtl<double>
+# against the IEEE operations, built from a copy of csrc with this source
+# beside it: every float the square root's range test admits, and
+# FAST_DRAWS random operands (a hash of the index) for the float division
+# (a divisor shared by two quotients, as the norm takes it), the step size
+# over a float factor, the double division (a shared divisor too) and the
+# double square root; each counts the inputs its range admits and those on
+# which the result's bits differ, and keeps the first such input.
+FAST_DRAWS = 1 << 30
+FAST_SOURCE = r"""
+#include "erk_common.cuh"
+
+namespace {
+__device__ unsigned long long mix(unsigned long long x) {
+  x += 0x9e3779b97f4a7c15ull;
+  x = (x ^ (x >> 30)) * 0xbf58476d1ce4e5b9ull;
+  x = (x ^ (x >> 27)) * 0x94d049bb133111ebull;
+  return x ^ (x >> 31);
+}
+// A float of random sign and significand with an exponent in [lo, hi].
+__device__ float rand_float(unsigned long long r, int lo, int hi) {
+  const unsigned e = (unsigned)(lo + (int)((r >> 23) % (unsigned)(hi - lo + 1)));
+  return __uint_as_float((unsigned)((r >> 63) << 31) | ((e + 127u) << 23) |
+                         (unsigned)(r & 0x7fffffu));
+}
+__device__ void tally(unsigned long long* out, bool admitted, bool same,
+                      unsigned long long a, unsigned long long b) {
+  if (!admitted) return;
+  atomicAdd(&out[0], 1ull);
+  if (!same && atomicAdd(&out[1], 1ull) == 0) {
+    out[2] = a;
+    out[3] = b;
+  }
+}
+__global__ void sqrt_all(unsigned long long* out) {
+  const unsigned long long n = 0x7f800000ull;
+  for (unsigned long long u = blockIdx.x * (unsigned long long)blockDim.x +
+                               threadIdx.x;
+       u < n; u += (unsigned long long)gridDim.x * blockDim.x) {
+    const float x = __uint_as_float((unsigned)u);
+    ivp::FastCtl<float> op;
+    const float got = op.sqrt(x);
+    tally(out, op.ok, __float_as_uint(got) == __float_as_uint(sqrtf(x)), u, 0);
+  }
+}
+__global__ void div_random(unsigned long long* out, unsigned long long n) {
+  for (unsigned long long i = blockIdx.x * (unsigned long long)blockDim.x +
+                               threadIdx.x;
+       i < n; i += (unsigned long long)gridDim.x * blockDim.x) {
+    const unsigned long long r1 = mix(2 * i), r2 = mix(2 * i + 1);
+    const float b = rand_float(r1, -127, 127);
+    const float a = (r2 & 0xff) == 0 ? 0.0f : rand_float(r2, -127, 127);
+    const float a2 = rand_float(mix(r2), -40, 40);
+    ivp::FastCtl<float> op;
+    const ivp::Divisor<float> d = op.divisor(b);
+    const float q = op.div_by(a, d), q2 = op.div_by(a2, d);
+    const bool same = __float_as_uint(q) == __float_as_uint(a / b) &&
+                      __float_as_uint(q2) == __float_as_uint(a2 / b);
+    tally(out, op.ok, same, __float_as_uint(a) | (unsigned long long)__float_as_uint(a2) << 32,
+          __float_as_uint(b));
+  }
+}
+__global__ void hdiv_random(unsigned long long* out, unsigned long long n) {
+  for (unsigned long long i = blockIdx.x * (unsigned long long)blockDim.x +
+                               threadIdx.x;
+       i < n; i += (unsigned long long)gridDim.x * blockDim.x) {
+    const unsigned long long r1 = mix(2 * i), r2 = mix(2 * i + 1);
+    const float x = rand_float(r1, -127, 127);
+    const unsigned long long e = 1023 - 810 + (r2 >> 52) % 1621;
+    const double h = __longlong_as_double(
+        (long long)((r2 & 0x800fffffffffffffull) | (e << 52)));
+    ivp::FastCtl<float> op;
+    const double got = op.hdiv(h, x);
+    tally(out, op.ok,
+          __double_as_longlong(got) == __double_as_longlong(h / (double)x),
+          (unsigned long long)__double_as_longlong(h), __float_as_uint(x));
+  }
+}
+// A double of random sign and significand with an exponent in [lo, hi].
+__device__ double rand_double(unsigned long long r, int lo, int hi) {
+  const unsigned long long e =
+      (unsigned long long)(lo + (int)((r >> 52) % (unsigned)(hi - lo + 1)) + 1023);
+  return __longlong_as_double(
+      (long long)((r & 0x800fffffffffffffull) | (e << 52)));
+}
+__global__ void ddiv_random(unsigned long long* out, unsigned long long n) {
+  for (unsigned long long i = blockIdx.x * (unsigned long long)blockDim.x +
+                               threadIdx.x;
+       i < n; i += (unsigned long long)gridDim.x * blockDim.x) {
+    const unsigned long long r1 = mix(3 * i), r2 = mix(3 * i + 1),
+                             r3 = mix(3 * i + 2);
+    const double b = rand_double(r1, -520, 520);
+    const double a = (r2 & 0xff) == 0 ? 0.0 : rand_double(r2, -520, 520);
+    const double a2 = rand_double(r3, -40, 40);
+    ivp::FastCtl<double> op;
+    const ivp::Divisor<double> d = op.divisor(b);
+    const double q = op.div_by(a, d), q2 = op.div_by(a2, d);
+    const bool same = __double_as_longlong(q) == __double_as_longlong(a / b) &&
+                      __double_as_longlong(q2) == __double_as_longlong(a2 / b);
+    tally(out, op.ok, same, (unsigned long long)__double_as_longlong(a),
+          (unsigned long long)__double_as_longlong(b));
+  }
+}
+__global__ void dsqrt_random(unsigned long long* out, unsigned long long n) {
+  for (unsigned long long i = blockIdx.x * (unsigned long long)blockDim.x +
+                               threadIdx.x;
+       i < n; i += (unsigned long long)gridDim.x * blockDim.x) {
+    const unsigned long long r = mix(i);
+    const double x = (r & 0xff) == 0 ? -rand_double(r, -1000, 1000)
+                                     : fabs(rand_double(r, -1000, 1023));
+    ivp::FastCtl<double> op;
+    const double got = op.sqrt(x);
+    tally(out, op.ok,
+          __double_as_longlong(got) == __double_as_longlong(sqrt(x)),
+          (unsigned long long)__double_as_longlong(x), 0);
+  }
+}
+}  // namespace
+
+extern "C" int ivp_fast_paths(unsigned long long* out, unsigned long long n) {
+  // out: 5 checks x [admitted, differing, first input a, first input b].
+  cudaMemset(out, 0, 20 * sizeof(unsigned long long));
+  sqrt_all<<<1056, 256>>>(out);
+  div_random<<<1056, 256>>>(out + 4, n);
+  hdiv_random<<<1056, 256>>>(out + 8, n);
+  ddiv_random<<<1056, 256>>>(out + 12, n);
+  dsqrt_random<<<1056, 256>>>(out + 16, n);
+  return (int)cudaDeviceSynchronize();
+}
+extern "C" const char* ivp_cuda_error_string(int e) {
+  return cudaGetErrorString((cudaError_t)e);
+}
+"""
+
+
+def fast_paths(build, dev):
+    """Hold erk_common.cuh's FastCtl<float> to the IEEE operations on the
+    card (``FAST_SOURCE``): the square root on every float its range test
+    admits, the division and the step size over a factor on
+    ``FAST_DRAWS`` random operands each."""
+    import ctypes
+
+    src = build.BUILD_DIR / "fast_paths_src"
+    shutil.rmtree(src, ignore_errors=True)
+    shutil.copytree(build.SRC_DIR, src)
+    (src / "fast_paths.cu").write_text(FAST_SOURCE)
+    t = time.perf_counter()
+    lib = build.load(build.build(src_dir=src, name="fast_paths"))
+    fn = lib.ivp_fast_paths
+    fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_ulonglong], ctypes.c_int
+    out = torch.zeros(20, dtype=torch.int64, device=dev)
+    t1 = time.perf_counter()
+    build.check(fn(out.data_ptr(), FAST_DRAWS), "ivp_fast_paths", lib)
+    res = out.cpu().tolist()
+    line("fast_paths_build", seconds=round(t1 - t, 3),
+         run_seconds=round(time.perf_counter() - t1, 3))
+    for q, (what, drawn) in enumerate((("fsqrt", 0x7f800000),
+                                       ("fdiv", FAST_DRAWS),
+                                       ("hdiv", FAST_DRAWS),
+                                       ("ddiv", FAST_DRAWS),
+                                       ("dsqrt", FAST_DRAWS))):
+        adm, bad, a, b = res[4 * q:4 * q + 4]
+        line("fast_paths", op=what, inputs=drawn, admitted=adm,
+             differing=bad, first_a=hex(a & (2**64 - 1)) if bad else None,
+             first_b=hex(b & (2**64 - 1)) if bad else None)
 
 
 OUTPUTS = ("t", "y", "status", "nfev", "nstep", "naccpt", "nrejct",
@@ -1217,26 +1567,27 @@ def queue_cases(B, dev):
     ]
 
 
-def ab_erk(build, rhs, dev, baseline, label):
+def ab_erk(build, rhs, dev, baseline, label, methods=None):
     """The erk kernels built from ``baseline`` against the package's, at
     each of AB_ERK_B: lanes differing in each output of every erk_cases
-    case of every method; the old build's loop SASS; then old, new, new,
-    old rounds of each method's Lorenz main-path configurations, lean and
-    sampled."""
+    case of every method (of ``methods``, if given); the old build's loop
+    SASS; then old, new, new, old rounds of each method's Lorenz main-path
+    configurations, lean and sampled."""
     from ivp_tpu_torch.kernels import erk_ensemble as K
 
+    methods = list(K.KERNELS) if methods is None else methods
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(4) as ex:
         futs = {m: ex.submit(build.build, src_dir=baseline,
-                             name=K.KERNELS[m][1]) for m in K.KERNELS}
+                             name=K.KERNELS[m][1]) for m in methods}
         paths = {m: f.result() for m, f in futs.items()}
     old = {m: build.load(path) for m, path in paths.items()}
     line("ab_erk_build", old=label, seconds=round(time.perf_counter() - t0, 3))
-    for m in K.KERNELS:
+    for m in methods:
         sass_report(paths[m], label, only="Lorenz/f32")
 
     for B in AB_ERK_B:
-        for method in K.KERNELS:
+        for method in methods:
             for what, a, kw in erk_cases(method, B, dev):
                 new_out = K.erk_ensemble_cuda(method, *a, **kw)
                 old_out = K.erk_ensemble_cuda(method, *a, **kw,
@@ -1251,7 +1602,7 @@ def ab_erk(build, rhs, dev, baseline, label):
                      max_abs_dy=float((new_out[1] - old_out[1]).abs().max()))
                 del new_out, old_out
     for B in AB_ERK_B:
-        for method in K.KERNELS:
+        for method in methods:
             for sampled in (False, True):
                 a = lorenz_args(method, B, dev, sampled)
                 run = {"new": lambda: K.erk_ensemble_cuda(method, *a),
@@ -2934,19 +3285,24 @@ def main():
                     help="methods whose libraries erk_occupancy sweeps")
     ap.add_argument("--sass-dir", type=Path,
                     help="write each SASS listing the phases read here")
+    ap.add_argument("--ab-methods", default=None,
+                    help="methods whose erk kernels ab_erk holds and times "
+                         "(default: all)")
     opts = ap.parse_args()
     global SASS_DIR
     SASS_DIR = opts.sass_dir
     phases = (set(opts.phases.split(",")) if opts.phases else
               set(PHASES) - ({"ab_record", "ab_stiff", "ab_events",
-                              "ab_resume", "rehearse"} if opts.baseline else
+                              "ab_resume", "rehearse", "ab_erk",
+                              "cycle_split"} if opts.baseline else
                              {"ab", "ab_record", "ab_stiff", "ab_events",
-                              "ab_resume", "rehearse"}))
+                              "ab_resume", "rehearse", "ab_erk",
+                              "cycle_split"}))
     if not phases <= set(PHASES):
         ap.error(f"unknown phases {sorted(phases - set(PHASES))}")
-    if phases & {"ab", "ab_record", "ab_stiff", "ab_events",
-                 "ab_resume", "rehearse"} and not opts.baseline:
-        ap.error("the ab phases and rehearse need --baseline")
+    if phases & {"ab", "ab_record", "ab_stiff", "ab_events", "ab_erk",
+                 "ab_resume", "rehearse", "cycle_split"} and not opts.baseline:
+        ap.error("the ab phases, rehearse and cycle_split need --baseline")
     if phases == {"rehearse"}:
         torch.set_num_threads(2)
         return int(not all([rehearse(b, baseline_label(b))
@@ -2972,7 +3328,8 @@ def main():
     for functor, info in ptxas_lines(lib.with_suffix(".log").read_text()):
         line("ptxas", build="new", functor=functor, info=repr(info))
     if phases & {"sass", "erk", "erk_occupancy", "ab", "ab_record",
-                 "cover_share", "events", "ab_events", "resume_profile"}:
+                 "cover_share", "events", "ab_events", "resume_profile",
+                 "ab_erk"}:
         t = time.perf_counter()
         erk_libs = build.build_all()
         line("build_all", seconds=round(time.perf_counter() - t, 3),
@@ -3035,13 +3392,17 @@ def main():
         events_phase(build, dev)
     if "cover_share" in phases:
         cover_share(build, dev, opts.baseline)
+    if "fast_paths" in phases:
+        fast_paths(build, dev)
+    if "cycle_split" in phases:
+        cycle_split(build, dev, opts.baseline)
     if "stiff" in phases:
         stiff_phase(build, dev)
     if "resume_profile" in phases:
         resume_profile(dev)
     for baseline in (opts.baseline if phases & {
             "ab", "ab_record", "ab_stiff", "ab_events", "ab_resume",
-            "resume_profile"} else ()):
+            "resume_profile", "ab_erk"} else ()):
         label = baseline_label(baseline)
         if "ab_stiff" in phases:
             ab_stiff(build, dev, baseline, label)
@@ -3055,7 +3416,9 @@ def main():
             resume_profile(dev, side, label)
         if "ab" in phases:
             ab(k, build, rhs, dev, baseline, label)
-            ab_erk(build, rhs, dev, baseline, label)
+        if phases & {"ab", "ab_erk"}:
+            ab_erk(build, rhs, dev, baseline, label,
+                   opts.ab_methods.split(",") if opts.ab_methods else None)
         if phases & {"ab", "ab_record"}:
             ab_record(build, rhs, dev, baseline, label)
     if "stiff_occupancy" in phases:
