@@ -375,6 +375,10 @@ def erk_golden_and_scipy(dev):
 # The lean DOP853 main path's median solve ms (CUDA events) on an H100 80GB
 # HBM3 at 700 W before its attempt's chain was shortened (PERF.md §6).
 DOP853_LEAN_BEFORE_MS = 4.670
+# The RK23 main paths' median solve ms (CUDA events), lean and sampled, on
+# the same card before their attempt's chain was shortened and the sampled
+# rows built only where a step covers a grid time (PERF.md §6).
+RK23_BEFORE_MS = {"lean": 3.212, "sampled": 4.326}
 
 
 def erk_main_path(dev, gold):
@@ -420,7 +424,7 @@ def erk_main_path(dev, gold):
             t_eval=grid_of(method, tf, sampled), **opts)
         before = K.LAUNCHES[kernel]
         res, walls, ev_ms = timed_solves(solver, y0s, 0.0, tf, rtol, atol)
-        runs.append((res, walls, ev_ms, K.LAUNCHES[kernel] - before))
+        runs.append((res, walls, ev_ms, K.LAUNCHES[kernel] - before, solver))
     launches = dict(K.LAUNCHES)
 
     def kernel_args(y0, tf, rtol, atol, first):
@@ -454,7 +458,7 @@ def erk_main_path(dev, gold):
 
     rows = {}
     for (method, kernel, tf, short, (rtol, atol), opts, sampled), (
-            res, walls, ev_ms, n_launch) in zip(configs, runs):
+            res, walls, ev_ms, n_launch, solver) in zip(configs, runs):
         tag = f"{kernel}_{'sampled' if sampled else 'lean'}_lorenz_B{B}"
         ms = float(np.median(ev_ms))
         status = res.status.cpu().numpy()
@@ -483,6 +487,15 @@ def erk_main_path(dev, gold):
             phase("dop853_lean_main_path", ms=ms,
                   before_redesign_ms=DOP853_LEAN_BEFORE_MS,
                   over_before=ms / DOP853_LEAN_BEFORE_MS)
+        if kernel == "rk23":
+            # The kernel's device ms of one more main-path solve, beside the
+            # solve's own and the one before the redesign.
+            mode = "sampled" if sampled else "lean"
+            _, main_k_ms, _ = kernel_device_ms(
+                lambda: solver(y0s[0], 0.0, tf, rtol, atol))
+            phase(f"rk23_{mode}_main_path", ms=ms, kernel_ms=main_k_ms,
+                  before_redesign_ms=RK23_BEFORE_MS[mode],
+                  over_before=ms / RK23_BEFORE_MS[mode])
         if n_launch != 4:
             raise AssertionError(f"{tag}: {n_launch} launches in 4 solves")
         if not np.all(status == Status.SUCCESS) or not bool(

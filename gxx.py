@@ -93,6 +93,11 @@ inline unsigned __float_as_uint(float x) {
   memcpy(&u, &x, 4);
   return u;
 }
+inline float __uint_as_float(unsigned u) {
+  float x;
+  memcpy(&x, &u, 4);
+  return x;
+}
 inline int __double2hiint(double x) {
   long long u;
   memcpy(&u, &x, 8);

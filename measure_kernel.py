@@ -89,16 +89,16 @@ instantiation), then the phases (all by default, ``ab`` only with
   side, registers and spills, row stride, staged rows, dynamic shared
   memory a block and blocks resident an SM.
 * ``events``: each main-path event instantiation alone (``EVENT_B``): the
-  bouncing ball (``dopri5_sampled_ev``) at B=16384 and 524288 and the
-  Lorenz section (``dop853_ev``) at B=16384 and 262144, on chip_smoke.py's
-  inputs, timed in ``turn_ms`` turns, with the bound by both counts (rows
-  on the steps that need them, and on every accepted step), its share,
-  warp efficiency, the event work a lane, Brent's evaluations and the
-  attempts a crossing, the lean solve over the same span (the section),
-  and where the lanes cross (``events_crossings``: the share of a lane's
-  steps and of a warp's iterations with a crossing, from a record-event
-  run); then ptxas's registers and spills of every event instantiation;
-  and the record-event instantiation of the recording ball
+  bouncing ball (``dopri5_sampled_ev``) at B=16384 and 524288, the Lorenz
+  section (``dop853_ev``) at B=16384 and 262144, and ``rk23_ev`` on both at
+  B=16384, on chip_smoke.py's inputs, timed in ``turn_ms`` turns, with the
+  bound by both counts (rows on the steps that need them, and on every
+  accepted step), its share, warp efficiency, the event work a lane, Brent's
+  evaluations and the attempts a crossing, the lean solve over the same span
+  (the section), and where the lanes cross (``events_crossings``: the share
+  of a lane's steps and of a warp's iterations with a crossing, from a
+  record-event run); then ptxas's registers and spills of every event
+  instantiation; and the record-event instantiation of the recording ball
   (``dopri5_record_cont_ev``) alone: one launch (the first chunk, from y0)
   at ``EVENT_RECORD``;
 * ``stiff``: the stiff kernels (csrc/radau.cu, csrc/bdf.cu) alone on
@@ -157,34 +157,42 @@ instantiation), then the phases (all by default, ``ab`` only with
 * ``rehearse`` (alone, needs ``--baseline``, no card): both trees'
   resumable, stiff and erk kernels built with g++ (gxx.py) and held
   field by field on CPU tensors (every ``erk_cases`` case too);
-* ``cover_share``: where the sampled DOP853 solve's lanes cover a grid
-  time: a copy of the sources with a warp-vote counter in erk_kernel's
-  loop (``COVER_PATCH``) runs the Lorenz main path (B=16384, 100 samples)
-  over each of ``COVER_SPANS``: the share of a warp's iterations on which
-  some lane's step advances and covers its next grid time (the iterations
-  on which the rows run at once, or under ``covers()`` alone), the share
-  of lane attempts that do, and the instrumented outputs held bit for bit
-  to the package build's; then ``cover_split``: the package build's lean
-  solve, its sampled solve on a grid past tf (nothing queued) and on the
+* ``cover_share``: where the sampled solve of ``--split-method`` (DOP853
+  by default, or RK23) covers a grid time: a copy of the sources with a
+  warp-vote counter in erk_kernel's loop (``COVER_PATCH``) runs the Lorenz
+  main path (B=16384, 100 samples) over each of the method's
+  ``COVER_SPANS``: the share of a warp's iterations on which some lane's
+  step advances and covers its next grid time (the iterations on which the
+  rows run at once, or under ``covers()`` alone), the share of lane
+  attempts that do, and the instrumented outputs held bit for bit to the
+  package build's; then ``cover_split``: the package build's lean solve,
+  its sampled solve on a grid past tf (nothing queued, no rows) and on the
   main path's grid, in turns at each of ``AB_ERK_B``, and the same of each
-  ``--baseline``'s erk_dop853 build.
+  ``--baseline``'s build of the method's library.
 
 * ``ab_erk`` (needs ``--baseline``): ``ab``'s erk part alone, for the
   methods of ``--ab-methods`` (default all);
 * ``cycle_split`` (needs ``--baseline``: the variant trees to split, never
-  the package's own csrc): where a lean DOP853 attempt's cycles go.  A copy
-  of each tree with clock64() stamps (``STAMP_PATCH``) under
-  ``_variants/<label>-stamps/csrc`` runs the lean Lorenz main path at each
-  of ``AB_ERK_B``, its outputs held bit for bit to the tree's own build:
-  the cycles an attempt of its stages 2-12, of the norm with f(ynew), of
-  the controller through h_next and of the loop's bookkeeping between two
-  attempts, their sum, and the cycles a warp-attempt a scheduler of both
-  builds from ``turn_ms`` (what the stamps cost);
-* ``fast_paths``: erk_common.cuh's ``FastCtl<float>`` (the controller's
-  divisions and square roots on their fast paths, behind one branch) held
-  to the IEEE operations on the card: the square root on every float its
-  range admits, the division (a divisor shared by two quotients) and the
-  step size over a float factor on ``FAST_DRAWS`` random operands each.
+  the package's own csrc): where an attempt of ``--split-method`` (DOP853
+  by default, or RK23) spends its cycles.  A copy of each tree with
+  clock64() stamps (``STAMP_COMMON``, ``STAMP_METHOD``) under
+  ``_variants/<label>-stamps-<library>/csrc`` runs the Lorenz main path,
+  lean and sampled, at each of ``AB_ERK_B``, its outputs held bit for bit
+  to the tree's own build: the cycles an attempt of its stages (DOP853's
+  2-12; RK23's k2, k3, ynew and k4), of the norm (with DOP853's f(ynew)),
+  of the controller through h_next (in a tree that runs the norm and the
+  controller as one chain, the norm's part holds both) and of the loop's
+  bookkeeping between two attempts (with the drain where sampled), their
+  sum, the attempts that took the slow path's branch, and the cycles a
+  warp-attempt a scheduler of both builds from ``turn_ms`` (what the
+  stamps cost);
+* ``fast_paths``: erk_common.cuh's ``FastCtl<float>`` and
+  ``FastCtl<double>`` (the controller's divisions, square roots and the
+  float ``pow(x, -1/3)`` on their fast paths, behind one branch) held to
+  the library's operations on the card: the float square root and the
+  float ``pow`` on every float their range tests admit, the divisions (a
+  divisor shared by two quotients), the step size over a float factor and
+  the double square root on ``FAST_DRAWS`` random operands each.
 
 The A/B, occupancy and two-kernel timings (``ab_stiff`` and
 ``stiff_occupancy`` too) are turns of ``turn_ms``: five
@@ -252,7 +260,8 @@ EVENT_RECORD = (16384, 256)
 # The events phase: each main-path event instantiation alone, (kernel, set,
 # lane counts): the bouncing ball and the Lorenz section of chip_smoke.py.
 EVENT_B = (("DOPRI5", "ground", (16384, 524288)),
-           ("DOP853", "section", (16384, 262144)))
+           ("DOP853", "section", (16384, 262144)),
+           ("RK23", "ground", (16384,)), ("RK23", "section", (16384,)))
 EVENT_ROUNDS = 5
 # ab_events: the bit-for-bit cases' lanes (event_ab_cases), their record
 # chunks, and the rounds of old, new, new, old at EVENT_B.
@@ -280,7 +289,7 @@ ERK_CONFIGS = (("DOP853", 100.0, 1e-8, 1e-10, None),
 ERK_SAMPLES = 100
 # cover_share: the Lorenz sampled DOP853 main path's lanes, and its spans.
 COVER_B = 16384
-COVER_SPANS = (100.0, 20.0)
+COVER_SPANS = {"DOP853": (100.0, 20.0), "RK23": (20.0,)}
 # The erk libraries whose registers and loop SASS are printed.
 ERK_LIBS = ("erk_dop853", "erk_rk23", "erk_rk4", "erk_dopri5")
 
@@ -574,6 +583,7 @@ def loop_line(tag, path, **kv):
     pipes = {f"{k}_cycles": PIPE_CYCLES[k] * classes[k] for k in PIPE_CYCLES}
     line(tag, **kv, issued=len(path),
          UMOV=sum(op.split(".")[0] == "UMOV" for op in path),
+         path_BRA=sum(op.split(".")[0] == "BRA" for op in path),
          **{k: classes[k] for k, _ in CLASSES}, uniform=classes["uniform"],
          other=classes["other"], **pipes,
          top=repr(dict(Counter(path).most_common(12))))
@@ -807,7 +817,7 @@ COVER_PATCH = (
       }
     }
 """),
-    ("erk_dop853.cu", "IVP_ERK_LIBRARY()\n", """IVP_ERK_LIBRARY()
+    (None, "IVP_ERK_LIBRARY()\n", """IVP_ERK_LIBRARY()
 extern "C" int ivp_cover_counts_take(unsigned long long* out) {
   static const unsigned long long zero[4] = {0, 0, 0, 0};
   int err = (int)cudaMemcpyFromSymbol(out, ivp::ivp_cover_counts,
@@ -820,42 +830,46 @@ extern "C" int ivp_cover_counts_take(unsigned long long* out) {
 )
 
 
-def cover_share(build, dev, baselines=()):
-    """Step 0 of the deferred samples (see the module's head): the Lorenz
-    sampled DOP853 solve at ``COVER_B`` lanes over each of ``COVER_SPANS``
-    through an instrumented build (``COVER_PATCH``) of this tree's
-    erk_dop853.cu, its outputs held bit for bit to the package build's;
-    then ``cover_split`` of the package build and of each of ``baselines``
-    (csrc directories)."""
+def cover_share(build, dev, baselines=(), method="DOP853"):
+    """Where a sampled solve's lanes cover a grid time (see the module's
+    head): ``method``'s Lorenz sampled solve at ``COVER_B`` lanes over each
+    of its ``COVER_SPANS`` through an instrumented build (``COVER_PATCH``,
+    the entry in ``method``'s source) of this tree's library, its outputs
+    held bit for bit to the package build's; then ``cover_split`` of the
+    package build and of each of ``baselines`` (csrc directories)."""
     import ctypes
 
     from ivp_tpu_torch.kernels import erk_ensemble as K
 
+    name = K.KERNELS[method][1]
     src = build.BUILD_DIR / "cover_src"
     shutil.rmtree(src, ignore_errors=True)
     shutil.copytree(build.SRC_DIR, src)
-    for name, old, new in COVER_PATCH:
-        text = (src / name).read_text()
+    for file, old, new in COVER_PATCH:
+        file = file or f"{name}.cu"
+        text = (src / file).read_text()
         if text.count(old) != 1:
-            raise RuntimeError(f"cover_share: {old!r} is not once in {name}")
-        (src / name).write_text(text.replace(old, new))
+            raise RuntimeError(f"cover_share: {old!r} is not once in {file}")
+        (src / file).write_text(text.replace(old, new))
     t = time.perf_counter()
-    lib = build.load(build.build(src_dir=src, name="erk_dop853"))
-    line("cover_share_build", seconds=round(time.perf_counter() - t, 3))
+    lib = build.load(build.build(src_dir=src, name=name))
+    line("cover_share_build", method=method,
+         seconds=round(time.perf_counter() - t, 3))
     take = lib.ivp_cover_counts_take
     take.argtypes, take.restype = [ctypes.c_void_p], ctypes.c_int
     counts = (ctypes.c_ulonglong * 4)()
-    for tf in COVER_SPANS:
-        a = lorenz_args("DOP853", COVER_B, dev, True, tf=tf)
+    for tf in COVER_SPANS[method]:
+        a = lorenz_args(method, COVER_B, dev, True, tf=tf)
         build.check(take(counts), "ivp_cover_counts_take", lib)
-        got = K.erk_ensemble_cuda("DOP853", *a[:-1], t_grid=a[-1], lib=lib)
+        got = K.erk_ensemble_cuda(method, *a[:-1], t_grid=a[-1], lib=lib)
         torch.cuda.synchronize()
         build.check(take(counts), "ivp_cover_counts_take", lib)
-        ref = K.erk_ensemble_cuda("DOP853", *a[:-1], t_grid=a[-1])
+        ref = K.erk_ensemble_cuda(method, *a[:-1], t_grid=a[-1])
         torch.cuda.synchronize()
         diff = lanes_differing(got, ref)
         iters, cover, lanes, lane_cover = (int(x) for x in counts)
-        line("cover_share", B=COVER_B, tf=tf, samples=ERK_SAMPLES,
+        line("cover_share", method=method, B=COVER_B, tf=tf,
+             samples=ERK_SAMPLES,
              warp_share=round(cover / iters, 5),
              lane_share=round(lane_cover / lanes, 5),
              warp_iterations_per_warp=round(iters / (COVER_B // 32), 2),
@@ -867,46 +881,48 @@ def cover_share(build, dev, baselines=()):
     with concurrent.futures.ThreadPoolExecutor(4) as ex:
         libs = [("new", None)] + [
             (baseline_label(b), build.load(f.result())) for b, f in
-            [(b, ex.submit(build.build, src_dir=b, name="erk_dop853"))
+            [(b, ex.submit(build.build, src_dir=b, name=name))
              for b in baselines]]
     # Where the sampled solve's time goes: the lean solve, the sampled one
     # on a grid past tf (its loop with the covers() test, no step queued,
     # no sample) and on the main path's grid, in rounds of turns (forward,
     # then backward), each build's.
     for B in AB_ERK_B:
-        lean = lorenz_args("DOP853", B, dev, False)
-        samp = lorenz_args("DOP853", B, dev, True)
+        lean = lorenz_args(method, B, dev, False)
+        samp = lorenz_args(method, B, dev, True)
         past = torch.broadcast_to(samp[-1][0] + 1000.0, samp[-1].shape)
         for label, lib in libs:
             runs = {"lean": lambda: K.erk_ensemble_cuda(
-                        "DOP853", *lean, lib=lib),
+                        method, *lean, lib=lib),
                     "no_cover": lambda: K.erk_ensemble_cuda(
-                        "DOP853", *samp[:-1], past, lib=lib),
+                        method, *samp[:-1], past, lib=lib),
                     "sampled": lambda: K.erk_ensemble_cuda(
-                        "DOP853", *samp, lib=lib)}
+                        method, *samp, lib=lib)}
             ms = {k: [] for k in runs}
             for r in range(AB_ERK_ROUNDS // 2):
                 for k in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
                     ms[k].append(turn_ms(runs[k]))
-            line("cover_split", build=label, B=B, rounds=AB_ERK_ROUNDS // 2,
+            line("cover_split", build=label, method=method, B=B,
+                 rounds=AB_ERK_ROUNDS // 2,
                  **{f"{k}_ms": round(float(np.median(v)), 4)
                     for k, v in ms.items()})
 
 
 # cycle_split's instrumentation, patched into a copy of a csrc tree's
-# erk_dop853.cu and erk_common.cuh: clock64() stamps at an attempt's start
-# (0), after its twelfth stage (1), where the norm and f(ynew) are done
-# (2: before the first anchor of STAMP_NORM found, the controller's start in
-# the older design or the accepted attempt's clamps in this one, else stamp
-# 1 again) and at its end (3); the lean loop of a lane adds each
-# attempt's parts and the time from the previous attempt's end to this
-# one's start (the loop's bookkeeping), and the lane's attempts, to the
-# sums an entry reads and zeroes; where the tree has FastCtl's one branch,
-# the attempts that take it (every mode's, an atomic each).  A lane's parts are its warp's while it
-# is active (the warp runs in step).
-STAMP_NORM = ("    // Controller.\n",
-              "    bool stiff_fail = false;\n    if (accepted) {\n")
-STAMP_PATCH = (
+# erk_common.cuh and the split method's source (``STAMP_METHOD``): clock64()
+# stamps at an attempt's start (0), after its stages (1: DOP853's twelfth;
+# RK23's k2, k3, ynew and k4), where the norm (with DOP853's f(ynew)) is
+# done (2: before the first anchor of the method's norm anchors found, the
+# controller's start in the older design or what follows the norm and the
+# controller, run together, in the newer one, else stamp 1 again) and at
+# its end (3); a lane's loop, lean or sampled (no events, no records), adds
+# each attempt's parts and the time from the previous attempt's end to this
+# one's start (the loop's bookkeeping, with the drain where sampled), and
+# the lane's attempts, to the sums an entry reads and zeroes; where the tree
+# has FastCtl's one branch, the attempts that take it (every mode's, an
+# atomic each).  A lane's parts are its warp's while it is active (the warp
+# runs in step).
+STAMP_COMMON = (
     ("erk_common.cuh", "namespace ivp {\n",
      "namespace ivp {\n__device__ unsigned long long ivp_stamp_sums[6];\n"),
     ("erk_common.cuh", "  int status, nfev;\n};",
@@ -915,7 +931,7 @@ STAMP_PATCH = (
      "  unsigned long long stamp_acc[5] = {0, 0, 0, 0, 0};\n"
      "  long long stamp_prev = 0;\nstep_on:\n"),
     ("erk_common.cuh", "    nfev += s.nfev;\n", """    nfev += s.nfev;
-    if constexpr (!SAMPLED && NE == 0 && REC == REC_NONE) {
+    if constexpr (NE == 0 && REC == REC_NONE) {
       if (stamp_prev != 0) stamp_acc[3] += s.st[0] - stamp_prev;
       stamp_acc[0] += s.st[1] - s.st[0];
       stamp_acc[1] += s.st[2] - s.st[1];
@@ -924,22 +940,13 @@ STAMP_PATCH = (
       stamp_prev = s.st[3];
     }
 """),
-    ("erk_common.cuh", "  t_out[i] = t;\n", """  if constexpr (!SAMPLED && NE == 0 && REC == REC_NONE) {
+    ("erk_common.cuh", "  t_out[i] = t;\n", """  if constexpr (NE == 0 && REC == REC_NONE) {
     for (int q = 0; q < 5; ++q) atomicAdd(&ivp_stamp_sums[q], stamp_acc[q]);
   }
   t_out[i] = t;
 """),
-    ("erk_dop853.cu", "    double h = c.h;\n",
-     "    s.st[0] = clock64();\n    double h = c.h;\n"),
-    ("erk_dop853.cu", "    f(t + C11 * h, ys, k[11], a);\n",
-     "    f(t + C11 * h, ys, k[11], a);\n    s.st[1] = clock64();\n"
-     "    s.st[2] = s.st[1];\n"),
-    ("erk_dop853.cu", STAMP_NORM, "    s.st[2] = clock64();\n"),
-    ("erk_dop853.cu", "    s.accepted = accepted;\n",
-     "    s.st[3] = clock64();\n    s.accepted = accepted;\n"),
-    ("erk_dop853.cu", ("      if (!fast.ok)\n",),
-     "      if (!fast.ok) atomicAdd(&ivp_stamp_sums[5], 1ull);\n"),
-    ("erk_dop853.cu", "IVP_ERK_LIBRARY()\n", """IVP_ERK_LIBRARY()
+)
+STAMP_TAKE = """IVP_ERK_LIBRARY()
 extern "C" int ivp_stamp_sums_take(unsigned long long* out) {
   static const unsigned long long zero[6] = {0, 0, 0, 0, 0, 0};
   int err = (int)cudaMemcpyFromSymbol(out, ivp::ivp_stamp_sums, sizeof(zero));
@@ -947,99 +954,151 @@ extern "C" int ivp_stamp_sums_take(unsigned long long* out) {
              : (int)cudaMemcpyToSymbol(ivp::ivp_stamp_sums, zero,
                                        sizeof(zero));
 }
-"""),
-)
-STAMP_PARTS = ("stages", "norm_fynew", "controller", "bookkeeping")
+"""
+# The method's own anchors (each a tuple: the first found once is taken), the
+# text stamped before or after it, and whether a tree may lack it: the
+# attempt's start, the end of its stages, the end of its norm, its end and
+# the slow path's branch, each stamped as the head above says.
+STAMP_SLOW = ("      if (!fast.ok)\n", "    if (!fast.ok)\n")
 
 
-def stamped_copy(src, dst):
-    """A copy of the csrc tree ``src`` at ``dst`` with ``STAMP_PATCH``
-    applied (a tuple of anchors: the first one found, inserted before it)."""
+def _stamp_method(src, starts, stages_end, norm_end, ends):
+    return (
+        (src, starts, "    s.st[0] = clock64();\n", "before", False),
+        (src, stages_end, "    s.st[1] = clock64();\n    s.st[2] = s.st[1];\n",
+         "after", False),
+        (src, norm_end, "    s.st[2] = clock64();\n", "before", True),
+        (src, ends, "    s.st[3] = clock64();\n", "before", False),
+        (src, STAMP_SLOW,
+         "if (!fast.ok) atomicAdd(&ivp_stamp_sums[5], 1ull);\n", "before",
+         True),
+        (src, ("IVP_ERK_LIBRARY()\n",), STAMP_TAKE, "replace", False),
+    )
+
+
+STAMP_METHOD = {
+    "DOP853": _stamp_method(
+        "erk_dop853.cu", ("    double h = c.h;\n",),
+        ("    f(t + C11 * h, ys, k[11], a);\n",),
+        ("    // Controller.\n",
+         "    bool stiff_fail = false;\n    if (accepted) {\n"),
+        ("    s.accepted = accepted;\n",)),
+    # The lean and sampled chain (attempt_chain) where the tree has it.
+    "RK23": _stamp_method(
+        "erk_rk23.cu",
+        ("    double h = c.h;\n    const bool too_small = W(TENTH)",
+         "    double h = c.h;\n"),
+        ("    f(t + h, s.ynew, s.knew, a);   // k4\n\n    // The norm",
+         "    f(t + h, s.ynew, s.knew, a);   // k4\n"),
+        ("    const bool accepted = ctl.accepted;\n",
+         "    const bool accepted = (err <= (CT)1) && !too_small;\n"),
+        ("    return h_next;\n#undef W\n", "    s.accepted = accepted;\n")),
+}
+STAMP_PARTS = ("stages", "norm", "controller", "bookkeeping")
+
+
+def stamped_copy(src, dst, method="DOP853"):
+    """A copy of the csrc tree ``src`` at ``dst`` with ``STAMP_COMMON`` (each
+    anchor replaced) and ``method``'s ``STAMP_METHOD`` applied (the first
+    anchor found once, the text inserted before it at its indentation or
+    after its first line, or in its place; an optional one found nowhere is
+    skipped)."""
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(src, dst)
-    for name, old, new in STAMP_PATCH:
+    entries = [(name, (old,), new, "replace", False)
+               for name, old, new in STAMP_COMMON] + list(STAMP_METHOD[method])
+    for name, anchors, new, where, optional in entries:
         text = (dst / name).read_text()
-        if isinstance(old, tuple):
-            old = next((o for o in old if text.count(o) == 1), None)
-            if old is None:
+        old = next((o for o in anchors if text.count(o) == 1), None)
+        if old is None:
+            if optional:
                 continue
-            new = new + old
-        elif text.count(old) != 1:
-            raise RuntimeError(f"cycle_split: {old!r} is not once in {name}")
+            raise RuntimeError(f"cycle_split: none of {anchors!r} is once in "
+                               f"{name}")
+        indent = old[:len(old) - len(old.lstrip(" "))]
+        first = old[:old.index("\n") + 1]   # "after": after its first line
+        new = {"before": (new if new.startswith(" ") else indent + new) + old,
+               "after": first + new + old[len(first):], "replace": new}[where]
         (dst / name).write_text(text.replace(old, new))
 
 
-def cycle_split(build, dev, variants):
-    """Step 0 of the lean DOP853 redesign (see the module's head): for each
-    of ``variants`` (csrc directories, never the package's own), a copy
-    with ``STAMP_PATCH`` under ``_variants/<label>-stamps/csrc`` and the
-    variant as it is, both built; the lean Lorenz main path (B from
-    ``AB_ERK_B``) through each: the stamped build's outputs held bit for bit
-    to the variant's, the cycles of each part an attempt (``STAMP_PARTS``,
-    the mean over lane-attempts) and their sum, beside the variant's cycles
-    a warp-attempt a scheduler from its ``turn_ms`` median and the stamped
-    build's (what the stamps cost)."""
+def cycle_split(build, dev, variants, method="DOP853"):
+    """Where an attempt of ``method`` (DOP853 or RK23) spends its cycles
+    (see the module's head): for each of ``variants`` (csrc
+    directories, never the package's own), a copy with ``method``'s stamps
+    (``stamped_copy``) under ``_variants/<label>-stamps/csrc`` and the
+    variant as it is, both built; the Lorenz main path (B from
+    ``AB_ERK_B``), lean and sampled, through each: the stamped build's
+    outputs held bit for bit to the variant's, the cycles of each part an
+    attempt (``STAMP_PARTS``, the mean over lane-attempts) and their sum,
+    beside the variant's cycles a warp-attempt a scheduler from its
+    ``turn_ms`` median and the stamped build's (what the stamps cost)."""
     import ctypes
 
     from ivp_tpu_torch.kernels import erk_ensemble as K
 
     root = Path(__file__).resolve().parent / "_variants"
+    name = K.KERNELS[method][1]
     for variant in variants:
         label = baseline_label(variant)
-        stamped = root / f"{label}-stamps" / "csrc"
-        stamped_copy(Path(variant), stamped)
+        stamped = root / f"{label}-stamps-{name}" / "csrc"
+        stamped_copy(Path(variant), stamped, method)
         t = time.perf_counter()
         with concurrent.futures.ThreadPoolExecutor(2) as ex:
-            fs = [ex.submit(build.build, src_dir=d, name="erk_dop853")
+            fs = [ex.submit(build.build, src_dir=d, name=name)
                   for d in (stamped, Path(variant))]
             lib_st, lib_v = (build.load(f.result()) for f in fs)
-        line("cycle_split_build", variant=label,
+        line("cycle_split_build", variant=label, method=method,
              seconds=round(time.perf_counter() - t, 3))
         take = lib_st.ivp_stamp_sums_take
         take.argtypes, take.restype = [ctypes.c_void_p], ctypes.c_int
         sums = (ctypes.c_ulonglong * 6)()
         for B in AB_ERK_B:
-            a = lorenz_args("DOP853", B, dev, False)
-            build.check(take(sums), "ivp_stamp_sums_take", lib_st)
-            got = K.erk_ensemble_cuda("DOP853", *a, lib=lib_st)
-            torch.cuda.synchronize()
-            build.check(take(sums), "ivp_stamp_sums_take", lib_st)
-            parts = [int(x) for x in sums]
-            ref = K.erk_ensemble_cuda("DOP853", *a, lib=lib_v)
-            torch.cuda.synchronize()
-            diff = lanes_differing(got, ref)
-            ms = {"variant": [], "stamped": []}
-            for r in range(AB_ERK_ROUNDS // 2):
-                for w in (("variant", "stamped") if r % 2 == 0
-                          else ("stamped", "variant")):
-                    lib = lib_v if w == "variant" else lib_st
-                    ms[w].append(turn_ms(
-                        lambda: K.erk_ensemble_cuda("DOP853", *a, lib=lib)))
-            mhz, wa = sm_mhz(), warp_attempts(ref[4])
-            cyc = {w: round(float(np.median(v)) * 1e-3 * mhz * 1e6 * 132 * 4
-                            / wa, 1) for w, v in ms.items()}
-            n = max(parts[4], 1)
-            split = {p: round(parts[q] / n, 1)
-                     for q, p in enumerate(STAMP_PARTS)}
-            line("cycle_split", variant=label, B=B, **split,
-                 sum_of_parts=round(sum(parts[:4]) / n, 1),
-                 lane_attempts=parts[4], slow_path_attempts=parts[5],
-                 variant_ms=round(float(np.median(ms["variant"])), 4),
-                 stamped_ms=round(float(np.median(ms["stamped"])), 4),
-                 cycles_variant=cyc["variant"], cycles_stamped=cyc["stamped"],
-                 sm_mhz=mhz,
-                 identical_to_variant=all(v == 0 for v in diff.values()),
-                 lanes_differing=repr({k: v for k, v in diff.items() if v}))
+            for sampled in (False, True):
+                a = lorenz_args(method, B, dev, sampled)
+                build.check(take(sums), "ivp_stamp_sums_take", lib_st)
+                got = K.erk_ensemble_cuda(method, *a, lib=lib_st)
+                torch.cuda.synchronize()
+                build.check(take(sums), "ivp_stamp_sums_take", lib_st)
+                parts = [int(x) for x in sums]
+                ref = K.erk_ensemble_cuda(method, *a, lib=lib_v)
+                torch.cuda.synchronize()
+                diff = lanes_differing(got, ref)
+                ms = {"variant": [], "stamped": []}
+                for r in range(AB_ERK_ROUNDS // 2):
+                    for w in (("variant", "stamped") if r % 2 == 0
+                              else ("stamped", "variant")):
+                        lib = lib_v if w == "variant" else lib_st
+                        ms[w].append(turn_ms(lambda: K.erk_ensemble_cuda(
+                            method, *a, lib=lib)))
+                mhz, wa = sm_mhz(), warp_attempts(ref[4])
+                cyc = {w: round(float(np.median(v)) * 1e-3 * mhz * 1e6 * 132
+                                * 4 / wa, 1) for w, v in ms.items()}
+                n = max(parts[4], 1)
+                split = {p: round(parts[q] / n, 1)
+                         for q, p in enumerate(STAMP_PARTS)}
+                line("cycle_split", variant=label, method=method, B=B,
+                     mode="sampled" if sampled else "lean", **split,
+                     sum_of_parts=round(sum(parts[:4]) / n, 1),
+                     lane_attempts=parts[4], slow_path_attempts=parts[5],
+                     variant_ms=round(float(np.median(ms["variant"])), 4),
+                     stamped_ms=round(float(np.median(ms["stamped"])), 4),
+                     cycles_variant=cyc["variant"],
+                     cycles_stamped=cyc["stamped"], sm_mhz=mhz,
+                     identical_to_variant=all(v == 0 for v in diff.values()),
+                     lanes_differing=repr({k: v for k, v in diff.items()
+                                           if v}))
 
 
 # fast_paths' checks of erk_common.cuh's FastCtl<float> and FastCtl<double>
-# against the IEEE operations, built from a copy of csrc with this source
-# beside it: every float the square root's range test admits, and
-# FAST_DRAWS random operands (a hash of the index) for the float division
-# (a divisor shared by two quotients, as the norm takes it), the step size
-# over a float factor, the double division (a shared divisor too) and the
-# double square root; each counts the inputs its range admits and those on
-# which the result's bits differ, and keeps the first such input.
+# against the IEEE operations (and libdevice's powf), built from a copy of
+# csrc with this source beside it: every float the square root's and the
+# power's range tests admit, and FAST_DRAWS random operands (a hash of the
+# index) for the float division (a divisor shared by two quotients, as the
+# norm takes it), the step size over a float factor, the double division (a
+# shared divisor too) and the double square root; each counts the inputs its
+# range admits and those on which the result's bits differ, and keeps the
+# first such input.
 FAST_DRAWS = 1 << 30
 FAST_SOURCE = r"""
 #include "erk_common.cuh"
@@ -1075,6 +1134,22 @@ __global__ void sqrt_all(unsigned long long* out) {
     ivp::FastCtl<float> op;
     const float got = op.sqrt(x);
     tally(out, op.ok, __float_as_uint(got) == __float_as_uint(sqrtf(x)), u, 0);
+  }
+}
+// pow(x, -1/3) on every float: the bits of FastCtl<float>::pow_m13 where
+// its range test admits x, against the library's powf.
+__global__ void pow_all(unsigned long long* out) {
+  const unsigned long long n = 1ull << 32;
+  for (unsigned long long u = blockIdx.x * (unsigned long long)blockDim.x +
+                               threadIdx.x;
+       u < n; u += (unsigned long long)gridDim.x * blockDim.x) {
+    const float x = __uint_as_float((unsigned)u);
+    ivp::FastCtl<float> op;
+    const float got = op.pow_m13(x);
+    tally(out, op.ok,
+          __float_as_uint(got) ==
+              __float_as_uint(powf(x, (float)(-1.0 / 3.0))),
+          u, 0);
   }
 }
 __global__ void div_random(unsigned long long* out, unsigned long long n) {
@@ -1152,13 +1227,14 @@ __global__ void dsqrt_random(unsigned long long* out, unsigned long long n) {
 }  // namespace
 
 extern "C" int ivp_fast_paths(unsigned long long* out, unsigned long long n) {
-  // out: 5 checks x [admitted, differing, first input a, first input b].
-  cudaMemset(out, 0, 20 * sizeof(unsigned long long));
+  // out: 6 checks x [admitted, differing, first input a, first input b].
+  cudaMemset(out, 0, 24 * sizeof(unsigned long long));
   sqrt_all<<<1056, 256>>>(out);
   div_random<<<1056, 256>>>(out + 4, n);
   hdiv_random<<<1056, 256>>>(out + 8, n);
   ddiv_random<<<1056, 256>>>(out + 12, n);
   dsqrt_random<<<1056, 256>>>(out + 16, n);
+  pow_all<<<1056, 256>>>(out + 20);
   return (int)cudaDeviceSynchronize();
 }
 extern "C" const char* ivp_cuda_error_string(int e) {
@@ -1168,10 +1244,11 @@ extern "C" const char* ivp_cuda_error_string(int e) {
 
 
 def fast_paths(build, dev):
-    """Hold erk_common.cuh's FastCtl<float> to the IEEE operations on the
-    card (``FAST_SOURCE``): the square root on every float its range test
-    admits, the division and the step size over a factor on
-    ``FAST_DRAWS`` random operands each."""
+    """Hold erk_common.cuh's FastCtl<float> and FastCtl<double> to the
+    library's operations on the card (``FAST_SOURCE``): the float square
+    root and pow(x, -1/3) on every float their range tests admit, the
+    divisions, the step size over a float factor and the double square root
+    on ``FAST_DRAWS`` random operands each."""
     import ctypes
 
     src = build.BUILD_DIR / "fast_paths_src"
@@ -1182,7 +1259,7 @@ def fast_paths(build, dev):
     lib = build.load(build.build(src_dir=src, name="fast_paths"))
     fn = lib.ivp_fast_paths
     fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_ulonglong], ctypes.c_int
-    out = torch.zeros(20, dtype=torch.int64, device=dev)
+    out = torch.zeros(24, dtype=torch.int64, device=dev)
     t1 = time.perf_counter()
     build.check(fn(out.data_ptr(), FAST_DRAWS), "ivp_fast_paths", lib)
     res = out.cpu().tolist()
@@ -1192,7 +1269,8 @@ def fast_paths(build, dev):
                                        ("fdiv", FAST_DRAWS),
                                        ("hdiv", FAST_DRAWS),
                                        ("ddiv", FAST_DRAWS),
-                                       ("dsqrt", FAST_DRAWS))):
+                                       ("dsqrt", FAST_DRAWS),
+                                       ("fpow_m13", 1 << 32))):
         adm, bad, a, b = res[4 * q:4 * q + 4]
         line("fast_paths", op=what, inputs=drawn, admitted=adm,
              differing=bad, first_a=hex(a & (2**64 - 1)) if bad else None,
@@ -1296,7 +1374,7 @@ def profile_solves(solver, dev):
         line("profile", error="'no device time in key_averages()'")
 
 
-def kernel_ms(fn, n=TURN_LAUNCHES, match="erk_kernel", retry=True,
+def kernel_ms(fn, n=TURN_LAUNCHES, match="erk_kernel", retry=4,
               launches=None):
     """Device ms of one launch of ``fn``'s kernels whose name holds
     ``match``, from torch.profiler over ``n`` launches after an untimed
@@ -1305,7 +1383,8 @@ def kernel_ms(fn, n=TURN_LAUNCHES, match="erk_kernel", retry=True,
     work around a short launch.  ``launches``: the number of those kernels
     a result of ``fn`` launched, which the profile must hold as many events
     of, or it raises; a profile that holds none of them, or not as many, is
-    taken again once."""
+    taken again, up to ``retry`` more times (an H100's trace lost a launch
+    at its ends in two takes running)."""
     import chip_smoke as cs
 
     outs, events, _, _ = cs.window_profile(
@@ -1317,7 +1396,7 @@ def kernel_ms(fn, n=TURN_LAUNCHES, match="erk_kernel", retry=True,
         line("kernel_ms_missed", match=match, kernel_events=len(mine),
              launches=want, retry=retry)
         if retry:
-            return kernel_ms(fn, n, match, False, launches)
+            return kernel_ms(fn, n, match, retry - 1, launches)
         if want is not None:
             raise AssertionError(f"torch.profiler held {len(mine)} {match} "
                                  f"events for {want} launches")
@@ -3285,6 +3364,9 @@ def main():
                     help="methods whose libraries erk_occupancy sweeps")
     ap.add_argument("--sass-dir", type=Path,
                     help="write each SASS listing the phases read here")
+    ap.add_argument("--split-method", default="DOP853",
+                    choices=sorted(STAMP_METHOD),
+                    help="the method cycle_split and cover_share measure")
     ap.add_argument("--ab-methods", default=None,
                     help="methods whose erk kernels ab_erk holds and times "
                          "(default: all)")
@@ -3391,11 +3473,11 @@ def main():
     if "events" in phases:
         events_phase(build, dev)
     if "cover_share" in phases:
-        cover_share(build, dev, opts.baseline)
+        cover_share(build, dev, opts.baseline, opts.split_method)
     if "fast_paths" in phases:
         fast_paths(build, dev)
     if "cycle_split" in phases:
-        cycle_split(build, dev, opts.baseline)
+        cycle_split(build, dev, opts.baseline, opts.split_method)
     if "stiff" in phases:
         stiff_phase(build, dev)
     if "resume_profile" in phases:
