@@ -705,17 +705,20 @@ def check_record(name, counters, errs):
 
 def launches_of(fn):
     """``(fn(), {kernel: launches})``: every kernel's count set to 0 just
-    before ``fn`` and the lean DOPRI5 kernel's, the erk kernels' and the
-    record kernels' read just after it (only kernels it launched).  Around
+    before ``fn`` and the lean DOPRI5 kernel's, the erk kernels', the record
+    kernels' and the stiff kernels' read just after it (only kernels it
+    launched).  Around
     ``kernel_device_ms``, the counts of its measured call."""
     from ivp_tpu_torch.kernels import dopri5_ensemble as k
     from ivp_tpu_torch.kernels import erk_ensemble as K
     from ivp_tpu_torch.kernels import erk_record as R
+    from ivp_tpu_torch.kernels import stiff_ensemble as S
 
     zero_counts()
     out = fn()
     torch.cuda.synchronize()
-    seen = {n: v for d in (K.LAUNCHES, R.LAUNCHES) for n, v in d.items() if v}
+    seen = {n: v for d in (K.LAUNCHES, R.LAUNCHES, S.LAUNCHES)
+            for n, v in d.items() if v}
     if k.LAUNCHES:
         seen["dopri5_ensemble"] = k.LAUNCHES
     return out, seen
@@ -929,7 +932,10 @@ def launch_total(match):
     if match == "erk_kernel":
         return sum(sum(d.values()) for d in (K.LAUNCHES, R.LAUNCHES,
                                              RES.LAUNCHES))
-    return S.LAUNCHES[match.removesuffix("_kernel")]
+    # A stiff kernel's every mode (its lean, sampled and record entries
+    # launch one kernel template).
+    stem = match.removesuffix("_kernel")
+    return sum(v for k, v in S.LAUNCHES.items() if k.split("_")[0] == stem)
 
 
 def kernel_device_ms(fn, match="erk_kernel", attempts=5):
@@ -2143,50 +2149,108 @@ def robertson_y0(B):
     return y0
 
 
-def stiff_outputs(r):
-    """(t, y, status, nfev, nstep, naccpt, nrejct, njev, nlu) as numpy."""
-    return [np.asarray(x.cpu()) if torch.is_tensor(x) else np.asarray(x)
-            for x in r]
+STIFF_COUNTERS = ("status", "nfev", "nstep", "naccpt", "nrejct", "njev",
+                  "nlu")
+STIFF_FINAL = ("t", "y") + STIFF_COUNTERS
+REC_FIELDS = ("rec_t", "rec_y", "rec_xold", "rec_h", "rec_cont")
+# Fields held on a lane's time scale, max(1, |t|), not on max(1, |y|).
+TIME_FIELDS = ("t", "rec_t", "rec_xold", "rec_h")
 
 
-def stiff_compare(name, got, ref, share, y_tol=STIFF_Y):
-    """Hold a stiff result against a reference lane by lane: the share of
-    lanes with status and all six counters equal, and y within ``y_tol`` of
-    max(1, |y|) on them.  Returns (share, error)."""
-    a, b = stiff_outputs(got), stiff_outputs(ref)
-    same = np.ones(len(a[2]), bool)
-    fr = {}
-    for i, k in enumerate(("status", "nfev", "nstep", "naccpt", "nrejct",
-                           "njev", "nlu"), start=2):
-        eq = a[i] == b[i]
-        fr[k] = float(np.mean(eq))
+def ens_dict(out):
+    """stiff_ensemble's 11 outputs (or the plain version's, with its
+    counters unpacked) as a dict."""
+    return dict(zip(("t", "y", "status", "nfev", "nstep", "naccpt", "nrejct",
+                     "y_samples", "n_samples", "njev", "nlu"), out))
+
+
+def plain_ens_dict(out):
+    return ens_dict((*out[:9], *out[-1]))
+
+
+def rec_dict(r):
+    """A RecordResult's fields as a dict."""
+    return {f: getattr(r, f) for f in STIFF_FINAL + REC_FIELDS
+            + ("n_rec", "y_samples", "n_samples")}
+
+
+def lane_err(got, ref, scale):
+    """Per lane: max |got - ref| over max(1, the lane's largest |scale|)."""
+    g, r = got.reshape(got.shape[0], -1), ref.reshape(ref.shape[0], -1)
+    if g.shape[1] == 0:
+        return torch.zeros(g.shape[0], dtype=torch.float64, device=g.device)
+    sc = scale.reshape(scale.shape[0], -1)
+    return ((g - r).abs().amax(dim=1)
+            / sc.abs().amax(dim=1).clamp_min(1.0))
+
+
+def stiff_compare(name, got, ref, share, counts=(), arrays=("y",),
+                  y_tol=STIFF_Y):
+    """Hold a stiff result (a dict: ``ens_dict``, ``rec_dict``) against a
+    reference lane by lane: status, every counter and ``counts`` equal on
+    at least ``share`` of the lanes, and on those each of ``arrays`` within
+    ``y_tol`` of max(1, |ref|) (``TIME_FIELDS`` of max(1, |t|) of the
+    lane's times); where some lane differs, each array's error over every
+    lane is printed too.  Returns the largest error on the equal lanes."""
+    same = torch.ones_like(got["status"], dtype=torch.bool)
+    fr, errs, every, finite = {}, {}, {}, True
+    for k in STIFF_COUNTERS + tuple(counts):
+        eq = got[k] == ref[k]
+        fr[k] = float(eq.double().mean())
         same &= eq
-    dy = np.abs(a[1] - b[1]).max(axis=1) / np.maximum(
-        1.0, np.abs(b[1]).max(axis=1))
-    err = float(dy[same].max()) if same.any() else 0.0
-    frac = float(np.mean(same))
-    phase(name, lanes=len(same), lanes_all_equal=frac,
+    for f in arrays:
+        if got[f].shape != ref[f].shape:
+            raise AssertionError(f"{name}: {f} has shape "
+                                 f"{tuple(got[f].shape)}, the plain "
+                                 f"version's {tuple(ref[f].shape)}")
+        times = ref["rec_t"] if f.startswith("rec_") else ref["t"]
+        e = lane_err(got[f], ref[f], times if f in TIME_FIELDS else ref[f])
+        errs[f] = float(e[same].max()) if bool(same.any()) else 0.0
+        every[f] = float(e.max()) if e.numel() else 0.0
+        finite = finite and bool(torch.isfinite(got[f]).all())
+    frac = float(same.double().mean())
+    err = max(errs.values())
+    phase(name, lanes=int(same.numel()), lanes_all_equal=frac,
           **{f"{k}_equal": v for k, v in fr.items()},
-          max_scaled_err_equal=err, max_scaled_err=float(dy.max()),
-          finite=bool(np.isfinite(a[1]).all()))
-    if frac < share or err > y_tol or not np.isfinite(a[1]).all():
+          **{f"max_scaled_err_{f}": v for f, v in errs.items()},
+          **({f"max_scaled_err_{f}_all_lanes": v for f, v in every.items()}
+             if frac < 1.0 else {}),
+          finite=finite)
+    if frac < share or err > y_tol or not finite:
         raise AssertionError(f"{name}: {frac} of lanes equal (at least "
-                             f"{share}), y error {err}")
-    return frac, err
+                             f"{share}), errors {errs}, finite {finite}")
+    return err
 
 
-def stiff_call(method, fun, y0, tf, tol, spec, args, plain=False):
-    """One final-state stiff solve of ``y0`` (on its device) through the
-    kernel wrapper or, with ``plain``, the plain version."""
+def bitwise(name, got, ref, fields):
+    """Raise unless ``got`` and ``ref`` hold the same bits in ``fields``."""
+    diff = tensors_differing({f: got[f] for f in fields if got[f] is not None},
+                             {f: ref[f] for f in fields if ref[f] is not None})
+    phase(name, fields_differing=diff)
+    if diff:
+        raise AssertionError(f"{name}: {diff} differ")
+
+
+def stiff_call(method, fun, y0, tf, tol, spec, args, plain=False,
+               grid=None):
+    """One stiff solve of ``y0`` (on its device), sampled on ``grid`` if
+    given, through the kernel wrapper or, with ``plain``, the plain
+    version, as an ``ens_dict``."""
     from ivp_tpu_torch.kernels import erk_ensemble as K
     from ivp_tpu_torch.kernels import stiff_ensemble as S
 
     a = solve_args(y0, tf, tol[0], tol[1], None, y0.device) + (args, 100000)
     if plain:
-        out = K.erk_ensemble_torch(method, fun, *a, None, spec, None,
-                                   counters=True)
-        return (*out[:7], *out[-1])
-    return S.stiff_ensemble(method, fun, *a, spec)
+        return plain_ens_dict(K.erk_ensemble_torch(
+            method, fun, *a, grid, spec, None, counters=True))
+    return ens_dict(S.stiff_ensemble(method, fun, *a, spec, 0.0, grid))
+
+
+def sampled_grid(B, dev):
+    """The sampled main path's ``t_eval`` (101 points over [0, 3000]) as
+    the ``(B, m)`` view the kernels and the plain version read."""
+    te = torch.as_tensor(np.linspace(0.0, STIFF_TF, SAMPLED_M), device=dev)
+    return torch.broadcast_to(te, (B, SAMPLED_M))
 
 
 def stiff_vs_plain(dev):
@@ -2224,7 +2288,6 @@ def stiff_vs_plain(dev):
             raise AssertionError(f"the kernels' inverses differ at n={n}: {ok}")
 
     y0 = torch.as_tensor(stiff_y0(CHECK_B), device=dev)
-    shares = {}
     for method in ("RADAU", "BDF"):
         for cp in ("state", "float32"):
             spec = stiff_spec(method, 2, None, {"controller_precision": cp})
@@ -2233,9 +2296,8 @@ def stiff_vs_plain(dev):
             ref = stiff_call(method, rhs.vdp, y0, STIFF_TF, STIFF_TOL, spec,
                              (STIFF_MU,), plain=True)
             torch.cuda.synchronize()
-            shares[(method, cp)] = stiff_compare(
-                f"{method.lower()}_{cp}_vs_plain_B{CHECK_B}", got, ref,
-                STIFF_SHARE[cp])
+            stiff_compare(f"{method.lower()}_{cp}_vs_plain_B{CHECK_B}", got,
+                          ref, STIFF_SHARE[cp])
     yr = torch.as_tensor(robertson_y0(ROB_B), device=dev)
     for method in ("RADAU", "BDF"):
         spec = stiff_spec(method, 3, None, None)
@@ -2246,16 +2308,17 @@ def stiff_vs_plain(dev):
         torch.cuda.synchronize()
         stiff_compare(f"{method.lower()}_robertson_vs_plain_B{ROB_B}", got,
                       ref, STIFF_SHARE["float32"])
-        g = stiff_outputs(got)
-        s0 = yr.sum(dim=1).cpu().numpy()
-        cons = float(np.abs(g[1].sum(axis=1) - s0).max() / np.abs(s0).max())
+        s0 = yr.sum(dim=1)
+        cons = float((got["y"].sum(dim=1) - s0).abs().max()
+                     / s0.abs().max())
+        nfev, njev = int(got["nfev"].max()), int(got["njev"].max())
+        success = bool((got["status"] == 0).all())
         phase(f"{method.lower()}_robertson_budgets_B{ROB_B}",
-              max_nfev=int(g[3].max()), max_njev=int(g[7].max()),
-              sum_rel_err=cons, success=bool(np.all(g[2] == 0)))
-        if (g[3].max() >= ROB_NFEV or g[7].max() >= ROB_NJEV[method]
-                or cons > 1e-5 or not np.all(g[2] == 0)):
+              max_nfev=nfev, max_njev=njev, sum_rel_err=cons,
+              success=success)
+        if (nfev >= ROB_NFEV or njev >= ROB_NJEV[method] or cons > 1e-5
+                or not success):
             raise AssertionError(f"{method} Robertson budgets broken")
-    return shares
 
 
 def stiff_golden(dev):
@@ -2269,20 +2332,16 @@ def stiff_golden(dev):
     with np.load(ROOT / "ivp_tpu_torch" / "data" / "stiff_vdp_golden.npz") as g:
         gold = {f: g[f] for f in g.files}
     y0 = torch.as_tensor(gold["y0"], device=dev)
-    out = {}
     for method in ("RADAU", "BDF"):
         m = method.lower()
         got = stiff_call(method, rhs.vdp, y0, STIFF_TF, STIFF_TOL,
                          stiff_spec(method, 2, None, None), (STIFF_MU,))
-        ref = [gold[f"{m}_{f}"] for f in ("t", "y", "status", "nfev", "nstep",
-                                         "naccpt", "nrejct", "njev", "nlu")]
-        torch.cuda.synchronize()
-        a = stiff_outputs(got)
-        if not np.array_equal(a[2], ref[2]):
+        ref = {f: torch.as_tensor(gold[f"{m}_{f}"], device=dev)
+               for f in STIFF_FINAL}
+        if not torch.equal(got["status"], ref["status"]):
             raise AssertionError(f"{method} vs ivp_tpu: status differs")
-        out[method] = stiff_compare(f"{m}_vs_ivp_tpu_golden_B64", got, ref,
-                                    GOLDEN_SHARE[method], y_tol=1e-5)
-    return out
+        stiff_compare(f"{m}_vs_ivp_tpu_golden_B64", got, ref,
+                      GOLDEN_SHARE[method], y_tol=1e-5)
 
 
 def stiff_main_path(dev):
@@ -2290,14 +2349,18 @@ def stiff_main_path(dev):
     launches a solve, the success share, nstep, kernel ms (torch.profiler)
     and solve ms (CUDA events, the median of 3 after a warm-up, each result
     freed first), wall ms, IVPs/s, the bound; the plain version at the same
-    inputs lane by lane; chunk_steps=64 bit for bit."""
+    inputs lane by lane, sampled on the sampled main path's 101-point grid
+    (sampling changes no step); chunk_steps=64 bit for bit.
+    ``(rows, finals, plains)``: the JSON rows of radau and bdf, each
+    method's final t, y, status and counters, and the plain run's
+    ``ens_dict`` (for the modes' main paths to hold theirs to)."""
     from ivp_tpu_torch import Status, rhs
     from ivp_tpu_torch.batch import build_resumable_solver
     from ivp_tpu_torch.kernels import stiff_ensemble as S
     from ivp_tpu_torch.methods.jacobian import stiff_spec
 
     B = STIFF_B
-    rows = {}
+    rows, finals, plains = {}, {}, {}
     y0 = torch.as_tensor(stiff_y0(B), device=dev)
     for method in ("RADAU", "BDF"):
         m = method.lower()
@@ -2364,33 +2427,30 @@ def stiff_main_path(dev):
                 torch.isfinite(res.y).all()) or min(launches) < 1:
             raise AssertionError(f"{method} main path: not every lane "
                                  f"succeeded")
-        # The plain version on the card at the main path's inputs.
+        # The plain version on the card at the main path's inputs, sampled
+        # as the sampled main path samples.
         Bp = STIFF_PLAIN_B
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         t = time.perf_counter()
         e0.record()
         ref = stiff_call(method, rhs.vdp, y0[:Bp], STIFF_TF, STIFF_TOL,
                          stiff_spec(method, 2, None, None), (STIFF_MU,),
-                         plain=True)
+                         plain=True, grid=sampled_grid(Bp, dev))
         e1.record()
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t
-        got = (res.t[:Bp], res.y[:Bp], res.status[:Bp], res.nfev[:Bp],
-               res.nstep[:Bp], res.naccpt[:Bp], res.nrejct[:Bp],
-               res.njev[:Bp], res.nlu[:Bp])
-        share, err = stiff_compare(f"{m}_main_path_vs_plain_B{Bp}", got, ref,
-                                   STIFF_SHARE["float32"])
+        err = stiff_compare(f"{m}_main_path_vs_plain_B{Bp}",
+                            {f: getattr(res, f)[:Bp] for f in STIFF_FINAL},
+                            ref, STIFF_SHARE["float32"])
+        plains[m] = ref
         phase(f"{m}_plain_B{Bp}", wall_s=round(plain_s, 3),
               event_ms=e0.elapsed_time(e1))
         # chunk_steps=64: bit for bit against the first run.
         small = solver(64)(y0)
-        torch.cuda.synchronize()
-        diff = [f for f in ("t", "y", "status", "nfev", "nstep", "naccpt",
-                            "nrejct", "njev", "nlu")
-                if not torch.equal(getattr(small, f), getattr(res, f))]
-        phase(f"{m}_chunk64_vs_chunk{STIFF_CHUNK}_bitwise", fields_differing=diff)
-        if diff:
-            raise AssertionError(f"{method}: chunk_steps=64 differs in {diff}")
+        finals[m] = {f: getattr(res, f) for f in STIFF_FINAL}
+        bitwise(f"{m}_chunk64_vs_chunk{STIFF_CHUNK}_bitwise",
+                {f: getattr(small, f) for f in STIFF_FINAL}, finals[m],
+                STIFF_FINAL)
         start, resume, _ = build_resumable_solver(
             rhs.vdp, method, n=2, args=(STIFF_MU,), chunk_steps=64)
         checkpoint_contract(f"{m}_B{B}", start, resume, y0, 0.0, STIFF_TF,
@@ -2404,6 +2464,324 @@ def stiff_main_path(dev):
                    "blocks_per_sm": lay["blocks_per_sm"],
                    "solve_ms": solve_ms, "wall_ms": 1e3 * wall,
                    "host_us_per_resume": float(np.mean(host_us))}
+    return rows, finals, plains
+
+
+# The stiff kernels' SAMPLED and RECORD modes.  Checked against their plain
+# versions on VdP mu=1000 over [0, 1000] (one relaxation jump near t = 807:
+# over [0, 3000] the plain version took 10.5-13.9 s a check), at B=4096 with
+# a 51-point grid from t0 to tf, records in one chunk of 1024 rows (a lane
+# makes about 150 (Radau) and 370 (BDF) steps there) and in chunks of 64.
+# One plain run a method and controller type serves every mode: the
+# driver's record mode with coefficients and the grid's samples.
+MODES_TF, MODES_M, MODES_ONE, MODES_CAP = 1000.0, 51, 1024, 64
+# The main paths: bench.py's stiff row with a 101-point grid at B=131072,
+# the recording ensemble (dense_output, record_trajectories) at B=16384,
+# and examples/van_der_pol.py's solve_ivp (t in [0, 2], rtol = atol = 1e-8,
+# dense_output).
+SAMPLED_M, RECORD_B, IVP_TF, IVP_TOL = 101, 16384, 2.0, 1e-8
+# solve_ivp on the card against device="cpu": every counter equal and y at
+# the output points and the dense output on 21 times within IVP_CPU_Y of
+# max(1, |y|) (the same steps; measured on an H100: 1.1e-16 (Radau),
+# 1.9e-15 (BDF), the CPU's libm and the card's in the last bits).  Against
+# SciPy's Radau and BDF at rtol = atol = 1e-10, within IVP_Y (the solve's
+# own tolerance is 1e-8: the results differ by the global error).
+IVP_CPU_Y, IVP_Y = 1e-13, 1e-6
+def stiff_modes_vs_plain(dev):
+    """Each stiff kernel's SAMPLED and RECORD modes against their plain
+    versions on the card (VdP mu=1000, B=4096, t in [0, 1000], both
+    controller types): status, every counter, n_samples and n_rec equal on
+    every lane, samples and rows within STIFF_Y; each mode's final state and
+    counters bit for bit with the LEAN kernel's; records in chunks of 64 bit
+    for bit with one chunk, a grid's samples with them, and those samples
+    bit for bit with the SAMPLED mode's; Robertson sampled on a log-spaced
+    grid at ROB_B.  ``{kernel: {"max_abs_err", "plain_ms", "check_ms"}}``
+    (the plain version's ms, the plain record run with samples, and the
+    kernel's of the float32 runs, CUDA events)."""
+    from ivp_tpu_torch import rhs
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+    from ivp_tpu_torch.kernels import erk_record as R
+    from ivp_tpu_torch.kernels import stiff_ensemble as S
+    from ivp_tpu_torch.methods.jacobian import stiff_spec
+
+    B = CHECK_B
+    y0 = torch.as_tensor(stiff_y0(B), device=dev)
+    a = solve_args(y0, MODES_TF, *STIFF_TOL, None, dev) + ((STIFF_MU,),
+                                                           100000)
+    grid = torch.broadcast_to(torch.linspace(
+        0.0, MODES_TF, MODES_M, dtype=torch.float64, device=dev),
+        (B, MODES_M))
+    out = {}
+
+    def keep(name, cp, err, plain_ms, check_ms):
+        row = out.setdefault(name, {"max_abs_err": 0.0})
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        if cp == "float32":
+            row.update(plain_ms=plain_ms, check_ms=check_ms)
+
+    for method in ("RADAU", "BDF"):
+        m = method.lower()
+        for cp in ("state", "float32"):
+            spec = stiff_spec(method, 2, None, {"controller_precision": cp})
+            lean = ens_dict(S.stiff_ensemble(method, rhs.vdp, *a, spec))
+            ref, p_ms = event_call(lambda: rec_dict(R.erk_record_torch(
+                method, rhs.vdp, *a, grid, spec, rec_cap=MODES_ONE,
+                record_cont=True)))
+            got, k_ms = event_call(lambda: ens_dict(S.stiff_ensemble(
+                method, rhs.vdp, *a, spec, 0.0, grid)))
+            name = f"{m}_sampled"
+            keep(name, cp, stiff_compare(
+                f"{name}_{cp}_vs_plain_B{B}", got, ref, STIFF_SHARE[cp],
+                ("n_samples",), ("y", "y_samples")), p_ms, k_ms)
+            bitwise(f"{name}_{cp}_vs_lean_B{B}", got, lean, STIFF_FINAL)
+            for cont in (True, False):
+                got, k_ms = event_call(lambda: rec_dict(R.erk_record(
+                    method, rhs.vdp, *a, None, spec, rec_cap=MODES_ONE,
+                    record_cont=cont)))
+                name = f"{m}_record{'_cont' if cont else ''}"
+                rows = REC_FIELDS if cont else REC_FIELDS[:-1]
+                keep(name, cp, stiff_compare(
+                    f"{name}_{cp}_vs_plain_B{B}", got, ref, STIFF_SHARE[cp],
+                    ("n_rec",), ("y",) + rows), p_ms, k_ms)
+                bitwise(f"{name}_{cp}_vs_lean_B{B}", got, lean, STIFF_FINAL)
+            del got, ref
+        # Chunks of 64 rows against one chunk, with the grid's samples.
+        spec = stiff_spec(method, 2, None, None)
+        one = R.erk_record(method, rhs.vdp, *a, grid, spec,
+                           rec_cap=MODES_ONE, record_cont=True)
+        many = R.erk_record(method, rhs.vdp, *a, grid, spec,
+                            rec_cap=MODES_CAP, record_cont=True)
+        fields = STIFF_FINAL + REC_FIELDS + ("n_rec", "y_samples",
+                                             "n_samples")
+        phase(f"{m}_record_chunks_B{B}", one=one.chunks, many=many.chunks)
+        if one.chunks != 1 or many.chunks < 2:
+            raise AssertionError(f"{m}: {one.chunks} and {many.chunks} "
+                                 f"chunks")
+        bitwise(f"{m}_record_cont_chunk{MODES_CAP}_vs_one_chunk_B{B}",
+                rec_dict(many), rec_dict(one), fields)
+        sampled = ens_dict(S.stiff_ensemble(method, rhs.vdp, *a, spec, 0.0,
+                                            grid))
+        bitwise(f"{m}_record_samples_vs_sampled_B{B}", rec_dict(many),
+                sampled, STIFF_FINAL + ("y_samples", "n_samples"))
+        del one, many
+    # Robertson sampled at 0 and on 40 log-spaced times.
+    yr = torch.as_tensor(robertson_y0(ROB_B), device=dev)
+    ar = solve_args(yr, ROB_TF, 1e-6, 1e-6, None, dev) + ((), 100000)
+    gr = torch.broadcast_to(torch.as_tensor(np.concatenate(
+        [[0.0], np.logspace(-6, 8, 40)]), device=dev), (ROB_B, 41))
+    for method in ("RADAU", "BDF"):
+        spec = stiff_spec(method, 3, None, None)
+        got = ens_dict(S.stiff_ensemble(method, rhs.robertson, *ar, spec,
+                                        0.0, gr))
+        ref = plain_ens_dict(K.erk_ensemble_torch(
+            method, rhs.robertson, *ar, gr, spec, None, counters=True))
+        name = f"{method.lower()}_sampled"
+        keep(name, "state", stiff_compare(
+            f"{name}_robertson_vs_plain_B{ROB_B}", got, ref,
+            STIFF_SHARE["float32"], ("n_samples",), ("y", "y_samples")),
+            None, None)
+        if not bool((got["n_samples"] == 41).all()):
+            raise AssertionError(f"{method} Robertson: samples missing")
+    return out
+
+
+def stiff_modes_main_paths(dev, finals, plains):
+    """The modes' three main paths at full size, the default (float32)
+    controller: (1) ``solve_ivp_ensemble(..., t_eval=)`` on bench.py's
+    stiff row with a 101-point grid (B=131072, t in [0, 3000]); (2) the
+    recording ensemble with ``dense_output`` and ``record_trajectories``
+    (B=16384, the same problem); (3) ``solve_ivp`` of
+    examples/van_der_pol.py's case, held against ``device="cpu"`` and
+    SciPy.  For each: its launches (the counts set to 0 just before the
+    measured call and read just after it), kernel ms (torch.profiler), solve
+    ms (CUDA events, the median of 3 after a warm-up), device ms besides the
+    kernel (the drain of the records), the bound and its share, the
+    instantiation's layout; the final t, y, status and counters of (1) and
+    (2) bit for bit with the lean main path's (``finals``); (1) on every
+    lane against the plain version sampled on the same grid (``plains``),
+    and (2) against a plain record run of its 16384 lanes: status, every
+    counter, n_samples and n_rec equal, samples and rows within STIFF_Y.
+    ``{kernel: row}``, ``max_abs_err`` the largest of those errors."""
+    from scipy.integrate import solve_ivp as scipy_solve_ivp
+
+    from ivp_tpu_torch import Status, rhs, solve_ivp, solve_ivp_ensemble
+    from ivp_tpu_torch.kernels import erk_record as R
+    from ivp_tpu_torch.kernels import stiff_ensemble as S
+    from ivp_tpu_torch.methods.jacobian import stiff_spec
+
+    rows = {}
+    kw = dict(args=(STIFF_MU,), rtol=STIFF_TOL[0], atol=STIFF_TOL[1])
+
+    def measure(name, m, solve, mode):
+        res, walls, ev_ms = timed_solves(lambda _: solve(), [None] * 4)
+        del res
+        (res, k_ms, dev_ms), launches = launches_of(
+            lambda: kernel_device_ms(solve, match=f"{m}_kernel"))
+        if set(launches) != {name}:
+            raise AssertionError(f"{name}: the solve launched {launches}")
+        lay = S.layout(m, rhs.vdp, "float32", int(res.status.numel()),
+                       mode=mode)
+        solve_ms = float(np.median(ev_ms))
+        row = dict(launches=launches[name], kernel_ms=k_ms,
+                   solve_ms=solve_ms, drain_ms=dev_ms - k_ms,
+                   solve_event_ms=[round(x, 3) for x in ev_ms],
+                   wall_ms=1e3 * float(np.median(walls)),
+                   registers=lay["registers"],
+                   local_bytes=lay["local_bytes"],
+                   smem_bytes_per_block=lay["block_bytes"],
+                   blocks_per_sm=lay["blocks_per_sm"],
+                   min_blocks=lay["min_blocks"])
+        return res, row
+
+    # (1) The sampled ensemble.
+    B = STIFF_B
+    y0 = torch.as_tensor(stiff_y0(B), device=dev)
+    te = np.linspace(0.0, STIFF_TF, SAMPLED_M)
+    for method in ("RADAU", "BDF"):
+        m = method.lower()
+        name = f"{m}_sampled"
+        res, row = measure(name, m, lambda: solve_ivp_ensemble(
+            rhs.vdp, (0.0, STIFF_TF), y0, method, t_eval=te, **kw),
+            S.SAMPLED)
+        bound_ms, bound_by = S.stiff_bound(
+            method, rhs.vdp, res.nstep, res.naccpt, res.nrejct, res.nfev,
+            res.njev, res.nlu, n_samples=res.n_samples, m=SAMPLED_M)
+        ok = (bool((res.status == Status.SUCCESS).all())
+              and bool((res.n_samples == SAMPLED_M).all())
+              and tuple(res.y_samples.shape) == (B, SAMPLED_M, 2)
+              and bool(torch.isfinite(res.y_samples).all()))
+        phase(f"{name}_main_path_B{B}", ok=ok, **row, bound_ms=bound_ms,
+              bound_by=bound_by, bound_share=bound_ms / row["kernel_ms"],
+              samples_bytes=8.0 * 2 * float(res.n_samples.double().sum()))
+        if not ok:
+            raise AssertionError(f"{name} main path: not every lane "
+                                 f"succeeded with every sample")
+        got = {f: getattr(res, f) for f in STIFF_FINAL
+               + ("y_samples", "n_samples")}
+        bitwise(f"{name}_main_path_vs_lean_B{B}", got, finals[m],
+                STIFF_FINAL)
+        err = stiff_compare(f"{name}_main_path_vs_plain_B{B}", got,
+                            plains.pop(m), STIFF_SHARE["float32"],
+                            ("n_samples",), ("y", "y_samples"))
+        rows[name] = dict(row, bound_ms=bound_ms, bound_by=bound_by,
+                          bound_share=bound_ms / row["kernel_ms"],
+                          max_abs_err=err)
+        del res, got
+
+    # (2) The recording ensemble, and one plain record run with
+    # coefficients a method to hold both modes' rows to.
+    Br = RECORD_B
+    yr = torch.as_tensor(stiff_y0(Br), device=dev)
+    ar = solve_args(yr, STIFF_TF, *STIFF_TOL, None, dev) + ((STIFF_MU,),
+                                                           100000)
+    for method in ("RADAU", "BDF"):
+        m = method.lower()
+        t = time.perf_counter()
+        plain = rec_dict(R.erk_record_torch(
+            method, rhs.vdp, *ar, None, stiff_spec(method, 2, None, None),
+            record_cont=True))
+        phase(f"{m}_plain_record_B{Br}",
+              wall_s=round(time.perf_counter() - t, 3))
+        for cont in (True, False):
+            name = f"{m}_record{'_cont' if cont else ''}"
+            res, row = measure(name, m, lambda: solve_ivp_ensemble(
+                rhs.vdp, (0.0, STIFF_TF), yr, method, dense_output=cont,
+                record_trajectories=not cont, **kw), S.RECORD)
+            bound_ms, bound_by = S.stiff_bound(
+                method, rhs.vdp, res.nstep, res.naccpt, res.nrejct,
+                res.nfev, res.njev, res.nlu, n_rec=res.n_steps_rec,
+                record_cont=cont)
+            nbytes = 8.0 * R.record_width(method, 2, cont) * float(
+                res.n_steps_rec.double().sum())
+            k = res.n_steps_rec - 1
+            last = res.ys[torch.arange(Br, device=dev), k]
+            ok = (bool((res.status == Status.SUCCESS).all())
+                  and bool(torch.equal(res.n_steps_rec,
+                                       res.naccpt.to(torch.int64)))
+                  and bool(torch.equal(last, res.y)))
+            dense_err = None
+            if cont:   # the dense solution through each lane's rows
+                q = res.ts[:, :8]
+                dense_err = float((res.sol(q).permute(0, 2, 1)
+                                   - res.ys[:, :8]).abs().max())
+                ok = ok and dense_err <= 1e-9
+            phase(f"{name}_main_path_B{Br}", ok=ok, **row,
+                  bound_ms=bound_ms, bound_by=bound_by,
+                  bound_share=bound_ms / row["kernel_ms"],
+                  bytes_recorded=nbytes,
+                  gbytes_per_s=nbytes / (row["kernel_ms"] * 1e6),
+                  mean_rows=float(res.n_steps_rec.double().mean()),
+                  max_rows=int(res.n_steps_rec.max()),
+                  dense_err_at_rows=dense_err)
+            if not ok:
+                raise AssertionError(f"{name} main path: not every lane "
+                                     f"recorded its steps")
+            got = {f: getattr(res, f) for f in STIFF_FINAL}
+            bitwise(f"{name}_main_path_vs_lean_B{Br}", got,
+                    {f: v[:Br] for f, v in finals[m].items()}, STIFF_FINAL)
+            got.update(rec_t=res.ts, rec_y=res.ys, n_rec=res.n_steps_rec)
+            if cont:   # the rows' other fields, as the solution holds them
+                got.update(rec_xold=res.sol._xolds, rec_h=res.sol._hs,
+                           rec_cont=res.sol._conts)
+            err = stiff_compare(
+                f"{name}_main_path_vs_plain_B{Br}", got, plain,
+                STIFF_SHARE["float32"], ("n_rec",),
+                ("y",) + (REC_FIELDS if cont else ("rec_t", "rec_y")))
+            rows[name] = dict(row, bound_ms=bound_ms, bound_by=bound_by,
+                              bound_share=bound_ms / row["kernel_ms"],
+                              bytes_recorded=nbytes, max_abs_err=err)
+            del res, last, got
+        del plain
+
+    # (3) solve_ivp: examples/van_der_pol.py's case.
+    def f_np(t, y):
+        return [y[1], STIFF_MU * (1.0 - y[0] ** 2) * y[1] - y[0]]
+
+    def jac_np(t, y):
+        return [[0.0, 1.0], [-2.0 * STIFF_MU * y[0] * y[1] - 1.0,
+                             STIFF_MU * (1.0 - y[0] ** 2)]]
+
+    q = np.linspace(0.0, IVP_TF, 21)
+    for method in ("Radau", "BDF"):
+        m = method.lower()
+        ivp = dict(method=method, args=(STIFF_MU,), rtol=IVP_TOL,
+                   atol=IVP_TOL, dense_output=True)
+        call = lambda: solve_ivp(rhs.vdp, (0.0, IVP_TF), [2.0, 0.0], **ivp)
+        walls = []
+        for i in range(4):
+            t = time.perf_counter()
+            r = call()
+            if i:
+                walls.append(time.perf_counter() - t)
+        (r, k_ms, _), launches = launches_of(
+            lambda: kernel_device_ms(call, match=f"{m}_kernel"))
+        cpu = solve_ivp(rhs.vdp, (0.0, IVP_TF), [2.0, 0.0], device="cpu",
+                        **ivp)
+        sc = scipy_solve_ivp(f_np, (0.0, IVP_TF), [2.0, 0.0], method=method,
+                             rtol=1e-10, atol=1e-10, jac=jac_np,
+                             dense_output=True)
+        scale = max(1.0, float(np.abs(r.y).max()))
+        same = {f: r[f] == cpu[f] for f in ("nfev", "njev", "nlu", "nstep",
+                                            "naccpt", "nrejct", "status")}
+        err_cpu = float(np.abs(r.y[:, -1] - cpu.y[:, -1]).max()) / scale
+        err_cpu_dense = float(np.abs(r.sol(q) - cpu.sol(q)).max()) / scale
+        err_scipy = float(np.abs(r.y[:, -1] - sc.y[:, -1]).max()) / scale
+        err_scipy_dense = float(np.abs(r.sol(q) - sc.sol(q)).max()) / scale
+        ok = (r.status == 0 and launches == {f"{m}_record_cont": 1}
+              and all(same.values())
+              and max(err_cpu, err_cpu_dense) <= IVP_CPU_Y
+              and max(err_scipy, err_scipy_dense) <= IVP_Y)
+        phase(f"{m}_solve_ivp_vdp", ok=ok, launches=launches,
+              kernel_ms=k_ms, wall_ms=1e3 * float(np.median(walls)),
+              nstep=r.nstep, naccpt=r.naccpt, counters_equal_cpu=same,
+              err_vs_cpu=err_cpu, dense_err_vs_cpu=err_cpu_dense,
+              err_vs_scipy=err_scipy, dense_err_vs_scipy=err_scipy_dense,
+              scipy_nfev=int(sc.nfev))
+        if not ok:
+            raise AssertionError(f"solve_ivp {method} on the card: {launches}"
+                                 f", counters equal {same}, errors "
+                                 f"{err_cpu}, {err_cpu_dense}, {err_scipy}, "
+                                 f"{err_scipy_dense}")
     return rows
 
 
@@ -2494,23 +2872,54 @@ def resumable_phase(dev):
 
 def stiff_phase(dev):
     """The stiff kernels against their plain versions, ivp_tpu's numbers and
-    the Robertson budgets, then the stiff main path; the JSON rows of radau
-    and bdf."""
+    the Robertson budgets, then the stiff main path; then the SAMPLED and
+    RECORD modes against their plain versions and on their main paths; the
+    JSON rows of radau and bdf and of their modes."""
     t = time.perf_counter()
     stiff_vs_plain(dev)
     stiff_golden(dev)
     phase("stiff_checks", seconds=round(time.perf_counter() - t, 3))
     t = time.perf_counter()
-    main = stiff_main_path(dev)
+    main, finals, plains = stiff_main_path(dev)
     phase("stiff_main_path", seconds=round(time.perf_counter() - t, 3))
+    t = time.perf_counter()
+    checks = stiff_modes_vs_plain(dev)
+    phase("stiff_modes_checks", seconds=round(time.perf_counter() - t, 3))
+    t = time.perf_counter()
+    modes = stiff_modes_main_paths(dev, finals, plains)
+    phase("stiff_modes_main_paths", seconds=round(time.perf_counter() - t, 3))
     replaces = {"radau": "ivp_tpu/methods/radau.py:348",
                 "bdf": "ivp_tpu/methods/bdf.py:312"}
-    return [{"name": m, "route": "cuda",
+    rows = [{"name": m, "route": "cuda",
              "source": f"ivp_tpu_torch/csrc/{m}.cu", "replaces": replaces[m],
              "library_ms": None,
              **{k: v for k, v in main[m].items()
                 if k not in ("solve_ms", "wall_ms", "host_us_per_resume")}}
             for m in ("radau", "bdf")]
+    # No TPU kernel stands behind the modes: they replace ivp_tpu's
+    # XLA-fused driver loop in sample mode (core/driver.py:312-434) and
+    # record mode (run_chunk :286-310, :448-457); plain_ms and check_ms are
+    # the B=4096 check's (t in [0, 1000]), ms the main path's kernel,
+    # max_abs_err the largest of the check's and the main path's.
+    for name, row in modes.items():
+        m = name.split("_")[0]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"ivp_tpu_torch/csrc/{m}.cu",
+            "replaces": ("ivp_tpu/core/driver.py:312" if "sampled" in name
+                         else "ivp_tpu/core/driver.py:286"),
+            "launches": row["launches"],
+            "max_abs_err": max(checks[name]["max_abs_err"],
+                               row["max_abs_err"]),
+            "ms": row["kernel_ms"], "plain_ms": checks[name]["plain_ms"],
+            "check_ms": checks[name]["check_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "bound_share": row["bound_share"], "library_ms": None,
+            "solve_ms": row["solve_ms"], "drain_ms": row["drain_ms"],
+            "registers": row["registers"],
+            "local_bytes": row["local_bytes"],
+            "blocks_per_sm": row["blocks_per_sm"]})
+    return rows
 
 
 def main():
@@ -2688,6 +3097,7 @@ def main():
 
     # ---- 8. No silent fallback ----
     from ivp_tpu_torch import solve_ivp
+    from ivp_tpu_torch.batch import build_resumable_solver
 
     for what, call in (
             ("plain callable on CUDA", lambda: build_ensemble_solver(
@@ -2711,18 +3121,24 @@ def main():
                 rhs.ball, "DOP853", n=2)(ball_y0(4), 0.0, 1.0, RTOL, ATOL)),
             ("solve_ivp ball without events", lambda: solve_ivp(
                 rhs.ball, (0.0, 1.0), [2.0, 0.0])),
-            # The stiff kernels run the final state (or resumably) of a
-            # CudaRHS with a Jacobian, n <= 8, the inverse backend.
-            ("Radau with t_eval on CUDA", lambda: build_ensemble_solver(
-                rhs.vdp, "Radau", n=2, t_eval=[0.0, 1.0])(
+            # The stiff kernels run a CudaRHS with a Jacobian, n <= 8, the
+            # inverse backend, without events; the resumable solver the
+            # lean solve.
+            ("Radau with events on CUDA", lambda: build_ensemble_solver(
+                rhs.vdp, "Radau", n=2, events=[lambda t, y: y[:, 0]])(
+                    vdp_y0(4), 0.0, 1.0, RTOL, ATOL)),
+            ("resumable Radau with t_eval on CUDA", lambda:
+                build_resumable_solver(rhs.vdp, "Radau", n=2,
+                                       t_eval=[0.0, 1.0])[0](
                     vdp_y0(4), 0.0, 1.0, RTOL, ATOL)),
             ("BDF with a callable jac on CUDA", lambda: build_ensemble_solver(
                 rhs.vdp, "BDF", n=2, jac=lambda t, y: None)(
                     vdp_y0(4), 0.0, 1.0, RTOL, ATOL)),
             ("Radau without a functor Jacobian", lambda: build_ensemble_solver(
                 rhs.lorenz, "Radau", n=3)(lorenz_y0(4), 0.0, 1.0, RTOL, ATOL)),
-            ("solve_ivp BDF on CUDA", lambda: solve_ivp(
-                rhs.vdp, (0.0, 1.0), [2.0, 0.0], method="BDF"))):
+            ("solve_ivp BDF with events on CUDA", lambda: solve_ivp(
+                rhs.vdp, (0.0, 1.0), [2.0, 0.0], method="BDF",
+                events=lambda t, y: y[0] - 1.0))):
         try:
             call()
         except NotImplementedError as e:

@@ -23,11 +23,11 @@ recording tier, events with in-loop restarts (``events``,
 ``event_capacity``, ``max_restarts``; ivp_tpu_torch/events.py has the
 contract), the resumable solver (:func:`build_resumable_solver`: the carry
 is the checkpoint) and an integer ``lane_chunk``.  The stiff methods run on
-the card to each lane's final state, in one launch or resumably
-(kernels/stiff_ensemble.py); with samples, events or records they run on
-the CPU.  Options of later slices raise NotImplementedError naming their
-ROADMAP item, and so does float32 on the card, all before anything is
-placed on a device.
+the card to each lane's final state or with ``t_eval`` samples in one
+launch, recording in chunks, or resumably (kernels/stiff_ensemble.py,
+kernels/erk_record.py); with events they run on the CPU.  Options of later
+slices raise NotImplementedError naming their ROADMAP item, and so does
+float32 on the card, all before anything is placed on a device.
 """
 from __future__ import annotations
 
@@ -111,12 +111,12 @@ def _solver_params(method, n, jac, solver_options, need_cont):
                       **(solver_options or {}))[1]
 
 
-def _refuse_stiff_on_card(method, spec, fun, y0, device, modes=False):
-    """What the stiff kernels do not run (samples, events or records:
-    ``modes``; and see ``stiff_ensemble.check_card``) raises
-    NotImplementedError on a CUDA placement, before anything is placed."""
+def _refuse_stiff_on_card(method, spec, fun, y0, device, events=False):
+    """What the stiff kernels do not run (``events``; and see
+    ``stiff_ensemble.check_card``) raises NotImplementedError on a CUDA
+    placement, before anything is placed."""
     if method in STIFF and placement(y0, device).type == "cuda":
-        if modes:
+        if events:
             raise NotImplementedError(STIFF_MODES_ON_CARD)
         S.check_card(spec, fun)
 
@@ -413,8 +413,7 @@ def build_ensemble_solver(fun, method="RK45", *, n, dtype=None, args=(),
         _refuse_f32_on_card(dtype, y0_batch, device)
         ev = event_args(ev_list, event_capacity, max_restarts)
         _refuse_stiff_on_card(method, params, fun, y0_batch, device,
-                              ev is not None or sample_cap > 0
-                              or t_grid is not None)
+                              ev is not None)
         _refuse_events_on_card(fun, ev, y0_batch, device)
         y0 = _as_state(y0_batch, dtype, device)
         if y0.ndim != 2 or y0.shape[1] != n:
@@ -457,11 +456,11 @@ def build_ensemble_solver(fun, method="RK45", *, n, dtype=None, args=(),
              _norm_tol(rtol, B, n, dtype, dev, "rtol"),
              _norm_tol(atol, B, n, dtype, dev, "atol"), lane_args, max_steps)
         counters = {}
-        if method in STIFF and grid is None and ev is None:
-            out = S.stiff_ensemble(method, *a, params, hmin)
-            counters = dict(njev=out[7], nlu=out[8])
-            out = (*out[:7], None, None)
-        elif method in STIFF:   # samples or events: the CPU route only
+        if method in STIFF and ev is None:
+            out = S.stiff_ensemble(method, *a, params, hmin, grid)
+            counters = dict(njev=out[9], nlu=out[10])
+            out = out[:9]
+        elif method in STIFF:   # events: the CPU route only
             out = E.erk_ensemble_torch(method, *a, grid, params, ev,
                                        hmin=hmin, counters=True)
             counters = dict(njev=out[-1][0], nlu=out[-1][1])
@@ -826,8 +825,8 @@ def build_recording_solver(fun, method="RK45", *, n, dtype=None, args=(),
     :func:`build_ensemble_solver`; ``rec_chunk`` rows a lane are recorded
     between two drains.  ``t0`` may be a scalar or ``(B,)``; the largest
     ``|tf - t0|`` (capped by ``max_step``) is every lane's ``hmax``, as in
-    ivp_tpu.  Radau and BDF record on the CPU (on the card: ROADMAP §1
-    item 16)."""
+    ivp_tpu.  Radau and BDF record on the card too, with events on the CPU
+    only (ROADMAP §1 item 16)."""
     _later_slices(time_dtype, jac_sparsity)
     method = _check_method(method)
     dtype = resolve_auto_dtype(dtype)
@@ -844,7 +843,8 @@ def build_recording_solver(fun, method="RK45", *, n, dtype=None, args=(),
     def solver(y0_batch, t0, tf, rtol, atol, device=None):
         _refuse_f32_on_card(dtype, y0_batch, device)
         ev = event_args(ev_list, event_capacity, max_restarts)
-        _refuse_stiff_on_card(method, params, fun, y0_batch, device, True)
+        _refuse_stiff_on_card(method, params, fun, y0_batch, device,
+                              ev is not None)
         _refuse_events_on_card(fun, ev, y0_batch, device)
         y0 = _as_state(y0_batch, dtype, device)
         if y0.ndim != 2 or y0.shape[1] != n:
@@ -900,7 +900,11 @@ def build_resumable_solver(fun, method="RK45", *, n, dtype=None, args=(),
       scalar; ``device`` as for :func:`build_ensemble_solver`'s solver;
     * ``resume(carry, ra) -> carry`` advances every lane by at most
       ``chunk_steps`` counted attempts (``carry.done`` says which lanes are
-      finished); the carry given is not changed;
+      finished); the carry given is not changed.  RK23 counts only its
+      accepted attempts, as ivp_tpu's does, so a ``resume`` with
+      ``chunk_steps`` does not bound an RK23 launch whose lanes have a NaN
+      error estimate: such a lane is rejected on every attempt, and neither
+      route ends it (ROADMAP §3 fault 7);
     * ``extract(carry) -> EnsembleResult``.
 
     ``carry`` is the plain driver's :class:`~ivp_tpu_torch.core.driver.Carry`

@@ -1,7 +1,8 @@
 // The variable-order BDF ensemble solve, float64, one thread a lane: the
 // attempt of ivp_tpu_torch/methods/bdf.py (itself ivp_tpu/methods/bdf.py::
 // make_bdf_attempt, :312, with change_d, :232) with its inverse backend, in
-// the loop of core/driver.py, final state only.
+// the loop of core/driver.py: to the final state, or emitting samples on a
+// t_grid or one record row per accepted step (the MODE of stiff_common.cuh).
 //
 // It replaces the XLA-fused, vmapped ivp_tpu/core/driver.py loop around
 // make_bdf_attempt and the inverse of I - cJ (core/linalg.py::inv :280); no
@@ -9,7 +10,11 @@
 // lane's order (the reference's masked sums over MAX_ORDER+3 rows add exact
 // zeros past it); the Newton loop ends at the lane's exit; the iteration
 // matrix is rebuilt and the Jacobian refreshed only where the lane asks.
-// Same carry, init and budget as radau.cu; no FMA contraction.
+// Same carry, init, budget and modes as radau.cu; no FMA contraction.  A
+// SAMPLED or RECORD lane emits from inside the attempt, once the accepted
+// step has updated D and before change_d rescales it: its dense output is
+// the Newton form over D[0..order] (bdf_interp), its row's coefficients
+// [D0, D1..D5 past the order 0, order] (NCOEFF 7).
 //
 // What bounds it on an H100: dependent float64 divisions and float32 log,
 // exp and division chains, waiting on latency.  The design: (1) what only one
@@ -187,14 +192,40 @@ __device__ __forceinline__ CT bdf_newton_tol(const BDFOptions& o,
              : (CT)nmax((10.0 * BDF_EPS) / rtol_min, nmin(sqrt(rtol_min), 0.03));
 }
 
-// One attempt of methods/bdf.py::make_bdf_attempt on lane L at (t, y).
-template <class F, class CT, int T>
+// methods/bdf.py::bdf_interp: the Newton form of the step (xold, h) over
+// the rows D[0..order] (a lane's Slots, row k at k N) at ti, every term
+// past the order an exact 0.0 in the sum, as the reference's masked terms.
+template <int N, class M>
+__device__ __forceinline__ void bdf_interp(const M& D, int order, double xold,
+                                           double h, double ti, double* yi) {
+  const double x_new = xold + h;
+  double p = 0.0, sum[N];
+#pragma unroll
+  for (int k = 0; k < bdf::MAX_ORDER; ++k) {
+    const double denom = h * (k + 1.0);
+    const double t_shift = x_new - h * (double)k;
+    const double xf = (ti - t_shift) / denom;
+    p = k == 0 ? xf : p * xf;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const double term = k < order ? D[(k + 1) * N + j] * p : 0.0;
+      sum[j] = k == 0 ? term : sum[j] + term;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) yi[j] = D[j] + sum[j];
+}
+
+// One attempt of methods/bdf.py::make_bdf_attempt on lane L at (t, y).  An
+// accepted step calls emit(x_new, t, h_signed, y_new, order) with D updated
+// and not yet rescaled.
+template <class F, class CT, int T, class Emit>
 __device__ __forceinline__ int bdf_attempt(
     const F& f, const double* a, double& t, double* y, BDFLane<F::N, T>& L,
     const BDFOptions& o, const double* rtol, const double* atol,
     CT newton_tol, double tend, double hmax,
     double hmin, bool& accepted, bool& finished, bool& count_step,
-    bool& count_reject, int& nfev, int& njev, int& nlu) {
+    bool& count_reject, int& nfev, int& njev, int& nlu, const Emit& emit) {
   constexpr int N = F::N;
   constexpr int MO = bdf::MAX_ORDER;
   using C = Ctl<CT>;
@@ -414,6 +445,7 @@ __device__ __forceinline__ int bdf_attempt(
         L.d(k, j) = sk;
       }
     }
+    emit(x_new, t, h_signed, y_new, order);
   }
   const int ord_in = adapt ? new_order : order;
   // A step that stays (h1 == h_abs, a normal finite number) has factor
@@ -440,13 +472,13 @@ __device__ __forceinline__ int bdf_attempt(
   return (too_small || dead) ? STEP_SIZE_TOO_SMALL : RUNNING;
 }
 
-template <class F, class CT, int T, int MB>
+template <class F, class CT, int T, int MB, int MODE>
 __global__ void __launch_bounds__(T, MB) bdf_kernel(
     int B, const double* __restrict__ y0, const double* __restrict__ t0,
     const double* __restrict__ first_step, const StiffRun ra,
     const double* __restrict__ args, const BDFOptions o,
     const StiffDriver d_in, const BDFCarry c_in, StiffDriver d, BDFCarry c,
-    int init, int max_attempts) {
+    int init, int max_attempts, const StiffModes md) {
   constexpr int N = F::N;
   using K = BDFCold<N>;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -535,12 +567,28 @@ __global__ void __launch_bounds__(T, MB) bdf_kernel(
 
   const CT newton_tol = bdf_newton_tol<N, CT>(o, rtol);
   const int nstep0 = nstep;
-  while (status == RUNNING && nstep - nstep0 < max_attempts) {
+  StiffOut<N, bdf::MAX_ORDER + 2, MODE> out(md, i, init);
+  const auto emit = [&](double x_new, double xold, double h,
+                        const double* y_new, int order) {
+    if constexpr (MODE != STIFF_LEAN) {
+      const Slots<T> D = s.at(K::D);
+      out.record(x_new, xold, h, y_new, [&](int q, int j) {
+        return q == 0 ? D[j]
+               : q <= bdf::MAX_ORDER ? (q <= order ? D[q * N + j] : 0.0)
+                                     : (double)order;
+      });
+      out.samples(x_new, L.posneg, [&](double ti, double* yi) {
+        bdf_interp<N>(D, order, xold, h, ti, yi);
+      });
+    }
+  };
+  while (status == RUNNING && nstep - nstep0 < max_attempts && !out.full()) {
     bool accepted, finished, count_step, count_reject;
     int fe, je, le;
     int st = bdf_attempt<F, CT, T>(f, a, t, y, L, o, rtol, atol, newton_tol,
                                    tend, hmax, hmin, accepted, finished,
-                                   count_step, count_reject, fe, je, le);
+                                   count_step, count_reject, fe, je, le,
+                                   emit);
     nstep += count_step ? 1 : 0;
     naccpt += accepted ? 1 : 0;
     nrejct += count_reject ? 1 : 0;
@@ -551,6 +599,7 @@ __global__ void __launch_bounds__(T, MB) bdf_kernel(
     if (st == RUNNING && nstep > ra.max_steps) st = NEED_LARGER_NMAX;
     status = st;
   }
+  out.store();
 
   d.t[i] = t;
 #pragma unroll
@@ -584,96 +633,144 @@ __global__ void __launch_bounds__(T, MB) bdf_kernel(
 // The instantiation a launch of B lanes takes: (T, MB1) when all its
 // blocks are resident at once under it (ceil(B / T) <= MB1 x SMs), where
 // more blocks an SM cannot shorten the launch and the registers MB allows
-// would spill; else (T, MB).
+// would spill; else (T, MB).  In every mode.
 using BDFKernelPtr = void (*)(int, const double*, const double*,
                               const double*, StiffRun, const double*,
                               BDFOptions, StiffDriver, BDFCarry, StiffDriver,
-                              BDFCarry, int, int);
+                              BDFCarry, int, int, StiffModes);
 
-template <class F, class CT, int T, int MB, int MB1>
+template <class F, class CT, int T, int MB, int MB1, int MODE>
 int bdf_pick(int B, int* min_blocks, BDFKernelPtr* kernel) {
   int sms = 0;
   const int err = sm_count(&sms);
   if (err) return err;
   const bool one_round = (B + T - 1) / T <= MB1 * sms;
   *min_blocks = one_round ? MB1 : MB;
-  *kernel = one_round ? bdf_kernel<F, CT, T, MB1> : bdf_kernel<F, CT, T, MB>;
+  *kernel = one_round ? bdf_kernel<F, CT, T, MB1, MODE>
+                      : bdf_kernel<F, CT, T, MB, MODE>;
   return 0;
 }
 
-template <class F, class CT, int T, int MB, int MB1>
+template <class F, class CT, int T, int MB, int MB1, int MODE>
 int bdf_launch_as(int B, const double* y0, const double* t0,
                   const double* first_step, StiffRun ra, const double* args,
                   BDFOptions o, StiffDriver d_in, BDFCarry c_in, StiffDriver d,
-                  BDFCarry c, int init, int max_attempts, void* stream) {
+                  BDFCarry c, int init, int max_attempts, StiffModes md,
+                  void* stream) {
   constexpr int bytes = 8 * BDFCold<F::N>::DOUBLES * T;
   static_assert(bytes <= SLOTS_BLOCK_MAX, "the slots exceed a block's");
   int min_blocks = 0;
   BDFKernelPtr kernel = nullptr;
-  int err = bdf_pick<F, CT, T, MB, MB1>(B, &min_blocks, &kernel);
+  int err = bdf_pick<F, CT, T, MB, MB1, MODE>(B, &min_blocks, &kernel);
   if (!err) err = allow_slots(kernel, bytes);
   if (err) return err;
   kernel<<<(B + T - 1) / T, T, bytes, (cudaStream_t)stream>>>(
       B, y0, t0, first_step, ra, args, o, d_in, c_in, d, c, init,
-      max_attempts);
+      max_attempts, md);
   return (int)cudaGetLastError();
 }
 
 // T, MB: threads a block and min blocks an SM; MB1: min blocks of the
-// one-round instantiation (bdf_pick); under either controller type.
-template <class F, int T, int MB, int MB1>
+// one-round instantiation (bdf_pick); under either controller type and in
+// every mode.
+template <class F, int T, int MB, int MB1, int MODE>
 int bdf_launch(int B, const double* y0, const double* t0,
                const double* first_step, StiffRun ra, const double* args,
                BDFOptions o, StiffDriver d_in, BDFCarry c_in, StiffDriver d,
-               BDFCarry c, int init, int max_attempts, void* stream) {
+               BDFCarry c, int init, int max_attempts, StiffModes md,
+               void* stream) {
   if (B <= 0) return 0;
   if (o.state_precision)
-    return bdf_launch_as<F, double, T, MB, MB1>(B, y0, t0, first_step, ra,
-                                                args, o, d_in, c_in, d, c,
-                                                init, max_attempts, stream);
-  return bdf_launch_as<F, float, T, MB, MB1>(B, y0, t0, first_step, ra, args,
-                                             o, d_in, c_in, d, c, init,
-                                             max_attempts, stream);
+    return bdf_launch_as<F, double, T, MB, MB1, MODE>(
+        B, y0, t0, first_step, ra, args, o, d_in, c_in, d, c, init,
+        max_attempts, md, stream);
+  return bdf_launch_as<F, float, T, MB, MB1, MODE>(
+      B, y0, t0, first_step, ra, args, o, d_in, c_in, d, c, init,
+      max_attempts, md, stream);
 }
 
-template <class F, class CT, int T, int MB, int MB1>
+// A SAMPLED or RECORD launch: RECORD where md has rows (cap > 0).
+template <class F, int T, int MB, int MB1>
+int bdf_modes_launch(int B, const double* y0, const double* t0,
+                     const double* first_step, StiffRun ra,
+                     const double* args, BDFOptions o, StiffDriver d_in,
+                     BDFCarry c_in, StiffDriver d, BDFCarry c, int init,
+                     int max_attempts, StiffModes md, void* stream) {
+  if (md.cap > 0)
+    return bdf_launch<F, T, MB, MB1, STIFF_RECORD>(
+        B, y0, t0, first_step, ra, args, o, d_in, c_in, d, c, init,
+        max_attempts, md, stream);
+  return bdf_launch<F, T, MB, MB1, STIFF_SAMPLED>(
+      B, y0, t0, first_step, ra, args, o, d_in, c_in, d, c, init,
+      max_attempts, md, stream);
+}
+
+template <class F, class CT, int T, int MB, int MB1, int MODE>
 int bdf_layout_as(int B, int* info) {
   int min_blocks = 0;
   BDFKernelPtr kernel = nullptr;
-  const int err = bdf_pick<F, CT, T, MB, MB1>(B, &min_blocks, &kernel);
+  const int err = bdf_pick<F, CT, T, MB, MB1, MODE>(B, &min_blocks, &kernel);
   if (err) return err;
   return slots_layout(kernel, T, min_blocks, 8 * BDFCold<F::N>::DOUBLES,
                       info);
 }
 
-template <class F, int T, int MB, int MB1>
+template <class F, int T, int MB, int MB1, int MODE>
 int bdf_layout(int state_precision, int B, int* info) {
-  if (state_precision) return bdf_layout_as<F, double, T, MB, MB1>(B, info);
-  return bdf_layout_as<F, float, T, MB, MB1>(B, info);
+  if (state_precision)
+    return bdf_layout_as<F, double, T, MB, MB1, MODE>(B, info);
+  return bdf_layout_as<F, float, T, MB, MB1, MODE>(B, info);
+}
+
+template <class F, int T, int MB, int MB1>
+int bdf_modes_layout(int mode, int state_precision, int B, int* info) {
+  if (mode == STIFF_RECORD)
+    return bdf_layout<F, T, MB, MB1, STIFF_RECORD>(state_precision, B, info);
+  if (mode == STIFF_SAMPLED)
+    return bdf_layout<F, T, MB, MB1, STIFF_SAMPLED>(state_precision, B, info);
+  return bdf_layout<F, T, MB, MB1, STIFF_LEAN>(state_precision, B, info);
 }
 
 }  // namespace ivp
 
 // One C entry per RHS functor with a Jacobian: ivp_bdf_<name> (the carry it
-// loads, d_in and c_in, and the one it stores, d and c), and
-// ivp_bdf_layout_<name> (slots_layout of the instantiation a launch of B
-// lanes under a controller type takes).  T, MB and MB1 (one round,
-// bdf_pick): threads a block and min blocks an SM under both controller
-// types, from measure_kernel.py's stiff occupancy sweep on an H100 (PERF.md).
+// loads, d_in and c_in, and the one it stores, d and c), ivp_bdf_modes_<name>
+// (the same with the samples or rows of md), and ivp_bdf_layout_<name> /
+// ivp_bdf_modes_layout_<name> (slots_layout of the instantiation a launch
+// of B lanes under a controller type, in a mode, takes).  T, MB and MB1
+// (one round, bdf_pick): threads a block and min blocks an SM under both
+// controller types, from measure_kernel.py's stiff occupancy sweep on an
+// H100 (PERF.md).
 #define IVP_BDF_ENTRY(NAME, FUNCTOR, T, MB, MB1)                              \
   extern "C" int ivp_bdf_##NAME(                                              \
       int B, const double* y0, const double* t0, const double* first_step,    \
       ivp::StiffRun ra, const double* args, ivp::BDFOptions o,                \
       ivp::StiffDriver d_in, ivp::BDFCarry c_in, ivp::StiffDriver d,          \
       ivp::BDFCarry c, int init, int max_attempts, void* stream) {            \
-    return ivp::bdf_launch<FUNCTOR, IVP_BDF_BOUNDS(T, MB, MB1)>(              \
+    return ivp::bdf_launch<FUNCTOR, IVP_BDF_BOUNDS(T, MB, MB1),               \
+                           ivp::STIFF_LEAN>(                                  \
         B, y0, t0, first_step, ra, args, o, d_in, c_in, d, c, init,           \
-        max_attempts, stream);                                                \
+        max_attempts, ivp::StiffModes{}, stream);                             \
+  }                                                                           \
+  extern "C" int ivp_bdf_modes_##NAME(                                        \
+      int B, const double* y0, const double* t0, const double* first_step,    \
+      ivp::StiffRun ra, const double* args, ivp::BDFOptions o,                \
+      ivp::StiffDriver d_in, ivp::BDFCarry c_in, ivp::StiffDriver d,          \
+      ivp::BDFCarry c, int init, int max_attempts, ivp::StiffModes md,        \
+      void* stream) {                                                         \
+    return ivp::bdf_modes_launch<FUNCTOR, IVP_BDF_BOUNDS(T, MB, MB1)>(        \
+        B, y0, t0, first_step, ra, args, o, d_in, c_in, d, c, init,           \
+        max_attempts, md, stream);                                            \
   }                                                                           \
   extern "C" int ivp_bdf_layout_##NAME(int state_precision, int B,            \
                                        int* info) {                           \
-    return ivp::bdf_layout<FUNCTOR, IVP_BDF_BOUNDS(T, MB, MB1)>(              \
-        state_precision, B, info);                                            \
+    return ivp::bdf_layout<FUNCTOR, IVP_BDF_BOUNDS(T, MB, MB1),               \
+                           ivp::STIFF_LEAN>(state_precision, B, info);        \
+  }                                                                           \
+  extern "C" int ivp_bdf_modes_layout_##NAME(int mode, int state_precision,   \
+                                             int B, int* info) {              \
+    return ivp::bdf_modes_layout<FUNCTOR, IVP_BDF_BOUNDS(T, MB, MB1)>(        \
+        mode, state_precision, B, info);                                      \
   }
 
 IVP_BDF_ENTRY(vdp, VdP, 128, 4, 3)

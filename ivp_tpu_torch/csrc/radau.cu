@@ -1,7 +1,8 @@
 // The Radau IIA(5) ensemble solve, float64, one thread a lane: the
 // attempt of ivp_tpu_torch/methods/radau.py (itself ivp_tpu/methods/
 // radau.py::make_radau_attempt, :348) with its inverse backend, in the loop
-// of core/driver.py, final state only.
+// of core/driver.py: to the final state, or emitting samples on a t_grid or
+// one record row per accepted step (the MODE of stiff_common.cuh).
 //
 // It replaces the XLA-fused, vmapped ivp_tpu/core/driver.py loop around
 // make_radau_attempt and its inverse backend (core/linalg.py::inv :280,
@@ -23,6 +24,15 @@
 // RadauCold) lives in its shared-memory slots, so a thread needs fewer
 // registers and more lanes are resident on an SM (IVP_RADAU_ENTRY's threads
 // and min blocks).
+//
+// The sampled and record modes (SAMPLED, RECORD) replace the same loop in
+// core/driver.py's sample and record modes (ivp_tpu/core/driver.py
+// :312-434, run_chunk :286-310, :448-457).  After an accepted step has
+// written the collocation rows to the lane's slots, the lane evaluates them
+// at every grid time the step covers (radau_interp) and writes its row
+// [t, xold, h, y, cont], straight to global memory (StiffOut); nothing else
+// of the step changes, so their steps, counters and final states are the
+// LEAN kernel's.
 //
 // The carry.  Each launch loads the lane's whole carry from device memory
 // (the plain driver's Carry and RadauState, struct of arrays, the tensors the
@@ -427,13 +437,26 @@ __device__ __forceinline__ int radau_attempt(
   return RUNNING;
 }
 
-template <class F, class CT, int T, int MB>
+// methods/radau.py::radau_interp: the collocation polynomial of the step
+// (xold, h) (rows cont[4][N], an array or a lane's Slots) at ti, in s = (ti -
+// (xold + h)) / h.
+template <int N, class M>
+__device__ __forceinline__ void radau_interp(const M& cont, double xold,
+                                             double h, double ti, double* yi) {
+  const double s = (ti - (xold + h)) / h;
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    yi[j] = cont[j] + s * (cont[N + j] + (s - radau::C2M1) * (
+        cont[2 * N + j] + (s - radau::C1M1) * cont[3 * N + j]));
+}
+
+template <class F, class CT, int T, int MB, int MODE>
 __global__ void __launch_bounds__(T, MB) radau_kernel(
     int B, const double* __restrict__ y0, const double* __restrict__ t0,
     const double* __restrict__ first_step, const StiffRun ra,
     const double* __restrict__ args, const RadauOptions o,
     const StiffDriver d_in, const RadauCarry c_in, StiffDriver d, RadauCarry c,
-    int init, int max_attempts) {
+    int init, int max_attempts, const StiffModes md) {
   constexpr int N = F::N;
   using K = RadauCold<N>;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -549,9 +572,11 @@ __global__ void __launch_bounds__(T, MB) radau_kernel(
 
   const CT newton_tol = radau_newton_tol<CT>(o, rtol_t[0]);
   const int nstep0 = nstep;
-  while (status == RUNNING && nstep - nstep0 < max_attempts) {
+  StiffOut<N, 4, MODE> out(md, i, init);
+  while (status == RUNNING && nstep - nstep0 < max_attempts && !out.full()) {
     bool accepted, finished, count_step, count_reject;
     int fe, je, le;
+    const double xold = t, h_used = L.h;
     int st = radau_attempt<F, CT, T>(f, a, t, y, naccpt, L, o, newton_tol,
                                      accepted, finished, count_step,
                                      count_reject, fe, je, le);
@@ -565,7 +590,18 @@ __global__ void __launch_bounds__(T, MB) radau_kernel(
     if (st == RUNNING && finished) st = SUCCESS;
     if (st == RUNNING && nstep > ra.max_steps) st = NEED_LARGER_NMAX;
     status = st;
+    if constexpr (MODE != STIFF_LEAN) {
+      if (accepted) {
+        const Slots<T> cont = s.at(K::CONT);
+        out.record(t, xold, h_used, y,
+                   [&](int q, int j) { return cont[q * N + j]; });
+        out.samples(t, L.posneg, [&](double ti, double* yi) {
+          radau_interp<N>(cont, xold, h_used, ti, yi);
+        });
+      }
+    }
   }
+  out.store();
 
   d.t[i] = t;
 #pragma unroll
@@ -610,54 +646,84 @@ __global__ void __launch_bounds__(T, MB) radau_kernel(
   d.nrejct[i] = nrejct;
 }
 
-template <class F, class CT, int T, int MB>
+template <class F, class CT, int T, int MB, int MODE>
 int radau_launch_as(int B, const double* y0, const double* t0,
                     const double* first_step, StiffRun ra, const double* args,
                     RadauOptions o, StiffDriver d_in, RadauCarry c_in,
                     StiffDriver d, RadauCarry c, int init, int max_attempts,
-                    void* stream) {
+                    StiffModes md, void* stream) {
   constexpr int bytes = 8 * RadauCold<F::N>::DOUBLES * T;
   static_assert(bytes <= SLOTS_BLOCK_MAX, "the slots exceed a block's");
-  auto kernel = radau_kernel<F, CT, T, MB>;
+  auto kernel = radau_kernel<F, CT, T, MB, MODE>;
   const int err = allow_slots(kernel, bytes);
   if (err) return err;
   kernel<<<(B + T - 1) / T, T, bytes, (cudaStream_t)stream>>>(
       B, y0, t0, first_step, ra, args, o, d_in, c_in, d, c, init,
-      max_attempts);
+      max_attempts, md);
   return (int)cudaGetLastError();
 }
 
-// T, MB: threads a block and min blocks an SM, under either controller type.
-template <class F, int T, int MB>
+// T, MB: threads a block and min blocks an SM, under either controller type
+// and in every mode.
+template <class F, int T, int MB, int MODE>
 int radau_launch(int B, const double* y0, const double* t0,
                  const double* first_step, StiffRun ra, const double* args,
                  RadauOptions o, StiffDriver d_in, RadauCarry c_in,
                  StiffDriver d, RadauCarry c, int init, int max_attempts,
-                 void* stream) {
+                 StiffModes md, void* stream) {
   if (B <= 0) return 0;
   if (o.state_precision)
-    return radau_launch_as<F, double, T, MB>(B, y0, t0, first_step, ra, args,
-                                             o, d_in, c_in, d, c, init,
-                                             max_attempts, stream);
-  return radau_launch_as<F, float, T, MB>(B, y0, t0, first_step, ra, args, o,
-                                          d_in, c_in, d, c, init,
-                                          max_attempts, stream);
+    return radau_launch_as<F, double, T, MB, MODE>(
+        B, y0, t0, first_step, ra, args, o, d_in, c_in, d, c, init,
+        max_attempts, md, stream);
+  return radau_launch_as<F, float, T, MB, MODE>(
+      B, y0, t0, first_step, ra, args, o, d_in, c_in, d, c, init,
+      max_attempts, md, stream);
 }
 
+// A SAMPLED or RECORD launch: RECORD where md has rows (cap > 0).
 template <class F, int T, int MB>
+int radau_modes_launch(int B, const double* y0, const double* t0,
+                       const double* first_step, StiffRun ra,
+                       const double* args, RadauOptions o, StiffDriver d_in,
+                       RadauCarry c_in, StiffDriver d, RadauCarry c, int init,
+                       int max_attempts, StiffModes md, void* stream) {
+  if (md.cap > 0)
+    return radau_launch<F, T, MB, STIFF_RECORD>(B, y0, t0, first_step, ra,
+                                                args, o, d_in, c_in, d, c,
+                                                init, max_attempts, md,
+                                                stream);
+  return radau_launch<F, T, MB, STIFF_SAMPLED>(B, y0, t0, first_step, ra,
+                                               args, o, d_in, c_in, d, c,
+                                               init, max_attempts, md, stream);
+}
+
+template <class F, int T, int MB, int MODE>
 int radau_layout(int state_precision, int* info) {
   constexpr int lane = 8 * RadauCold<F::N>::DOUBLES;
   if (state_precision)
-    return slots_layout(radau_kernel<F, double, T, MB>, T, MB, lane, info);
-  return slots_layout(radau_kernel<F, float, T, MB>, T, MB, lane, info);
+    return slots_layout(radau_kernel<F, double, T, MB, MODE>, T, MB, lane,
+                        info);
+  return slots_layout(radau_kernel<F, float, T, MB, MODE>, T, MB, lane, info);
+}
+
+template <class F, int T, int MB>
+int radau_modes_layout(int mode, int state_precision, int* info) {
+  if (mode == STIFF_RECORD)
+    return radau_layout<F, T, MB, STIFF_RECORD>(state_precision, info);
+  if (mode == STIFF_SAMPLED)
+    return radau_layout<F, T, MB, STIFF_SAMPLED>(state_precision, info);
+  return radau_layout<F, T, MB, STIFF_LEAN>(state_precision, info);
 }
 
 }  // namespace ivp
 
 // One C entry per RHS functor with a Jacobian: ivp_radau_<name> (the carry
-// it loads, d_in and c_in, and the one it stores, d and c), and
-// ivp_radau_layout_<name> (slots_layout of the instantiation a launch under
-// a controller type takes, whatever its B).  T, MB: threads a block and min
+// it loads, d_in and c_in, and the one it stores, d and c),
+// ivp_radau_modes_<name> (the same with the samples or rows of md), and
+// ivp_radau_layout_<name> / ivp_radau_modes_layout_<name> (slots_layout of
+// the instantiation a launch under a controller type, in a mode, takes,
+// whatever its B).  T, MB: threads a block and min
 // blocks an SM under both controller types, from measure_kernel.py's stiff
 // occupancy sweep on an H100 (PERF.md); one instantiation serves every B,
 // since at (128, 3) Radau spills nothing either and runs no faster at
@@ -668,14 +734,30 @@ int radau_layout(int state_precision, int* info) {
       ivp::StiffRun ra, const double* args, ivp::RadauOptions o,              \
       ivp::StiffDriver d_in, ivp::RadauCarry c_in, ivp::StiffDriver d,        \
       ivp::RadauCarry c, int init, int max_attempts, void* stream) {          \
-    return ivp::radau_launch<FUNCTOR, IVP_RADAU_BOUNDS(T, MB)>(               \
+    return ivp::radau_launch<FUNCTOR, IVP_RADAU_BOUNDS(T, MB),              \
+                             ivp::STIFF_LEAN>(                                \
         B, y0, t0, first_step, ra, args, o, d_in, c_in, d, c, init,           \
-        max_attempts, stream);                                                \
+        max_attempts, ivp::StiffModes{}, stream);                             \
+  }                                                                           \
+  extern "C" int ivp_radau_modes_##NAME(                                      \
+      int B, const double* y0, const double* t0, const double* first_step,    \
+      ivp::StiffRun ra, const double* args, ivp::RadauOptions o,              \
+      ivp::StiffDriver d_in, ivp::RadauCarry c_in, ivp::StiffDriver d,        \
+      ivp::RadauCarry c, int init, int max_attempts, ivp::StiffModes md,      \
+      void* stream) {                                                         \
+    return ivp::radau_modes_launch<FUNCTOR, IVP_RADAU_BOUNDS(T, MB)>(         \
+        B, y0, t0, first_step, ra, args, o, d_in, c_in, d, c, init,           \
+        max_attempts, md, stream);                                            \
   }                                                                           \
   extern "C" int ivp_radau_layout_##NAME(int state_precision, int B,        \
                                          int* info) {                         \
-    return ivp::radau_layout<FUNCTOR, IVP_RADAU_BOUNDS(T, MB)>(               \
-        state_precision, info);                                               \
+    return ivp::radau_layout<FUNCTOR, IVP_RADAU_BOUNDS(T, MB),                \
+                             ivp::STIFF_LEAN>(state_precision, info);         \
+  }                                                                           \
+  extern "C" int ivp_radau_modes_layout_##NAME(int mode, int state_precision, \
+                                               int B, int* info) {            \
+    return ivp::radau_modes_layout<FUNCTOR, IVP_RADAU_BOUNDS(T, MB)>(         \
+        mode, state_precision, info);                                         \
   }
 
 IVP_RADAU_ENTRY(vdp, VdP, 128, 4)

@@ -63,6 +63,7 @@ from ..methods import get_engine
 from ..methods.erk import ERKParams
 from ..methods.jacobian import StiffSpec
 from ..rhs import CudaRHS
+from ..types import NCOEFF
 from . import build
 from . import dopri5_ensemble as lean_dopri5
 from .dopri5_ensemble import FP64_PEAK, HBM_RATE, _check
@@ -217,6 +218,18 @@ def kernel_options(p: ERKParams) -> KernelOptions:
         state_precision=int(p.controller_precision != "float32"))
 
 
+def record_coeffs(method: str) -> int:
+    """Coefficient rows a step record holds (``types.NCOEFF``; RK4's are
+    the Hermite rows of its segment's ends)."""
+    return NCOEFF[method.upper()]
+
+
+def record_width(method: str, n: int, record_cont: bool) -> int:
+    """Doubles of a record row ``[t, xold, h, y, cont]`` (kernels/
+    erk_record.py; the stiff kernels' rows, unpadded)."""
+    return 3 + n + (record_coeffs(method) * n if record_cont else 0)
+
+
 def plain_driver(method, fun, y0, args, m, params, events, bounded=False,
                  unroll=None, **cfg):
     """The plain version's driver for a solve: ``(init_carry, run_chunk)``
@@ -347,19 +360,28 @@ def check_inputs(fun: CudaRHS, y0, t0, tf, hmax, first_step, rtol, atol,
     _check("first_step", first_step, (B,), f64, dev)
     _check("rtol", rtol, (B, n), f64, dev)
     _check("atol", atol, (B, n), f64, dev)
-    grid_ptr, grid_stride = 0, 0
-    if t_grid is not None:
-        m = int(t_grid.shape[-1])
-        if t_grid.stride(0) == 0 and t_grid.stride(1) == 1:
-            grid = t_grid[:1]        # shared: every lane reads row 0
-        else:
-            grid = t_grid.contiguous()
-            grid_stride = m
-        _check("t_grid", grid, (grid.shape[0], m), f64, dev)
-        if grid.shape[0] not in (1, B):
-            raise ValueError(f"t_grid must have {B} rows, got {grid.shape[0]}")
-        grid_ptr = grid.data_ptr()
+    grid_ptr, grid_stride, _ = grid_arg(t_grid, B, dev)
     return first_step, grid_ptr, grid_stride
+
+
+def grid_arg(t_grid, B, dev):
+    """``(grid_ptr, grid_stride, grid)``: a ``(B, m)`` float64 ``t_grid``
+    (or None: 0, 0, None) as a kernel reads it, row 0 of a shared grid given
+    as an expanded view, else each lane's row of a contiguous copy
+    (``grid``, which the caller holds while the kernel reads it)."""
+    if t_grid is None:
+        return 0, 0, None
+    m = int(t_grid.shape[-1])
+    grid_stride = 0
+    if t_grid.stride(0) == 0 and t_grid.stride(1) == 1:
+        grid = t_grid[:1]        # shared: every lane reads row 0
+    else:
+        grid = t_grid.contiguous()
+        grid_stride = m
+    _check("t_grid", grid, (grid.shape[0], m), torch.float64, dev)
+    if grid.shape[0] not in (1, B):
+        raise ValueError(f"t_grid must have {B} rows, got {grid.shape[0]}")
+    return grid.data_ptr(), grid_stride, grid
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int

@@ -19,6 +19,13 @@ picks the route from the device of ``y0``:
   whole carry kept in device memory between launches;
 * a CUDA tensor with any other callable raises NotImplementedError.
 
+Radau and BDF (``params`` a StiffSpec) record through the same chunk loop
+and drain: the plain driver on CPU tensors, and on CUDA tensors the RECORD
+mode of ``csrc/radau.cu`` and ``csrc/bdf.cu`` (:func:`stiff_record_launches`,
+one :class:`~ivp_tpu_torch.kernels.stiff_ensemble.StiffLaunch` a chunk
+from the lane carry to itself).  Their rows are stored one double at a
+time, unpadded (:func:`record_width`).
+
 With ``events`` the record mode detects events and restarts lanes as the
 lean solve does (kernels/erk_ensemble.py): the plain driver with events, or
 the record-event entries ``ivp_<kernel>_record_ev_<rhs>_<set>``, which keep
@@ -54,9 +61,11 @@ import torch
 from ..core.driver import reset_records, run_args
 from ..methods.jacobian import StiffSpec
 from ..rhs import CudaRHS
-from ..types import NCOEFF, Status
+from ..types import Status
 from . import build
 from . import erk_ensemble as E
+from . import stiff_ensemble as S
+from .erk_ensemble import record_coeffs, record_width
 from .dopri5_ensemble import FP64_PEAK, HBM_RATE
 
 # Launches made by this process: one per chunk, per method and record mode
@@ -67,11 +76,12 @@ LAUNCHES = {f"{k}_record{c}{e}": 0 for k in ("dopri5", "dop853", "rk23", "rk4")
 
 # The stiff methods' modes that wait for their kernels on the card.
 STIFF_MODES_ON_CARD = (
-    "Radau and BDF on the card run the final-state ensemble and the "
-    "resumable solver; with t_eval samples, events, recording or through "
-    "solve_ivp they run with device='cpu' until the stiff kernels' modes "
-    "land: ROADMAP §1 item 16 (the stiff kernels' sampled, event and "
-    "record modes)")
+    "Radau and BDF on the card run the ensemble (final state or t_eval "
+    "samples), the recording ensemble, solve_ivp and the lean resumable "
+    "solver; with events they run with device='cpu' until the stiff "
+    "kernels' event modes land, and t_eval and events in the resumable "
+    "solver too: ROADMAP §1 item 16 (the stiff kernels' event modes; "
+    "samples and events in the resumable solver)")
 
 # method -> the LAUNCHES prefix
 _NAMES = {"DOPRI5": "dopri5", "DOP853": "dop853", "RK23": "rk23", "RK4": "rk4"}
@@ -98,17 +108,6 @@ class RecordResult(NamedTuple):
     #               stiff solves), or None
     nlu: Any      # (B,) int32 decompositions, or None
     chunks: int   # chunks run (kernel launches on the CUDA route)
-
-
-def record_coeffs(method: str) -> int:
-    """Coefficient rows a step record holds (``types.NCOEFF``; RK4's are
-    the Hermite rows of its segment's ends)."""
-    return NCOEFF[method.upper()]
-
-
-def record_width(method: str, n: int, record_cont: bool) -> int:
-    """Doubles of a record row ``[t, xold, h, y, cont]``."""
-    return 3 + n + (record_coeffs(method) * n if record_cont else 0)
 
 
 def record_stride(method: str, n: int, record_cont: bool) -> int:
@@ -351,6 +350,32 @@ class RecordLaunch:
         self.carry.init = 0
 
 
+def _drain(launch, n_rec, rows, status):
+    """Run a record-mode solve chunk by chunk until no lane runs:
+    ``launch(first)`` launches one chunk (``first`` on the solve's first),
+    which writes each lane's rows into ``rows`` ``(B, cap, stride)``, their
+    number into ``n_rec`` and the lanes' ``status``, all in place.  Returns
+    ``(pieces, counts, chunks)`` for :func:`_assemble`."""
+    counts = torch.zeros(n_rec.shape, dtype=torch.int64, device=n_rec.device)
+    pieces, chunks = [], 0
+    while n_rec.numel():
+        if pieces:   # the next launch overwrites the rows: keep them
+            pieces[-1] = pieces[-1].clone()
+        launch(not chunks)
+        chunks += 1
+        counts += n_rec
+        # One read a chunk: the fullest lane's rows and whether any lane
+        # still runs.
+        k, running = torch.stack([
+            n_rec.max(),
+            (status == Status.RUNNING).any().to(torch.int32)]).tolist()
+        if k:
+            pieces.append(rows[:, :k])
+        if not running:
+            break
+    return pieces, counts, chunks
+
+
 def record_launches(method, fun: CudaRHS, y0, t0, tf, hmax, first_step, rtol,
                     atol, args, max_steps, t_grid, params, rec_cap,
                     record_cont, lib, stream, carry_out=None,
@@ -364,23 +389,8 @@ def record_launches(method, fun: CudaRHS, y0, t0, tf, hmax, first_step, rtol,
     r = RecordLaunch(method, fun, y0, t0, tf, hmax, first_step, rtol, atol,
                      args, max_steps, t_grid, params, rec_cap, record_cont,
                      lib, stream, events)
-    counts = torch.zeros((r.B,), dtype=torch.int64, device=y0.device)
-    pieces, chunks = [], 0
-    while r.B:
-        if pieces:   # the next launch overwrites the rows: keep them
-            pieces[-1] = pieces[-1].clone()
-        r.launch()
-        chunks += 1
-        counts += r.n_rec
-        # One read a chunk: the fullest lane's rows and whether any lane
-        # still runs.
-        k, running = torch.stack([
-            r.n_rec.max(),
-            (r.ints[0] == Status.RUNNING).any().to(torch.int32)]).tolist()
-        if k:
-            pieces.append(r.rows[:, :k])
-        if not running:
-            break
+    pieces, counts, chunks = _drain(lambda first: r.launch(), r.n_rec,
+                                    r.rows, r.ints[0])
     if carry_out is not None:
         carry_out.update(r.lane_carry)
         if r.ev_out is not None:
@@ -389,20 +399,59 @@ def record_launches(method, fun: CudaRHS, y0, t0, tf, hmax, first_step, rtol,
                      r.ev_out)
 
 
+def stiff_record_launches(method, fun: CudaRHS, y0, t0, tf, hmax, first_step,
+                          rtol, atol, args, max_steps, t_grid,
+                          spec: StiffSpec, rec_cap, record_cont, hmin=0.0,
+                          lib=None, stream=None) -> RecordResult:
+    """Radau's or BDF's record mode on ``y0``'s device: a lean carry and a
+    :class:`~ivp_tpu_torch.kernels.stiff_ensemble.StiffLaunch` in RECORD
+    mode (``lib``, default the package's build; ``stream`` as it takes it,
+    0 for a g++ build on CPU tensors), launched from the carry to itself,
+    the first launch from ``y0`` and ``t0``, through :func:`_drain`; with
+    a ``t_grid`` the samples too.  The result holds njev and nlu."""
+    method = method.upper()
+    B, n = y0.shape
+    dev = y0.device
+    p = spec.params()
+    c = S.empty_carry(method, B, n, S.controller_dtype(p), dev)
+    ra = run_args(tf, rtol, atol, hmax, hmin, max_steps, y0)
+    modes = S.Modes(method, B, n, dev, t_grid, rec_cap, record_cont)
+    first_step = S.nan_first_step(first_step, B, dev)
+    launch = (S.StiffLaunch(method, fun, ra, args, p, lib, modes) if B
+              else None)
+    pieces, counts, chunks = _drain(
+        lambda first: launch(c, c, y0, t0, first_step, first, S.UNBOUNDED,
+                             stream),
+        modes.n_rec, modes.rows, c.status)
+    last = (c.t, c.y, c.status, c.nfev, c.nstep, c.naccpt, c.nrejct,
+            modes.y_samples, modes.n_samples)
+    return _assemble(pieces, B, n, modes.C, counts, last, chunks,
+                     counters=(c.njev, c.nlu))
+
+
 def erk_record(method, fun, y0, t0, tf, hmax, first_step, rtol, atol,
                args=(), max_steps=100_000, t_grid=None, params=None,
                rec_cap=1024, record_cont=False, events=None,
                hmin=0.0) -> RecordResult:
     """Route by the device of ``y0``: CPU -> plain version, CUDA -> kernel.
-    A stiff solve (``params`` a StiffSpec) records on the CPU only."""
+    A stiff solve (``params`` a StiffSpec) records with events on the CPU
+    only."""
     method = method.upper()
     a = (fun, y0, t0, tf, hmax, first_step, rtol, atol, args, max_steps,
          t_grid, params)
     kw = dict(rec_cap=rec_cap, record_cont=record_cont, events=events)
     if y0.device.type == "cpu":
         return erk_record_torch(method, *a, **kw, hmin=hmin)
-    if isinstance(params, StiffSpec):
-        raise NotImplementedError(STIFF_MODES_ON_CARD)
+    if isinstance(params, StiffSpec) and y0.device.type == "cuda":
+        if events is not None:
+            raise NotImplementedError(STIFF_MODES_ON_CARD)
+        S.check_card(params, fun)
+        if int(rec_cap) < 1:
+            raise ValueError(f"rec_cap must be at least 1, got {rec_cap}")
+        with torch.cuda.device(y0.device):
+            stream = torch.cuda.current_stream(y0.device).cuda_stream
+            return stiff_record_launches(method, *a, int(rec_cap),
+                                         record_cont, hmin, None, stream)
     if y0.device.type != "cuda":
         raise NotImplementedError(f"no route for device {y0.device}")
     if not isinstance(fun, CudaRHS):

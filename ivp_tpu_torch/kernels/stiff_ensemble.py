@@ -2,9 +2,11 @@
 version.
 
 ``stiff_ensemble`` integrates a ``(B, n)`` ensemble with Radau or BDF to
-each lane's final state; a :class:`StiffLaunch` launches the kernel of one
-solve, from one carry to another, which kernels/resumable.py runs in
-bounded launches for the resumable solver (batch.py).  The route follows the device of ``y0``:
+each lane's final state, or with its states on a ``t_grid``; a
+:class:`StiffLaunch` launches the kernel of one solve, from one carry to
+another, which kernels/resumable.py runs in bounded launches for the
+resumable solver (batch.py) and kernels/erk_record.py in chunks for the
+record mode.  The route follows the device of ``y0``:
 
 * a CPU tensor runs the plain version: the ported driver
   (core/driver.py) around the ported engine (methods/radau.py,
@@ -22,7 +24,11 @@ bounded launches for the resumable solver (batch.py).  The route follows the dev
                           make_bdf_attempt (:312), change_d (:232), inv
   ====== ================ ===============================================
 
-  No TPU kernel stands behind either.  Each launch loads every lane's
+  Each kernel has three modes (csrc/stiff_common.cuh): LEAN, SAMPLED
+  (the samples on a t_grid, the driver's sample mode) and RECORD (one row
+  per accepted step, the driver's record mode), the last two through a
+  :class:`Modes` (``ivp_<kernel>_modes_<rhs>`` entries).  No TPU kernel
+  stands behind either.  Each launch loads every lane's
   carry (the plain driver's :class:`~ivp_tpu_torch.core.driver.Carry` with
   its RadauState or BDFState: the very tensors, struct of arrays), runs
   each lane until it is done or has made ``max_attempts`` counted attempts,
@@ -35,12 +41,12 @@ bounded launches for the resumable solver (batch.py).  The route follows the dev
 On the card only the inverse linear backend runs (n <= 8), with the
 functor's Jacobian and float64 state; ``linear_mode="lu"``, a callable or
 constant ``jac``, n > 8 and float32 raise NotImplementedError (ROADMAP §1
-item 15) before anything is placed, as the modes with samples, events or
-records do (item 16).  There is no fallback: a failed build or launch
-raises.
+item 15) before anything is placed, as events do (item 16).  There is no
+fallback: a failed build or launch raises.
 
 :func:`stiff_bound` gives the least time an H100 could take for a solve
-from the float64 operations its lanes did (:func:`stiff_flops`).
+from the float64 operations its lanes did (:func:`stiff_flops`) and the
+bytes it moved, its samples and rows included.
 """
 from __future__ import annotations
 
@@ -56,9 +62,14 @@ from . import build, carry
 from .dopri5_ensemble import FP64_PEAK, HBM_RATE, _check
 from . import erk_ensemble as E
 
-# Launches made by this process, per kernel; a StiffLaunch adds one per
-# launch.  A caller may reset a count to 0.
-LAUNCHES = {"radau": 0, "bdf": 0}
+# Launches made by this process, per kernel and mode (``<kernel>``: lean;
+# ``_sampled``; ``_record``: steps, ``_record_cont``: with coefficients);
+# a StiffLaunch adds one per launch.  A caller may reset a count to 0.
+LAUNCHES = {f"{k}{m}": 0 for k in ("radau", "bdf")
+            for m in ("", "_sampled", "_record", "_record_cont")}
+
+# csrc/stiff_common.cuh's modes.
+LEAN, SAMPLED, RECORD = 0, 1, 2
 
 # The most attempts one launch may make (a solve's single launch).
 UNBOUNDED = 2**31 - 1
@@ -104,6 +115,53 @@ BDF_FIELDS = ("h_abs", "posneg", "D", "order", "n_equal", "jac", "inv",
               "lu_current", "current_c")
 
 
+class KernelModes(ctypes.Structure):
+    """``StiffModes`` of csrc/stiff_common.cuh."""
+
+    _fields_ = [("t_grid", _P), ("m", _I), ("grid_stride", _I),
+                ("y_samples", _P), ("n_samples", _P), ("rows", _P),
+                ("n_rec", _P), ("cap", _I), ("stride", _I),
+                ("record_cont", _I)]
+
+
+class Modes:
+    """What a SAMPLED or RECORD launch of ``B`` lanes of ``method`` with
+    ``n`` components writes, on ``dev``: with a ``t_grid`` ``(B, m)``, the
+    samples ``y_samples (B, m, n)`` (rows past a lane's count stay zero, as
+    the plain version's) and their count ``n_samples (B,)``, which a launch
+    that is not a solve's first continues; with ``rec_cap`` > 0 (RECORD),
+    one chunk's ``rows (B, rec_cap, W)`` (``erk_ensemble.record_width``,
+    unpadded: the rows are stored a double at a time) and their
+    count ``n_rec (B,)``.  ``arg`` is the launch argument and ``key`` the
+    LAUNCHES key."""
+
+    def __init__(self, method, B, n, dev, t_grid=None, rec_cap=0,
+                 record_cont=False):
+        kernel = method.lower()
+        f64, i32 = torch.float64, torch.int32
+        self.m = m = 0 if t_grid is None else int(t_grid.shape[-1])
+        self.cap = cap = int(rec_cap)
+        if not m and not cap:
+            raise ValueError("a mode launch needs a t_grid or rec_cap > 0")
+        self.C = E.record_coeffs(method) if record_cont else 0
+        grid_ptr, grid_stride, self.grid = E.grid_arg(t_grid, B, dev)
+        self.y_samples = (torch.zeros((B, m, n), dtype=f64, device=dev)
+                          if m else None)
+        self.n_samples = (torch.zeros((B,), dtype=i32, device=dev) if m
+                          else None)
+        W = E.record_width(method, n, record_cont)
+        self.rows = (torch.empty((B, cap, W), dtype=f64, device=dev) if cap
+                     else None)
+        self.n_rec = (torch.zeros((B,), dtype=i32, device=dev) if cap
+                      else None)
+        ptr = lambda x: 0 if x is None else x.data_ptr()
+        self.arg = KernelModes(grid_ptr, m, grid_stride, ptr(self.y_samples),
+                               ptr(self.n_samples), ptr(self.rows),
+                               ptr(self.n_rec), cap, W, int(record_cont))
+        self.key = (f"{kernel}_sampled" if not cap else
+                    f"{kernel}_record{'_cont' if record_cont else ''}")
+
+
 class RadauCarryArg(ctypes.Structure):
     _fields_ = [(f, _P) for f in RADAU_FIELDS]
 
@@ -118,20 +176,27 @@ LAYOUT_KEYS = ("threads", "min_blocks", "lane_bytes", "block_bytes",
                "blocks_per_sm", "registers", "local_bytes")
 
 
-def layout(method, fun, controller="float32", B=1, lib=None) -> dict:
-    """The instantiation a launch of ``B`` lanes takes, as the library
-    reports it (``ivp_<kernel>_layout_<rhs>``): ``LAYOUT_KEYS``, blocks an
-    SM holds at once by cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+def layout(method, fun, controller="float32", B=1, lib=None,
+           mode=LEAN) -> dict:
+    """The instantiation a launch of ``B`` lanes in ``mode`` takes, as the
+    library reports it (``ivp_<kernel>_layout_<rhs>``, the modes'
+    ``ivp_<kernel>_modes_layout_<rhs>``): ``LAYOUT_KEYS``, blocks an SM
+    holds at once by cudaOccupancyMaxActiveBlocksPerMultiprocessor,
     registers and local-memory bytes a thread by cudaFuncGetAttributes.
     Needs the card."""
     kernel = method.lower()
     lib = build.library(kernel) if lib is None else lib
-    entry = build.entry(f"ivp_{kernel}_layout_{fun.name}", [_I, _I, _P],
-                        lib=lib)
     info = (ctypes.c_int * len(LAYOUT_KEYS))()
-    build.check(entry(int(controller != "float32"), int(B),
-                      ctypes.cast(info, ctypes.c_void_p)),
-                f"{kernel} layout", lib)
+    args = (int(controller != "float32"), int(B),
+            ctypes.cast(info, ctypes.c_void_p))
+    if mode == LEAN:
+        entry = build.entry(f"ivp_{kernel}_layout_{fun.name}", [_I, _I, _P],
+                            lib=lib)
+    else:
+        entry = build.entry(f"ivp_{kernel}_modes_layout_{fun.name}",
+                            [_I, _I, _I, _P], lib=lib)
+        args = (int(mode),) + args
+    build.check(entry(*args), f"{kernel} layout (mode {mode})", lib)
     return dict(zip(LAYOUT_KEYS, info))
 
 
@@ -211,10 +276,13 @@ class StiffLaunch:
     csrc/bdf.cu, from ``lib``, default the package's build): what each
     launch passes the same is made once here (the batched RunArgs ``ra``
     checked, the functor's arguments, the options of the engine's
-    RadauParams / BDFParams ``params``, the entry).  A call is one launch
-    from the carry ``c_in`` to the carry ``c`` (which may be the same)."""
+    RadauParams / BDFParams ``params``, the entry; with ``modes``, a
+    :class:`Modes`, the SAMPLED or RECORD entry writing there).  A call is
+    one launch from the carry ``c_in`` to the carry ``c`` (which may be the
+    same)."""
 
-    def __init__(self, method, fun: CudaRHS, ra, args, params, lib=None):
+    def __init__(self, method, fun: CudaRHS, ra, args, params, lib=None,
+                 modes: "Modes | None" = None):
         method = method.upper()
         self.kernel = kernel = method.lower()
         self.method, self.fun = method, fun
@@ -238,8 +306,11 @@ class StiffLaunch:
         argtypes = list(_ARGTYPES)
         argtypes[6], argtypes[8], argtypes[10] = (type(self.opts),
                                                   self.carry_t, self.carry_t)
-        self.entry = build.entry(f"ivp_{kernel}_{fun.name}", argtypes,
-                                 lib=self.lib)
+        self.modes, self.key, name = modes, kernel, f"ivp_{kernel}_{fun.name}"
+        if modes is not None:
+            argtypes.insert(-1, KernelModes)
+            self.key, name = modes.key, f"ivp_{kernel}_modes_{fun.name}"
+        self.entry = build.entry(name, argtypes, lib=self.lib)
         self.run = KernelRun(ra.tend.data_ptr(), ra.rtol.data_ptr(),
                              ra.atol.data_ptr(), ra.hmax.data_ptr(),
                              ra.hmin.data_ptr(), int(ra.max_steps))
@@ -285,13 +356,14 @@ class StiffLaunch:
         if B == 0:
             return
         ptr = lambda x: 0 if x is None else x.data_ptr()
+        md = () if self.modes is None else (self.modes.arg,)
         err = self.entry(B, ptr(y0), ptr(t0), ptr(first_step), self.run,
                          self.kargs.data_ptr(), self.opts,
                          KernelDriver(*drv_in), self.carry_t(*carry_in),
                          KernelDriver(*drv), self.carry_t(*carry),
-                         int(bool(init)), int(max_attempts), stream)
-        build.check(err, f"{self.kernel} kernel launch (B={B})", self.lib)
-        LAUNCHES[self.kernel] += 1
+                         int(bool(init)), int(max_attempts), *md, stream)
+        build.check(err, f"{self.key} kernel launch (B={B})", self.lib)
+        LAUNCHES[self.key] += 1
 
 
 def inverses(a, ai, lib=None, stream=None):
@@ -317,48 +389,66 @@ def inverses(a, ai, lib=None, stream=None):
     return out[0], s[0], (out[1], out[2]), s[1]
 
 
+def controller_dtype(params):
+    """The dtype of a stiff solve's controller fields (its RadauParams or
+    BDFParams)."""
+    return (torch.float32 if params.controller_precision == "float32"
+            else torch.float64)
+
+
+def nan_first_step(first_step, B, dev):
+    """``first_step``, or NaN on every lane (the method picks it)."""
+    if first_step is not None:
+        return first_step
+    return torch.full((B,), float("nan"), dtype=torch.float64, device=dev)
+
+
 def stiff_ensemble_cuda(method, fun: CudaRHS, y0, t0, tf, hmax, first_step,
                         rtol, atol, args, max_steps, params, hmin,
-                        lib=None, stream=None) -> Carry:
-    """One launch with no budget from a fresh carry: the final-state
-    solve.  Returns the carry (its ``t``, ``y``, status and counters are
-    the result)."""
+                        lib=None, stream=None, t_grid=None) -> Carry:
+    """One launch with no budget from a fresh carry: the final-state solve,
+    or with a ``(B, m)`` ``t_grid`` the SAMPLED one.  Returns the carry (its
+    ``t``, ``y``, status and counters are the result; with a grid its
+    ``sample_y`` and ``s_cursor`` hold the samples and their count)."""
     method = method.upper()
     B, n = y0.shape
-    cdt = (torch.float32 if params.controller_precision == "float32"
-           else torch.float64)
-    c = empty_carry(method, B, n, cdt, y0.device)
+    c = empty_carry(method, B, n, controller_dtype(params), y0.device)
     ra = run_args(tf, rtol, atol, hmax, hmin, max_steps, y0)
-    if first_step is None:
-        first_step = torch.full((B,), float("nan"), dtype=torch.float64,
-                                device=y0.device)
-    StiffLaunch(method, fun, ra, args, params, lib)(c, c, y0, t0, first_step,
-                                                    True, UNBOUNDED, stream)
+    modes = None if t_grid is None else Modes(method, B, n, y0.device, t_grid)
+    StiffLaunch(method, fun, ra, args, params, lib, modes)(
+        c, c, y0, t0, nan_first_step(first_step, B, y0.device), True,
+        UNBOUNDED, stream)
+    if modes is not None:
+        c = c._replace(sample_y=modes.y_samples, s_cursor=modes.n_samples)
     return c
 
 
 def stiff_ensemble(method, fun, y0, t0, tf, hmax, first_step, rtol, atol,
-                   args, max_steps, spec: StiffSpec, hmin=0.0):
+                   args, max_steps, spec: StiffSpec, hmin=0.0, t_grid=None):
     """Route by the device of ``y0``: ``(t, y, status, nfev, nstep, naccpt,
-    nrejct, njev, nlu)``."""
+    nrejct, y_samples, n_samples, njev, nlu)``, the samples None without a
+    ``t_grid`` ``(B, m)``."""
     method = method.upper()
     if y0.device.type == "cpu":
         out = E.erk_ensemble_torch(method, fun, y0, t0, tf, hmax, first_step,
-                                   rtol, atol, args, max_steps, None, spec,
+                                   rtol, atol, args, max_steps, t_grid, spec,
                                    None, hmin=hmin, counters=True)
-        return (*out[:7], *out[-1])
+        return (*out[:9], *out[-1])
     if y0.device.type != "cuda":
         raise NotImplementedError(f"no route for device {y0.device}")
     check_card(spec, fun)
+    if t_grid is not None and t_grid.shape[-1] == 0:
+        t_grid = None   # no samples, as the plain version gives none
     B = y0.shape[0]
     hmin_b = torch.broadcast_to(torch.as_tensor(
         hmin, dtype=y0.dtype, device=y0.device), (B,)).contiguous()
     with torch.cuda.device(y0.device):
         c = stiff_ensemble_cuda(method, fun, y0, t0, tf, hmax, first_step,
                                 rtol, atol, args, max_steps, spec.params(),
-                                torch.abs(hmin_b))
-    return (c.t, c.y, c.status, c.nfev, c.nstep, c.naccpt, c.nrejct, c.njev,
-            c.nlu)
+                                torch.abs(hmin_b), t_grid=t_grid)
+    samples = (c.sample_y, c.s_cursor) if t_grid is not None else (None, None)
+    return (c.t, c.y, c.status, c.nfev, c.nstep, c.naccpt, c.nrejct,
+            *samples, c.njev, c.nlu)
 
 
 # float64 operations of the stiff kernels, counted from csrc/radau.cu and
@@ -406,6 +496,11 @@ def bdf_flops(n: int) -> dict:
 # float64 operations of one Jacobian of each functor (csrc/rhs/*.cuh).
 JAC_FLOPS = {"vdp": 7, "decay": 0, "robertson": 8}
 
+# float64 operations of one sample, a + b n (radau_interp: s, then the
+# nested polynomial; bdf_interp: the five factors and their product, then
+# at order 1, a lower bound, one product and five sums a component).
+SAMPLE_FLOPS = {"RADAU": (3, 8), "BDF": (30, 6)}
+
 
 def stiff_flops(method, fun: CudaRHS, nstep, naccpt, nrejct, nfev, njev,
                 nlu) -> float:
@@ -434,15 +529,28 @@ def stiff_flops(method, fun: CudaRHS, nstep, naccpt, nrejct, nfev, njev,
 
 
 def stiff_bound(method, fun: CudaRHS, nstep, naccpt, nrejct, nfev, njev,
-                nlu, peak=FP64_PEAK, rate=HBM_RATE):
+                nlu, peak=FP64_PEAK, rate=HBM_RATE, n_samples=None, m=0,
+                n_rec=None, record_cont=False):
     """``(ms, bound_by)``: the least time a card with float64 rate ``peak``
     and memory rate ``rate`` could take for the solve, the larger of
-    :func:`stiff_flops` over ``peak`` and, over ``rate``, each lane's
-    inputs read once (y0, rtol, atol, t0, tf, hmax, hmin, first step, args)
-    and its outputs written once (t, y, status and six counters)."""
+    :func:`stiff_flops` (with ``n_samples`` the samples' work,
+    ``SAMPLE_FLOPS``) over ``peak`` and, over ``rate``, each lane's inputs
+    read once (y0, rtol, atol, t0, tf, hmax, hmin, first step, args; its
+    ``m`` grid times) and its outputs written once (t, y, status and six
+    counters; the samples emitted and their count; the ``n_rec`` rows of
+    ``erk_ensemble.record_width`` doubles)."""
     B, n = torch.as_tensor(nstep).numel(), fun.n
+    tot = lambda x: float(torch.as_tensor(x).to(torch.float64).sum())
     flops = stiff_flops(method, fun, nstep, naccpt, nrejct, nfev, njev, nlu)
     lane = 8 * (3 * n + 5 + len(fun.defaults)) + 8 * (1 + n) + 4 * 7
-    t_ops, t_bytes = flops / peak, B * lane / rate
+    extra = 0.0
+    if n_samples is not None:
+        a, b = SAMPLE_FLOPS[method.upper()]
+        flops += tot(n_samples) * (a + b * n)
+        lane += 8 * m + 4
+        extra += 8.0 * n * tot(n_samples)
+    if n_rec is not None:
+        extra += 8.0 * tot(n_rec) * E.record_width(method, n, record_cont)
+    t_ops, t_bytes = flops / peak, (B * lane + extra) / rate
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")

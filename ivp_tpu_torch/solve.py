@@ -29,8 +29,9 @@ Ported: ``"RK45"``/``"DOPRI5"``, ``"DOP853"``, ``"RK23"``, ``"RK4"``,
 ``"Radau"`` and ``"BDF"`` with ``t_eval``, ``dense_output``,
 ``first_step``, ``max_step``, ``min_step``, ``max_steps``, ``chunk_steps``,
 ``solver_options``, ``jac``, ``events``, ``event_capacity`` and
-``max_restarts``; Radau and BDF run on the CPU (on the card: ROADMAP §1
-item 16).  What a later slice brings raises NotImplementedError naming its
+``max_restarts``; Radau and BDF run on the card with a CudaRHS that has a
+Jacobian (their kernels' record mode), with events on the CPU only (on the
+card: ROADMAP §1 item 16).  What a later slice brings raises NotImplementedError naming its
 ROADMAP item, checked before anything is placed on a device.
 ``vectorized`` is accepted and ignored.
 """
@@ -51,6 +52,7 @@ from .methods import get_engine
 from .methods.ddtier import resolve_auto_dtype
 from .methods.interp import get_interp
 from .kernels.erk_record import STIFF_MODES_ON_CARD, erk_record
+from .kernels.stiff_ensemble import check_card
 from .methods.jacobian import stiff_spec
 from .methods.radau import STIFF_REST_ITEM
 from .rhs import CudaRHS
@@ -287,8 +289,9 @@ def solve_ivp(
     ev_list = as_list(events)
     ev = (EventArgs(tuple(lane_events(ev_list)), int(event_capacity),
                     int(max_restarts)) if ev_list else None)
-    if placement(y0, device).type == "cuda":
-        if stiff:
+    on_card = placement(y0, device).type == "cuda"
+    if on_card:
+        if stiff and ev is not None:
             raise NotImplementedError(STIFF_MODES_ON_CARD)
         if not isinstance(fun, CudaRHS):
             raise NotImplementedError(
@@ -333,6 +336,8 @@ def solve_ivp(
                      or first_step is not None)
     if stiff:
         params = stiff_spec(method, n, _scipy_jac(jac, n), solver_options)
+        if on_card:   # what the stiff kernels do not run, before placing
+            check_card(params, fun)
         interp, ncoeff = get_interp(method)
     else:
         key = ("solve", method, need_cont,

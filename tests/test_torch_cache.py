@@ -214,14 +214,24 @@ def test_solve_ivp_on_the_card_refuses_a_plain_callable(monkeypatch):
         it.solve_ivp(lambda t, y: -y, (0.0, 1.0), [1.0])
 
 
+class Placed(Exception):
+    """Raised by a monkeypatched ``_place``: the options got past every
+    check to the placement."""
+
+
+def _placed(*a, **k):
+    raise Placed
+
+
 # Events with records (item 5) are ported: that case gives a result.  An
-# integer lane_chunk (item 6) is ported; Radau and BDF record on the CPU, and
-# on the card they refuse (item 16).
+# integer lane_chunk (item 6) is ported; Radau and BDF record and sample on
+# the card too, so on a CUDA placement those cases get past the option
+# checks to the placement ("placed").
 @pytest.mark.parametrize("kw, item", [
-    (dict(lane_chunk=16, method="Radau", t_eval=[0.0, 1.0]), "item 16"),
+    (dict(lane_chunk=16, method="Radau", t_eval=[0.0, 1.0]), "placed"),
     (dict(dense_output=True, events=[lambda t, y: y[:, 0]]), None),
     (dict(record_trajectories=True, time_dtype=torch.float64), "item 14"),
-    (dict(dense_output=True, method="BDF"), "item 16"),
+    (dict(dense_output=True, method="BDF"), "placed"),
 ], ids=["lane_chunk", "record-events", "record-time_dtype", "record-BDF"])
 def test_ensemble_refusals_name_their_item(kw, item, monkeypatch):
     if item is None:
@@ -229,6 +239,12 @@ def test_ensemble_refusals_name_their_item(kw, item, monkeypatch):
                                     device="cpu", **kw)
         assert set(res.status.tolist()) == {it.Status.SUCCESS}
         assert tuple(res.n_events.shape) == (4, 1) and res.sol is not None
+        return
+    if item == "placed":
+        monkeypatch.setattr(it.batch, "_place", _placed)
+        with pytest.raises(Placed):
+            it.solve_ivp_ensemble(it.rhs.vdp, (0.0, 1.0), np.ones((4, 2)),
+                                  device="cuda", **kw)
         return
     monkeypatch.setattr(it.batch, "_place", lambda *a, **k: pytest.fail(
         "placed before the options were checked"))

@@ -182,15 +182,25 @@ def test_chunked_batch_solution():
 
 # What the card does not run yet: each raises NotImplementedError naming its
 # ROADMAP item, before anything is placed (a numpy y0 with device="cuda" has
-# no card here, so a placement would fail otherwise).
+# no card here, so a placement would fail otherwise).  What it runs now
+# ("placed": samples, records) gets past every option check to the
+# placement, which the monkeypatched _place marks with Placed.
 ST = dict(method="Radau")
 
 
+class Placed(Exception):
+    pass
+
+
+def _placed(*a, **k):
+    raise Placed
+
+
 @pytest.mark.parametrize("kw, item", [
-    (dict(ST, t_eval=np.linspace(0.0, 1.0, 3)), "item 16"),
+    (dict(ST, t_eval=np.linspace(0.0, 1.0, 3)), "placed"),
     (dict(ST, events=[lambda t, y: y[:, 0]]), "item 16"),
-    (dict(ST, dense_output=True), "item 16"),
-    (dict(ST, record_trajectories=True), "item 16"),
+    (dict(ST, dense_output=True), "placed"),
+    (dict(ST, record_trajectories=True), "placed"),
     (dict(ST, jac=lambda t, y: None), "item 15"),
     (dict(ST, jac=np.eye(2)), "item 15"),
     (dict(ST, solver_options={"linear_mode": "lu"}), "item 15"),
@@ -202,6 +212,12 @@ ST = dict(method="Radau")
      "item 15"),
 ], ids=lambda v: "-".join(f"{k}" for k in v) if isinstance(v, dict) else v)
 def test_stiff_card_refusals_before_placement(kw, item, monkeypatch):
+    if item == "placed":
+        monkeypatch.setattr(it.batch, "_place", _placed)
+        with pytest.raises(Placed):
+            it.solve_ivp_ensemble(it.rhs.vdp, (0.0, 1.0), np.ones((4, 2)),
+                                  device="cuda", **kw)
+        return
     monkeypatch.setattr(it.batch, "_place", lambda *a, **k: pytest.fail(
         "placed before the options were checked"))
     with pytest.raises(NotImplementedError, match=f"ROADMAP §1 {item}"):
@@ -218,9 +234,15 @@ def test_stiff_card_refuses_a_plain_rhs_and_large_n(monkeypatch):
     with pytest.raises(NotImplementedError, match="item 15"):
         it.build_ensemble_solver(it.rhs.lorenz, "BDF", n=3)(
             np.ones((4, 3)), 0.0, 1.0, 1e-6, 1e-8, device="cuda")
-    with pytest.raises(NotImplementedError, match="item 16"):
+    # solve_ivp with BDF runs on the card now: past its checks to placement;
+    # with events it still refuses (item 16).
+    monkeypatch.setattr(it.solve, "_place", _placed)
+    with pytest.raises(Placed):
         it.solve_ivp(it.rhs.vdp, (0.0, 1.0), [2.0, 0.0], method="BDF",
                      device="cuda")
+    with pytest.raises(NotImplementedError, match="item 16"):
+        it.solve_ivp(it.rhs.vdp, (0.0, 1.0), [2.0, 0.0], method="BDF",
+                     device="cuda", events=lambda t, y: y[0])
     start, _, _ = build_resumable_solver(it.rhs.vdp, "RK45", n=2,
                                          t_eval=[0.0, 1.0])
     with pytest.raises(NotImplementedError, match="item 16"):
