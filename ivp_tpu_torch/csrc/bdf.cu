@@ -10,11 +10,12 @@
 // lane's order (the reference's masked sums over MAX_ORDER+3 rows add exact
 // zeros past it); the Newton loop ends at the lane's exit; the iteration
 // matrix is rebuilt and the Jacobian refreshed only where the lane asks.
-// Same carry, init, budget and modes as radau.cu; no FMA contraction.  A
-// SAMPLED or RECORD lane emits from inside the attempt, once the accepted
-// step has updated D and before change_d rescales it: its dense output is
-// the Newton form over D[0..order] (bdf_interp), its row's coefficients
-// [D0, D1..D5 past the order 0, order] (NCOEFF 7).
+// Same carry, init, budget and modes as radau.cu; no FMA contraction.  The
+// attempt ends before change_d: the kernel's loop rescales D after it, and
+// a SAMPLED or RECORD lane emits between the two, from the accepted step's
+// D, off the attempt's register peak: its dense output is the Newton form
+// over D[0..order] (bdf_interp), its row's coefficients [D0, D1..D5 past the
+// order 0, order] (NCOEFF 7).
 //
 // What bounds it on an H100: dependent float64 divisions and float32 log,
 // exp and division chains, waiting on latency.  The design: (1) what only one
@@ -28,7 +29,13 @@
 // in a local-memory stack frame, so a thread needs fewer registers and more
 // lanes are resident on an SM (bdf_pick: fewer, with more registers, when
 // the batch fits the card at once); change_d builds only the columns of its
-// transform that the order reaches.
+// transform that the order reaches, and of them the terms whose
+// coefficient is not 0 (read from CHANGE_D_C at compile time); (3) the
+// divisions and square roots run in four units (the head, the
+// decomposition, each Newton iteration's rate, the tail with the error, the
+// order selection and the step factor), each straight through FastCtl's
+// fast paths with one branch to the library's (FastOps, stiff_common.cuh);
+// the order selection's float32 log and exp stay the library's.
 #include "stiff_common.cuh"
 
 namespace ivp {
@@ -79,38 +86,75 @@ struct BDFLane {
   }
 };
 
-template <int N, class CT>
-__device__ __forceinline__ CT rms_scaled(const double* v, CT w,
+// The RMS of w v scaled, in O's operations (a FastOps or LibOps member).
+template <int N, class CT, class O>
+__device__ __forceinline__ CT rms_scaled(O& op, const double* v, CT w,
                                          const CT* inv_scale) {
-  using C = Ctl<CT>;
   CT s = 0;
 #pragma unroll
   for (int j = 0; j < N; ++j) {
-    const CT q = C::mul(C::mul(w, (CT)v[j]), inv_scale[j]);
-    s = j ? C::add(s, C::mul(q, q)) : C::mul(q, q);
+    const CT q = op.mul(op.mul(w, (CT)v[j]), inv_scale[j]);
+    s = j ? op.add(s, op.mul(q, q)) : op.mul(q, q);
   }
-  return C::sqrt(s / (CT)N);
+  return sqrt_wide(op, div_n<N>(op, s));
+}
+
+// fn(std::integral_constant<int, I>{}) for I in [I0, I1), unrolled at
+// compile time, so that fn may read CHANGE_D_C at its indices.
+template <int I, int I1, class Fn>
+__device__ __forceinline__ void static_for(const Fn& fn) {
+  if constexpr (I < I1) {
+    fn(std::integral_constant<int, I>{});
+    static_for<I + 1, I1>(fn);
+  }
+}
+
+// CHANGE_D_C[DD][M][JR], in a constant expression.
+template <int DD, int M, int JR>
+__host__ __device__ constexpr double change_coef() {
+  return bdf::CHANGE_D_C[DD][M][JR];
+}
+
+// Whether the transform's entry T[M][JR] is 0 whatever the factor.
+template <int M, int JR, int DD = 0>
+__host__ __device__ constexpr bool change_zero() {
+  if constexpr (DD > M) return true;
+  else return change_coef<DD, M, JR>() == 0.0 && change_zero<M, JR, DD + 1>();
+}
+
+// The transform's entry T[M][JR] = C[0][M][JR] + pw[1] C[1][M][JR] + ...
+// + pw[M] C[M][M][JR], summed left to right; with SKIP the terms with a 0
+// coefficient left out.  With pw finite such a term is +-0.0, and the sum is
+// never -0.0 (it starts from C[0] >= 0, and an exact cancellation rounds to
+// +0.0), so it adds nothing.
+template <int M, int JR, bool SKIP>
+__device__ __forceinline__ double change_entry(const double* pw) {
+  double acc = change_coef<0, M, JR>();
+  static_for<1, M + 1>([&](auto dd) {
+    constexpr double c = change_coef<decltype(dd)::value, M, JR>();
+    if constexpr (!SKIP || c != 0.0) acc = acc + pw[decltype(dd)::value] * c;
+  });
+  return acc;
 }
 
 // bdf.py::change_d on D[0..5] as the reference computes it: the 6 x 6
 // transform (rows and columns past the order the identity) times D's first
 // six rows, every product and its 0.0 added.  Taken where one of those rows
-// holds an inf or a NaN, whose products with the identity's zeros are NaN.
+// holds an inf or a NaN, whose products with the identity's zeros are NaN,
+// or where a power of the factor is not finite.
 template <int N, int T>
 __device__ __noinline__ void change_d_full(int order, double factor) {
   const Slots<T> D = lane_slots<T>().at(BDFCold<N>::D);
   const double f2 = factor * factor, f3 = f2 * factor;
   const double pw[6] = {0.0, factor, f2, f3, f2 * f2, f3 * f2};
   double Tm[6][6];
-#pragma unroll
-  for (int i = 0; i < 6; ++i)
-#pragma unroll
-    for (int m = 0; m < 6; ++m) {
-      double acc = bdf::CHANGE_D_C[0][i][m];
-#pragma unroll
-      for (int dd = 1; dd <= i; ++dd) acc = acc + pw[dd] * bdf::CHANGE_D_C[dd][i][m];
-      Tm[i][m] = (i <= order && m <= order) ? acc : (i == m ? 1.0 : 0.0);
-    }
+  static_for<0, 6>([&](auto i) {
+    static_for<0, 6>([&](auto m) {
+      constexpr int I = decltype(i)::value, M = decltype(m)::value;
+      Tm[I][M] = (I <= order && M <= order) ? change_entry<I, M, false>(pw)
+                                             : (I == M ? 1.0 : 0.0);
+    });
+  });
   double D6[6][N];
 #pragma unroll
   for (int jr = 0; jr < 6; ++jr)
@@ -128,51 +172,50 @@ __device__ __noinline__ void change_d_full(int order, double factor) {
 }
 
 // bdf.py::change_d on D[0..5] for the lane's order and factor.  With D's
-// first six rows finite it gives the reference's bits from the order's
-// rows alone: a row r <= order sums its products over rows m <= order (the
-// rows past the order add 0 * D = +-0 to a sum that is never -0.0), a row
-// past the order is D[r] + 0.0 (the identity's 1 * D[r] after +0.0).  The
-// transform is built a column at a time, each entry once.
+// first six rows and the factor's powers finite it gives the reference's
+// bits from the order's rows alone and the transform's non-zero terms: a
+// row r <= order sums its products over rows m <= order whose entry
+// T[m][r] is not 0 for every factor (the others add +-0.0 to a sum that is
+// never -0.0), each entry without its 0-coefficient terms (change_entry); a
+// row past the order is D[r] + 0.0 (the identity's 1 * D[r] after +0.0).
 template <int N, int T>
 __device__ __forceinline__ void change_d(Slots<T> D, int order,
                                          double factor) {
   if (factor == 1.0) return;
-  bool finite = true;
+  const double f2 = factor * factor, f3 = f2 * factor;
+  const double pw[6] = {0.0, factor, f2, f3, f2 * f2, f3 * f2};
+  bool finite = isfinite(pw[5]);
 #pragma unroll
   for (int q = 0; q < 6 * N; ++q) finite = finite && isfinite(D[q]);
   if (!finite) {
     change_d_full<N, T>(order, factor);
     return;
   }
-  const double f2 = factor * factor, f3 = f2 * factor;
-  const double pw[6] = {0.0, factor, f2, f3, f2 * f2, f3 * f2};
   double D6[6][N];
+  static_for<0, 6>([&](auto jr) {
+    constexpr int JR = decltype(jr)::value;
+    if (JR > order) {
 #pragma unroll
-  for (int jr = 0; jr < 6; ++jr) {
-    if (jr > order) {
-#pragma unroll
-      for (int c = 0; c < N; ++c) D6[jr][c] = D[jr * N + c] + 0.0;
-      continue;
+      for (int c = 0; c < N; ++c) D6[JR][c] = D[JR * N + c] + 0.0;
+      return;
     }
-    double Tc[6];  // the transform's column jr: T[m][jr], m <= order
+    constexpr double t0 = change_coef<0, 0, JR>();
+    double s[N];
 #pragma unroll
-    for (int m = 0; m < 6; ++m) {
-      if (m > order) continue;
-      double acc = bdf::CHANGE_D_C[0][m][jr];
+    for (int c = 0; c < N; ++c) s[c] = t0 == 0.0 ? 0.0 : 0.0 + t0 * D[c];
+    static_for<1, 6>([&](auto m) {
+      constexpr int M = decltype(m)::value;
+      if constexpr (!change_zero<M, JR>()) {
+        if (M <= order) {
+          const double t = change_entry<M, JR, true>(pw);
 #pragma unroll
-      for (int dd = 1; dd <= m; ++dd)
-        acc = acc + pw[dd] * bdf::CHANGE_D_C[dd][m][jr];
-      Tc[m] = acc;
-    }
+          for (int c = 0; c < N; ++c) s[c] = s[c] + t * D[M * N + c];
+        }
+      }
+    });
 #pragma unroll
-    for (int c = 0; c < N; ++c) {
-      double s = 0.0 + Tc[0] * D[c];
-#pragma unroll
-      for (int m = 1; m < 6; ++m)
-        if (m <= order) s = s + Tc[m] * D[m * N + c];
-      D6[jr][c] = s;
-    }
-  }
+    for (int c = 0; c < N; ++c) D6[JR][c] = s[c];
+  });
 #pragma unroll
   for (int jr = 0; jr < 6; ++jr)
 #pragma unroll
@@ -195,40 +238,221 @@ __device__ __forceinline__ CT bdf_newton_tol(const BDFOptions& o,
 // methods/bdf.py::bdf_interp: the Newton form of the step (xold, h) over
 // the rows D[0..order] (a lane's Slots, row k at k N) at ti, every term
 // past the order an exact 0.0 in the sum, as the reference's masked terms.
-template <int N, class M>
-__device__ __forceinline__ void bdf_interp(const M& D, int order, double xold,
-                                           double h, double ti, double* yi) {
+// Its divisions in O's (Ctl<double> or FastCtl<double>); the terms past the
+// order, each 0.0, add as one 0.0 (which only turns a -0.0 sum into +0.0).
+template <int N, class M, class O>
+__device__ __forceinline__ void bdf_interp(O& op, const M& D, int order,
+                                           double xold, double h, double ti,
+                                           double* yi) {
   const double x_new = xold + h;
   double p = 0.0, sum[N];
 #pragma unroll
+  for (int j = 0; j < N; ++j) sum[j] = 0.0;
+#pragma unroll
   for (int k = 0; k < bdf::MAX_ORDER; ++k) {
+    if (k >= order) break;
     const double denom = h * (k + 1.0);
     const double t_shift = x_new - h * (double)k;
-    const double xf = (ti - t_shift) / denom;
+    const double xf = div_wide(op, ti - t_shift, denom);
     p = k == 0 ? xf : p * xf;
 #pragma unroll
     for (int j = 0; j < N; ++j) {
-      const double term = k < order ? D[(k + 1) * N + j] * p : 0.0;
+      const double term = D[(k + 1) * N + j] * p;
       sum[j] = k == 0 ? term : sum[j] + term;
     }
   }
 #pragma unroll
-  for (int j = 0; j < N; ++j) yi[j] = D[j] + sum[j];
+  for (int j = 0; j < N; ++j) {
+    if (order < bdf::MAX_ORDER) sum[j] = sum[j] + 0.0;
+    yi[j] = D[j] + sum[j];
+  }
 }
 
-// One attempt of methods/bdf.py::make_bdf_attempt on lane L at (t, y).  An
-// accepted step calls emit(x_new, t, h_signed, y_new, order) with D updated
-// and not yet rescaled.
-template <class F, class CT, int T, class Emit>
+// bdf_interp on the fast paths, then once more through the library's
+// divisions where an operand left their range.
+template <int N, class M>
+__device__ __forceinline__ void bdf_interp(const M& D, int order, double xold,
+                                           double h, double ti, double* yi) {
+  FastCtl<double> fast;
+  bdf_interp<N>(fast, D, order, xold, h, ti, yi);
+  if (!fast.ok) {
+    Ctl<double> lib;
+    bdf_interp<N>(lib, D, order, xold, h, ti, yi);
+  }
+}
+
+// The head unit: the inverse scale at the prediction, psi and c, and
+// whether the iteration matrix is rebuilt (c drifted).
+template <int N, class CT>
+struct BDFHead {
+  CT inv_scale[N];
+  double psi[N], c;
+  bool rebuild;
+  template <class P>
+  __device__ __forceinline__ void run(P& op, const double* sc,
+                                      const double* psum, double alpha_ord,
+                                      double h_signed, bool lu_current,
+                                      double current_c) {
+    const auto da = op.d.divisor(alpha_ord);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      inv_scale[j] = (CT)op.d.div(1.0, sc[j]);
+      psi[j] = div_by_wide(op.d, psum[j], da);
+    }
+    c = div_by_wide(op.d, h_signed, da);
+    rebuild = !lu_current ||
+              div_wide(op.d, fabs(c - current_c), nmax(fabs(c), 1.0)) > 0.1;
+  }
+};
+
+// One Newton iteration's rate unit: the increment's norm, and whether the
+// iteration converged or its rate is bad.
+template <class CT>
+struct BDFRate {
+  CT dy_norm;
+  bool converged, rate_bad;
+  template <int N, class O>
+  __device__ __forceinline__ void run(O& op, const double* dy,
+                                      const CT* inv_scale, CT prev, int it,
+                                      int maxit, CT newton_tol) {
+    const CT tiny = tiny_of<CT>();
+    dy_norm = rms_scaled<N, CT>(op, dy, (CT)1, inv_scale);
+    const bool zero = dy_norm == (CT)0;
+    // The rate is read only once there is a previous norm above 0; its
+    // power (rem products from rate) only where the rate is below 1 and the
+    // iteration has not converged.  Every operand that no output reads is a
+    // constant in range.
+    const bool use = !zero && prev >= (CT)0 && prev > (CT)0;
+    const CT rate = div_wide(op, use ? dy_norm : (CT)0,
+                             use ? op.vmax(prev, tiny) : (CT)1);
+    const bool below = use && !(rate >= (CT)1);
+    const CT one_m = below ? op.vmax(op.sub((CT)1, rate), tiny) : (CT)1;
+    const CT est1 = op.mul(div_wide(op, below ? rate : (CT)0, one_m), dy_norm);
+    const bool conv = rate < (CT)1 && est1 < newton_tol;
+    const bool power = below && !conv;
+    const int rem_i = power ? maxit - it : 0;
+    CT rate_rem = rate;
+    for (int k = 2; k <= rem_i; ++k) rate_rem = op.mul(rate_rem, rate);
+    const CT est_rem =
+        op.mul(div_wide(op, power ? rate_rem : (CT)0, one_m), dy_norm);
+    converged = zero || (below && conv);
+    rate_bad = use && (!below || (power && est_rem > newton_tol));
+  }
+};
+
+// The tail unit after the Newton loop: the error and, after order+1 equal
+// accepted steps, the order selection's norms, logs and exps (the
+// library's on either path), the step factor of every outcome, the next
+// step's clamps and change_d's factor.
+template <int N, class CT>
+struct BDFTail {
+  CT error_norm;
+  bool accepted, err_reject, adapt, clamp_changed;
+  int new_order;
+  double h1, factor;
+  template <int T, class P>
+  __device__ __forceinline__ void run(
+      P& op, const BDFLane<N, T>& L, const double* y_new, const double* delta,
+      const double* rtol, const double* atol, bool converged, bool last,
+      CT n_iter, int maxit, double t, double x_new, double tend, double hmax,
+      double hmin) {
+    constexpr int MO = bdf::MAX_ORDER;
+    const int order = L.order;
+    const double h_abs = L.h_abs, posneg = L.posneg;
+    CT inv_scale2[N];
+    error_norm = 0;
+    accepted = false;
+    err_reject = false;
+    if (converged) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        double sc = atol[j] + rtol[j] * fabs(y_new[j]);
+        if (sc == 0.0) sc = BDF_EPS;
+        inv_scale2[j] = (CT)op.d.div(1.0, sc);
+      }
+      const CT ec_ord = (CT)bdf::ERROR_CONST[order];
+      error_norm = rms_scaled<N, CT>(op.c, delta, ec_ord, inv_scale2);
+      accepted = error_norm <= (CT)1;
+      err_reject = error_norm > (CT)1;
+    }
+    const auto safety = [&]() {
+      return op.c.div((CT)(0.9 * (2.0 * maxit + 1.0)),
+                      op.c.add(op.c.add((CT)(2.0 * maxit), n_iter), (CT)1));
+    };
+    const auto log_factor = [&](CT e, int k) {
+      const CT ec = op.c.vmin(op.c.vmax(e, (CT)1e-30), (CT)1e30);
+      return op.c.mul(op.c.div((CT)-1, op.c.add((CT)order, (CT)k)),
+                      op.c.log(ec));
+    };
+    const bool finished = accepted && last;
+    adapt = accepted && L.n_equal + 1 >= order + 1 && !finished;
+    new_order = order;
+    CT fac_case;
+    if (adapt) {
+      double row_ord[N], row_op2[N];
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        row_ord[j] = (L.d(order, j) + 0.0) + delta[j];
+        row_op2[j] = delta[j] - (L.d(order + 1, j) + 0.0);
+      }
+      const CT inf = (CT)INFINITY;
+      const CT err_m = order > 1 ? rms_scaled<N, CT>(op.c, row_ord, (CT)bdf::ERROR_CONST[order - 1], inv_scale2) : inf;
+      const CT err_p = order < MO ? rms_scaled<N, CT>(op.c, row_op2, (CT)bdf::ERROR_CONST[order + 1], inv_scale2) : inf;
+      const CT errs[3] = {err_m, error_norm, err_p};
+      CT lf[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) lf[k] = log_factor(errs[k], k);
+      int best = 0;
+      CT lmax = lf[0];
+#pragma unroll
+      for (int k = 1; k < 3; ++k) {
+        const bool nan_k = lf[k] != lf[k], nan_b = lmax != lmax;
+        if (!nan_b && (nan_k || lf[k] > lmax)) {
+          lmax = lf[k];
+          best = k;
+        }
+      }
+      new_order = order + (best - 1);
+      new_order = new_order < 1 ? 1 : (new_order > MO ? MO : new_order);
+      fac_case = op.c.vmin(op.c.mul(safety(), op.c.exp(lmax)), (CT)10);
+    } else if (accepted) {
+      fac_case = (CT)1;
+    } else if (!converged) {
+      fac_case = (CT)0.5;
+    } else {
+      fac_case = op.c.vmax(
+          op.c.mul(safety(), op.c.exp(log_factor(error_norm, 1))), (CT)0.2);
+    }
+    // One rescale for every outcome and the next step's clamps.
+    const double t_next = accepted ? x_new : t;
+    const double h_des = h_abs * (double)fac_case;
+    h1 = nmin(h_des, hmax);
+    if (h1 < hmin && hmin > 0.0) h1 = hmin;
+    if (posneg * (t_next + posneg * h1 - tend) > 0.0) h1 = fabs(tend - t_next);
+    clamp_changed = h1 != h_des;
+    // A step that stays (h1 == h_abs, a normal finite number) has factor
+    // h1 / h_abs == 1 exactly.
+    const bool stays = h1 == h_abs && h_abs >= 1e-300 && h_abs < INFINITY;
+    const double q = op.d.div(stays ? 1.0 : h1,
+                              stays ? 1.0 : nmax(h_abs, 1e-300));
+    factor = stays ? 1.0 : q;
+  }
+};
+
+// One attempt of methods/bdf.py::make_bdf_attempt on lane L at (t, y), up to
+// change_d: the caller rescales D by factor (change_d) after it has read
+// the accepted step's dense output from D.  Its divisions and square roots
+// run in four units (the head, the decomposition, each Newton iteration's
+// rate, the tail), each on the fast paths with one branch to the library's
+// (FastOps); the rest is the reference's order of operations.
+template <class F, class CT, int T>
 __device__ __forceinline__ int bdf_attempt(
     const F& f, const double* a, double& t, double* y, BDFLane<F::N, T>& L,
     const BDFOptions& o, const double* rtol, const double* atol,
-    CT newton_tol, double tend, double hmax,
-    double hmin, bool& accepted, bool& finished, bool& count_step,
-    bool& count_reject, int& nfev, int& njev, int& nlu, const Emit& emit) {
+    CT newton_tol, double tend, double hmax, double hmin, bool& accepted,
+    bool& finished, bool& count_step, bool& count_reject, int& nfev,
+    int& njev, int& nlu, double& factor) {
   constexpr int N = F::N;
-  constexpr int MO = bdf::MAX_ORDER;
-  using C = Ctl<CT>;
   using K = BDFCold<N>;
   const Slots<T> s = L.s;
   slots_fence();
@@ -241,9 +465,7 @@ __device__ __forceinline__ int bdf_attempt(
   const bool too_small = h_abs < 1e-290 || (t + 0.1 * fabs(h_signed)) == t;
 
   // ---- Predictor and psi ----
-  double y_predict[N], psi[N];
-  CT inv_scale[N];
-  const double alpha_ord = bdf::ALPHA[order] + 0.0;
+  double y_predict[N], sc[N], psum[N];
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     double sp = L.d(0, j), p = 0.0;
@@ -254,19 +476,23 @@ __device__ __forceinline__ int bdf_attempt(
       p = k == 1 ? g : p + g;
     }
     y_predict[j] = sp;
-    double sc = atol[j] + rtol[j] * fabs(sp);
-    if (sc == 0.0) sc = BDF_EPS;
-    inv_scale[j] = (CT)(1.0 / sc);
-    psi[j] = p / alpha_ord;
+    sc[j] = atol[j] + rtol[j] * fabs(sp);
+    if (sc[j] == 0.0) sc[j] = BDF_EPS;
+    psum[j] = p;
   }
-  const double c = h_signed / alpha_ord;
+  BDFHead<N, CT> hd;
+  run_unit<CT>([&](auto& op) {
+    hd.run(op, sc, psum, bdf::ALPHA[order] + 0.0, h_signed, L.lu_current,
+           L.current_c);
+  });
+  const double c = hd.c;
+  const double* psi = hd.psi;
+  const CT* inv_scale = hd.inv_scale;
 
   // ---- The iteration matrix, rebuilt when c drifts ----
-  const bool rebuild =
-      !L.lu_current || fabs(c - L.current_c) / nmax(fabs(c), 1.0) > 0.1;
   bool sing = false;
   nlu = 0;
-  if (rebuild) {
+  if (hd.rebuild) {
     double m[N * N], inv[N * N];
 #pragma unroll
     for (int i = 0; i < N; ++i)
@@ -279,7 +505,7 @@ __device__ __forceinline__ int bdf_attempt(
     nlu = 1;
     L.current_c = c;
   }
-  const bool lu_current = L.lu_current || rebuild;
+  const bool lu_current = L.lu_current || hd.rebuild;
 
   // ---- Simplified Newton ----
   double y_new[N], delta[N];
@@ -289,7 +515,6 @@ __device__ __forceinline__ int bdf_attempt(
     delta[j] = 0.0;
   }
   CT prev = (CT)-1;
-  const CT tiny = tiny_of<CT>();
   int it = 0;
   int done = (sing || too_small) ? 2 : 0;
   nfev = 0;
@@ -303,42 +528,23 @@ __device__ __forceinline__ int bdf_attempt(
 #pragma unroll
     for (int j = 0; j < N; ++j) rv[j] = c * fv[j] - psi[j] - delta[j];
     matvec<N>(s.at(K::INV), rv, dy);
-    const CT dy_norm = rms_scaled<N, CT>(dy, (CT)1, inv_scale);
-    const bool has_prev = prev >= (CT)0;
-    // The rate is read only once there is a previous norm above 0; its
-    // power (rem products from rate) only where the rate is below 1 and the
-    // iteration has not converged.
-    bool converged = dy_norm == (CT)0, rate_bad = false;
-    if (!converged && has_prev && prev > (CT)0) {
-      const CT rate = dy_norm / C::vmax(prev, tiny);
-      if (rate >= (CT)1) {
-        rate_bad = true;
-      } else {
-        const CT one_m = C::vmax(C::sub((CT)1, rate), tiny);
-        const CT est1 = C::mul(rate / one_m, dy_norm);
-        converged = rate < (CT)1 && est1 < newton_tol;
-        if (!converged) {
-          const int rem_i = maxit - it;
-          CT rate_rem = rate;
-          for (int k = 2; k <= rem_i; ++k) rate_rem = C::mul(rate_rem, rate);
-          rate_bad = C::mul(rate_rem / one_m, dy_norm) > newton_tol;
-        }
-      }
-    }
-    done = converged ? 1 : (rate_bad ? 2 : 0);
+    BDFRate<CT> r;
+    run_unit<CT>([&](auto& op) {
+      r.template run<N>(op.c, dy, inv_scale, prev, it, maxit, newton_tol);
+    });
+    done = r.converged ? 1 : (r.rate_bad ? 2 : 0);
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       y_new[j] = y_new[j] + dy[j];
       delta[j] = delta[j] + dy[j];
     }
-    prev = dy_norm;
+    prev = r.dy_norm;
     if (done == 0) it += 1;
     nfev += 1;
   }
   slots_fence();
   const bool converged = done == 1;
   const bool newton_fail = !converged;
-  const CT n_iter = (CT)it;
 
   // ---- A Newton failure refreshes the Jacobian ----
   njev = 0;
@@ -349,87 +555,21 @@ __device__ __forceinline__ int bdf_attempt(
     for (int q = 0; q < N * N; ++q) s[K::JAC + q] = J[q];
     njev = o.const_jac ? 0 : 1;
   }
-  // ---- The error (read only after a converged iteration) ----
-  CT inv_scale2[N], error_norm = 0;
-  accepted = false;
-  bool err_reject = false;
-  if (converged) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      double sc = atol[j] + rtol[j] * fabs(y_new[j]);
-      if (sc == 0.0) sc = BDF_EPS;
-      inv_scale2[j] = (CT)(1.0 / sc);
-    }
-    const CT ec_ord = (CT)bdf::ERROR_CONST[order];
-    error_norm = rms_scaled<N, CT>(delta, ec_ord, inv_scale2);
-    accepted = error_norm <= (CT)1;
-    err_reject = error_norm > (CT)1;
-  }
-  const auto safety = [&]() {
-    return (CT)(0.9 * (2.0 * maxit + 1.0)) /
-           C::add(C::add((CT)(2.0 * maxit), n_iter), (CT)1);
-  };
-  const auto log_factor = [&](CT e, int k) {
-    const CT ec = C::vmin(C::vmax(e, (CT)1e-30), (CT)1e30);
-    return C::mul((CT)-1 / C::add((CT)order, (CT)k), C::log(ec));
-  };
-
-  // ---- Order and step adaptation after order+1 equal steps ----
-  const int n_equal_acc = L.n_equal + 1;
+  // ---- The error, the order and step adaptation, the rescale ----
+  BDFTail<N, CT> tl;
+  run_unit<CT>([&](auto& op) {
+    tl.run(op, L, y_new, delta, rtol, atol, converged, last, (CT)it, maxit, t,
+           x_new, tend, hmax, hmin);
+  });
+  accepted = tl.accepted;
   finished = accepted && last;
-  const bool adapt = accepted && n_equal_acc >= order + 1 && !finished;
-  int new_order = order;
-  CT fac_case;
-  if (adapt) {
-    double row_ord[N], row_op2[N];
+  if (tl.adapt && tl.new_order != order) {
+    double J[N * N];
+    f.jac(x_new, y_new, J, a);
 #pragma unroll
-    for (int j = 0; j < N; ++j) {
-      row_ord[j] = (L.d(order, j) + 0.0) + delta[j];
-      row_op2[j] = delta[j] - (L.d(order + 1, j) + 0.0);
-    }
-    const CT inf = (CT)INFINITY;
-    const CT err_m = order > 1 ? rms_scaled<N, CT>(row_ord, (CT)bdf::ERROR_CONST[order - 1], inv_scale2) : inf;
-    const CT err_p = order < MO ? rms_scaled<N, CT>(row_op2, (CT)bdf::ERROR_CONST[order + 1], inv_scale2) : inf;
-    const CT errs[3] = {err_m, error_norm, err_p};
-    CT lf[3];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) lf[k] = log_factor(errs[k], k);
-    int best = 0;
-    CT lmax = lf[0];
-#pragma unroll
-    for (int k = 1; k < 3; ++k) {
-      const bool nan_k = lf[k] != lf[k], nan_b = lmax != lmax;
-      if (!nan_b && (nan_k || lf[k] > lmax)) {
-        lmax = lf[k];
-        best = k;
-      }
-    }
-    new_order = order + (best - 1);
-    new_order = new_order < 1 ? 1 : (new_order > MO ? MO : new_order);
-    fac_case = C::vmin(C::mul(safety(), C::exp(lmax)), (CT)10);
-    if (new_order != order) {
-      double J[N * N];
-      f.jac(x_new, y_new, J, a);
-#pragma unroll
-      for (int q = 0; q < N * N; ++q) s[K::JAC + q] = J[q];
-      njev += o.const_jac ? 0 : 1;
-    }
-  } else if (accepted) {
-    fac_case = (CT)1;
-  } else if (newton_fail) {
-    fac_case = (CT)0.5;
-  } else {
-    fac_case = C::vmax(C::mul(safety(), C::exp(log_factor(error_norm, 1))),
-                       (CT)0.2);
+    for (int q = 0; q < N * N; ++q) s[K::JAC + q] = J[q];
+    njev += o.const_jac ? 0 : 1;
   }
-
-  // ---- One rescale for every outcome and the next step's clamps ----
-  const double t_next = accepted ? x_new : t;
-  const double h_des = h_abs * (double)fac_case;
-  double h1 = nmin(h_des, hmax);
-  if (h1 < hmin && hmin > 0.0) h1 = hmin;
-  if (posneg * (t_next + posneg * h1 - tend) > 0.0) h1 = fabs(tend - t_next);
-  const bool clamp_changed = h1 != h_des;
   if (accepted) {
     // The difference array: D[order+2] = delta - D[order+1],
     // D[order+1] = delta, and D[k] = D[k] + (D[k+1] + ... + (delta + 0.0))
@@ -445,18 +585,12 @@ __device__ __forceinline__ int bdf_attempt(
         L.d(k, j) = sk;
       }
     }
-    emit(x_new, t, h_signed, y_new, order);
   }
-  const int ord_in = adapt ? new_order : order;
-  // A step that stays (h1 == h_abs, a normal finite number) has factor
-  // h1 / h_abs == 1 exactly.
-  const double factor = (h1 == h_abs && h_abs >= 1e-300 && h_abs < INFINITY)
-                            ? 1.0
-                            : h1 / nmax(h_abs, 1e-300);
-  change_d<N, T>(s.at(K::D), ord_in, factor);
-  L.n_equal = (accepted && !adapt && !clamp_changed) ? n_equal_acc : 0;
-  L.lu_current = lu_current && !newton_fail && !adapt && !clamp_changed;
-  L.order = ord_in;
+  factor = tl.factor;
+  const double h1 = tl.h1;
+  L.n_equal = (accepted && !tl.adapt && !tl.clamp_changed) ? L.n_equal + 1 : 0;
+  L.lu_current = lu_current && !newton_fail && !tl.adapt && !tl.clamp_changed;
+  L.order = tl.adapt ? tl.new_order : order;
   L.h_abs = h1;
   bool finite_y = true;
 #pragma unroll
@@ -468,7 +602,7 @@ __device__ __forceinline__ int bdf_attempt(
     for (int j = 0; j < N; ++j) y[j] = y_new[j];
   }
   count_step = !too_small;
-  count_reject = (newton_fail || err_reject) && !too_small;
+  count_reject = (newton_fail || tl.err_reject) && !too_small;
   return (too_small || dead) ? STEP_SIZE_TOO_SMALL : RUNNING;
 }
 
@@ -568,27 +702,31 @@ __global__ void __launch_bounds__(T, MB) bdf_kernel(
   const CT newton_tol = bdf_newton_tol<N, CT>(o, rtol);
   const int nstep0 = nstep;
   StiffOut<N, bdf::MAX_ORDER + 2, MODE> out(md, i, init);
-  const auto emit = [&](double x_new, double xold, double h,
-                        const double* y_new, int order) {
-    if constexpr (MODE != STIFF_LEAN) {
-      const Slots<T> D = s.at(K::D);
-      out.record(x_new, xold, h, y_new, [&](int q, int j) {
-        return q == 0 ? D[j]
-               : q <= bdf::MAX_ORDER ? (q <= order ? D[q * N + j] : 0.0)
-                                     : (double)order;
-      });
-      out.samples(x_new, L.posneg, [&](double ti, double* yi) {
-        bdf_interp<N>(D, order, xold, h, ti, yi);
-      });
-    }
-  };
   while (status == RUNNING && nstep - nstep0 < max_attempts && !out.full()) {
     bool accepted, finished, count_step, count_reject;
     int fe, je, le;
+    double factor;
+    const double xold = t, h_signed = L.posneg * L.h_abs;
+    const int order = L.order;
     int st = bdf_attempt<F, CT, T>(f, a, t, y, L, o, rtol, atol, newton_tol,
                                    tend, hmax, hmin, accepted, finished,
                                    count_step, count_reject, fe, je, le,
-                                   emit);
+                                   factor);
+    // ---- The accepted step's dense output from D, then change_d ----
+    if constexpr (MODE != STIFF_LEAN) {
+      if (accepted) {
+        const Slots<T> D = s.at(K::D);
+        out.record(t, xold, h_signed, y, [&](int q, int j) {
+          return q == 0 ? D[j]
+                 : q <= bdf::MAX_ORDER ? (q <= order ? D[q * N + j] : 0.0)
+                                       : (double)order;
+        });
+        out.samples(t, L.posneg, [&](double ti, double* yi) {
+          bdf_interp<N>(D, order, xold, h_signed, ti, yi);
+        });
+      }
+    }
+    change_d<N, T>(s.at(K::D), L.order, factor);
     nstep += count_step ? 1 : 0;
     naccpt += accepted ? 1 : 0;
     nrejct += count_reject ? 1 : 0;

@@ -18,12 +18,16 @@
 // divisions and square roots and float32 pow, so the FP64 pipe waits on
 // latency unless many lanes are in flight.  The design: (1) a value that
 // only one path reads is computed on that path alone (the divergence
-// factor's pow, the convergence power theta^rem, the predictive
-// controller's guess), which changes no bit of any output; (2) the lane's
-// cold state (jac, inv1, br, bi, cont, f0, scal and its launch constants:
-// RadauCold) lives in its shared-memory slots, so a thread needs fewer
-// registers and more lanes are resident on an SM (IVP_RADAU_ENTRY's threads
-// and min blocks).
+// factor's pow, the convergence power theta^rem), which changes no bit of
+// any output; (2) the lane's cold state (jac, inv1, br, bi, cont, f0, scal
+// and its launch constants: RadauCold) lives in its shared-memory slots, so
+// a thread needs fewer registers and more lanes are resident on an SM
+// (IVP_RADAU_ENTRY's threads and min blocks); (3) the divisions, square
+// roots and faccon's power run in four units (the decomposition, the head,
+// each Newton iteration's rate, the tail with the error, the controller and
+// the accepted step's rows), each straight through FastCtl's fast paths with
+// one branch to the library's (FastOps, stiff_common.cuh), where ptxas gave
+// every one of them its own test and slow-path call.
 //
 // The sampled and record modes (SAMPLED, RECORD) replace the same loop in
 // core/driver.py's sample and record modes (ivp_tpu/core/driver.py
@@ -105,28 +109,26 @@ struct RadauLane {
   Slots<T> s;
 };
 
-template <int N, class CT>
-__device__ __forceinline__ CT rms_c(const double* v, const CT* inv_scal) {
-  using C = Ctl<CT>;
+// The scaled sum of squares of v, in O's operations (a FastOps or LibOps
+// member).
+template <int N, class CT, class O>
+__device__ __forceinline__ CT sumsq_c(O& op, const double* v,
+                                      const CT* inv_scal) {
   CT s = 0;
 #pragma unroll
   for (int j = 0; j < N; ++j) {
-    const CT q = C::mul((CT)v[j], inv_scal[j]);
-    s = j ? C::add(s, C::mul(q, q)) : C::mul(q, q);
-  }
-  return C::vmax(C::sqrt(s / (CT)N), (CT)1e-10);
-}
-
-template <int N, class CT>
-__device__ __forceinline__ CT sumsq_c(const double* v, const CT* inv_scal) {
-  using C = Ctl<CT>;
-  CT s = 0;
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    const CT q = C::mul((CT)v[j], inv_scal[j]);
-    s = j ? C::add(s, C::mul(q, q)) : C::mul(q, q);
+    const CT q = op.mul((CT)v[j], inv_scal[j]);
+    s = j ? op.add(s, op.mul(q, q)) : op.mul(q, q);
   }
   return s;
+}
+
+// The error norm: the RMS of v, floored at 1e-10.
+template <int N, class CT, class O>
+__device__ __forceinline__ CT rms_c(O& op, const double* v,
+                                    const CT* inv_scal) {
+  return op.vmax(sqrt_wide(op, div_n<N>(op, sumsq_c<N, CT>(op, v, inv_scal))),
+                 (CT)1e-10);
 }
 
 // The Newton tolerance of a lane (lane-constant: its transformed rtol).
@@ -137,9 +139,210 @@ __device__ __forceinline__ CT radau_newton_tol(const RadauOptions& o,
   return (CT)nmax((10.0 * o.uround) / tolst, nmin(sqrt(tolst), 0.03));
 }
 
+// The decomposition unit: E1 = fac1 I - J and E2 = (alphn + i betan) I - J
+// inverted into the slots' INV1, BR, BI; returns the singular flag.
+template <int N, int T, class P>
+__device__ __forceinline__ bool radau_decompose(P& op, double h,
+                                                const Slots<T> s,
+                                                double* inv1, double* br,
+                                                double* bi) {
+  using K = RadauCold<N>;
+  using namespace radau;
+  const auto dh = op.divisor(h);
+  const double fac1 = op.div_by(U1, dh), alphn = op.div_by(ALPH, dh),
+               betan = op.div_by(BETA, dh);
+  double e1[N * N], e2r[N * N], e2i[N * N];
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const double eye = i == j ? 1.0 : 0.0;
+      const double jij = s[K::JAC + i * N + j];
+      e1[i * N + j] = fac1 * eye - jij;
+      e2r[i * N + j] = alphn * eye - jij;
+      e2i[i * N + j] = betan * eye;
+    }
+  const bool s1 = inv_real_op<N>(op, e1, inv1);
+  const bool s2 = inv_cplx_op<N>(op, e2r, e2i, br, bi);
+  return s1 || s2;
+}
+
+// The head unit: h's quotients, the step ratio of the starting values, the
+// Newton rate's starting faccon and the inverse scale.
+template <int N, class CT, int T>
+struct RadauHead {
+  double fac1, alphn, betan, c3q;
+  CT faccon, inv_scal[N];
+  template <class P>
+  __device__ __forceinline__ void run(P& op, const RadauLane<N, CT, T>& L,
+                                      double uround) {
+    using namespace radau;
+    const auto dh = op.d.divisor(L.h);
+    fac1 = op.d.div_by(U1, dh);
+    alphn = op.d.div_by(ALPH, dh);
+    betan = op.d.div_by(BETA, dh);
+    c3q = op.d.div(L.h, L.hold);
+    faccon = op.c.pow(op.c.vmax(L.faccon, (CT)uround), (CT)0.8);
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      inv_scal[j] = (CT)op.d.div(1.0, L.s[RadauCold<N>::SCAL + j]);
+  }
+};
+
+// One Newton iteration's rate unit: the increment's norm, the contraction
+// rate theta and faccon, and whether the iteration converged, may go on,
+// or diverges (dyth >= 1; read only where the rate was checked and is
+// below 0.99).
+template <class CT>
+struct RadauRate {
+  CT dyno, theta, thqold, faccon, dyth;
+  bool check, ok_theta, diverged, converged;
+  template <int N, class O>
+  __device__ __forceinline__ void run(O& op, const double* x1,
+                                      const double* x2, const double* x3,
+                                      const CT* inv_scal, int it_n, int maxit,
+                                      CT dynold, CT thqold_in, CT theta_in,
+                                      CT faccon_in, CT newton_tol) {
+    const CT tiny = tiny_of<CT>();
+    dyno = sqrt_wide(
+        op, div_wide(op, op.add(op.add(sumsq_c<N, CT>(op, x1, inv_scal),
+                                       sumsq_c<N, CT>(op, x2, inv_scal)),
+                                sumsq_c<N, CT>(op, x3, inv_scal)),
+                     (CT)(3.0 * N)));
+    check = it_n > 1 && it_n < maxit;
+    // Every operand below that no output reads is a constant in range.
+    const CT thq = div_wide(op, check ? dyno : (CT)0,
+                            check ? op.vmax(dynold, tiny) : (CT)1);
+    const bool root = check && it_n != 2;
+    const CT th = sqrt_wide(op, root ? op.mul(thq, op.vmax(thqold_in, tiny))
+                                     : (CT)1);
+    theta = check ? (it_n == 2 ? thq : th) : theta_in;
+    thqold = check ? thq : thqold_in;
+    ok_theta = theta < (CT)0.99;
+    const bool rate = check && ok_theta;
+    const CT fq = div_wide(op, rate ? theta : (CT)0,
+                           rate ? op.sub((CT)1, theta) : (CT)1);
+    faccon = rate ? fq : faccon_in;
+    // theta^rem as rem products from 1, then dyth; a product below 2^-62
+    // over a tolerance from 2^-60 up is below 1/4, so it cannot diverge and
+    // its quotient is not taken.
+    const int rem_i = rate ? maxit - 1 - it_n : 0;
+    CT theta_rem = 1;
+    for (int k = 1; k <= rem_i; ++k) theta_rem = op.mul(theta_rem, theta);
+    const CT num = op.mul(op.mul(faccon, dyno), theta_rem);
+    const bool small = num < (CT)0x1p-62 && newton_tol >= (CT)0x1p-60;
+    dyth = div_wide(op, rate && !small ? num : (CT)0, newton_tol);
+    diverged = rate && !small && dyth >= (CT)1;
+    converged = op.mul(faccon, dyno) <= newton_tol;
+  }
+};
+
+// The error and controller unit after the Newton loop: the error estimate
+// (with AGAIN, the second one of a first or rejected step whose first is
+// above 1, an RHS call: the library's run only), the step-size
+// controller and its predictive guess, the clamps and end test of an
+// accepted step and the quotients of a rejected one, and the collocation
+// rows an accepted step writes (cont[1..3]; cont[0] is ynew).
+template <int N, class CT>
+struct RadauTail {
+  CT err, err_acc;
+  double h_acc, hnew, hnew_acc, qt, hhfac_rej, t_new;
+  bool accepted, hit_end, again;
+  double ynew[N], c1r[N], c2r[N], c3r[N];
+  template <bool AGAIN, class F, int T, class P>
+  __device__ __forceinline__ void run(
+      P& op, const F& f, const double* a, double t, const double* y,
+      const double* z1, const double* z2, const double* z3,
+      const RadauLane<N, CT, T>& L, const CT* inv_scal, const RadauOptions& o,
+      bool converged, bool sing, bool too_small, CT newt, int naccpt,
+      int& nfev) {
+    using K = RadauCold<N>;
+    using namespace radau;
+    const Slots<T> s = L.s;
+    const double h = L.h, posneg = L.posneg;
+    const auto dh = op.d.divisor(h);
+    const double hee0 = op.d.div_by(DD_0, dh), hee1 = op.d.div_by(DD_1, dh),
+                 hee2 = op.d.div_by(DD_2, dh);
+    double f1e[N], ev[N], err_vec[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      f1e[j] = hee0 * z1[j] + hee1 * z2[j] + hee2 * z3[j];
+      ev[j] = f1e[j] + s[K::F0 + j];
+    }
+    matvec<N>(s.at(K::INV1), ev, err_vec);
+    err = rms_c<N, CT>(op.c, err_vec, inv_scal);
+    again = converged && err >= (CT)1 && (L.first || L.reject);
+    if constexpr (AGAIN) {
+      if (again) {
+        double yy[N], fr[N], e2[N];
+#pragma unroll
+        for (int j = 0; j < N; ++j) yy[j] = err_vec[j] + y[j];
+        f(t, yy, fr, a);
+#pragma unroll
+        for (int j = 0; j < N; ++j) fr[j] = fr[j] + f1e[j];
+        matvec<N>(s.at(K::INV1), fr, e2);
+        err = rms_c<N, CT>(op.c, e2, inv_scal);
+        nfev += 1;
+      }
+    }
+    const int maxit = o.newton_maxiter;
+    const CT fac = op.c.vmin(
+        op.c.div((CT)o.cfac, op.c.add(newt, (CT)(2.0 * maxit))),
+        (CT)o.safety);
+    CT quot = op.c.vmax(
+        op.c.vmin(div_wide(op.c, sqrt_wide(op.c, sqrt_wide(op.c, err)), fac),
+                  (CT)o.facl),
+        (CT)o.facr);
+    accepted = converged && err <= (CT)1 && !sing && !too_small;
+    // The predictive guess, which counts only from the second accepted step
+    // on; where it does not count, its operands are constants in range.
+    const bool pred = o.predictive && accepted, guess = pred && naccpt + 1 > 1;
+    const CT ratio = op.c.vmin(
+        div_wide(op.c, guess ? op.c.mul(err, err) : (CT)1,
+                 guess ? op.c.vmax(L.err_acc, (CT)1e-30) : (CT)1),
+        (CT)1e30);
+    CT facgus = div_wide(
+        op.c,
+        op.c.mul((CT)op.d.div_by(guess ? L.h_acc : h, dh),
+                 sqrt_wide(op.c, sqrt_wide(op.c, ratio))),
+        (CT)o.safety);
+    facgus = op.c.vmax(op.c.vmin(facgus, (CT)o.facl), (CT)o.facr);
+    quot = guess ? op.c.vmax(quot, facgus) : quot;
+    h_acc = pred ? h : L.h_acc;
+    err_acc = pred ? op.c.vmax(err, (CT)1e-2) : L.err_acc;
+    hnew = hdiv_wide(op.c, h, quot);
+    // The accepted step's end, clamps and rows.
+    const double tend = s[K::TEND];
+    t_new = L.last ? tend : t + h;
+    const double clamped =
+        nmin(nmax(fabs(hnew), s[K::HMIN]), s[K::HMAX]) * posneg;
+    hnew_acc = L.reject ? posneg * nmin(fabs(clamped), fabs(h)) : clamped;
+    hit_end =
+        (t_new + div_wide(op.d, hnew_acc, o.quot1) - tend) * posneg >= 0.0;
+    qt = div_by_wide(op.d, hnew_acc, dh);
+    hhfac_rej = div_by_wide(op.d, hnew, dh);
+    constexpr double R_C1MC2 = 1.0 / C1MC2, R_C1 = 1.0 / C1, R_C2 = 1.0 / C2,
+                     R_C2M1 = 1.0 / C2M1, R_C1M1 = 1.0 / C1M1;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      ynew[j] = y[j] + z3[j];
+      const double ak = div_known(op.d, z1[j] - z2[j], C1MC2, R_C1MC2);
+      const double acont3 =
+          div_known(op.d, ak - div_known(op.d, z1[j], C1, R_C1), C2, R_C2);
+      c1r[j] = div_known(op.d, z2[j] - z3[j], C2M1, R_C2M1);
+      c2r[j] = div_known(op.d, ak - c1r[j], C1M1, R_C1M1);
+      c3r[j] = c2r[j] - acont3;
+    }
+  }
+};
+
 // One attempt of methods/radau.py::make_radau_attempt on lane L at (t, y)
 // (advanced in place when accepted).  Returns the engine's status; the
-// step's flags and counts go to the references.
+// step's flags and counts go to the references.  Its divisions, square
+// roots and powers run in four units (the decomposition, the head, each
+// Newton iteration's rate, the tail), each on the fast paths with one
+// branch to the library's (FastOps); the rest is the reference's order of
+// operations.
 template <class F, class CT, int T>
 __device__ __forceinline__ int radau_attempt(
     const F& f, const double* a, double& t, double* y, int naccpt,
@@ -165,34 +368,28 @@ __device__ __forceinline__ int radau_attempt(
     njev = o.const_jac ? 0 : 1;
   }
   // ---- Decompositions (reused when the step ratio stays near 1) ----
-  const double fac1 = U1 / h, alphn = ALPH / h, betan = BETA / h;
   bool sing = false;
   nlu = 0;
   if (L.call_decomp) {
-    double e1[N * N], e2r[N * N], e2i[N * N];
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        const double eye = i == j ? 1.0 : 0.0;
-        const double jij = s[K::JAC + i * N + j];
-        e1[i * N + j] = fac1 * eye - jij;
-        e2r[i * N + j] = alphn * eye - jij;
-        e2i[i * N + j] = betan * eye;
-      }
     double inv1[N * N], br[N * N], bi[N * N];
-    const bool s1 = inv_real<N>(e1, inv1);
-    const bool s2 = inv_cplx<N>(e2r, e2i, br, bi);
+    FastCtl<double> fast;
+    sing = radau_decompose<N, T>(fast, h, s, inv1, br, bi);
+    if (!fast.ok) {
+      Ctl<double> lib;
+      sing = radau_decompose<N, T>(lib, h, s, inv1, br, bi);
+    }
 #pragma unroll
     for (int q = 0; q < N * N; ++q) {
       s[K::INV1 + q] = inv1[q];
       s[K::BR + q] = br[q];
       s[K::BI + q] = bi[q];
     }
-    sing = s1 || s2;
     nlu = 2;
   }
   const bool too_small = 0.1 * fabs(h) <= fabs(t) * o.uround;
+  RadauHead<N, CT, T> hd;
+  run_unit<CT>([&](auto& op) { hd.run(op, L, o.uround); });
+  const double fac1 = hd.fac1, alphn = hd.alphn, betan = hd.betan;
 
   // ---- Newton starting values: the last collocation polynomial ----
   double z1[N], z2[N], z3[N], f1[N], f2[N], f3[N];
@@ -200,7 +397,7 @@ __device__ __forceinline__ int radau_attempt(
 #pragma unroll
     for (int j = 0; j < N; ++j) z1[j] = z2[j] = z3[j] = f1[j] = f2[j] = f3[j] = 0.0;
   } else {
-    const double c3q = h / L.hold;
+    const double c3q = hd.c3q;
     const double c1q = C1 * c3q, c2q = C2 * c3q;
 #pragma unroll
     for (int j = 0; j < N; ++j) {
@@ -216,16 +413,13 @@ __device__ __forceinline__ int radau_attempt(
   }
 
   // ---- Simplified Newton iteration ----
-  CT faccon = C::pow(C::vmax(L.faccon, (CT)o.uround), (CT)0.8);
-  CT inv_scal[N];
-#pragma unroll
-  for (int j = 0; j < N; ++j) inv_scal[j] = (CT)(1.0 / s[K::SCAL + j]);
+  CT faccon = hd.faccon;
+  const CT* inv_scal = hd.inv_scal;
   CT dynold = 0, thqold = 0, theta = (CT)fabs(o.thet);
   double hhfac = L.hhfac;
   int code = (sing || too_small) ? NEWTON_MAXITER : NEWTON_CONTINUE;
   int it = 0;
   nfev = 0;
-  const CT tiny = tiny_of<CT>();
   while (code == NEWTON_CONTINUE) {
     if (it >= maxit) {
       code = NEWTON_MAXITER;
@@ -263,39 +457,19 @@ __device__ __forceinline__ int radau_attempt(
     for (int j = 0; j < N; ++j) x3[j] = p1[j] + p2[j];
 
     const int it_n = it + 1;
-    const CT dyno_n = C::sqrt(
-        C::add(C::add(sumsq_c<N, CT>(x1, inv_scal), sumsq_c<N, CT>(x2, inv_scal)),
-               sumsq_c<N, CT>(x3, inv_scal)) /
-        (CT)(3.0 * N));
-    const bool check = it_n > 1 && it_n < maxit;
-    CT theta_n = theta, thqold_n = thqold;
-    if (check) {
-      const CT thq = dyno_n / C::vmax(dynold, tiny);
-      theta_n = it_n == 2 ? thq : C::sqrt(C::mul(thq, C::vmax(thqold, tiny)));
-      thqold_n = thq;
+    RadauRate<CT> r;
+    run_unit<CT>([&](auto& op) {
+      r.template run<N>(op.c, x1, x2, x3, inv_scal, it_n, maxit, dynold,
+                        thqold, theta, faccon, newton_tol);
+    });
+    if (r.diverged) {
+      // The step's new factor, only where the iteration diverges.
+      const CT rem = C::sub((CT)(maxit - 1), (CT)it_n);
+      const CT qnewt = C::vmin(C::vmax(r.dyth, (CT)1e-4), (CT)20);
+      hhfac = (double)C::mul((CT)0.8,
+                             C::pow(qnewt, (CT)-1 / C::add((CT)4, rem)));
     }
-    const bool ok_theta = theta_n < (CT)0.99;
-    const CT faccon_n =
-        (check && ok_theta) ? theta_n / C::sub((CT)1, theta_n) : faccon;
-    // Divergence (read only when the rate was checked and is below 0.99):
-    // theta^rem as rem products from 1, then, only where the iteration
-    // diverges, the step's new factor.
-    bool diverged = false;
-    if (check && ok_theta) {
-      const int rem_i = maxit - 1 - it_n;
-      CT theta_rem = 1;
-      for (int k = 1; k <= rem_i; ++k) theta_rem = C::mul(theta_rem, theta_n);
-      const CT dyth = C::mul(C::mul(faccon_n, dyno_n), theta_rem) / newton_tol;
-      if (dyth >= (CT)1) {
-        diverged = true;
-        const CT rem = C::sub((CT)(maxit - 1), (CT)it_n);
-        const CT qnewt = C::vmin(C::vmax(dyth, (CT)1e-4), (CT)20);
-        hhfac = (double)C::mul((CT)0.8,
-                               C::pow(qnewt, (CT)-1 / C::add((CT)4, rem)));
-      }
-    }
-    const bool bad_theta = check && !ok_theta;
-    const CT dynold_n = C::vmax(dyno_n, (CT)o.uround);
+    const bool bad_theta = r.check && !r.ok_theta;
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       f1[j] = f1[j] + x1[j];
@@ -305,66 +479,43 @@ __device__ __forceinline__ int radau_attempt(
       z2[j] = T_1_0 * f1[j] + T_1_1 * f2[j] + T_1_2 * f3[j];
       z3[j] = T_2_0 * f1[j] + f2[j];
     }
-    const bool converged = C::mul(faccon_n, dyno_n) <= newton_tol;
-    code = bad_theta   ? NEWTON_BAD_THETA
-           : diverged  ? NEWTON_DIVERGED
-           : converged ? NEWTON_CONVERGED
-                       : NEWTON_CONTINUE;
+    code = bad_theta     ? NEWTON_BAD_THETA
+           : r.diverged  ? NEWTON_DIVERGED
+           : r.converged ? NEWTON_CONVERGED
+                         : NEWTON_CONTINUE;
     it = it_n;
-    dynold = dynold_n;
-    thqold = thqold_n;
-    theta = theta_n;
-    faccon = faccon_n;
+    dynold = C::vmax(r.dyno, (CT)o.uround);
+    thqold = r.thqold;
+    theta = r.theta;
+    faccon = r.faccon;
     nfev += 3;
   }
   slots_fence();
-  const CT newt = (CT)it;
   const bool converged = code == NEWTON_CONVERGED;
 
-  // ---- Error estimation ----
-  const double hee0 = DD_0 / h, hee1 = DD_1 / h, hee2 = DD_2 / h;
-  double f1e[N], ev[N], err_vec[N];
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    f1e[j] = hee0 * z1[j] + hee1 * z2[j] + hee2 * z3[j];
-    ev[j] = f1e[j] + s[K::F0 + j];
-  }
-  matvec<N>(s.at(K::INV1), ev, err_vec);
-  CT err = rms_c<N, CT>(err_vec, inv_scal);
-  if (converged && err >= (CT)1 && (L.first || L.reject)) {
-    double yy[N], fr[N], e2[N];
-#pragma unroll
-    for (int j = 0; j < N; ++j) yy[j] = err_vec[j] + y[j];
-    f(t, yy, fr, a);
-#pragma unroll
-    for (int j = 0; j < N; ++j) fr[j] = fr[j] + f1e[j];
-    matvec<N>(s.at(K::INV1), fr, e2);
-    err = rms_c<N, CT>(e2, inv_scal);
-    nfev += 1;
-  }
-
-  // ---- Step-size controller ----
-  const CT fac = C::vmin((CT)o.cfac / C::add(newt, (CT)(2.0 * maxit)),
-                         (CT)o.safety);
-  CT quot = C::vmax(C::vmin(C::sqrt(C::sqrt(err)) / fac, (CT)o.facl),
-                    (CT)o.facr);
-  accepted = converged && err <= (CT)1 && !sing && !too_small;
-  double h_acc = L.h_acc;
-  CT err_acc = L.err_acc;
-  if (o.predictive && accepted) {
-    // The predictive guess counts only from the second accepted step on.
-    if (naccpt + 1 > 1) {
-      const CT ratio =
-          C::vmin(C::mul(err, err) / C::vmax(L.err_acc, (CT)1e-30), (CT)1e30);
-      CT facgus = C::mul((CT)(L.h_acc / h), C::sqrt(C::sqrt(ratio))) /
-                  (CT)o.safety;
-      facgus = C::vmax(C::vmin(facgus, (CT)o.facl), (CT)o.facr);
-      quot = C::vmax(quot, facgus);
+  // ---- Error estimation and step-size controller ----
+  RadauTail<N, CT> tl;
+  {
+    // As run_unit; a second error estimate (again) takes the library's run,
+    // the one with the RHS call.
+    FastOps<CT> fast;
+    tl.template run<false>(fast, f, a, t, y, z1, z2, z3, L, inv_scal, o,
+                           converged, sing, too_small, (CT)it, naccpt, nfev);
+    bool done = fast.ok() && !tl.again;
+    if (!fast.ok() && !tl.again) {
+      WideOps<CT> wide;
+      tl.template run<false>(wide, f, a, t, y, z1, z2, z3, L, inv_scal, o,
+                             converged, sing, too_small, (CT)it, naccpt,
+                             nfev);
+      done = wide.ok() && !tl.again;
     }
-    h_acc = h;
-    err_acc = C::vmax(err, (CT)1e-2);
+    if (!done) {
+      LibOps<CT> lib;
+      tl.template run<true>(lib, f, a, t, y, z1, z2, z3, L, inv_scal, o,
+                            converged, sing, too_small, (CT)it, naccpt, nfev);
+    }
   }
-  const double hnew = h / (double)quot;
+  accepted = tl.accepted;
 
   // ---- Accept and reject paths ----
   const bool diverged = code == NEWTON_DIVERGED;
@@ -373,34 +524,26 @@ __device__ __forceinline__ int radau_attempt(
   finished = accepted && L.last;
   count_step = !sing;
   count_reject = !accepted && !sing &&
-                 (diverged || (converged && err > (CT)1 && !L.first));
+                 (diverged || (converged && tl.err > (CT)1 && !L.first));
   double h_next, hhfac_next;
   if (accepted) {
     const double tend = s[K::TEND];
-    const double t_new = L.last ? tend : t + h;
-    double ynew[N];
+    const double t_new = tl.t_new;
 #pragma unroll
     for (int j = 0; j < N; ++j) {
-      ynew[j] = y[j] + z3[j];
-      const double ak = (z1[j] - z2[j]) / C1MC2;
-      const double acont3 = (ak - z1[j] / C1) / C2;
-      const double c1r = (z2[j] - z3[j]) / C2M1;
-      const double c2r = (ak - c1r) / C1M1;
-      s[K::CONT + j] = ynew[j];
-      s[K::CONT + N + j] = c1r;
-      s[K::CONT + 2 * N + j] = c2r;
-      s[K::CONT + 3 * N + j] = c2r - acont3;
+      s[K::CONT + j] = tl.ynew[j];
+      s[K::CONT + N + j] = tl.c1r[j];
+      s[K::CONT + 2 * N + j] = tl.c2r[j];
+      s[K::CONT + 3 * N + j] = tl.c3r[j];
     }
     double f0[N];
-    f(t_new, ynew, f0, a);
+    f(t_new, tl.ynew, f0, a);
     nfev += 1;
-    double hnew_acc = nmin(nmax(fabs(hnew), s[K::HMIN]), s[K::HMAX]) * posneg;
-    if (L.reject) hnew_acc = posneg * nmin(fabs(hnew_acc), fabs(h));
-    const bool hit_end = (t_new + hnew_acc / o.quot1 - tend) * posneg >= 0.0;
-    const double qt = hnew_acc / h;
+    const bool hit_end = tl.hit_end;
+    const double qt = tl.qt;
     const bool reuse = !hit_end && theta < (CT)o.thet && qt > o.quot1 &&
                        qt < o.quot2;
-    h_next = hit_end ? tend - t_new : (reuse ? h : hnew_acc);
+    h_next = hit_end ? tend - t_new : (reuse ? h : tl.hnew_acc);
     hhfac_next = reuse ? L.hhfac : h_next;
     L.call_jac = !reuse && theta >= (CT)o.thet;
     L.call_decomp = !reuse;
@@ -409,28 +552,28 @@ __device__ __forceinline__ int radau_attempt(
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       s[K::F0 + j] = f0[j];
-      s[K::SCAL + j] = s[K::ATOL + j] + s[K::RTOL + j] * fabs(ynew[j]);
-      y[j] = ynew[j];
+      s[K::SCAL + j] = s[K::ATOL + j] + s[K::RTOL + j] * fabs(tl.ynew[j]);
+      y[j] = tl.ynew[j];
     }
     L.first = false;
     L.reject = false;
     L.last = hit_end;
     t = t_new;
   } else {
-    const double h_rej = L.first ? h * 0.1 : hnew;
-    const double hhfac_rej = L.first ? 0.1 : hnew / h;
+    const double h_rej = L.first ? h * 0.1 : tl.hnew;
+    const double hhfac_rej = L.first ? 0.1 : tl.hhfac_rej;
     h_next = diverged ? h * hhfac : (broke ? h * 0.5 : h_rej);
     hhfac_next = diverged ? hhfac : (broke ? 0.5 : hhfac_rej);
     L.call_decomp = true;
     if (broke) L.singular += 1;
-    L.reject = L.reject || diverged || err > (CT)1 || broke;
+    L.reject = L.reject || diverged || tl.err > (CT)1 || broke;
     L.last = false;
   }
   L.faccon = faccon;
   L.theta = theta;
   L.hhfac = hhfac_next;
-  L.h_acc = h_acc;
-  L.err_acc = err_acc;
+  L.h_acc = tl.h_acc;
+  L.err_acc = tl.err_acc;
   L.h = h_next;
   if (too_small) return STEP_SIZE_TOO_SMALL;
   if (broke && L.singular > 5) return SINGULAR_MATRIX;

@@ -3,7 +3,8 @@
 // weights DD, the eigenvalues U1 and ALPH +- i BETA; BDF: gamma, alpha, the
 // error constants and kappa) and of methods/bdf.py::CHANGE_D_C, each printed
 // to round-trip in double (tests/test_torch_tableaus.py holds them equal).
-// The tables a lane indexes by its order sit in the constant bank.
+// The tables a lane indexes by its order sit in the constant bank;
+// CHANGE_D_C is read at compile time (bdf.cu's change_d).
 #pragma once
 
 namespace ivp {
@@ -45,7 +46,7 @@ __constant__ double GAMMA[6] = {0.0, 1.0, 1.5, 1.8333333333333333, 2.08333333333
 __constant__ double ALPHA[6] = {0.0, 1.185, 1.6666666666666667, 1.9842166666666667, 2.1697916666666663, 2.283333333333333};
 __constant__ double ERROR_CONST[6] = {1.0, 0.315, 0.16666666666666666, 0.09911666666666669, 0.11354166666666668, 0.16666666666666666};
 // CHANGE_D_C[d][i][m]: the coefficient of factor^d in (R(factor) R(1))[i][m].
-__constant__ double CHANGE_D_C[6][6][6] = {
+constexpr double CHANGE_D_C[6][6][6] = {
   {
     {1.0, 0.0, 0.0, 0.0, 0.0, 0.0},
     {0.0, 0.0, 0.0, 0.0, 0.0, 0.0},

@@ -130,7 +130,14 @@ instantiation), then the phases (all by default, ``ab`` only with
   decay again at B=65536), then ``ab_stiff``: ``AB_STIFF_ROUNDS`` rounds of
   old, new, new, old ``turn_ms`` on the stiff row at each of ``STIFF_B``
   and on Robertson and decay at ``AB_STIFF_WIDE``, with the bound and each
-  side's share, and both sides' ptxas lines and SASS walks;
+  side's share, and both sides' ptxas lines and SASS walks (each loop's
+  static branches, ``loop_body``); between them the SAMPLED and RECORD
+  modes (``ab_stiff_modes``): ``ab_stiff_modes_bitwise`` on every
+  ``stiff_mode_cases`` case under both controller types (the sampled main
+  path's 101-point grid at B=131072, recording at 16384 with and without
+  coefficients in one chunk and in chunks of 64 rows, Robertson's log
+  grid, a step budget; every sample, row, count and carry field), then
+  turns of the sampled main path and the recording one's first chunk;
 * ``ab_events`` (needs ``--baseline``): every event instantiation built
   from another source tree against the package's: ``ab_events_bitwise``,
   the lanes differing in every output, event buffer and carry field of
@@ -156,7 +163,8 @@ instantiation), then the phases (all by default, ``ab`` only with
   kernels; both sides' registers of the resumable instantiations;
 * ``rehearse`` (alone, needs ``--baseline``, no card): both trees'
   resumable, stiff and erk kernels built with g++ (gxx.py) and held
-  field by field on CPU tensors (every ``erk_cases`` case too);
+  field by field on CPU tensors (every ``stiff_mode_cases`` and
+  ``erk_cases`` case too);
 * ``cover_share``: where the sampled solve of ``--split-method`` (DOP853
   by default, or RK23) covers a grid time: a copy of the sources with a
   warp-vote counter in erk_kernel's loop (``COVER_PATCH``) runs the Lorenz
@@ -192,7 +200,19 @@ instantiation), then the phases (all by default, ``ab`` only with
   the library's operations on the card: the float square root and the
   float ``pow`` on every float their range tests admit, the divisions (a
   divisor shared by two quotients), the step size over a float factor and
-  the double square root on ``FAST_DRAWS`` random operands each.
+  the double square root on ``FAST_DRAWS`` random operands each; and
+  stiff_common.cuh's paths of the stiff units (``FastCtl<float>::pow`` at
+  0.8, the division by Radau's constants, the ``WideCtl`` paths);
+* ``stiff_split`` (needs ``--baseline``): where an attempt of radau and
+  bdf spends its cycles, in the package's csrc and each baseline's: a copy
+  with clock64() stamps (``STIFF_STAMPS``) under
+  ``_variants/<label>-stiff-stamps/csrc``, VdP on the stiff main path
+  (B=131072, float32) lean and sampled and the decay row lean under both
+  controller types, outputs held bit for bit to the tree's build: the
+  cycles of each part (``STIFF_PARTS``) a lane-attempt, the runs past a
+  unit's fast paths and of its library path, the cycles a warp-attempt a
+  scheduler of both builds; and the stamped SASS's instructions, BRA,
+  BSSY and CALL between stamps by part (``stiff_regions``).
 
 The A/B, occupancy and two-kernel timings (``ab_stiff`` and
 ``stiff_occupancy`` too) are turns of ``turn_ms``: five
@@ -241,9 +261,12 @@ PHASES = ("sass", "settle", "sweep", "turns", "profile", "occupancy", "erk",
           "erk_occupancy", "ab", "ab_record", "events", "stiff",
           "stiff_occupancy", "ab_stiff", "ab_events", "resume_profile",
           "ab_resume", "rehearse", "cover_share", "ab_erk", "cycle_split",
-          "fast_paths")
+          "fast_paths", "stiff_split")
 # The stiff phase: lanes, turns.
 STIFF_B = (16384, 131072)
+# stiff_split: lanes, rounds of variant and stamped turns.
+STIFF_SPLIT_B = (131072,)
+STIFF_SPLIT_ROUNDS = 4
 STIFF_ROUNDS = 3
 # ab_stiff: each case's lanes (stiff_cases), and rounds of old, new, new, old.
 AB_STIFF_B = {"bench": 131072, "robertson": 1024, "decay": 4096,
@@ -423,18 +446,22 @@ _ERK = re.compile(
 _STIFF = re.compile(r"(radau|bdf)_kernelI(\d+)")
 
 
+STIFF_MODE_NAMES = ("lean", "sampled", "record")
+
+
 def stiff_instantiation(mangled):
-    """``radau/VdP/f32/128x4`` for a stiff kernel instantiation, else
-    None."""
+    """``radau/VdP/f32/128x4/sampled`` for a stiff kernel instantiation (no
+    mode in builds from before the modes), else None."""
     m = _STIFF.search(mangled)
     if not m:
         return None
     rest = mangled[m.end():]
     functor, rest = rest[:int(m.group(2))], rest[int(m.group(2)):]
-    b = re.match(r"[fd](?:Li(\d+)ELi(\d+)E)?", rest)
+    b = re.match(r"[fd](?:Li(\d+)ELi(\d+)E(?:Li(\d)E)?)?", rest)
     bounds = f"/{b.group(1)}x{b.group(2)}" if b and b.group(1) else ""
+    mode = f"/{STIFF_MODE_NAMES[int(b.group(3))]}" if b and b.group(3) else ""
     return (f"{m.group(1)}/{functor}/{'f32' if rest[:1] == 'f' else 'f64'}"
-            f"{bounds}")
+            f"{bounds}{mode}")
 
 
 def instantiation(mangled):
@@ -644,7 +671,7 @@ def stiff_sass_report(lib, label):
                 continue
             loop_line("stiff_loop", path, build=label, instantiation=name,
                       loop=what, branches_skipped=skipped,
-                      instructions_skipped=skipped_ins)
+                      instructions_skipped=skipped_ins, **loop_body(ins, lp))
 
 
 def ptxas_frames(path):
@@ -1090,6 +1117,282 @@ def cycle_split(build, dev, variants, method="DOP853"):
                                            if v}))
 
 
+# stiff_split's instrumentation of radau.cu and bdf.cu, patched into a copy
+# of a csrc tree as cycle_split's is: each lane's clock64 at the bounds of
+# an attempt's parts (STIFF_PARTS), the cycles since its last stamp added to
+# its own slot of a static shared array (no registers held but the last
+# stamp's), which each lane adds to the sums an entry reads and zeroes at the
+# end; beside them its attempts, the runs past a unit's fast paths (every
+# `if (!fast.ok` of the tree, where it has them) and the runs of a unit's
+# library path after its wide paths (WideOps).  A stamp is also a marker in
+# the SASS: stiff_regions counts the branches between two.
+STIFF_PARTS = ("loop", "jacobian", "decomposition", "head", "newton", "error",
+               "controller", "tail", "emission", "change_d")
+STIFF_STAMP_HEAD = """constexpr int SINGULAR_MATRIX = 5;
+__device__ unsigned long long ivp_stamp_sums[13];
+__shared__ unsigned long long ivp_stamp_acc[13 * 128];
+#define IVP_STAMP(p)                                                         \\
+  {                                                                          \\
+    const long long now_ = clock64();                                        \\
+    ivp_stamp_acc[(p) * 128 + threadIdx.x] +=                                \\
+        (unsigned long long)(now_ - L.stamp_prev);                           \\
+    L.stamp_prev = now_;                                                     \\
+  }
+__device__ __forceinline__ bool ivp_stamp_slow(int k) {
+  ivp_stamp_acc[k * 128 + threadIdx.x] += 1;
+  return true;
+}
+"""
+STIFF_STAMP_TAKE = STAMP_TAKE.replace("IVP_ERK_LIBRARY()", "IVP_STIFF_LIBRARY()") \
+    .replace("[6]", "[13]").replace("0, 0, 0, 0, 0, 0", "0")
+_LOOP = ("  while (status == RUNNING && nstep - nstep0 < max_attempts && "
+         "!out.full()) {\n")
+_STAMP_KERNEL = (
+    (("  L.s = lane_slots<T>();\n",),
+     "  for (int q = 0; q < 13; ++q) ivp_stamp_acc[q * 128 + threadIdx.x] = 0;\n",
+     "after", False),
+    ((_LOOP,), "  L.stamp_prev = clock64();\n", "before", False),
+    ((_LOOP,), "    IVP_STAMP(0);\n    ivp_stamp_acc[10 * 128 + threadIdx.x] += 1;\n",
+     "after", False),
+    (("  out.store();\n",),
+     "  for (int q = 0; q < 13; ++q)\n"
+     "    atomicAdd(&ivp_stamp_sums[q], ivp_stamp_acc[q * 128 + threadIdx.x]);\n",
+     "before", False),
+    (("IVP_STIFF_LIBRARY()\n",), STIFF_STAMP_TAKE, "replace", False),
+)
+# (anchors, text, where, optional) of each source; both PR 16's tree and
+# its successors'.
+STIFF_STAMPS = {
+    "radau.cu": (
+        (("  int singular;\n  Slots<T> s;\n",), "  long long stamp_prev;\n",
+         "before", False),
+        (("  // ---- Decompositions (reused",), "  IVP_STAMP(1);\n", "before",
+         False),
+        (("  const bool too_small = 0.1 * fabs(h) <= fabs(t) * o.uround;\n",),
+         "  IVP_STAMP(2);\n", "before", False),
+        (("  CT dynold = 0, thqold = 0, theta = (CT)fabs(o.thet);\n",),
+         "  IVP_STAMP(3);\n", "before", False),
+        (("  const bool converged = code == NEWTON_CONVERGED;\n",),
+         "  IVP_STAMP(4);\n", "before", False),
+        (("  // ---- Step-size controller ----\n",), "  IVP_STAMP(5);\n",
+         "before", True),
+        (("  // ---- Accept and reject paths ----\n",), "  IVP_STAMP(6);\n",
+         "before", False),
+        (("  if (too_small) return STEP_SIZE_TOO_SMALL;\n",),
+         "  IVP_STAMP(7);\n", "before", False),
+        (("  }\n  out.store();\n",), "    IVP_STAMP(8);\n", "before", False),
+    ) + _STAMP_KERNEL,
+    "bdf.cu": (
+        (("  bool lu_current;\n  Slots<T> s;\n",), "  long long stamp_prev;\n",
+         "before", False),
+        (("  // ---- The iteration matrix, rebuilt when c drifts ----\n",),
+         "  IVP_STAMP(3);\n", "before", False),
+        (("  // ---- Simplified Newton ----\n",), "  IVP_STAMP(2);\n", "before",
+         False),
+        (("  const bool converged = done == 1;\n",), "  IVP_STAMP(4);\n",
+         "before", False),
+        (("  // ---- The error",), "  IVP_STAMP(1);\n", "before", False),
+        (("  // ---- One rescale for every outcome",
+          "  accepted = tl.accepted;\n  finished = accepted && last;\n"),
+         "  IVP_STAMP(5);\n", "before", False),
+        (("    emit(x_new, t, h_signed, y_new, order);\n",),
+         "    IVP_STAMP(6);\n    emit(x_new, t, h_signed, y_new, order);\n"
+         "    IVP_STAMP(8);\n", "replace", True),
+        (("  factor = tl.factor;\n",), "  IVP_STAMP(6);\n", "before", True),
+        (("  change_d<N, T>(s.at(K::D), ord_in, factor);\n",),
+         "  change_d<N, T>(s.at(K::D), ord_in, factor);\n  IVP_STAMP(9);\n",
+         "replace", True),
+        (("  return (too_small || dead) ? STEP_SIZE_TOO_SMALL : RUNNING;\n",),
+         "  IVP_STAMP(7);\n", "before", False),
+        (("    change_d<N, T>(s.at(K::D), L.order, factor);\n",),
+         "    IVP_STAMP(8);\n    change_d<N, T>(s.at(K::D), L.order, factor);\n"
+         "    IVP_STAMP(9);\n", "replace", True),
+    ) + _STAMP_KERNEL,
+}
+
+
+def stiff_stamped_copy(src, dst):
+    """A copy of the csrc tree ``src`` at ``dst`` with ``STIFF_STAMPS`` (and
+    ``STIFF_STAMP_HEAD`` in stiff_common.cuh) applied as stamped_copy
+    applies its entries, each of the tree's `if (!fast.ok` counted."""
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, dst)
+    common = dst / "stiff_common.cuh"
+    common.write_text(common.read_text().replace(
+        "constexpr int SINGULAR_MATRIX = 5;\n", STIFF_STAMP_HEAD, 1))
+    for name, entries in (*STIFF_STAMPS.items(), ("stiff_common.cuh", ())):
+        text = (dst / name).read_text()
+        for anchors, new, where, optional in entries:
+            old = next((o for o in anchors if text.count(o) == 1), None)
+            if old is None:
+                if optional:
+                    continue
+                raise RuntimeError(f"stiff_split: none of {anchors!r} is once "
+                                   f"in {name}")
+            indent = old[:len(old) - len(old.lstrip(" "))]
+            first = old[:old.find("\n") + 1]
+            new = {"before": (new if new.startswith(" ") else indent + new)
+                   + old, "after": first + new + old[len(first):],
+                   "replace": new}[where]
+            text = text.replace(old, new)
+        text = re.sub(r"if \(!fast\.ok(\(\))?", r"if (!fast.ok\1 && ivp_stamp_slow(11)",
+                      text)
+        text = text.replace("if (!wide.ok())", "if (!wide.ok() && ivp_stamp_slow(12))")
+        text = text.replace("    if (!done) {\n      LibOps<CT> lib;",
+                            "    if (!done && ivp_stamp_slow(12)) {\n      LibOps<CT> lib;")
+        (dst / name).write_text(text)
+
+
+def stiff_regions(ins):
+    """{part: [instructions, BRA, BSSY, CALL]} of a stamped listing: the
+    instructions from one clock read to the next, in address order, each
+    run counted to the part of the stamp that ends it (the slot its update
+    addresses)."""
+    out = {}
+    clocks = [k for k, (_, _, op, arg) in enumerate(ins)
+              if op.startswith("CS2R") and "SR_CLOCK" in arg]
+    for k0, k1 in zip(clocks, clocks[1:]):
+        part = "?"
+        for _, _, op, arg in ins[k1 + 1:k1 + 40]:
+            if op.startswith(("LDS", "STS")):
+                m = re.search(r"\+0x([0-9a-f]+)\]", arg)
+                q = int(m.group(1), 16) // 1024 if m else 0
+                part = STIFF_PARTS[q] if q < len(STIFF_PARTS) else f"slot{q}"
+                break
+        c = out.setdefault(part, [0, 0, 0, 0])
+        for _, _, op, _ in ins[k0 + 1:k1]:
+            base = op.split(".")[0]
+            c[0] += 1
+            c[1] += base == "BRA"
+            c[2] += base == "BSSY"
+            c[3] += base == "CALL"
+    return out
+
+
+def stiff_split_inputs(B, dev):
+    """bench.py's stiff row (VdP mu=1000, t to 3000) at ``B`` lanes and the
+    sampled main path's 101-point grid."""
+    import chip_smoke as cs
+
+    y0 = torch.as_tensor(cs.stiff_y0(B), device=dev)
+    return (cs.solve_args(y0, cs.STIFF_TF, *cs.STIFF_TOL, None, dev),
+            cs.sampled_grid(B, dev))
+
+
+def stiff_mode_fields(method, c):
+    """stiff_carry_fields of a carry, with its samples and their count
+    where it has them."""
+    out = stiff_carry_fields(method, c)
+    for f in ("sample_y", "s_cursor"):
+        if getattr(c, f, None) is not None:
+            out[f] = getattr(c, f)
+    return out
+
+
+def stiff_split(build, dev, variants):
+    """Where an attempt of radau and bdf spends its cycles: for the
+    package's own csrc ("new") and each of ``variants`` (csrc directories),
+    a copy with the stamps
+    (``stiff_stamped_copy``) under ``_variants/<label>-stiff-stamps/csrc``
+    and the variant as it is, both built; VdP on the stiff main path (B
+    from ``STIFF_SPLIT_B``, the float32 controller), lean and sampled on
+    its 101-point grid, through each: the stamped build's outputs held bit
+    for bit to the variant's, the cycles of each part (``STIFF_PARTS``) a
+    lane-attempt and their sum, the attempts that ran a unit's library path,
+    beside the variant's cycles a warp-attempt a scheduler (from its
+    ``turn_ms`` median) and the stamped build's; then the stamped SASS's
+    instructions, BRA, BSSY and CALL between stamps by part
+    (``stiff_regions``) of the VdP float instantiations."""
+    import ctypes
+
+    from ivp_tpu_torch import rhs
+    from ivp_tpu_torch.methods.jacobian import stiff_spec
+
+    import chip_smoke as cs
+
+    root = Path(__file__).resolve().parent / "_variants"
+    for label, variant in [("new", build.SRC_DIR)] + [
+            (baseline_label(v), v) for v in variants]:
+        stamped = root / f"{label}-stiff-stamps" / "csrc"
+        stiff_stamped_copy(Path(variant), stamped)
+        t = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(4) as ex:
+            fs = {(w, m): ex.submit(build.build, src_dir=d, name=m)
+                  for w, d in (("stamped", stamped), ("variant", Path(variant)))
+                  for m in ("radau", "bdf")}
+            paths = {k: f.result() for k, f in fs.items()}
+        libs = {k: build.load(pth) for k, pth in paths.items()}
+        line("stiff_split_build", variant=label,
+             seconds=round(time.perf_counter() - t, 3))
+        side = side_modules(None if label == "new" else variant)
+        sums = (ctypes.c_ulonglong * 13)()
+        for m in ("radau", "bdf"):
+            for name, ins in sass_functions(paths["stamped", m]).items():
+                if name.startswith(f"{m}/VdP/f32") and name.endswith(
+                        ("/lean", "/sampled")):
+                    line("stiff_regions", variant=label, instantiation=name,
+                         **{p: c for p, c in stiff_regions(ins).items()})
+        cases = [(f"vdp_B{B}", rhs.vdp, *stiff_split_inputs(B, dev),
+                  (cs.STIFF_MU,), ("lean", "sampled"), ("float32",),
+                  STIFF_SPLIT_ROUNDS) for B in STIFF_SPLIT_B]
+        fun, a, args = stiff_inputs("decay", AB_STIFF_WIDE["decay"], dev)
+        cases.append((f"decay_B{AB_STIFF_WIDE['decay']}", fun, a, None, args,
+                      ("lean",), ("float32", "state"), 0))
+        for row, fun, a, grid, args, modes, cps, rounds in cases:
+            B = a[0].shape[0]
+            hmin = torch.zeros(B, dtype=torch.float64, device=dev)
+            for method, mode, cp in ((mt, md, c) for mt in ("RADAU", "BDF")
+                                     for md in modes for c in cps):
+                m = method.lower()
+                take = libs["stamped", m].ivp_stamp_sums_take
+                take.argtypes, take.restype = [ctypes.c_void_p], ctypes.c_int
+                p = stiff_spec(method, fun.n, None,
+                               {"controller_precision": cp}).params()
+                g = grid if mode == "sampled" else None
+                run = {w: (lambda lib=libs[w, m]: side.S.stiff_ensemble_cuda(
+                    method, fun, *a, args, 100000, p, hmin, lib=lib,
+                    t_grid=g)) for w in ("stamped", "variant")}
+                build.check(take(sums), "ivp_stamp_sums_take",
+                            libs["stamped", m])
+                got = run["stamped"]()
+                torch.cuda.synchronize()
+                build.check(take(sums), "ivp_stamp_sums_take",
+                            libs["stamped", m])
+                parts = [int(x) for x in sums]
+                ref = run["variant"]()
+                torch.cuda.synchronize()
+                diff = carry_lanes_differing(stiff_mode_fields(method, got),
+                                             stiff_mode_fields(method, ref))
+                ms = {"variant": [], "stamped": []}
+                for r in range(rounds):
+                    for w in (("variant", "stamped") if r % 2 == 0
+                              else ("stamped", "variant")):
+                        ms[w].append(turn_ms(run[w]))
+                mhz, wa = sm_mhz(), warp_attempts(ref.nstep)
+                med = {w: float(np.median(v)) if v else float("nan")
+                       for w, v in ms.items()}
+                n = max(parts[10], 1)
+                split = {q: round(parts[k] / n, 1)
+                         for k, q in enumerate(STIFF_PARTS)}
+                line("stiff_split", variant=label, kernel=m, row=row,
+                     mode=mode, precision=cp, B=B, **split,
+                     sum_of_parts=round(sum(parts[:10]) / n, 1),
+                     lane_attempts=parts[10], slow_path_runs=parts[11],
+                     library_runs=parts[12],
+                     variant_ms=round(med["variant"], 4),
+                     stamped_ms=round(med["stamped"], 4),
+                     cycles_variant=round(med["variant"] * 1e-3 * mhz * 1e6
+                                          * 132 * 4 / wa, 1),
+                     cycles_stamped=round(med["stamped"] * 1e-3 * mhz * 1e6
+                                          * 132 * 4 / wa, 1),
+                     sm_mhz=mhz,
+                     identical_to_variant=all(v == 0 for v in diff.values()),
+                     lanes_differing=repr({k: v for k, v in diff.items()
+                                           if v}))
+                del got, ref
+            del a, grid, hmin
+
+
 # fast_paths' checks of erk_common.cuh's FastCtl<float> and FastCtl<double>
 # against the IEEE operations (and libdevice's powf), built from a copy of
 # csrc with this source beside it: every float the square root's and the
@@ -1101,7 +1404,7 @@ def cycle_split(build, dev, variants, method="DOP853"):
 # first such input.
 FAST_DRAWS = 1 << 30
 FAST_SOURCE = r"""
-#include "erk_common.cuh"
+#include "stiff_common.cuh"
 
 namespace {
 __device__ unsigned long long mix(unsigned long long x) {
@@ -1224,17 +1527,133 @@ __global__ void dsqrt_random(unsigned long long* out, unsigned long long n) {
           (unsigned long long)__double_as_longlong(x), 0);
   }
 }
+// pow(x, 0.8) on every float (Radau's faccon): FastCtl<float>::pow where
+// its range test admits x, against the library's powf.
+__global__ void pow08_all(unsigned long long* out) {
+  const unsigned long long n = 1ull << 32;
+  for (unsigned long long u = blockIdx.x * (unsigned long long)blockDim.x +
+                               threadIdx.x;
+       u < n; u += (unsigned long long)gridDim.x * blockDim.x) {
+    const float x = __uint_as_float((unsigned)u);
+    ivp::FastCtl<float> op;
+    const float got = op.pow(x, 0.8f);
+    tally(out, op.ok,
+          __float_as_uint(got) == __float_as_uint(powf(x, 0.8f)), u, 0);
+  }
+}
+// a over each constant divisor of Radau's collocation rows (div_known, from
+// the reciprocal the compiler made), random a.
+__global__ void dknown_random(unsigned long long* out, unsigned long long n) {
+  using namespace ivp::radau;
+  constexpr double B[5] = {C1MC2, C1, C2, C2M1, C1M1};
+  constexpr double R[5] = {1.0 / C1MC2, 1.0 / C1, 1.0 / C2, 1.0 / C2M1,
+                           1.0 / C1M1};
+  for (unsigned long long i = blockIdx.x * (unsigned long long)blockDim.x +
+                               threadIdx.x;
+       i < n; i += (unsigned long long)gridDim.x * blockDim.x) {
+    const unsigned long long r = mix(5 * i + 7);
+    const double a = (r & 0xff) == 0 ? 0.0 : rand_double(r, -520, 520);
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+      ivp::FastCtl<double> op;
+      const double q = ivp::div_known(op, a, B[k], R[k]);
+      tally(out, op.ok, __double_as_longlong(q) == __double_as_longlong(a / B[k]),
+            (unsigned long long)__double_as_longlong(a),
+            (unsigned long long)__double_as_longlong(B[k]));
+    }
+  }
+}
+// stiff_common.cuh's sqrt_wide on WideCtl<float> on every float, against
+// sqrtf.
+__global__ void fsqrt_wide_all(unsigned long long* out) {
+  const unsigned long long n = 1ull << 32;
+  for (unsigned long long u = blockIdx.x * (unsigned long long)blockDim.x +
+                               threadIdx.x;
+       u < n; u += (unsigned long long)gridDim.x * blockDim.x) {
+    const float x = __uint_as_float((unsigned)u);
+    ivp::WideCtl<float> op;
+    const float got = ivp::sqrt_wide(op, x);
+    tally(out, op.ok, __float_as_uint(got) == __float_as_uint(sqrtf(x)), u, 0);
+  }
+}
+// div_wide, sqrt_wide and hdiv_wide off the fast paths' ranges: a float
+// numerator with an exponent in [-126, 127] (one in 16 subnormal, one in 32
+// an infinity or a NaN) over one in [-40, 40] (one in 32 an infinity or a
+// NaN); a double numerator with an exponent in [-1022, 1023] (as many
+// subnormal, infinite or NaN) over one in [-100, 100] (as many infinite or
+// NaN); a double in [-1022, -900] or non-finite for the root; a step size
+// over a non-finite float factor.  NaN equals NaN.
+__device__ float special_float(unsigned long long r, float x) {
+  const unsigned k = (unsigned)(r >> 59);   // 0..31
+  return k == 0 ? (r & 1 ? INFINITY : -INFINITY) : (k == 1 ? NAN : x);
+}
+__device__ double special_double(unsigned long long r, double x) {
+  const unsigned k = (unsigned)(r >> 59);
+  return k == 0 ? (r & 1 ? (double)INFINITY : -(double)INFINITY)
+                : (k == 1 ? (double)NAN : x);
+}
+__device__ bool same_f(float a, float b) {
+  return __float_as_uint(a) == __float_as_uint(b) || (a != a && b != b);
+}
+__device__ bool same_d(double a, double b) {
+  return __double_as_longlong(a) == __double_as_longlong(b) ||
+         (a != a && b != b);
+}
+__global__ void wide_random(unsigned long long* out, unsigned long long n) {
+  for (unsigned long long i = blockIdx.x * (unsigned long long)blockDim.x +
+                               threadIdx.x;
+       i < n; i += (unsigned long long)gridDim.x * blockDim.x) {
+    const unsigned long long r1 = mix(4 * i + 11), r2 = mix(4 * i + 12),
+                             r3 = mix(4 * i + 13), r4 = mix(4 * i + 14);
+    const bool sub = (r1 & 0xf) == 0;
+    float a = rand_float(r1, -126, 127);
+    if (sub) a = __uint_as_float(__float_as_uint(a) & 0x807fffffu);
+    a = special_float(r3, a);
+    const float b = special_float(r4 << 5, rand_float(r2, -40, 40));
+    ivp::WideCtl<float> f;
+    const float q = ivp::div_wide(f, a, b);
+    tally(out, f.ok, same_f(q, a / b), __float_as_uint(a), __float_as_uint(b));
+    double da = rand_double(r3, -1022, 1023);
+    if (sub) da = __longlong_as_double(__double_as_longlong(da) &
+                                       (long long)0x800fffffffffffffull);
+    da = special_double(r1, da);
+    const double db = special_double(r2 << 5, rand_double(r4, -100, 100));
+    ivp::WideCtl<double> d;
+    const double dq = ivp::div_wide(d, da, db);
+    tally(out + 4, d.ok, same_d(dq, da / db),
+          (unsigned long long)__double_as_longlong(da),
+          (unsigned long long)__double_as_longlong(db));
+    double x = fabs(rand_double(r4, -1022, -900));
+    if (sub) x = __longlong_as_double(__double_as_longlong(x) &
+                                      (long long)0x000fffffffffffffull);
+    x = special_double(r3 << 7, x);
+    ivp::WideCtl<double> e;
+    const double rt = ivp::sqrt_wide(e, x);
+    tally(out + 8, e.ok, same_d(rt, sqrt(x)),
+          (unsigned long long)__double_as_longlong(x), 0);
+    const double h = rand_double(r1 >> 3, -700, 700);
+    const float fx = special_float(r2, rand_float(r3, -126, 127));
+    ivp::WideCtl<float> g;
+    const double hq = ivp::hdiv_wide(g, h, fx);
+    tally(out + 12, g.ok, same_d(hq, h / (double)fx),
+          (unsigned long long)__double_as_longlong(h), __float_as_uint(fx));
+  }
+}
 }  // namespace
 
 extern "C" int ivp_fast_paths(unsigned long long* out, unsigned long long n) {
-  // out: 6 checks x [admitted, differing, first input a, first input b].
-  cudaMemset(out, 0, 24 * sizeof(unsigned long long));
+  // out: 13 checks x [admitted, differing, first input a, first input b].
+  cudaMemset(out, 0, 52 * sizeof(unsigned long long));
   sqrt_all<<<1056, 256>>>(out);
   div_random<<<1056, 256>>>(out + 4, n);
   hdiv_random<<<1056, 256>>>(out + 8, n);
   ddiv_random<<<1056, 256>>>(out + 12, n);
   dsqrt_random<<<1056, 256>>>(out + 16, n);
   pow_all<<<1056, 256>>>(out + 20);
+  pow08_all<<<1056, 256>>>(out + 24);
+  dknown_random<<<1056, 256>>>(out + 28, n);
+  fsqrt_wide_all<<<1056, 256>>>(out + 32);
+  wide_random<<<1056, 256>>>(out + 36, n);
   return (int)cudaDeviceSynchronize();
 }
 extern "C" const char* ivp_cuda_error_string(int e) {
@@ -1246,9 +1665,13 @@ extern "C" const char* ivp_cuda_error_string(int e) {
 def fast_paths(build, dev):
     """Hold erk_common.cuh's FastCtl<float> and FastCtl<double> to the
     library's operations on the card (``FAST_SOURCE``): the float square
-    root and pow(x, -1/3) on every float their range tests admit, the
-    divisions, the step size over a float factor and the double square root
-    on ``FAST_DRAWS`` random operands each."""
+    root, pow(x, -1/3) and pow(x, 0.8) on every float their range tests
+    admit, the divisions, the step size over a float factor, the double
+    square root and stiff_common.cuh's division by Radau's five constants
+    on ``FAST_DRAWS`` random operands each; stiff_common.cuh's WideCtl
+    paths: sqrt_wide on every float, and with div_wide and hdiv_wide on
+    operands off the fast paths' ranges (in float and double, subnormal,
+    huge, infinite and NaN ones among them)."""
     import ctypes
 
     src = build.BUILD_DIR / "fast_paths_src"
@@ -1259,7 +1682,7 @@ def fast_paths(build, dev):
     lib = build.load(build.build(src_dir=src, name="fast_paths"))
     fn = lib.ivp_fast_paths
     fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_ulonglong], ctypes.c_int
-    out = torch.zeros(24, dtype=torch.int64, device=dev)
+    out = torch.zeros(52, dtype=torch.int64, device=dev)
     t1 = time.perf_counter()
     build.check(fn(out.data_ptr(), FAST_DRAWS), "ivp_fast_paths", lib)
     res = out.cpu().tolist()
@@ -1270,7 +1693,14 @@ def fast_paths(build, dev):
                                        ("hdiv", FAST_DRAWS),
                                        ("ddiv", FAST_DRAWS),
                                        ("dsqrt", FAST_DRAWS),
-                                       ("fpow_m13", 1 << 32))):
+                                       ("fpow_m13", 1 << 32),
+                                       ("fpow_08", 1 << 32),
+                                       ("ddiv_known", 5 * FAST_DRAWS),
+                                       ("fsqrt_wide", 1 << 32),
+                                       ("fdiv_wide", FAST_DRAWS),
+                                       ("ddiv_wide", FAST_DRAWS),
+                                       ("dsqrt_wide", FAST_DRAWS),
+                                       ("hdiv_wide", FAST_DRAWS))):
         adm, bad, a, b = res[4 * q:4 * q + 4]
         line("fast_paths", op=what, inputs=drawn, admitted=adm,
              differing=bad, first_a=hex(a & (2**64 - 1)) if bad else None,
@@ -2782,6 +3212,165 @@ def stiff_cases(dev, sizes=AB_STIFF_B, stream=None):
     return out
 
 
+# stiff_mode_cases' lanes on the card: the sampled main path's, the
+# recording main path's, Robertson's and the step budget's.
+AB_STIFF_MODES = {"sampled": 131072, "record": 16384, "robertson": 4096,
+                  "max_steps": 4096}
+# Rows a record chunk holds: the whole span (VdP to 3000 takes up to ~810
+# rows a lane) and chunks of 64.
+STIFF_REC_CAPS = (1024, 64)
+
+
+def stiff_mode_cases(dev, sizes=AB_STIFF_MODES, stream=None):
+    """The bit-for-bit cases of the stiff kernels' SAMPLED and RECORD modes:
+    ``[(case, B, run)]``, ``run(method, controller, lib) -> ({field: tensor},
+    launches)`` one solve through ``lib`` (this tree's wrappers) on
+    ``stream`` (0: a g++ build on CPU tensors).  The sampled main path
+    (bench.py's stiff row on its 101-point grid); the recording main path's
+    lanes, with and without coefficients, in one chunk and in chunks of 64
+    rows, two of them with the grid's samples too; Robertson sampled at 0
+    and on 40 log-spaced times to 1e8; the sampled row with max_steps 50,
+    which stops lanes mid-span."""
+    import chip_smoke as cs
+    from ivp_tpu_torch import rhs
+    from ivp_tpu_torch.kernels import erk_record as R
+    from ivp_tpu_torch.kernels import stiff_ensemble as S
+    from ivp_tpu_torch.methods.jacobian import stiff_spec
+
+    def spec(method, n, cp):
+        return stiff_spec(method, n, None, {"controller_precision": cp})
+
+    def sampled(fun, a, args, grid, max_steps=100000):
+        def run(method, cp, lib):
+            hmin = torch.zeros(a[0].shape[0], dtype=torch.float64, device=dev)
+            c = S.stiff_ensemble_cuda(method, fun, *a, args, max_steps,
+                                      spec(method, fun.n, cp).params(), hmin,
+                                      lib=lib, stream=stream, t_grid=grid)
+            return stiff_mode_fields(method, c), 1
+        return run
+
+    def recorded(a, grid, cap, cont):
+        def run(method, cp, lib):
+            r = R.stiff_record_launches(
+                method, rhs.vdp, *a, (cs.STIFF_MU,), 100000, grid,
+                spec(method, 2, cp), cap, cont, 0.0, lib, stream)
+            return {f: getattr(r, f) for f in r._fields
+                    if torch.is_tensor(getattr(r, f))}, r.chunks
+        return run
+
+    out = []
+    B = sizes["sampled"]
+    a, grid = stiff_split_inputs(B, dev)
+    out.append(("vdp_sampled", B, sampled(rhs.vdp, a, (cs.STIFF_MU,), grid)))
+    B = sizes["record"]
+    a, grid = stiff_split_inputs(B, dev)
+    for cont, cap, g in ((False, STIFF_REC_CAPS[0], None),
+                         (False, STIFF_REC_CAPS[1], grid),
+                         (True, STIFF_REC_CAPS[0], grid),
+                         (True, STIFF_REC_CAPS[1], None)):
+        name = (f"vdp_record{'_cont' if cont else ''}_cap{cap}"
+                f"{'_grid' if g is not None else ''}")
+        out.append((name, B, recorded(a, g, cap, cont)))
+    B = sizes["robertson"]
+    yr = torch.as_tensor(cs.robertson_y0(B), device=dev)
+    ar = cs.solve_args(yr, cs.ROB_TF, 1e-6, 1e-6, None, dev)
+    gr = torch.broadcast_to(torch.as_tensor(np.concatenate(
+        [[0.0], np.logspace(-6, 8, 40)]), device=dev), (B, 41))
+    out.append(("robertson_log_grid", B, sampled(rhs.robertson, ar, (), gr)))
+    B = sizes["max_steps"]
+    a, grid = stiff_split_inputs(B, dev)
+    out.append(("vdp_sampled_max_steps", B,
+                sampled(rhs.vdp, a, (cs.STIFF_MU,), grid, max_steps=50)))
+    return out
+
+
+def ab_stiff_modes(dev, old, label):
+    """ab_stiff's part for the SAMPLED and RECORD modes: the lanes differing
+    in every output, sample, row and count of each ``stiff_mode_cases`` case
+    under both controller types (``old``: the baseline's libraries by
+    kernel, launched by this tree's wrappers, whose entries they share), then
+    ``AB_STIFF_ROUNDS`` rounds of old, new, new, old ``turn_ms`` of one
+    launch of the sampled main path (B=131072) and of the recording one's
+    first chunk (B=16384, 1024 rows, with and without coefficients), the
+    float32 controller, with each side's share of the bound and the new
+    side's layout."""
+    import chip_smoke as cs
+    from ivp_tpu_torch import rhs
+    from ivp_tpu_torch.core.driver import run_args
+    from ivp_tpu_torch.kernels import stiff_ensemble as S
+    from ivp_tpu_torch.methods.jacobian import stiff_spec
+
+    for case, B, run in stiff_mode_cases(dev):
+        for method in ("RADAU", "BDF"):
+            for cp in ("float32", "state"):
+                new, ln = run(method, cp, None)
+                ref, lo = run(method, cp, old[method.lower()])
+                torch.cuda.synchronize()
+                diff = carry_lanes_differing(new, ref)
+                diff["launches"] = int(ln != lo)
+                line("ab_stiff_modes_bitwise", old=label,
+                     kernel=method.lower(), controller=cp, case=case, B=B,
+                     identical=all(v == 0 for v in diff.values()),
+                     lanes_differing=repr(diff), launches=ln,
+                     statuses=repr(dict(Counter(new["status"].cpu().tolist()))))
+                del new, ref
+    for mode, B in (("sampled", AB_STIFF_MODES["sampled"]),
+                    ("record", AB_STIFF_MODES["record"]),
+                    ("record_cont", AB_STIFF_MODES["record"])):
+        a, grid = stiff_split_inputs(B, dev)
+        y0, t0, tf, hmax, fs, rtol, atol = a
+        hmin = torch.zeros(B, dtype=torch.float64, device=dev)
+        ra = run_args(tf, rtol, atol, hmax, hmin, 100000, y0)
+        first = S.nan_first_step(fs, B, dev)
+        for method in ("RADAU", "BDF"):
+            p = stiff_spec(method, 2, None,
+                           {"controller_precision": "float32"}).params()
+            sides = {}
+            for w, lib in (("new", None), ("old", old[method.lower()])):
+                md = (S.Modes(method, B, 2, dev, grid) if mode == "sampled"
+                      else S.Modes(method, B, 2, dev, None, STIFF_REC_CAPS[0],
+                                   mode == "record_cont"))
+                c = S.empty_carry(method, B, 2, S.controller_dtype(p), dev)
+                launch = S.StiffLaunch(method, rhs.vdp, ra, (cs.STIFF_MU,), p,
+                                       lib, md)
+                sides[w] = (lambda launch=launch, c=c: launch(
+                    c, c, y0, t0, first, True, S.UNBOUNDED, None)), c, md
+            ms = {"old": [], "new": []}
+            for r in range(AB_STIFF_ROUNDS):
+                for w in ("old", "new", "new", "old"):
+                    ms[w].append(turn_ms(sides[w][0]))
+            torch.cuda.synchronize()
+            c, md = sides["new"][1], sides["new"][2]
+            ns = md.n_samples if mode == "sampled" else None
+            b_ms, b_by = S.stiff_bound(
+                method, rhs.vdp, c.nstep, c.naccpt, c.nrejct, c.nfev, c.njev,
+                c.nlu, **({"n_samples": ns, "m": md.m} if ns is not None
+                          else {"n_rec": md.n_rec,
+                                "record_cont": mode == "record_cont"}))
+            med = {w: float(np.median(v)) for w, v in ms.items()}
+            pairs = zip(zip(ms["new"][::2], ms["new"][1::2]),
+                        zip(ms["old"][::2], ms["old"][1::2]))
+            lay = S.layout(method, rhs.vdp, "float32", B,
+                           mode=S.SAMPLED if mode == "sampled" else S.RECORD)
+            line("ab_stiff_modes", old=label, kernel=method.lower(), mode=mode,
+                 B=B, old_ms=[round(x, 4) for x in ms["old"]],
+                 new_ms=[round(x, 4) for x in ms["new"]],
+                 old_median=round(med["old"], 4),
+                 new_median=round(med["new"], 4),
+                 new_over_old=round(med["new"] / med["old"], 4),
+                 rounds_new_won=f"{sum(sum(n) < sum(o) for n, o in pairs)}"
+                                f"/{AB_STIFF_ROUNDS}",
+                 bound_ms=round(b_ms, 6), bound_by=b_by,
+                 share_new=round(b_ms / med["new"], 4),
+                 share_old=round(b_ms / med["old"], 4),
+                 warp_attempts=warp_attempts(c.nstep),
+                 cycles_new=round(med["new"] * 1e-3 * sm_mhz() * 1e6 * 132 * 4
+                                  / warp_attempts(c.nstep), 1),
+                 **{f"new_{k}": v for k, v in lay.items()})
+            del sides, c, md
+        del a, grid, hmin, ra
+
+
 def ab_stiff(build, dev, baseline, label):
     """The stiff kernels built from ``baseline`` against the package's:
     the lanes differing in every output and carry field of each
@@ -2826,6 +3415,7 @@ def ab_stiff(build, dev, baseline, label):
                      lanes_differing=repr(diff), launches=ln,
                      statuses=repr(dict(Counter(new.status.cpu().tolist()))))
                 del new, ref
+    ab_stiff_modes(dev, old, label)
     rows = [(f"vdp_B{B}", B, lambda B=B: (
         rhs.vdp, cs.solve_args(torch.as_tensor(cs.stiff_y0(B), device=dev),
                                cs.STIFF_TF, *cs.STIFF_TOL, None, dev),
@@ -3213,6 +3803,8 @@ def ab_resume_line(what, label, case, B, chunk, launches, ms, kern, host):
 REHEARSE_B = 37
 REHEARSE_STIFF = {"bench": 40, "robertson": 24, "decay": 40, "singular": 16,
                   "max_steps": 40, "limits": 40, "chunk": 40}
+REHEARSE_MODES = {"sampled": 40, "record": 24, "robertson": 16,
+                  "max_steps": 40}
 
 
 def rehearse(baseline, label):
@@ -3221,7 +3813,8 @@ def rehearse(baseline, label):
     held field by field on CPU tensors: ``ab_resume_bitwise`` on every
     ``resume_ab_cases`` case at ``REHEARSE_B`` lanes, ``rehearse_stiff``
     on every ``stiff_cases`` case at ``REHEARSE_STIFF`` under both
-    controller types, then ``rehearse_erk`` on every ``erk_cases`` case of
+    controller types and ``rehearse_stiff_modes`` on every
+    ``stiff_mode_cases`` case at ``REHEARSE_MODES``, then ``rehearse_erk`` on every ``erk_cases`` case of
     every erk kernel (lean and sampled; DOP853's queue cases) at
     ``REHEARSE_B`` lanes.  True if every case is identical."""
     import gxx
@@ -3258,6 +3851,20 @@ def rehearse(baseline, label):
                 same &= ok
                 line("rehearse_stiff", old=label, kernel=method.lower(),
                      controller=cp, case=case, B=B, identical=ok,
+                     lanes_differing=repr({k: v for k, v in diff.items()
+                                           if v}))
+    for case, B, run in stiff_mode_cases(dev, REHEARSE_MODES, stream=0):
+        for method in ("RADAU", "BDF"):
+            for cp in ("float32", "state"):
+                new, ln = run(method, cp, libs["new"][method.lower()])
+                ref, lo = run(method, cp, libs[label][method.lower()])
+                diff = carry_lanes_differing(new, ref)
+                diff["launches"] = int(ln != lo)
+                ok = all(v == 0 for v in diff.values())
+                same &= ok
+                line("rehearse_stiff_modes", old=label,
+                     kernel=method.lower(), controller=cp, case=case, B=B,
+                     identical=ok, launches=ln,
                      lanes_differing=repr({k: v for k, v in diff.items()
                                            if v}))
     for method, (kernel, source) in K.KERNELS.items():
@@ -3376,15 +3983,17 @@ def main():
     phases = (set(opts.phases.split(",")) if opts.phases else
               set(PHASES) - ({"ab_record", "ab_stiff", "ab_events",
                               "ab_resume", "rehearse", "ab_erk",
-                              "cycle_split"} if opts.baseline else
+                              "cycle_split", "stiff_split"} if opts.baseline else
                              {"ab", "ab_record", "ab_stiff", "ab_events",
                               "ab_resume", "rehearse", "ab_erk",
-                              "cycle_split"}))
+                              "cycle_split", "stiff_split"}))
     if not phases <= set(PHASES):
         ap.error(f"unknown phases {sorted(phases - set(PHASES))}")
     if phases & {"ab", "ab_record", "ab_stiff", "ab_events", "ab_erk",
-                 "ab_resume", "rehearse", "cycle_split"} and not opts.baseline:
-        ap.error("the ab phases, rehearse and cycle_split need --baseline")
+                 "ab_resume", "rehearse", "cycle_split",
+                 "stiff_split"} and not opts.baseline:
+        ap.error("the ab phases, rehearse, cycle_split and stiff_split need "
+                 "--baseline")
     if phases == {"rehearse"}:
         torch.set_num_threads(2)
         return int(not all([rehearse(b, baseline_label(b))
@@ -3478,6 +4087,8 @@ def main():
         fast_paths(build, dev)
     if "cycle_split" in phases:
         cycle_split(build, dev, opts.baseline, opts.split_method)
+    if "stiff_split" in phases:
+        stiff_split(build, dev, opts.baseline)
     if "stiff" in phases:
         stiff_phase(build, dev)
     if "resume_profile" in phases:
