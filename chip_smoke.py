@@ -2492,12 +2492,12 @@ def stiff_modes_vs_plain(dev):
     versions on the card (VdP mu=1000, B=4096, t in [0, 1000], both
     controller types): status, every counter, n_samples and n_rec equal on
     every lane, samples and rows within STIFF_Y; each mode's final state and
-    counters bit for bit with the LEAN kernel's; records in chunks of 64 bit
-    for bit with one chunk, a grid's samples with them, and those samples
-    bit for bit with the SAMPLED mode's; Robertson sampled on a log-spaced
-    grid at ROB_B.  ``{kernel: {"max_abs_err", "plain_ms", "check_ms"}}``
-    (the plain version's ms, the plain record run with samples, and the
-    kernel's of the float32 runs, CUDA events)."""
+    counters bit for bit with the LEAN kernel's; records in chunks of 64 and
+    of REC_CAP_CHECK bit for bit with one chunk, a grid's samples with them,
+    and those samples bit for bit with the SAMPLED mode's; Robertson
+    sampled on a log-spaced grid at ROB_B.  ``{kernel: {"max_abs_err",
+    "plain_ms", "check_ms"}}`` (the plain version's ms, the plain record
+    run with samples, and the kernel's of the float32 runs, CUDA events)."""
     from ivp_tpu_torch import rhs
     from ivp_tpu_torch.kernels import erk_ensemble as K
     from ivp_tpu_torch.kernels import erk_record as R
@@ -2545,25 +2545,31 @@ def stiff_modes_vs_plain(dev):
                     ("n_rec",), ("y",) + rows), p_ms, k_ms)
                 bitwise(f"{name}_{cp}_vs_lean_B{B}", got, lean, STIFF_FINAL)
             del got, ref
-        # Chunks of 64 rows against one chunk, with the grid's samples.
+        # Chunks of 64 and of REC_CAP_CHECK rows (odd: BDF's staged rows
+        # leave some lanes mid-run at every chunk's end) against one chunk,
+        # with the grid's samples.
         spec = stiff_spec(method, 2, None, None)
         one = R.erk_record(method, rhs.vdp, *a, grid, spec,
                            rec_cap=MODES_ONE, record_cont=True)
-        many = R.erk_record(method, rhs.vdp, *a, grid, spec,
-                            rec_cap=MODES_CAP, record_cont=True)
-        fields = STIFF_FINAL + REC_FIELDS + ("n_rec", "y_samples",
-                                             "n_samples")
-        phase(f"{m}_record_chunks_B{B}", one=one.chunks, many=many.chunks)
-        if one.chunks != 1 or many.chunks < 2:
-            raise AssertionError(f"{m}: {one.chunks} and {many.chunks} "
-                                 f"chunks")
-        bitwise(f"{m}_record_cont_chunk{MODES_CAP}_vs_one_chunk_B{B}",
-                rec_dict(many), rec_dict(one), fields)
         sampled = ens_dict(S.stiff_ensemble(method, rhs.vdp, *a, spec, 0.0,
                                             grid))
-        bitwise(f"{m}_record_samples_vs_sampled_B{B}", rec_dict(many),
-                sampled, STIFF_FINAL + ("y_samples", "n_samples"))
-        del one, many
+        fields = STIFF_FINAL + REC_FIELDS + ("n_rec", "y_samples",
+                                             "n_samples")
+        for cap in (MODES_CAP, REC_CAP_CHECK):
+            many = R.erk_record(method, rhs.vdp, *a, grid, spec,
+                                rec_cap=cap, record_cont=True)
+            phase(f"{m}_record_chunks{cap}_B{B}", one=one.chunks,
+                  many=many.chunks)
+            if one.chunks != 1 or many.chunks < 2:
+                raise AssertionError(f"{m}: {one.chunks} and {many.chunks} "
+                                     f"chunks")
+            bitwise(f"{m}_record_cont_chunk{cap}_vs_one_chunk_B{B}",
+                    rec_dict(many), rec_dict(one), fields)
+            bitwise(f"{m}_record_chunk{cap}_samples_vs_sampled_B{B}",
+                    rec_dict(many), sampled,
+                    STIFF_FINAL + ("y_samples", "n_samples"))
+            del many
+        del one, sampled
     # Robertson sampled at 0 and on 40 log-spaced times.
     yr = torch.as_tensor(robertson_y0(ROB_B), device=dev)
     ar = solve_args(yr, ROB_TF, 1e-6, 1e-6, None, dev) + ((), 100000)
@@ -2612,7 +2618,7 @@ def stiff_modes_main_paths(dev, finals, plains):
     rows = {}
     kw = dict(args=(STIFF_MU,), rtol=STIFF_TOL[0], atol=STIFF_TOL[1])
 
-    def measure(name, m, solve, mode):
+    def measure(name, m, solve, mode, cont=False):
         res, walls, ev_ms = timed_solves(lambda _: solve(), [None] * 4)
         del res
         (res, k_ms, dev_ms), launches = launches_of(
@@ -2620,7 +2626,7 @@ def stiff_modes_main_paths(dev, finals, plains):
         if set(launches) != {name}:
             raise AssertionError(f"{name}: the solve launched {launches}")
         lay = S.layout(m, rhs.vdp, "float32", int(res.status.numel()),
-                       mode=mode)
+                       mode=mode, record_cont=cont)
         solve_ms = float(np.median(ev_ms))
         row = dict(launches=launches[name], kernel_ms=k_ms,
                    solve_ms=solve_ms, drain_ms=dev_ms - k_ms,
@@ -2630,7 +2636,9 @@ def stiff_modes_main_paths(dev, finals, plains):
                    local_bytes=lay["local_bytes"],
                    smem_bytes_per_block=lay["block_bytes"],
                    blocks_per_sm=lay["blocks_per_sm"],
-                   min_blocks=lay["min_blocks"])
+                   min_blocks=lay["min_blocks"],
+                   stage_rows=lay["stage_rows"],
+                   stage_lane_bytes=lay["stage_lane_bytes"])
         return res, row
 
     # (1) The sampled ensemble.
@@ -2686,7 +2694,7 @@ def stiff_modes_main_paths(dev, finals, plains):
             name = f"{m}_record{'_cont' if cont else ''}"
             res, row = measure(name, m, lambda: solve_ivp_ensemble(
                 rhs.vdp, (0.0, STIFF_TF), yr, method, dense_output=cont,
-                record_trajectories=not cont, **kw), S.RECORD)
+                record_trajectories=not cont, **kw), S.RECORD, cont)
             bound_ms, bound_by = S.stiff_bound(
                 method, rhs.vdp, res.nstep, res.naccpt, res.nrejct,
                 res.nfev, res.njev, res.nlu, n_rec=res.n_steps_rec,
@@ -2918,7 +2926,8 @@ def stiff_phase(dev):
             "solve_ms": row["solve_ms"], "drain_ms": row["drain_ms"],
             "registers": row["registers"],
             "local_bytes": row["local_bytes"],
-            "blocks_per_sm": row["blocks_per_sm"]})
+            "blocks_per_sm": row["blocks_per_sm"],
+            "stage_rows": row["stage_rows"]})
     return rows
 
 

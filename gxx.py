@@ -11,7 +11,8 @@ another on the host, so a library is called on CPU tensors with stream 0
 ``erk_ensemble.ensemble_launch``, ``erk_record.record_launches``;
 ``measure_kernel.py --phases rehearse``).
 Before compiling, a copy of the sources is rewritten: each ``<<<...>>>``
-launch becomes a loop over the grid, the two ``min.NaN``/``max.NaN``
+launch becomes a loop over the grid (its dynamic shared memory's bytes in
+``ivp_dynamic_smem``), the two ``min.NaN``/``max.NaN``
 ``asm`` lines plain C, and the extern dynamic shared arrays the shim's
 static ones (threads run one at a time, each in its own slots).  PTX that
 only nvcc takes sits under ``__CUDA_ARCH__``; the warp vote is one lane's
@@ -118,8 +119,10 @@ inline double __hiloint2double(int hi, int lo) {
 inline unsigned __activemask() { return 0xffffffffu; }
 inline bool __any_sync(unsigned, bool p) { return p; }
 inline void __trap() { abort(); }
+inline unsigned ivp_dynamic_smem;  // the launch's dynamic shared memory
 template <class Fn>
-void ivp_grid(long grid, long block, Fn fn) {
+void ivp_grid(long grid, long block, long smem, Fn fn) {
+  ivp_dynamic_smem = (unsigned)smem;
   blockDim.x = (unsigned)block;
   gridDim.x = (unsigned)grid;
   for (long b = 0; b < grid; ++b)
@@ -160,8 +163,9 @@ def _top_level(s: str) -> list:
 def host_source(text: str) -> str:
     """A source's text as g++ compiles it behind :data:`SHIM`."""
     def launch(m):
-        grid, block = _top_level(m.group(2))[:2]
-        return (f"ivp_grid(({grid}), ({block}), [&]() {{ "
+        grid, block, *rest = _top_level(m.group(2))
+        smem = rest[0] if rest else "0"
+        return (f"ivp_grid(({grid}), ({block}), ({smem}), [&]() {{ "
                 f"{m.group(1)}({m.group(3)}); }});")
 
     def minmax(m):

@@ -15,7 +15,9 @@
 // a SAMPLED or RECORD lane emits between the two, from the accepted step's
 // D, off the attempt's register peak: its dense output is the Newton form
 // over D[0..order] (bdf_interp), its row's coefficients [D0, D1..D5 past the
-// order 0, order] (NCOEFF 7).
+// order 0, order] (NCOEFF 7).  A RECORD lane stages its rows in shared
+// memory past its slots and writes each run with one bulk copy
+// (SlotsStage, stiff_common.cuh).
 //
 // What bounds it on an H100: dependent float64 divisions and float32 log,
 // exp and division chains, waiting on latency.  The design: (1) what only one
@@ -61,6 +63,8 @@ struct BDFCarry {
 };
 
 constexpr int BDF_ROWS = bdf::MAX_ORDER + 3;
+// The coefficient rows of a record row: [D0, D1..D5 past the order 0, order].
+constexpr int BDF_COEFFS = bdf::MAX_ORDER + 2;
 constexpr double BDF_EPS = 2.220446049250313e-16;
 
 // A lane's cold state in its slots (doubles): the difference array D (row
@@ -701,7 +705,10 @@ __global__ void __launch_bounds__(T, MB) bdf_kernel(
 
   const CT newton_tol = bdf_newton_tol<N, CT>(o, rtol);
   const int nstep0 = nstep;
-  StiffOut<N, bdf::MAX_ORDER + 2, MODE> out(md, i, init);
+  // RECORD stages its rows in the shared memory past the slots.
+  using Stage = std::conditional_t<MODE == STIFF_RECORD,
+                                   SlotsStage<T, K::DOUBLES>, NoStage>;
+  StiffOut<N, BDF_COEFFS, MODE, Stage> out(md, i, init);
   while (status == RUNNING && nstep - nstep0 < max_attempts && !out.full()) {
     bool accepted, finished, count_step, count_reject;
     int fe, je, le;
@@ -789,6 +796,20 @@ int bdf_pick(int B, int* min_blocks, BDFKernelPtr* kernel) {
   return 0;
 }
 
+// A RECORD launch's rows' stage (stage_plan), rows with coefficients or
+// without: its rows a lane into *k and the block's dynamic shared memory,
+// the slots with it, into *bytes; the CUDA error code.
+template <class F, int T>
+int bdf_stage(int B, int min_blocks, bool record_cont, int* bytes, int* k) {
+  constexpr int N = F::N, SLOTS = BDFCold<N>::DOUBLES;
+  static_assert(8 * T * (SLOTS + stage_stride(1, row_stride(N, BDF_COEFFS,
+                                                             true))) <=
+                    SLOTS_BLOCK_MAX,
+                "one staged row exceeds a block's shared memory");
+  return stage_plan<T>(B, min_blocks, SLOTS,
+                       row_stride(N, BDF_COEFFS, record_cont), bytes, k);
+}
+
 template <class F, class CT, int T, int MB, int MB1, int MODE>
 int bdf_launch_as(int B, const double* y0, const double* t0,
                   const double* first_step, StiffRun ra, const double* args,
@@ -797,12 +818,21 @@ int bdf_launch_as(int B, const double* y0, const double* t0,
                   void* stream) {
   constexpr int bytes = 8 * BDFCold<F::N>::DOUBLES * T;
   static_assert(bytes <= SLOTS_BLOCK_MAX, "the slots exceed a block's");
-  int min_blocks = 0;
+  int min_blocks = 0, smem = bytes, k = 0;
   BDFKernelPtr kernel = nullptr;
   int err = bdf_pick<F, CT, T, MB, MB1, MODE>(B, &min_blocks, &kernel);
-  if (!err) err = allow_slots(kernel, bytes);
+  if constexpr (MODE == STIFF_RECORD) {
+    // The bulk copies take rows of the stride the stage has, 16-byte
+    // aligned.
+    if (md.stride != row_stride(F::N, BDF_COEFFS, md.record_cont != 0) ||
+        ((uintptr_t)md.rows & 15) != 0)
+      return (int)cudaErrorInvalidValue;
+    if (!err)
+      err = bdf_stage<F, T>(B, min_blocks, md.record_cont != 0, &smem, &k);
+  }
+  if (!err) err = allow_slots(kernel, smem);
   if (err) return err;
-  kernel<<<(B + T - 1) / T, T, bytes, (cudaStream_t)stream>>>(
+  kernel<<<(B + T - 1) / T, T, smem, (cudaStream_t)stream>>>(
       B, y0, t0, first_step, ra, args, o, d_in, c_in, d, c, init,
       max_attempts, md);
   return (int)cudaGetLastError();
@@ -843,30 +873,48 @@ int bdf_modes_launch(int B, const double* y0, const double* t0,
       max_attempts, md, stream);
 }
 
+// slots_layout of the instantiation a launch of B lanes takes, with its
+// RECORD stage (rows with coefficients or without) in the lane's and the
+// block's bytes.
 template <class F, class CT, int T, int MB, int MB1, int MODE>
-int bdf_layout_as(int B, int* info) {
-  int min_blocks = 0;
+int bdf_layout_as(int B, int record_cont, int* info) {
+  int min_blocks = 0, bytes = 8 * BDFCold<F::N>::DOUBLES * T, k = 0;
   BDFKernelPtr kernel = nullptr;
-  const int err = bdf_pick<F, CT, T, MB, MB1, MODE>(B, &min_blocks, &kernel);
+  int err = bdf_pick<F, CT, T, MB, MB1, MODE>(B, &min_blocks, &kernel);
+  if constexpr (MODE == STIFF_RECORD)
+    if (!err)
+      err = bdf_stage<F, T>(B, min_blocks, record_cont != 0, &bytes, &k);
   if (err) return err;
-  return slots_layout(kernel, T, min_blocks, 8 * BDFCold<F::N>::DOUBLES,
-                      info);
+  return slots_layout(kernel, T, min_blocks, bytes / T, info);
 }
 
 template <class F, int T, int MB, int MB1, int MODE>
-int bdf_layout(int state_precision, int B, int* info) {
+int bdf_layout(int state_precision, int B, int record_cont, int* info) {
   if (state_precision)
-    return bdf_layout_as<F, double, T, MB, MB1, MODE>(B, info);
-  return bdf_layout_as<F, float, T, MB, MB1, MODE>(B, info);
+    return bdf_layout_as<F, double, T, MB, MB1, MODE>(B, record_cont, info);
+  return bdf_layout_as<F, float, T, MB, MB1, MODE>(B, record_cont, info);
 }
 
+// The layout of a mode's instantiation, then info[7] the stage's rows a
+// lane and info[8] its bytes a lane (0 and 0 unstaged).
 template <class F, int T, int MB, int MB1>
-int bdf_modes_layout(int mode, int state_precision, int B, int* info) {
-  if (mode == STIFF_RECORD)
-    return bdf_layout<F, T, MB, MB1, STIFF_RECORD>(state_precision, B, info);
-  if (mode == STIFF_SAMPLED)
-    return bdf_layout<F, T, MB, MB1, STIFF_SAMPLED>(state_precision, B, info);
-  return bdf_layout<F, T, MB, MB1, STIFF_LEAN>(state_precision, B, info);
+int bdf_modes_layout(int mode, int state_precision, int B, int* info,
+                     int record_cont) {
+  const int err =
+      mode == STIFF_RECORD
+          ? bdf_layout<F, T, MB, MB1, STIFF_RECORD>(state_precision, B,
+                                                    record_cont, info)
+      : mode == STIFF_SAMPLED
+          ? bdf_layout<F, T, MB, MB1, STIFF_SAMPLED>(state_precision, B, 0,
+                                                     info)
+          : bdf_layout<F, T, MB, MB1, STIFF_LEAN>(state_precision, B, 0,
+                                                  info);
+  if (err) return err;
+  const int s = info[2] / 8 - BDFCold<F::N>::DOUBLES;
+  info[7] = s ? stage_rows(s, row_stride(F::N, BDF_COEFFS, record_cont != 0))
+              : 0;
+  info[8] = 8 * s;
+  return 0;
 }
 
 }  // namespace ivp
@@ -875,7 +923,8 @@ int bdf_modes_layout(int mode, int state_precision, int B, int* info) {
 // loads, d_in and c_in, and the one it stores, d and c), ivp_bdf_modes_<name>
 // (the same with the samples or rows of md), and ivp_bdf_layout_<name> /
 // ivp_bdf_modes_layout_<name> (slots_layout of the instantiation a launch
-// of B lanes under a controller type, in a mode, takes).  T, MB and MB1
+// of B lanes under a controller type, in a mode, takes; RECORD with the
+// stage of rows with coefficients or without, record_cont).  T, MB and MB1
 // (one round, bdf_pick): threads a block and min blocks an SM under both
 // controller types, from measure_kernel.py's stiff occupancy sweep on an
 // H100 (PERF.md).
@@ -903,12 +952,13 @@ int bdf_modes_layout(int mode, int state_precision, int B, int* info) {
   extern "C" int ivp_bdf_layout_##NAME(int state_precision, int B,            \
                                        int* info) {                           \
     return ivp::bdf_layout<FUNCTOR, IVP_BDF_BOUNDS(T, MB, MB1),               \
-                           ivp::STIFF_LEAN>(state_precision, B, info);        \
+                           ivp::STIFF_LEAN>(state_precision, B, 0, info);     \
   }                                                                           \
   extern "C" int ivp_bdf_modes_layout_##NAME(int mode, int state_precision,   \
-                                             int B, int* info) {              \
+                                             int B, int* info,                \
+                                             int record_cont) {               \
     return ivp::bdf_modes_layout<FUNCTOR, IVP_BDF_BOUNDS(T, MB, MB1)>(        \
-        mode, state_precision, B, info);                                      \
+        mode, state_precision, B, info, record_cont);                         \
   }
 
 IVP_BDF_ENTRY(vdp, VdP, 128, 4, 3)

@@ -866,7 +866,7 @@ int radau_modes_layout(int mode, int state_precision, int* info) {
 // ivp_radau_modes_<name> (the same with the samples or rows of md), and
 // ivp_radau_layout_<name> / ivp_radau_modes_layout_<name> (slots_layout of
 // the instantiation a launch under a controller type, in a mode, takes,
-// whatever its B).  T, MB: threads a block and min
+// whatever its B and record_cont: the rows go out unstaged).  T, MB: threads a block and min
 // blocks an SM under both controller types, from measure_kernel.py's stiff
 // occupancy sweep on an H100 (PERF.md); one instantiation serves every B,
 // since at (128, 3) Radau spills nothing either and runs no faster at
@@ -898,7 +898,8 @@ int radau_modes_layout(int mode, int state_precision, int* info) {
                              ivp::STIFF_LEAN>(state_precision, info);         \
   }                                                                           \
   extern "C" int ivp_radau_modes_layout_##NAME(int mode, int state_precision, \
-                                               int B, int* info) {            \
+                                               int B, int* info,              \
+                                               int record_cont) {             \
     return ivp::radau_modes_layout<FUNCTOR, IVP_RADAU_BOUNDS(T, MB)>(         \
         mode, state_precision, info);                                         \
   }

@@ -226,8 +226,17 @@ def record_coeffs(method: str) -> int:
 
 def record_width(method: str, n: int, record_cont: bool) -> int:
     """Doubles of a record row ``[t, xold, h, y, cont]`` (kernels/
-    erk_record.py; the stiff kernels' rows, unpadded)."""
+    erk_record.py, the stiff kernels' RECORD mode)."""
     return 3 + n + (record_coeffs(method) * n if record_cont else 0)
+
+
+def record_stride(method: str, n: int, record_cont: bool) -> int:
+    """Doubles from one row to the next in a kernel's chunk buffer: the
+    row's width rounded up to even (csrc/erk_common.cuh ``RecStage::WP``,
+    csrc/stiff_common.cuh ``row_stride``), so that each lane's rows go out
+    in bulk copies of whole 16 bytes."""
+    w = record_width(method, n, record_cont)
+    return w + w % 2
 
 
 def plain_driver(method, fun, y0, args, m, params, events, bounded=False,

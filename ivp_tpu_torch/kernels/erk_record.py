@@ -23,8 +23,9 @@ Radau and BDF (``params`` a StiffSpec) record through the same chunk loop
 and drain: the plain driver on CPU tensors, and on CUDA tensors the RECORD
 mode of ``csrc/radau.cu`` and ``csrc/bdf.cu`` (:func:`stiff_record_launches`,
 one :class:`~ivp_tpu_torch.kernels.stiff_ensemble.StiffLaunch` a chunk
-from the lane carry to itself).  Their rows are stored one double at a
-time, unpadded (:func:`record_width`).
+from the lane carry to itself): BDF's rows staged and written in bulk
+copies at :func:`record_stride`, as the explicit kernels' are, Radau's
+stored a double at a time at :func:`record_width`.
 
 With ``events`` the record mode detects events and restarts lanes as the
 lean solve does (kernels/erk_ensemble.py): the plain driver with events, or
@@ -65,7 +66,7 @@ from ..types import Status
 from . import build
 from . import erk_ensemble as E
 from . import stiff_ensemble as S
-from .erk_ensemble import record_coeffs, record_width
+from .erk_ensemble import record_coeffs, record_stride, record_width
 from .dopri5_ensemble import FP64_PEAK, HBM_RATE
 
 # Launches made by this process: one per chunk, per method and record mode
@@ -108,14 +109,6 @@ class RecordResult(NamedTuple):
     #               stiff solves), or None
     nlu: Any      # (B,) int32 decompositions, or None
     chunks: int   # chunks run (kernel launches on the CUDA route)
-
-
-def record_stride(method: str, n: int, record_cont: bool) -> int:
-    """Doubles from one row to the next in the kernel's chunk buffer: the
-    row's width rounded up to even (csrc/erk_common.cuh ``RecStage::WP``),
-    so that each lane's rows go out in bulk copies of whole 16 bytes."""
-    w = record_width(method, n, record_cont)
-    return w + w % 2
 
 
 def _assemble(pieces, B, n, C, counts, last, chunks, events=None,

@@ -71,6 +71,13 @@ LAUNCHES = {f"{k}{m}": 0 for k in ("radau", "bdf")
 # csrc/stiff_common.cuh's modes.
 LEAN, SAMPLED, RECORD = 0, 1, 2
 
+# The kernels whose RECORD lanes stage their rows in shared memory and write
+# them by bulk copies (csrc/bdf.cu's SlotsStage), at the even stride
+# (erk_ensemble.record_stride) that those copies need.  The others store a
+# row a double at a time at its width, where the even stride ran Radau's
+# record modes 4.5-12% slower on an H100 (PERF.md §6).
+STAGED_RECORDS = ("BDF",)
+
 # The most attempts one launch may make (a solve's single launch).
 UNBOUNDED = 2**31 - 1
 
@@ -130,10 +137,10 @@ class Modes:
     samples ``y_samples (B, m, n)`` (rows past a lane's count stay zero, as
     the plain version's) and their count ``n_samples (B,)``, which a launch
     that is not a solve's first continues; with ``rec_cap`` > 0 (RECORD),
-    one chunk's ``rows (B, rec_cap, W)`` (``erk_ensemble.record_width``,
-    unpadded: the rows are stored a double at a time) and their
-    count ``n_rec (B,)``.  ``arg`` is the launch argument and ``key`` the
-    LAUNCHES key."""
+    one chunk's ``rows (B, rec_cap, stride)`` (the row's width; for
+    ``STAGED_RECORDS`` ``erk_ensemble.record_stride``, the width rounded
+    up to even, whose pad is never read) and their count ``n_rec (B,)``.
+    ``arg`` is the launch argument and ``key`` the LAUNCHES key."""
 
     def __init__(self, method, B, n, dev, t_grid=None, rec_cap=0,
                  record_cont=False):
@@ -149,15 +156,17 @@ class Modes:
                           if m else None)
         self.n_samples = (torch.zeros((B,), dtype=i32, device=dev) if m
                           else None)
-        W = E.record_width(method, n, record_cont)
-        self.rows = (torch.empty((B, cap, W), dtype=f64, device=dev) if cap
-                     else None)
+        stride = (E.record_stride if method.upper() in STAGED_RECORDS
+                  else E.record_width)(method, n, record_cont)
+        self.rows = (torch.empty((B, cap, stride), dtype=f64, device=dev)
+                     if cap else None)
         self.n_rec = (torch.zeros((B,), dtype=i32, device=dev) if cap
                       else None)
         ptr = lambda x: 0 if x is None else x.data_ptr()
         self.arg = KernelModes(grid_ptr, m, grid_stride, ptr(self.y_samples),
                                ptr(self.n_samples), ptr(self.rows),
-                               ptr(self.n_rec), cap, W, int(record_cont))
+                               ptr(self.n_rec), cap, stride,
+                               int(record_cont))
         self.key = (f"{kernel}_sampled" if not cap else
                     f"{kernel}_record{'_cont' if record_cont else ''}")
 
@@ -171,22 +180,28 @@ class BDFCarryArg(ctypes.Structure):
 
 
 # The keys of a stiff instantiation's layout, in the order
-# csrc/stiff_common.cuh::slots_layout fills them.
+# csrc/stiff_common.cuh::slots_layout fills them (a staged RECORD
+# instantiation's lane and block bytes hold its stage), then a mode's:
+# its RECORD stage's rows a lane and bytes a lane (0 unstaged: Radau, and
+# every SAMPLED instantiation).
 LAYOUT_KEYS = ("threads", "min_blocks", "lane_bytes", "block_bytes",
                "blocks_per_sm", "registers", "local_bytes")
+STAGE_KEYS = ("stage_rows", "stage_lane_bytes")
 
 
 def layout(method, fun, controller="float32", B=1, lib=None,
-           mode=LEAN) -> dict:
+           mode=LEAN, record_cont=False) -> dict:
     """The instantiation a launch of ``B`` lanes in ``mode`` takes, as the
     library reports it (``ivp_<kernel>_layout_<rhs>``, the modes'
-    ``ivp_<kernel>_modes_layout_<rhs>``): ``LAYOUT_KEYS``, blocks an SM
-    holds at once by cudaOccupancyMaxActiveBlocksPerMultiprocessor,
-    registers and local-memory bytes a thread by cudaFuncGetAttributes.
-    Needs the card."""
+    ``ivp_<kernel>_modes_layout_<rhs>``, RECORD with coefficients or
+    without): ``LAYOUT_KEYS``, blocks an SM holds at once by
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor, registers and
+    local-memory bytes a thread by cudaFuncGetAttributes; a mode's also
+    ``STAGE_KEYS``.  Needs the card."""
     kernel = method.lower()
     lib = build.library(kernel) if lib is None else lib
-    info = (ctypes.c_int * len(LAYOUT_KEYS))()
+    keys = LAYOUT_KEYS + (STAGE_KEYS if mode != LEAN else ())
+    info = (ctypes.c_int * len(keys))()
     args = (int(controller != "float32"), int(B),
             ctypes.cast(info, ctypes.c_void_p))
     if mode == LEAN:
@@ -194,10 +209,10 @@ def layout(method, fun, controller="float32", B=1, lib=None,
                             lib=lib)
     else:
         entry = build.entry(f"ivp_{kernel}_modes_layout_{fun.name}",
-                            [_I, _I, _I, _P], lib=lib)
-        args = (int(mode),) + args
+                            [_I, _I, _I, _P, _I], lib=lib)
+        args = (int(mode),) + args + (int(record_cont),)
     build.check(entry(*args), f"{kernel} layout (mode {mode})", lib)
-    return dict(zip(LAYOUT_KEYS, info))
+    return dict(zip(keys, info))
 
 
 def radau_options(p) -> RadauOptions:

@@ -3284,22 +3284,40 @@ def stiff_mode_cases(dev, sizes=AB_STIFF_MODES, stream=None):
     return out
 
 
-def ab_stiff_modes(dev, old, label):
+# The modes' timing rows: (mode, B, rows a chunk): the sampled main path,
+# the recording one's first chunk, and the recording lanes at 131072 in
+# chunks of 64, where the stage must keep the residency of four blocks an
+# SM.
+AB_STIFF_MODE_ROWS = (("sampled", 131072, 0),
+                      ("record", 16384, STIFF_REC_CAPS[0]),
+                      ("record_cont", 16384, STIFF_REC_CAPS[0]),
+                      ("record", 131072, STIFF_REC_CAPS[1]),
+                      ("record_cont", 131072, STIFF_REC_CAPS[1]))
+
+
+def ab_stiff_modes(dev, old, label, old_side=None):
     """ab_stiff's part for the SAMPLED and RECORD modes: the lanes differing
     in every output, sample, row and count of each ``stiff_mode_cases`` case
     under both controller types (``old``: the baseline's libraries by
-    kernel, launched by this tree's wrappers, whose entries they share), then
+    kernel, launched by this tree's wrappers, whose entries they share; the
+    rows over their fields, the drain's views, never the pad of the even
+    stride, which a build with direct stores leaves unwritten), then
     ``AB_STIFF_ROUNDS`` rounds of old, new, new, old ``turn_ms`` of one
-    launch of the sampled main path (B=131072) and of the recording one's
-    first chunk (B=16384, 1024 rows, with and without coefficients), the
-    float32 controller, with each side's share of the bound and the new
-    side's layout."""
+    launch of each of ``AB_STIFF_MODE_ROWS`` (a recording row's first
+    chunk), the float32 controller, each side through its own wrappers
+    (``old_side``, side_modules: a baseline package's rows at its own
+    stride), with each side's share of the bound and each side's layout
+    (with its RECORD stage: rows and bytes a lane)."""
+    import inspect
     import chip_smoke as cs
     from ivp_tpu_torch import rhs
     from ivp_tpu_torch.core.driver import run_args
+    from ivp_tpu_torch.kernels import erk_record as R
     from ivp_tpu_torch.kernels import stiff_ensemble as S
     from ivp_tpu_torch.methods.jacobian import stiff_spec
 
+    old_side = old_side or side_modules()
+    wrappers = {"new": (S, rhs.vdp, None)}
     for case, B, run in stiff_mode_cases(dev):
         for method in ("RADAU", "BDF"):
             for cp in ("float32", "state"):
@@ -3314,9 +3332,7 @@ def ab_stiff_modes(dev, old, label):
                      lanes_differing=repr(diff), launches=ln,
                      statuses=repr(dict(Counter(new["status"].cpu().tolist()))))
                 del new, ref
-    for mode, B in (("sampled", AB_STIFF_MODES["sampled"]),
-                    ("record", AB_STIFF_MODES["record"]),
-                    ("record_cont", AB_STIFF_MODES["record"])):
+    for mode, B, cap in AB_STIFF_MODE_ROWS:
         a, grid = stiff_split_inputs(B, dev)
         y0, t0, tf, hmax, fs, rtol, atol = a
         hmin = torch.zeros(B, dtype=torch.float64, device=dev)
@@ -3325,16 +3341,18 @@ def ab_stiff_modes(dev, old, label):
         for method in ("RADAU", "BDF"):
             p = stiff_spec(method, 2, None,
                            {"controller_precision": "float32"}).params()
+            wrappers["old"] = (old_side.S, old_side.rhs.vdp,
+                               old[method.lower()])
             sides = {}
-            for w, lib in (("new", None), ("old", old[method.lower()])):
-                md = (S.Modes(method, B, 2, dev, grid) if mode == "sampled"
-                      else S.Modes(method, B, 2, dev, None, STIFF_REC_CAPS[0],
+            for w, (M, fun, lib) in wrappers.items():
+                md = (M.Modes(method, B, 2, dev, grid) if mode == "sampled"
+                      else M.Modes(method, B, 2, dev, None, cap,
                                    mode == "record_cont"))
-                c = S.empty_carry(method, B, 2, S.controller_dtype(p), dev)
-                launch = S.StiffLaunch(method, rhs.vdp, ra, (cs.STIFF_MU,), p,
+                c = M.empty_carry(method, B, 2, M.controller_dtype(p), dev)
+                launch = M.StiffLaunch(method, fun, ra, (cs.STIFF_MU,), p,
                                        lib, md)
-                sides[w] = (lambda launch=launch, c=c: launch(
-                    c, c, y0, t0, first, True, S.UNBOUNDED, None)), c, md
+                sides[w] = (lambda launch=launch, c=c, M=M: launch(
+                    c, c, y0, t0, first, True, M.UNBOUNDED, None)), c, md
             ms = {"old": [], "new": []}
             for r in range(AB_STIFF_ROUNDS):
                 for w in ("old", "new", "new", "old"):
@@ -3348,12 +3366,20 @@ def ab_stiff_modes(dev, old, label):
                           else {"n_rec": md.n_rec,
                                 "record_cont": mode == "record_cont"}))
             med = {w: float(np.median(v)) for w, v in ms.items()}
+            rows_bytes = 0.0 if ns is not None else 8.0 * float(
+                md.n_rec.double().sum()) * R.record_width(
+                    method, 2, mode == "record_cont")
             pairs = zip(zip(ms["new"][::2], ms["new"][1::2]),
                         zip(ms["old"][::2], ms["old"][1::2]))
-            lay = S.layout(method, rhs.vdp, "float32", B,
-                           mode=S.SAMPLED if mode == "sampled" else S.RECORD)
+            lay = {}
+            for w, (M, fun, lib) in wrappers.items():
+                kw = ({"record_cont": mode == "record_cont"} if "record_cont"
+                      in inspect.signature(M.layout).parameters else {})
+                lay[w] = M.layout(method, fun, "float32", B, lib=lib,
+                                  mode=M.SAMPLED if mode == "sampled"
+                                  else M.RECORD, **kw)
             line("ab_stiff_modes", old=label, kernel=method.lower(), mode=mode,
-                 B=B, old_ms=[round(x, 4) for x in ms["old"]],
+                 B=B, rec_cap=cap, old_ms=[round(x, 4) for x in ms["old"]],
                  new_ms=[round(x, 4) for x in ms["new"]],
                  old_median=round(med["old"], 4),
                  new_median=round(med["new"], 4),
@@ -3366,9 +3392,66 @@ def ab_stiff_modes(dev, old, label):
                  warp_attempts=warp_attempts(c.nstep),
                  cycles_new=round(med["new"] * 1e-3 * sm_mhz() * 1e6 * 132 * 4
                                   / warp_attempts(c.nstep), 1),
-                 **{f"new_{k}": v for k, v in lay.items()})
+                 cycles_old=round(med["old"] * 1e-3 * sm_mhz() * 1e6 * 132 * 4
+                                  / warp_attempts(c.nstep), 1),
+                 **({} if ns is not None else {f"gbytes_per_s_{w}": round(
+                     rows_bytes / (med[w] * 1e6), 1) for w in med}),
+                 **({} if ns is not None else {
+                     f"row_stride_{w}": sides[w][2].rows.shape[-1]
+                     for w in sides}),
+                 **{f"{w}_{k}": v for w in ("new", "old")
+                    for k, v in lay[w].items()})
             del sides, c, md
         del a, grid, hmin, ra
+    ab_stiff_record_solves(dev, old, label, old_side)
+
+
+def ab_stiff_record_solves(dev, old, label, old_side):
+    """The recording main path's solve end to end, kernel and drain
+    (erk_record.stiff_record_launches: B=16384, ``STIFF_REC_CAPS[0]``
+    rows a chunk, with and without coefficients, the float32 controller):
+    ``AB_STIFF_ROUNDS`` rounds of old, new, new, old ``turn_ms``, each side
+    through its own package's wrappers (``old_side``), so each side's rows
+    lie at its own strides."""
+    import importlib
+
+    import chip_smoke as cs
+    from ivp_tpu_torch import rhs
+    from ivp_tpu_torch.kernels import erk_record as R
+    from ivp_tpu_torch.methods.jacobian import stiff_spec
+
+    pkg = old_side.S.__name__.rsplit(".", 1)[0]
+    sides = {"new": (R, rhs.vdp),
+             "old": (importlib.import_module(f"{pkg}.erk_record"),
+                     old_side.rhs.vdp)}
+    B = AB_STIFF_MODES["record"]
+    a, _ = stiff_split_inputs(B, dev)
+    for method in ("RADAU", "BDF"):
+        spec = stiff_spec(method, 2, None, {"controller_precision": "float32"})
+        libs = {"new": None, "old": old[method.lower()]}
+        for cont in (True, False):
+            run = {w: (lambda M=M, fun=fun, lib=libs[w]:
+                       M.stiff_record_launches(
+                           method, fun, *a, (cs.STIFF_MU,), 100000, None,
+                           spec, STIFF_REC_CAPS[0], cont, 0.0, lib))
+                   for w, (M, fun) in sides.items()}
+            ms = {"old": [], "new": []}
+            for r in range(AB_STIFF_ROUNDS):
+                for w in ("old", "new", "new", "old"):
+                    ms[w].append(turn_ms(run[w]))
+            med = {w: float(np.median(v)) for w, v in ms.items()}
+            pairs = zip(zip(ms["new"][::2], ms["new"][1::2]),
+                        zip(ms["old"][::2], ms["old"][1::2]))
+            line("ab_stiff_record_solve", old=label, kernel=method.lower(),
+                 record_cont=cont, B=B, rec_cap=STIFF_REC_CAPS[0],
+                 old_ms=[round(x, 4) for x in ms["old"]],
+                 new_ms=[round(x, 4) for x in ms["new"]],
+                 old_median=round(med["old"], 4),
+                 new_median=round(med["new"], 4),
+                 new_over_old=round(med["new"] / med["old"], 4),
+                 rounds_new_won=f"{sum(sum(n) < sum(o) for n, o in pairs)}"
+                                f"/{AB_STIFF_ROUNDS}")
+    del a
 
 
 def ab_stiff(build, dev, baseline, label):
@@ -3415,7 +3498,7 @@ def ab_stiff(build, dev, baseline, label):
                      lanes_differing=repr(diff), launches=ln,
                      statuses=repr(dict(Counter(new.status.cpu().tolist()))))
                 del new, ref
-    ab_stiff_modes(dev, old, label)
+    ab_stiff_modes(dev, old, label, old_side)
     rows = [(f"vdp_B{B}", B, lambda B=B: (
         rhs.vdp, cs.solve_args(torch.as_tensor(cs.stiff_y0(B), device=dev),
                                cs.STIFF_TF, *cs.STIFF_TOL, None, dev),
