@@ -2545,7 +2545,7 @@ def stiff_modes_vs_plain(dev):
                     ("n_rec",), ("y",) + rows), p_ms, k_ms)
                 bitwise(f"{name}_{cp}_vs_lean_B{B}", got, lean, STIFF_FINAL)
             del got, ref
-        # Chunks of 64 and of REC_CAP_CHECK rows (odd: BDF's staged rows
+        # Chunks of 64 and of REC_CAP_CHECK rows (odd: the staged rows
         # leave some lanes mid-run at every chunk's end) against one chunk,
         # with the grid's samples.
         spec = stiff_spec(method, 2, None, None)
@@ -2927,7 +2927,8 @@ def stiff_phase(dev):
             "registers": row["registers"],
             "local_bytes": row["local_bytes"],
             "blocks_per_sm": row["blocks_per_sm"],
-            "stage_rows": row["stage_rows"]})
+            "stage_rows": row["stage_rows"],
+            "stage_lane_bytes": row["stage_lane_bytes"]})
     return rows
 
 

@@ -796,18 +796,11 @@ int bdf_pick(int B, int* min_blocks, BDFKernelPtr* kernel) {
   return 0;
 }
 
-// A RECORD launch's rows' stage (stage_plan), rows with coefficients or
-// without: its rows a lane into *k and the block's dynamic shared memory,
-// the slots with it, into *bytes; the CUDA error code.
+// A RECORD launch's stage, at the picked instantiation's min blocks.
 template <class F, int T>
 int bdf_stage(int B, int min_blocks, bool record_cont, int* bytes, int* k) {
-  constexpr int N = F::N, SLOTS = BDFCold<N>::DOUBLES;
-  static_assert(8 * T * (SLOTS + stage_stride(1, row_stride(N, BDF_COEFFS,
-                                                             true))) <=
-                    SLOTS_BLOCK_MAX,
-                "one staged row exceeds a block's shared memory");
-  return stage_plan<T>(B, min_blocks, SLOTS,
-                       row_stride(N, BDF_COEFFS, record_cont), bytes, k);
+  return record_stage<T, BDFCold<F::N>::DOUBLES, F::N, BDF_COEFFS>(
+      B, min_blocks, record_cont, bytes, k);
 }
 
 template <class F, class CT, int T, int MB, int MB1, int MODE>
@@ -910,10 +903,8 @@ int bdf_modes_layout(int mode, int state_precision, int B, int* info,
           : bdf_layout<F, T, MB, MB1, STIFF_LEAN>(state_precision, B, 0,
                                                   info);
   if (err) return err;
-  const int s = info[2] / 8 - BDFCold<F::N>::DOUBLES;
-  info[7] = s ? stage_rows(s, row_stride(F::N, BDF_COEFFS, record_cont != 0))
-              : 0;
-  info[8] = 8 * s;
+  stage_info<BDFCold<F::N>::DOUBLES, F::N, BDF_COEFFS>(record_cont != 0,
+                                                       info);
   return 0;
 }
 

@@ -715,7 +715,11 @@ __global__ void __launch_bounds__(T, MB) radau_kernel(
 
   const CT newton_tol = radau_newton_tol<CT>(o, rtol_t[0]);
   const int nstep0 = nstep;
-  StiffOut<N, 4, MODE> out(md, i, init);
+  // RECORD stages its rows in the shared memory past the slots, in 16-byte
+  // pairs.
+  using Stage = std::conditional_t<MODE == STIFF_RECORD,
+                                   SlotsStage<T, K::DOUBLES, true>, NoStage>;
+  StiffOut<N, 4, MODE, Stage> out(md, i, init);
   while (status == RUNNING && nstep - nstep0 < max_attempts && !out.full()) {
     bool accepted, finished, count_step, count_reject;
     int fe, je, le;
@@ -789,6 +793,13 @@ __global__ void __launch_bounds__(T, MB) radau_kernel(
   d.nrejct[i] = nrejct;
 }
 
+// A RECORD launch's stage, at the entry's min blocks.
+template <class F, int T, int MB>
+int radau_stage(int B, bool record_cont, int* bytes, int* k) {
+  return record_stage<T, RadauCold<F::N>::DOUBLES, F::N, 4>(
+      B, MB, record_cont, bytes, k);
+}
+
 template <class F, class CT, int T, int MB, int MODE>
 int radau_launch_as(int B, const double* y0, const double* t0,
                     const double* first_step, StiffRun ra, const double* args,
@@ -798,9 +809,18 @@ int radau_launch_as(int B, const double* y0, const double* t0,
   constexpr int bytes = 8 * RadauCold<F::N>::DOUBLES * T;
   static_assert(bytes <= SLOTS_BLOCK_MAX, "the slots exceed a block's");
   auto kernel = radau_kernel<F, CT, T, MB, MODE>;
-  const int err = allow_slots(kernel, bytes);
+  int smem = bytes, k = 0, err = 0;
+  if constexpr (MODE == STIFF_RECORD) {
+    // The bulk copies take rows of the stride the stage has, 16-byte
+    // aligned.
+    if (md.stride != row_stride(F::N, 4, md.record_cont != 0) ||
+        ((uintptr_t)md.rows & 15) != 0)
+      return (int)cudaErrorInvalidValue;
+    err = radau_stage<F, T, MB>(B, md.record_cont != 0, &smem, &k);
+  }
+  if (!err) err = allow_slots(kernel, smem);
   if (err) return err;
-  kernel<<<(B + T - 1) / T, T, bytes, (cudaStream_t)stream>>>(
+  kernel<<<(B + T - 1) / T, T, smem, (cudaStream_t)stream>>>(
       B, y0, t0, first_step, ra, args, o, d_in, c_in, d, c, init,
       max_attempts, md);
   return (int)cudaGetLastError();
@@ -841,22 +861,38 @@ int radau_modes_launch(int B, const double* y0, const double* t0,
                                                init, max_attempts, md, stream);
 }
 
+// slots_layout of the instantiation a launch of B lanes takes, with its
+// RECORD stage (rows with coefficients or without) in the lane's and the
+// block's bytes.
 template <class F, int T, int MB, int MODE>
-int radau_layout(int state_precision, int* info) {
-  constexpr int lane = 8 * RadauCold<F::N>::DOUBLES;
+int radau_layout(int state_precision, int B, int record_cont, int* info) {
+  int bytes = 8 * RadauCold<F::N>::DOUBLES * T, k = 0;
+  if constexpr (MODE == STIFF_RECORD) {
+    const int err = radau_stage<F, T, MB>(B, record_cont != 0, &bytes, &k);
+    if (err) return err;
+  }
   if (state_precision)
-    return slots_layout(radau_kernel<F, double, T, MB, MODE>, T, MB, lane,
-                        info);
-  return slots_layout(radau_kernel<F, float, T, MB, MODE>, T, MB, lane, info);
+    return slots_layout(radau_kernel<F, double, T, MB, MODE>, T, MB,
+                        bytes / T, info);
+  return slots_layout(radau_kernel<F, float, T, MB, MODE>, T, MB, bytes / T,
+                      info);
 }
 
+// The layout of a mode's instantiation, then info[7] the stage's rows a
+// lane and info[8] its bytes a lane (0 and 0 unstaged).
 template <class F, int T, int MB>
-int radau_modes_layout(int mode, int state_precision, int* info) {
-  if (mode == STIFF_RECORD)
-    return radau_layout<F, T, MB, STIFF_RECORD>(state_precision, info);
-  if (mode == STIFF_SAMPLED)
-    return radau_layout<F, T, MB, STIFF_SAMPLED>(state_precision, info);
-  return radau_layout<F, T, MB, STIFF_LEAN>(state_precision, info);
+int radau_modes_layout(int mode, int state_precision, int B, int* info,
+                       int record_cont) {
+  const int err =
+      mode == STIFF_RECORD
+          ? radau_layout<F, T, MB, STIFF_RECORD>(state_precision, B,
+                                                 record_cont, info)
+      : mode == STIFF_SAMPLED
+          ? radau_layout<F, T, MB, STIFF_SAMPLED>(state_precision, B, 0, info)
+          : radau_layout<F, T, MB, STIFF_LEAN>(state_precision, B, 0, info);
+  if (err) return err;
+  stage_info<RadauCold<F::N>::DOUBLES, F::N, 4>(record_cont != 0, info);
+  return 0;
 }
 
 }  // namespace ivp
@@ -865,8 +901,9 @@ int radau_modes_layout(int mode, int state_precision, int* info) {
 // it loads, d_in and c_in, and the one it stores, d and c),
 // ivp_radau_modes_<name> (the same with the samples or rows of md), and
 // ivp_radau_layout_<name> / ivp_radau_modes_layout_<name> (slots_layout of
-// the instantiation a launch under a controller type, in a mode, takes,
-// whatever its B and record_cont: the rows go out unstaged).  T, MB: threads a block and min
+// the instantiation a launch of B lanes under a controller type, in a mode,
+// takes; RECORD with the stage of rows with coefficients or without,
+// record_cont).  T, MB: threads a block and min
 // blocks an SM under both controller types, from measure_kernel.py's stiff
 // occupancy sweep on an H100 (PERF.md); one instantiation serves every B,
 // since at (128, 3) Radau spills nothing either and runs no faster at
@@ -895,13 +932,13 @@ int radau_modes_layout(int mode, int state_precision, int* info) {
   extern "C" int ivp_radau_layout_##NAME(int state_precision, int B,        \
                                          int* info) {                         \
     return ivp::radau_layout<FUNCTOR, IVP_RADAU_BOUNDS(T, MB),                \
-                             ivp::STIFF_LEAN>(state_precision, info);         \
+                             ivp::STIFF_LEAN>(state_precision, B, 0, info);   \
   }                                                                           \
   extern "C" int ivp_radau_modes_layout_##NAME(int mode, int state_precision, \
                                                int B, int* info,              \
                                                int record_cont) {             \
     return ivp::radau_modes_layout<FUNCTOR, IVP_RADAU_BOUNDS(T, MB)>(         \
-        mode, state_precision, info);                                         \
+        mode, state_precision, B, info, record_cont);                         \
   }
 
 IVP_RADAU_ENTRY(vdp, VdP, 128, 4)

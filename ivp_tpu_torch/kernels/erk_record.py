@@ -23,9 +23,8 @@ Radau and BDF (``params`` a StiffSpec) record through the same chunk loop
 and drain: the plain driver on CPU tensors, and on CUDA tensors the RECORD
 mode of ``csrc/radau.cu`` and ``csrc/bdf.cu`` (:func:`stiff_record_launches`,
 one :class:`~ivp_tpu_torch.kernels.stiff_ensemble.StiffLaunch` a chunk
-from the lane carry to itself): BDF's rows staged and written in bulk
-copies at :func:`record_stride`, as the explicit kernels' are, Radau's
-stored a double at a time at :func:`record_width`.
+from the lane carry to itself): their rows staged and written in bulk
+copies at :func:`record_stride`, as the explicit kernels' are.
 
 With ``events`` the record mode detects events and restarts lanes as the
 lean solve does (kernels/erk_ensemble.py): the plain driver with events, or

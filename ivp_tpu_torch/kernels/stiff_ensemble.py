@@ -71,13 +71,6 @@ LAUNCHES = {f"{k}{m}": 0 for k in ("radau", "bdf")
 # csrc/stiff_common.cuh's modes.
 LEAN, SAMPLED, RECORD = 0, 1, 2
 
-# The kernels whose RECORD lanes stage their rows in shared memory and write
-# them by bulk copies (csrc/bdf.cu's SlotsStage), at the even stride
-# (erk_ensemble.record_stride) that those copies need.  The others store a
-# row a double at a time at its width, where the even stride ran Radau's
-# record modes 4.5-12% slower on an H100 (PERF.md §6).
-STAGED_RECORDS = ("BDF",)
-
 # The most attempts one launch may make (a solve's single launch).
 UNBOUNDED = 2**31 - 1
 
@@ -137,9 +130,11 @@ class Modes:
     samples ``y_samples (B, m, n)`` (rows past a lane's count stay zero, as
     the plain version's) and their count ``n_samples (B,)``, which a launch
     that is not a solve's first continues; with ``rec_cap`` > 0 (RECORD),
-    one chunk's ``rows (B, rec_cap, stride)`` (the row's width; for
-    ``STAGED_RECORDS`` ``erk_ensemble.record_stride``, the width rounded
-    up to even, whose pad is never read) and their count ``n_rec (B,)``.
+    one chunk's ``rows (B, rec_cap, stride)`` and their count ``n_rec
+    (B,)``: the kernels stage their rows in shared memory and write them by
+    bulk copies (csrc/stiff_common.cuh's SlotsStage), so at the stride those
+    copies need, ``erk_ensemble.record_stride`` (the row's width rounded up
+    to even, whose pad is never read), and a launch refuses another.
     ``arg`` is the launch argument and ``key`` the LAUNCHES key."""
 
     def __init__(self, method, B, n, dev, t_grid=None, rec_cap=0,
@@ -156,8 +151,7 @@ class Modes:
                           if m else None)
         self.n_samples = (torch.zeros((B,), dtype=i32, device=dev) if m
                           else None)
-        stride = (E.record_stride if method.upper() in STAGED_RECORDS
-                  else E.record_width)(method, n, record_cont)
+        stride = E.record_stride(method, n, record_cont)
         self.rows = (torch.empty((B, cap, stride), dtype=f64, device=dev)
                      if cap else None)
         self.n_rec = (torch.zeros((B,), dtype=i32, device=dev) if cap
@@ -182,8 +176,8 @@ class BDFCarryArg(ctypes.Structure):
 # The keys of a stiff instantiation's layout, in the order
 # csrc/stiff_common.cuh::slots_layout fills them (a staged RECORD
 # instantiation's lane and block bytes hold its stage), then a mode's:
-# its RECORD stage's rows a lane and bytes a lane (0 unstaged: Radau, and
-# every SAMPLED instantiation).
+# its RECORD stage's rows a lane and bytes a lane (0 unstaged: every
+# SAMPLED instantiation).
 LAYOUT_KEYS = ("threads", "min_blocks", "lane_bytes", "block_bytes",
                "blocks_per_sm", "registers", "local_bytes")
 STAGE_KEYS = ("stage_rows", "stage_lane_bytes")

@@ -137,7 +137,8 @@ instantiation), then the phases (all by default, ``ab`` only with
   path's 101-point grid at B=131072, recording at 16384 with and without
   coefficients in one chunk and in chunks of 64 rows, Robertson's log
   grid, a step budget; every sample, row, count and carry field), then
-  turns of the sampled main path and the recording one's first chunk;
+  turns of the sampled main path, the recording one's first chunk and
+  Robertson's recorded with coefficients at 65536 (``AB_STIFF_MODE_ROWS``);
 * ``ab_events`` (needs ``--baseline``): every event instantiation built
   from another source tree against the package's: ``ab_events_bitwise``,
   the lanes differing in every output, event buffer and carry field of
@@ -207,8 +208,10 @@ instantiation), then the phases (all by default, ``ab`` only with
   bdf spends its cycles, in the package's csrc and each baseline's: a copy
   with clock64() stamps (``STIFF_STAMPS``) under
   ``_variants/<label>-stiff-stamps/csrc``, VdP on the stiff main path
-  (B=131072, float32) lean and sampled and the decay row lean under both
-  controller types, outputs held bit for bit to the tree's build: the
+  (B=131072, float32) lean and sampled, the decay row lean under both
+  controller types, and VdP at B=16384 lean and in both RECORD modes (one
+  chunk; a row's cycles split again, ``ROW_PARTS``), outputs held bit for
+  bit to the tree's build: the
   cycles of each part (``STIFF_PARTS``) a lane-attempt, the runs past a
   unit's fast paths and of its library path, the cycles a warp-attempt a
   scheduler of both builds; and the stamped SASS's instructions, BRA,
@@ -1125,11 +1128,20 @@ def cycle_split(build, dev, variants, method="DOP853"):
 # end; beside them its attempts, the runs past a unit's fast paths (every
 # `if (!fast.ok` of the tree, where it has them) and the runs of a unit's
 # library path after its wide paths (WideOps).  A stamp is also a marker in
-# the SASS: stiff_regions counts the branches between two.
+# the SASS: stiff_regions counts the branches between two.  A RECORD row's
+# cycles are split again inside StiffOut (STIFF_STAMP_OUT, ROW_PARTS): the
+# wait for the stage's last copy, the row's fields (the loads of its
+# coefficients from the slots and its stores, to the stage or to global
+# memory), the bulk copy of a full run, and at the lane's exit the partial
+# run's copy and the wait for every copy; each lane sums them in registers
+# and adds them to sums 13-16 at its exit.  Beside the static shared array of
+# the stamps, a stamped staged launch plans its stage in what the array
+# leaves (a row fewer at one block an SM, for VdP's rows with coefficients).
 STIFF_PARTS = ("loop", "jacobian", "decomposition", "head", "newton", "error",
                "controller", "tail", "emission", "change_d")
+ROW_PARTS = ("row_wait", "row_fields", "row_copy", "row_exit")
 STIFF_STAMP_HEAD = """constexpr int SINGULAR_MATRIX = 5;
-__device__ unsigned long long ivp_stamp_sums[13];
+__device__ unsigned long long ivp_stamp_sums[17];
 __shared__ unsigned long long ivp_stamp_acc[13 * 128];
 #define IVP_STAMP(p)                                                         \\
   {                                                                          \\
@@ -1144,7 +1156,7 @@ __device__ __forceinline__ bool ivp_stamp_slow(int k) {
 }
 """
 STIFF_STAMP_TAKE = STAMP_TAKE.replace("IVP_ERK_LIBRARY()", "IVP_STIFF_LIBRARY()") \
-    .replace("[6]", "[13]").replace("0, 0, 0, 0, 0, 0", "0")
+    .replace("[6]", "[17]").replace("0, 0, 0, 0, 0, 0", "0")
 _LOOP = ("  while (status == RUNNING && nstep - nstep0 < max_attempts && "
          "!out.full()) {\n")
 _STAMP_KERNEL = (
@@ -1211,16 +1223,66 @@ STIFF_STAMPS = {
 }
 
 
+# STIFF_STAMP_OUT's entries come in pairs where an older StiffOut (a direct
+# store path beside the staged one) and one that stages every row differ.
+STIFF_STAMP_OUT = (
+    (("constexpr int SMEM_SM = 228 * 1024, SMEM_BLOCK_RESERVED = 1024;\n",),
+     "constexpr int SMEM_SM = 228 * 1024,\n"
+     "              SMEM_BLOCK_RESERVED = 1024 + 13 * 128 * 8;\n",
+     "replace", True),
+    (("constexpr int SLOTS_BLOCK_MAX = 227 * 1024;\n",),
+     "constexpr int SLOTS_BLOCK_MAX = 227 * 1024 - 13 * 128 * 8;\n",
+     "replace", True),
+    (("  double* stage = nullptr;\n  int k = 0, run = 0;\n",),
+     "  mutable long long ivp_c = 0;\n"
+     "  mutable unsigned long long ivp_part[4] = {0, 0, 0, 0};\n"
+     "  __device__ __forceinline__ void ivp_tick(int q) const {\n"
+     "    const long long now = clock64();\n"
+     "    ivp_part[q] += (unsigned long long)(now - ivp_c);\n"
+     "    ivp_c = now;\n"
+     "  }\n", "after", True),
+    (("    if constexpr (MODE == STIFF_RECORD) {\n      double* r;\n",
+      "    if constexpr (MODE == STIFF_RECORD) {\n      stage_wait_read();\n"),
+     "      ivp_c = clock64();\n", "after", True),
+    (("        stage_wait_read();\n", "      stage_wait_read();\n"),
+     "      ivp_tick(0);\n", "after", True),
+    (("      ++nrec;\n",), "      ivp_tick(1);\n", "before", True),
+    (("          run = 0;\n        }\n      }\n    }\n",),
+     "          run = 0;\n        }\n      }\n      ivp_tick(2);\n    }\n",
+     "replace", True),
+    (("        run = 0;\n      }\n    }\n  }\n",),
+     "        run = 0;\n      }\n      ivp_tick(2);\n    }\n  }\n",
+     "replace", True),
+    (("    if constexpr (MODE == STIFF_RECORD) md.n_rec[i] = nrec;\n",),
+     "    if constexpr (MODE == STIFF_RECORD) {\n"
+     "      ivp_tick(3);\n"
+     "      for (int q = 0; q < 4; ++q)\n"
+     "        atomicAdd(&ivp_stamp_sums[13 + q], ivp_part[q]);\n"
+     "    }\n", "before", True),
+    (("      md.n_rec[i] = nrec;\n",),
+     "      ivp_tick(3);\n"
+     "      for (int q = 0; q < 4; ++q)\n"
+     "        atomicAdd(&ivp_stamp_sums[13 + q], ivp_part[q]);\n",
+     "before", True),
+    (("    if constexpr (STAGED) {\n      if (run)\n",),
+     "    ivp_c = clock64();\n", "before", True),
+    (("    if constexpr (MODE == STIFF_RECORD) {\n      if (run)\n",),
+     "      ivp_c = clock64();\n", "after", True),
+)
+
+
 def stiff_stamped_copy(src, dst):
     """A copy of the csrc tree ``src`` at ``dst`` with ``STIFF_STAMPS`` (and
-    ``STIFF_STAMP_HEAD`` in stiff_common.cuh) applied as stamped_copy
-    applies its entries, each of the tree's `if (!fast.ok` counted."""
+    ``STIFF_STAMP_HEAD`` and ``STIFF_STAMP_OUT`` in stiff_common.cuh)
+    applied as stamped_copy applies its entries, each of the tree's `if
+    (!fast.ok` counted."""
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(src, dst)
     common = dst / "stiff_common.cuh"
     common.write_text(common.read_text().replace(
         "constexpr int SINGULAR_MATRIX = 5;\n", STIFF_STAMP_HEAD, 1))
-    for name, entries in (*STIFF_STAMPS.items(), ("stiff_common.cuh", ())):
+    for name, entries in (*STIFF_STAMPS.items(),
+                          ("stiff_common.cuh", STIFF_STAMP_OUT)):
         text = (dst / name).read_text()
         for anchors, new, where, optional in entries:
             old = next((o for o in anchors if text.count(o) == 1), None)
@@ -1325,7 +1387,7 @@ def stiff_split(build, dev, variants):
         line("stiff_split_build", variant=label,
              seconds=round(time.perf_counter() - t, 3))
         side = side_modules(None if label == "new" else variant)
-        sums = (ctypes.c_ulonglong * 13)()
+        sums = (ctypes.c_ulonglong * 17)()
         for m in ("radau", "bdf"):
             for name, ins in sass_functions(paths["stamped", m]).items():
                 if name.startswith(f"{m}/VdP/f32") and name.endswith(
@@ -1338,6 +1400,10 @@ def stiff_split(build, dev, variants):
         fun, a, args = stiff_inputs("decay", AB_STIFF_WIDE["decay"], dev)
         cases.append((f"decay_B{AB_STIFF_WIDE['decay']}", fun, a, None, args,
                       ("lean",), ("float32", "state"), 0))
+        B = AB_STIFF_MODES["record"]
+        cases.append((f"vdp_B{B}", rhs.vdp, stiff_split_inputs(B, dev)[0],
+                      None, (cs.STIFF_MU,), ("lean", "record", "record_cont"),
+                      ("float32",), STIFF_SPLIT_ROUNDS))
         for row, fun, a, grid, args, modes, cps, rounds in cases:
             B = a[0].shape[0]
             hmin = torch.zeros(B, dtype=torch.float64, device=dev)
@@ -1349,9 +1415,20 @@ def stiff_split(build, dev, variants):
                 p = stiff_spec(method, fun.n, None,
                                {"controller_precision": cp}).params()
                 g = grid if mode == "sampled" else None
-                run = {w: (lambda lib=libs[w, m]: side.S.stiff_ensemble_cuda(
-                    method, fun, *a, args, 100000, p, hmin, lib=lib,
-                    t_grid=g)) for w in ("stamped", "variant")}
+                if mode.startswith("record"):
+                    run, fields, mds = {}, {}, {}
+                    for w in ("stamped", "variant"):
+                        run[w], fields[w], mds[w] = split_record_run(
+                            side.S, method, fun, a, args, p, libs[w, m],
+                            STIFF_REC_CAPS[0], mode == "record_cont", dev)
+                else:
+                    run = {w: (lambda lib=libs[w, m]:
+                               side.S.stiff_ensemble_cuda(
+                                   method, fun, *a, args, 100000, p, hmin,
+                                   lib=lib, t_grid=g))
+                           for w in ("stamped", "variant")}
+                    fields = {w: (lambda c: stiff_mode_fields(method, c))
+                              for w in run}
                 build.check(take(sums), "ivp_stamp_sums_take",
                             libs["stamped", m])
                 got = run["stamped"]()
@@ -1361,8 +1438,15 @@ def stiff_split(build, dev, variants):
                 parts = [int(x) for x in sums]
                 ref = run["variant"]()
                 torch.cuda.synchronize()
-                diff = carry_lanes_differing(stiff_mode_fields(method, got),
-                                             stiff_mode_fields(method, ref))
+                diff = carry_lanes_differing(fields["stamped"](got),
+                                             fields["variant"](ref))
+                rows = 0
+                if mode.startswith("record"):
+                    rows = int(mds["variant"].n_rec.sum())
+                    lay = side.S.layout(method, fun, cp, B,
+                                        lib=libs["variant", m],
+                                        mode=side.S.RECORD,
+                                        record_cont=mode == "record_cont")
                 ms = {"variant": [], "stamped": []}
                 for r in range(rounds):
                     for w in (("variant", "stamped") if r % 2 == 0
@@ -1388,9 +1472,50 @@ def stiff_split(build, dev, variants):
                      sm_mhz=mhz,
                      identical_to_variant=all(v == 0 for v in diff.values()),
                      lanes_differing=repr({k: v for k, v in diff.items()
-                                           if v}))
+                                           if v}),
+                     **({} if not rows else dict(
+                         rows=rows, stage_rows=lay["stage_rows"],
+                         blocks_per_sm=lay["blocks_per_sm"],
+                         **{q: round(parts[13 + k] / rows, 1)
+                            for k, q in enumerate(ROW_PARTS)})))
                 del got, ref
             del a, grid, hmin
+
+
+def split_record_run(S, method, fun, a, args, p, lib, cap, cont, dev,
+                     stream=None):
+    """One RECORD launch of ``S``'s wrappers (a side's stiff_ensemble) of
+    ``lib`` on ``stream`` (0: a g++ build on CPU tensors) from the solve
+    arguments ``a``, one chunk of ``cap`` rows:
+    ``(run, fields, modes)``, ``run()`` the launch, returning its carry,
+    ``fields(carry)`` stiff_carry_fields with ``n_rec`` and the rows over
+    their fields, zero past each lane's count, and ``modes`` the launch's
+    Modes."""
+    from ivp_tpu_torch.core.driver import run_args
+    from ivp_tpu_torch.kernels import erk_ensemble as E
+
+    y0, t0, tf, hmax, fs, rtol, atol = a
+    B, n = y0.shape
+    hmin = torch.zeros(B, dtype=torch.float64, device=dev)
+    ra = run_args(tf, rtol, atol, hmax, hmin, 100000, y0)
+    first = S.nan_first_step(fs, B, dev)
+    md = S.Modes(method, B, n, dev, None, cap, cont)
+    c = S.empty_carry(method, B, n, S.controller_dtype(p), dev)
+    launch = S.StiffLaunch(method, fun, ra, args, p, lib, md)
+    W = E.record_width(method, n, cont)
+
+    def run(ra=ra):   # the launch holds ra's addresses: keep ra alive
+        launch(c, c, y0, t0, first, True, S.UNBOUNDED, stream)
+        return c
+
+    def fields(c):
+        out = stiff_carry_fields(method, c)
+        rows = md.rows[..., :W].clone()
+        rows[torch.arange(cap, device=dev)[None, :]
+             >= md.n_rec.to(torch.int64)[:, None]] = 0.0
+        out.update(n_rec=md.n_rec, rows=rows)
+        return out
+    return run, fields, md
 
 
 # fast_paths' checks of erk_common.cuh's FastCtl<float> and FastCtl<double>
@@ -3284,15 +3409,18 @@ def stiff_mode_cases(dev, sizes=AB_STIFF_MODES, stream=None):
     return out
 
 
-# The modes' timing rows: (mode, B, rows a chunk): the sampled main path,
-# the recording one's first chunk, and the recording lanes at 131072 in
-# chunks of 64, where the stage must keep the residency of four blocks an
-# SM.
-AB_STIFF_MODE_ROWS = (("sampled", 131072, 0),
-                      ("record", 16384, STIFF_REC_CAPS[0]),
-                      ("record_cont", 16384, STIFF_REC_CAPS[0]),
-                      ("record", 131072, STIFF_REC_CAPS[1]),
-                      ("record_cont", 131072, STIFF_REC_CAPS[1]))
+# The modes' timing rows: (mode, B, rows a chunk, lanes): the sampled main
+# path, the recording one's first chunk, and the recording lanes at 131072
+# in chunks of 64, where the stage must keep the residency of four blocks an
+# SM; then Robertson's lanes (stiff_inputs) recorded with coefficients at
+# 65536, where Radau's stage (18 doubles a row beside 504 B of slots) fits at
+# two blocks an SM, not the entry's three.
+AB_STIFF_MODE_ROWS = (("sampled", 131072, 0, "vdp"),
+                      ("record", 16384, STIFF_REC_CAPS[0], "vdp"),
+                      ("record_cont", 16384, STIFF_REC_CAPS[0], "vdp"),
+                      ("record", 131072, STIFF_REC_CAPS[1], "vdp"),
+                      ("record_cont", 131072, STIFF_REC_CAPS[1], "vdp"),
+                      ("record_cont", 65536, STIFF_REC_CAPS[1], "robertson"))
 
 
 def ab_stiff_modes(dev, old, label, old_side=None):
@@ -3317,7 +3445,7 @@ def ab_stiff_modes(dev, old, label, old_side=None):
     from ivp_tpu_torch.methods.jacobian import stiff_spec
 
     old_side = old_side or side_modules()
-    wrappers = {"new": (S, rhs.vdp, None)}
+    wrappers = {}
     for case, B, run in stiff_mode_cases(dev):
         for method in ("RADAU", "BDF"):
             for cp in ("float32", "state"):
@@ -3332,25 +3460,31 @@ def ab_stiff_modes(dev, old, label, old_side=None):
                      lanes_differing=repr(diff), launches=ln,
                      statuses=repr(dict(Counter(new["status"].cpu().tolist()))))
                 del new, ref
-    for mode, B, cap in AB_STIFF_MODE_ROWS:
-        a, grid = stiff_split_inputs(B, dev)
+    for mode, B, cap, lanes in AB_STIFF_MODE_ROWS:
+        if lanes == "vdp":
+            a, grid = stiff_split_inputs(B, dev)
+            fargs = (cs.STIFF_MU,)
+        else:
+            (_, a, fargs), grid = stiff_inputs(lanes, B, dev), None
         y0, t0, tf, hmax, fs, rtol, atol = a
+        n = y0.shape[1]
         hmin = torch.zeros(B, dtype=torch.float64, device=dev)
         ra = run_args(tf, rtol, atol, hmax, hmin, 100000, y0)
         first = S.nan_first_step(fs, B, dev)
+        fun0 = getattr(rhs, lanes)
+        wrappers["new"] = (S, fun0, None)
         for method in ("RADAU", "BDF"):
-            p = stiff_spec(method, 2, None,
+            p = stiff_spec(method, n, None,
                            {"controller_precision": "float32"}).params()
-            wrappers["old"] = (old_side.S, old_side.rhs.vdp,
+            wrappers["old"] = (old_side.S, getattr(old_side.rhs, lanes),
                                old[method.lower()])
             sides = {}
             for w, (M, fun, lib) in wrappers.items():
-                md = (M.Modes(method, B, 2, dev, grid) if mode == "sampled"
-                      else M.Modes(method, B, 2, dev, None, cap,
+                md = (M.Modes(method, B, n, dev, grid) if mode == "sampled"
+                      else M.Modes(method, B, n, dev, None, cap,
                                    mode == "record_cont"))
-                c = M.empty_carry(method, B, 2, M.controller_dtype(p), dev)
-                launch = M.StiffLaunch(method, fun, ra, (cs.STIFF_MU,), p,
-                                       lib, md)
+                c = M.empty_carry(method, B, n, M.controller_dtype(p), dev)
+                launch = M.StiffLaunch(method, fun, ra, fargs, p, lib, md)
                 sides[w] = (lambda launch=launch, c=c, M=M: launch(
                     c, c, y0, t0, first, True, M.UNBOUNDED, None)), c, md
             ms = {"old": [], "new": []}
@@ -3361,14 +3495,14 @@ def ab_stiff_modes(dev, old, label, old_side=None):
             c, md = sides["new"][1], sides["new"][2]
             ns = md.n_samples if mode == "sampled" else None
             b_ms, b_by = S.stiff_bound(
-                method, rhs.vdp, c.nstep, c.naccpt, c.nrejct, c.nfev, c.njev,
+                method, fun0, c.nstep, c.naccpt, c.nrejct, c.nfev, c.njev,
                 c.nlu, **({"n_samples": ns, "m": md.m} if ns is not None
                           else {"n_rec": md.n_rec,
                                 "record_cont": mode == "record_cont"}))
             med = {w: float(np.median(v)) for w, v in ms.items()}
             rows_bytes = 0.0 if ns is not None else 8.0 * float(
                 md.n_rec.double().sum()) * R.record_width(
-                    method, 2, mode == "record_cont")
+                    method, n, mode == "record_cont")
             pairs = zip(zip(ms["new"][::2], ms["new"][1::2]),
                         zip(ms["old"][::2], ms["old"][1::2]))
             lay = {}
@@ -3379,7 +3513,7 @@ def ab_stiff_modes(dev, old, label, old_side=None):
                                   mode=M.SAMPLED if mode == "sampled"
                                   else M.RECORD, **kw)
             line("ab_stiff_modes", old=label, kernel=method.lower(), mode=mode,
-                 B=B, rec_cap=cap, old_ms=[round(x, 4) for x in ms["old"]],
+                 lanes=lanes, B=B, rec_cap=cap, old_ms=[round(x, 4) for x in ms["old"]],
                  new_ms=[round(x, 4) for x in ms["new"]],
                  old_median=round(med["old"], 4),
                  new_median=round(med["new"], 4),

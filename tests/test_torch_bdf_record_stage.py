@@ -23,10 +23,10 @@ test_torch_stiff_modes.py's ``TOL`` and ``BDF_F32_SHARE`` (the float32
 controller's log and exp round apart between the host's libm and torch's,
 ROADMAP §3 fault 1); against the build's LEAN mode the final state and
 counters bit for bit.  The rows' stride is even and its pad never read: a
-buffer poisoned with NaN drains to the same finite rows.  Radau's rows,
-stored a double at a time at their width, are the same at the padded
-stride; a staged BDF launch refuses any other stride.  Skipped without
-g++.
+buffer poisoned with NaN drains to the same finite rows.  Radau's rows are
+staged too (tests/test_torch_radau_record_stage.py holds them): at the even
+stride its chunks equal one chunk, and handed its row's width it raises, as
+a staged BDF launch refuses any other stride.  Skipped without g++.
 """
 import functools
 import shutil
@@ -137,11 +137,13 @@ def test_pad_is_never_read(libs, monkeypatch, cont):
 
 @pytest.mark.parametrize("cont", (True, False), ids=("cont", "steps"))
 def test_radau_rows_same_at_either_stride(libs, monkeypatch, cont):
-    """Radau stores its rows a double at a time at the stride it is given
-    (its row's width, odd here): the padded stride's rows equal them."""
+    """Radau's RECORD lanes stage their rows as BDF's do: at the even
+    stride its rows in chunks of 37 equal one chunk's bit for bit; handed
+    its row's width (odd here) instead, the staged launch raises, and no
+    launch stores the rows a double at a time at that stride."""
     spec = spec_of("RADAU", "state")
-    unpadded, _ = kernel_record(libs["RADAU"], "RADAU", vdp(), spec, 37,
-                                cont)
+    one, _ = kernel_record(libs["RADAU"], "RADAU", vdp(), spec, ALL_ROWS,
+                           cont)
     made = []
 
     class Kept(S.Modes):
@@ -150,12 +152,17 @@ def test_radau_rows_same_at_either_stride(libs, monkeypatch, cont):
             made.append(self)
 
     monkeypatch.setattr(S, "Modes", Kept)
-    monkeypatch.setattr(S, "STAGED_RECORDS", ("BDF", "RADAU"))
-    padded, _ = kernel_record(libs["RADAU"], "RADAU", vdp(), spec, 37, cont)
+    many, chunks = kernel_record(libs["RADAU"], "RADAU", vdp(), spec, 37,
+                                 cont)
     w = E.record_width("RADAU", 2, cont)
-    assert w % 2 == 1 and made[0].rows.shape[-1] == w + 1
-    assert_bitwise(padded, unpadded,
+    assert w % 2 == 1 and made[0].rows.shape[-1] == w + 1 and chunks > 1
+    assert_bitwise(many, one,
                    FINAL + (ROWS if cont else ROWS[:-1]) + ("n_rec",))
+    monkeypatch.setattr(E, "record_stride", E.record_width)
+    name = f"radau_record{'_cont' if cont else ''} kernel launch"
+    with pytest.raises(RuntimeError, match=name):
+        kernel_record(libs["RADAU"], "RADAU", vdp(), spec, 37, cont)
+    assert made[-1].rows.shape[-1] == w
 
 
 def test_staged_launch_refuses_another_stride(libs, monkeypatch):
