@@ -1386,6 +1386,10 @@ SECTION_TF, SECTION_CAP = 20.0, 64
 EVENT_LORENZ = {"DOPRI5": (1e-8, 1e-10, None), "DOP853": (*LORENZ_TOL, None),
                 "RK23": (1e-6, 1e-8, None), "RK4": (1e-6, 1e-8, 5e-3)}
 EVENT_CHECK_TF = 2.0
+# The RK23 section main path is held lane by lane against the plain version
+# on t in [0, RK23_T_LANES] at its B and y0, and its own crossings up to
+# RK23_T_LANES on the first CHECK_B lanes against the plain version's mean.
+RK23_T_LANES = 2.0
 RK4_BALL_STEP = 0.1
 # The ball's B=4096 checks run to t = 8, where the shortest lanes have made
 # their 8 restarts and the tallest 3: a depth cut from the main path's 15
@@ -1892,6 +1896,113 @@ def section_main_path(dev):
                 main_path_bound_share=bound_ms / k_ms)
 
 
+def rk23_section_main_path(dev):
+    """The Lorenz section by RK23 at B=16384 (bench.py's Lorenz tolerances,
+    t in [0, 20], every crossing, SECTION_CAP occurrences a lane) through
+    build_ensemble_solver with a numpy y0: one launch, the counts set to 0
+    just before the solve and read just after, the kernel's device time by
+    torch.profiler and the solve's wall time; every lane succeeds without
+    overflow.  One more launch on the same inputs, bit for bit the main
+    path's result, gives the kernel's Brent count for the bound
+    (erk_ensemble.event_bound).  At the main path's B and y0 the kernel is
+    held lane by lane against the plain version on the card on t in [0,
+    RK23_T_LANES] (both timed there; compare() and event_errors() at the
+    events' bounds), and the main path's own crossings up to RK23_T_LANES on
+    its first 4096 lanes lie within 1% of the plain version's on them: the
+    plain RK23 takes about 6.6 ms a step on an H100 (about 24100 steps to
+    t = 20 at rtol 1e-8, 2.6 minutes), so the plain version's depth is
+    cut.  The row's fields: the main path's kernel ms by profiler and its
+    bound; the plain version's ms and the kernel's (lane_ms) on the lane
+    check's inputs."""
+    from ivp_tpu_torch import Status, build_ensemble_solver, rhs
+    from ivp_tpu_torch import events as E
+    from ivp_tpu_torch.events import SETS, EventArgs
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+
+    B, Bc = LORENZ_B, CHECK_B
+    y0n = lorenz_y0(B, seed=9)
+    rtol, atol = LORENZ_TOL
+    solver = build_ensemble_solver(
+        rhs.lorenz, "RK23", n=3, events=[E.lorenz_section],
+        event_capacity=SECTION_CAP, max_steps=200_000)
+    solve = lambda: solver(y0n, 0.0, SECTION_TF, rtol, atol)
+    solve()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    r = solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    del r
+    (r, k_ms, dev_ms), launches = launches_of(lambda: kernel_device_ms(solve))
+    if launches != {"rk23_ev": 1}:
+        raise AssertionError(f"RK23 section main path launched {launches}")
+    y0 = torch.as_tensor(y0n, device=dev)
+    ev = EventArgs((E.lorenz_section,), SECTION_CAP, 0)
+    a = solve_args(y0, SECTION_TF, rtol, atol, None, dev)
+    out = K.erk_ensemble_cuda("RK23", rhs.lorenz, *a, (), 200_000, events=ev)
+    torch.cuda.synchronize()
+    same = all(torch.equal(u, v) for u, v in zip(
+        out[:7], (r.t, r.y, r.status, r.nfev, r.nstep, r.naccpt, r.nrejct)))
+    same = same and torch.equal(out[9].t_events, r.t_events)
+    # Lane by lane on [0, RK23_T_LANES], at the main path's B and y0.
+    al = solve_args(y0, RK23_T_LANES, rtol, atol, None, dev)
+    run = lambda: K.erk_ensemble_cuda("RK23", rhs.lorenz, *al, (), 200_000,
+                                      events=ev)
+    run()
+    got, lane_ms = event_call(run)
+    ref, lane_plain_ms = event_call(lambda: K.erk_ensemble_torch(
+        "RK23", rhs.lorenz, *al, (), 200_000, None, None, ev))
+    tag = f"rk23_section_vs_plain_B{B}_tf{RK23_T_LANES:g}"
+    err = compare(tag, got[:9], ref[:9], scaled=True)
+    shares, eerrs = event_errors(got[9], ref[9])
+    lb_ms, lb_by, lb_every = K.event_bound(
+        "RK23", rhs.lorenz, SETS["section"], got[4], got[5], got[9])
+    phase(tag + "_events", **{f"{k}_equal": v for k, v in shares.items()},
+          **{f"max_err_{k}": v for k, v in eerrs.items()},
+          brent_kernel=int(got[9].n_brent.sum()),
+          brent_plain=int(ref[9].n_brent.sum()), kernel_ms=lane_ms,
+          plain_ms=lane_plain_ms, bound_ms=lb_ms, bound_by=lb_by,
+          bound_ms_rows_every_accept=lb_every)
+    check_events(tag, shares, eerrs)
+    # The main path's crossings up to RK23_T_LANES on its first Bc lanes.
+    cap = torch.arange(SECTION_CAP, device=dev)
+    kept = ((cap < r.n_events[:Bc, :, None])
+            & (r.t_events[:Bc] <= RK23_T_LANES))
+    mean_k = float(kept.sum((1, 2)).double().mean())
+    mean_p = float(ref[9].n_events[:Bc, 0].double().mean())
+    gap = abs(mean_k / mean_p - 1.0)
+    del got, ref
+    bound_ms, bound_by, bound_every = K.event_bound(
+        "RK23", rhs.lorenz, SETS["section"], r.nstep, r.naccpt, out[9])
+    phase(f"rk23_section_main_path_B{B}", launches=launches,
+          success_share=float((r.status == Status.SUCCESS).double().mean()),
+          crossings=(int(r.n_events.min()), int(r.n_events.max())),
+          mean_crossings=float(r.n_events.double().mean()),
+          mean_crossings_B4096_to_t=RK23_T_LANES,
+          main_path_mean_crossings_B4096=mean_k,
+          plain_mean_crossings_B4096=mean_p, mean_crossings_gap=gap,
+          overflow=bool(r.event_overflow.any()),
+          mean_nstep=float(r.nstep.double().mean()), kernel_ms=k_ms,
+          device_ms=dev_ms, wall_ms=1e3 * wall,
+          brent_evals_per_lane=float(out[9].n_brent.double().mean()),
+          bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / k_ms,
+          bound_ms_rows_every_accept=bound_every, rerun_bitwise=same)
+    if (gap > MEAN_NSTEP or not bool((r.status == Status.SUCCESS).all())
+            or bool(r.event_overflow.any()) or not same
+            or not bool(torch.isfinite(r.y).all())):
+        raise AssertionError("RK23 section main path: gate failed")
+    return dict(launches=1, ms=k_ms, plain_ms=lane_plain_ms,
+                plain_inputs=f"B={B}, t in [0, {RK23_T_LANES:g}]",
+                lane_ms=lane_ms, lane_bound_ms=lb_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                bound_share=bound_ms / k_ms,
+                bound_ms_rows_every_accept=bound_every,
+                max_abs_err=max(err, eerrs["y_events"]),
+                inputs=f"Lorenz B={B}, t in [0, {SECTION_TF:g}], "
+                       f"rtol={rtol:g}, atol={atol:g}",
+                main_path_wall_ms=1e3 * wall)
+
+
 def ball_solve_ivp(dev):
     """solve_ivp on the card with the ball's event set: every bounce
     restarted in the record-event kernel (t in [0, 12], 10 restarts, status
@@ -2020,9 +2131,10 @@ def ball_solve_ivp(dev):
 def event_phase(dev):
     """The event modes: every instantiation against its plain version and
     chunked against unchunked, then the main paths (the ball at B=524288,
-    the Lorenz section at B=16384, solve_ivp and the recording ensemble of
-    the ball), each solve's launches counted from 0 around it alone.  The
-    JSON rows of the three event kernels the main paths run."""
+    the Lorenz section at B=16384 by DOP853 and by RK23, solve_ivp and the
+    recording ensemble of the ball), each solve's launches counted from 0
+    around it alone.  The JSON rows of the four event kernels the main
+    paths run."""
     t = time.perf_counter()
     checks = events_vs_plain(dev)
     events_chunking_bitwise(dev)
@@ -2030,6 +2142,7 @@ def event_phase(dev):
     t = time.perf_counter()
     ball = ball_main_path(dev)
     section = section_main_path(dev)
+    rk23 = rk23_section_main_path(dev)
     facade, dense_err, dense_plain_ms = ball_solve_ivp(dev)
     phase("event_main_paths", seconds=round(time.perf_counter() - t, 3),
           facade_launches=facade)
@@ -2050,10 +2163,15 @@ def event_phase(dev):
                  launches_per_path=facade, library_ms=None,
                  **checks["dopri5_record_cont_ev"],
                  main_path_max_abs_err=dense_err,
-                 main_path_plain_ms=dense_plain_ms)]
+                 main_path_plain_ms=dense_plain_ms),
+            dict(name="rk23_ev", route="cuda", source=src.format("rk23"),
+                 replaces=replaces, library_ms=None, **rk23,
+                 max_abs_err_B4096=checks["rk23_ev"]["max_abs_err"])]
     # Each row's error: the worst of its B=4096 checks and its main path's.
     rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"], ball["max_abs_err"])
     rows[2]["max_abs_err"] = max(rows[2]["max_abs_err"], dense_err)
+    rows[3]["max_abs_err"] = max(rows[3]["max_abs_err"],
+                                 checks["rk23_ev"]["max_abs_err"])
     return rows
 
 

@@ -51,6 +51,7 @@ namespace ivp {
 struct Dop853 {
   static constexpr int NCOEFF = 8;
   static constexpr bool HAS_CONTROLLER = true;
+  template <class F>
   static constexpr bool DEFERS = true;   // erk_common.cuh's DEFER
   static constexpr bool DEFERS_SAMPLES = true;   // and DEFER_SAMPLES
 
@@ -110,7 +111,8 @@ struct Dop853 {
     return r;
   }
 
-  template <class F, int DENSE, class CT, class W>
+  template <class F, int DENSE, class CT, bool EVENTS, bool SAMPLED, int REC,
+            class W>
   static __device__ double attempt(const F& f, const double* a, double t,
                                    const double* y, const double* k1,
                                    Lane<F::N, CT>& c, const ErkOptions& o,
@@ -277,12 +279,19 @@ struct Dop853 {
   }
 
   template <int N>
-  static __device__ void interp(const Step<N, NCOEFF>& st, const double*,
-                                const double*, double xold, double ti,
+  static __device__ void interp(const Step<N, NCOEFF>& st, const double* y,
+                                const double* k1, double xold, double ti,
                                 double* yi) {
+    interp_at<N>(st, y, k1, (ti - xold) / st.h_used, yi);
+  }
+  // The interpolant at the time ratio s = (ti - xold) / h.
+  template <int N>
+  static __device__ __forceinline__ void interp_at(const Step<N, NCOEFF>& st,
+                                                   const double*,
+                                                   const double*, double s,
+                                                   double* yi) {
     const auto& cont = st.cont;
-    const double h = st.h_used;
-    const double s = (ti - xold) / h, s1 = 1.0 - s;
+    const double s1 = 1.0 - s;
     IVP_EACH(j) {
       const double conpar =
           cont[4][j] + s * (cont[5][j] + s1 * (cont[6][j] + s * cont[7][j]));

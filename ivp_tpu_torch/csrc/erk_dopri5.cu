@@ -44,11 +44,13 @@ __constant__ Weights weights = {IVP_DOPRI5_WEIGHTS(IVP_WEIGHT_VALUE)};
 struct Dopri5 {
   static constexpr int NCOEFF = 5;
   static constexpr bool HAS_CONTROLLER = true;
+  template <class F>
   static constexpr bool DEFERS = true;   // erk_common.cuh's DEFER
   // Its five rows cost no RHS evaluation and are built under covers().
   static constexpr bool DEFERS_SAMPLES = false;
 
-  template <class F, int DENSE, class CT, class W>
+  template <class F, int DENSE, class CT, bool EVENTS, bool SAMPLED, int REC,
+            class W>
   static __device__ double attempt(const F& f, const double* a, double t,
                                    const double* y, const double* k1,
                                    Lane<F::N, CT>& c, const ErkOptions& o,
@@ -187,16 +189,24 @@ struct Dopri5 {
     return h_next;
   }
 
+  // The interpolant at the time ratio th = (ti - xold) / h.
   template <int N>
-  static __device__ void interp(const Step<N, NCOEFF>& st, const double*,
-                                const double*, double xold, double ti,
-                                double* yi) {
+  static __device__ __forceinline__ void interp_at(const Step<N, NCOEFF>& st,
+                                                   const double*,
+                                                   const double*, double th,
+                                                   double* yi) {
     const auto& cont = st.cont;
-    const double th = (ti - xold) / st.h_used, th1 = 1.0 - th;
+    const double th1 = 1.0 - th;
     IVP_EACH(j)
     yi[j] = cont[0][j] +
             th * (cont[1][j] +
                   th1 * (cont[2][j] + th * (cont[3][j] + th1 * cont[4][j])));
+  }
+  template <int N>
+  static __device__ void interp(const Step<N, NCOEFF>& st, const double* y,
+                                const double* k1, double xold, double ti,
+                                double* yi) {
+    interp_at<N>(st, y, k1, (ti - xold) / st.h_used, yi);
   }
 };
 

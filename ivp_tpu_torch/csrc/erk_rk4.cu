@@ -21,10 +21,12 @@ namespace ivp {
 struct Rk4 {
   static constexpr int NCOEFF = 0;   // interp reads the segment's ends
   static constexpr bool HAS_CONTROLLER = false;   // nothing to run in CT
+  template <class F>
   static constexpr bool DEFERS = true;   // erk_common.cuh's DEFER
   static constexpr bool DEFERS_SAMPLES = false;   // it has no rows
 
-  template <class F, int DENSE, class CT, class W>
+  template <class F, int DENSE, class CT, bool EVENTS, bool SAMPLED, int REC,
+            class W>
   static __device__ double attempt(const F& f, const double* a, double t,
                                    const double* y, const double* k1,
                                    Lane<F::N, CT>& c, const ErkOptions& o,
@@ -63,8 +65,15 @@ struct Rk4 {
   static __device__ void interp(const Step<N, NCOEFF>& st, const double* y,
                                 const double* k1, double xold, double ti,
                                 double* yi) {
+    interp_at<N>(st, y, k1, (ti - xold) / st.h_used, yi);
+  }
+  // The interpolant at the time ratio s = (ti - xold) / h.
+  template <int N>
+  static __device__ __forceinline__ void interp_at(const Step<N, NCOEFF>& st,
+                                                   const double* y,
+                                                   const double* k1, double s,
+                                                   double* yi) {
     const double h = st.h_used;
-    const double s = (ti - xold) / h;
     const double s2 = s * s, s3 = s2 * s;
     const double h00 = 2.0 * s3 - 3.0 * s2 + 1.0;
     const double h10 = s3 - 2.0 * s2 + s;

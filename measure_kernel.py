@@ -264,7 +264,7 @@ PHASES = ("sass", "settle", "sweep", "turns", "profile", "occupancy", "erk",
           "erk_occupancy", "ab", "ab_record", "events", "stiff",
           "stiff_occupancy", "ab_stiff", "ab_events", "resume_profile",
           "ab_resume", "rehearse", "cover_share", "ab_erk", "cycle_split",
-          "fast_paths", "stiff_split")
+          "fast_paths", "stiff_split", "event_split")
 # The stiff phase: lanes, turns.
 STIFF_B = (16384, 131072)
 # stiff_split: lanes, rounds of variant and stamped turns.
@@ -1120,6 +1120,231 @@ def cycle_split(build, dev, variants, method="DOP853"):
                                            if v}))
 
 
+# event_split's instrumentation of the event modes, patched into a copy of a
+# csrc tree's erk_common.cuh as cycle_split's is: each lane's clock64 at the
+# bounds of the parts of an event-mode iteration (EV_PARTS), the cycles since
+# its last stamp added to the part that just ended, in registers, and at its
+# exit to the sums an entry reads and zeroes (ivp_ev_sums_take), beside its
+# attempts (tests/test_torch_event_fast.py counts Brent's iterations on
+# the library's path, in g++ builds).  The parts: the attempt (with the row
+# test of a crossing); the event test (the values at the step's end and the
+# crossing test); Brent; the occurrences' times and states written; the
+# terminal event's state, the restart map, erk_init and hinit; the record
+# row (its staging and its bulk copy, at the exit the partial run and the
+# wait); the queue (a deferred crossing's entry, and in the warp's
+# resolution each entry's load and rebuilt attempt); the loop's
+# bookkeeping (the counters, the status, the carry, the vote and the exit's
+# stores).  A lane's parts are its warp's while it waits at a divergent
+# branch: a lane that does not cross counts the wait for one that runs
+# Brent in the part that ends after it.
+EV_PARTS = ("attempt", "test", "brent", "writes", "restart", "row", "queue",
+            "book")
+_EVS = "IVP_EV_STAMP({});\n"
+EV_STAMPS = (
+    ("namespace ivp {\n", "after", """__device__ unsigned long long ivp_ev_sums[10];
+#define IVP_EV_STAMP(k)                                              \\
+  do {                                                               \\
+    if constexpr (NE > 0) {                                          \\
+      const long long ivp_now_ = clock64();                          \\
+      ev_acc[k] += (unsigned long long)(ivp_now_ - ev_last);         \\
+      ev_last = ivp_now_;                                            \\
+    }                                                                \\
+  } while (0)
+"""),
+    ("  // The rows test of an attempt in event mode:", "before",
+     "  unsigned long long ev_acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n"
+     "  unsigned long long ev_n = 0;\n  long long ev_last = clock64();\n"),
+    ("    Step<N, C> s;\n", "before",
+     "    " + _EVS.format(7) + "    if constexpr (NE > 0) ++ev_n;\n"),
+    (("            f, a, t, y, k1, c, o, s, want);\n",
+      "M::template attempt<F, DENSE, CT>(f, a, t, y, k1, c, o, s, want);\n"),
+     "after", "    " + _EVS.format(0)),
+    ("        if (crossed) {\n", "before", "        " + _EVS.format(1)),
+    ("          ++qn;\n        }\n", "after", "        " + _EVS.format(6)),
+    ("          cr[e] = ev_crossed(gp[e], gc[e], ev.direction[e]);\n",
+     "after", "          " + _EVS.format(1)),
+    ("                          : s.t_new;\n", "after",
+     "          " + _EVS.format(2)),
+    ("          gp[e] = gc[e];\n        }\n", "after", "        " + _EVS.format(3)),
+    ("            ++n_restarts;\n          }\n        }\n", "after",
+     "        " + _EVS.format(4)),
+    ("        ++run;\n      }\n", "after", "      " + _EVS.format(5)),
+    ("        run = 0;\n      }\n    }\n", "after", "    " + _EVS.format(5)),
+    ("    rec_wait_all();\n", "after", "    " + _EVS.format(5)),
+    ("    if constexpr (DEFER) {\n      double* const qb = queue_smem;\n",
+     "before", "    " + _EVS.format(7)),
+    ("        if (!s2.advance || s2.t_new != t_end0) __trap();\n"
+     "        // ---- core/events.py::process_events, as below ----\n", "after",
+     "        " + _EVS.format(6)),
+    ("                          : s2.t_new;\n", "after",
+     "          " + _EVS.format(2)),
+    ("        if (stop) {\n", "before", "        " + _EVS.format(3)),
+    ("  if constexpr (NE > 0) {\n#pragma unroll\n    for (int e = 0; e < NE; ++e) {\n"
+     "      const size_t q = (size_t)i * NE + e;\n      ev.n_ev[q] = nev[e];",
+     "before", "  " + _EVS.format(7) + """  if constexpr (NE > 0) {
+    for (int q = 0; q < 8; ++q) atomicAdd(&ivp_ev_sums[q], ev_acc[q]);
+    atomicAdd(&ivp_ev_sums[8], ev_n);
+  }
+"""),
+)
+EV_TAKE = STAMP_TAKE.replace("ivp_stamp_sums", "ivp_ev_sums").replace(
+    "[6]", "[10]").replace("{0, 0, 0, 0, 0, 0}", "{0}")
+# The instantiations split, as the main paths run them: (kernel, method,
+# set, B); the recording ball is one launch of EVENT_RECORD's.
+EV_SPLIT_CASES = (("rk23_ev", "RK23", "section", 16384),
+                  ("rk23_ev", "RK23", "ground", 16384),
+                  ("dop853_ev", "DOP853", "section", 16384),
+                  ("dopri5_sampled_ev", "DOPRI5", "ground", 524288),
+                  ("dopri5_record_cont_ev", "DOPRI5", "ground", 16384))
+EV_SPLIT_ROUNDS = 3
+
+
+def ev_stamped_copy(src, dst):
+    """A copy of the csrc tree ``src`` at ``dst`` with ``EV_STAMPS`` in its
+    erk_common.cuh (the first of each entry's anchors found once) and the
+    sums' entry (``EV_TAKE``) in each erk source."""
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, dst)
+    p = dst / "erk_common.cuh"
+    text = p.read_text()
+    for olds, where, new in EV_STAMPS:
+        olds = (olds,) if isinstance(olds, str) else olds
+        old = next((o for o in olds if text.count(o) == 1), None)
+        if old is None:
+            raise RuntimeError(f"event_split: none of {olds!r} is once in "
+                               f"{p}")
+        text = text.replace(old, new + old if where == "before" else old + new)
+    p.write_text(text)
+    for name in ("erk_rk23.cu", "erk_dopri5.cu", "erk_dop853.cu"):
+        q = dst / name
+        q.write_text(q.read_text().replace("IVP_ERK_LIBRARY()\n", EV_TAKE))
+
+
+def event_split_run(kernel, method, set_name, B, lib, dev):
+    """``(run, outputs)`` of one EV_SPLIT_CASES case through ``lib``."""
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+    from ivp_tpu_torch.kernels import erk_record as R
+
+    fun, a, ev = event_main_inputs(method, set_name, B, dev)
+    if kernel.endswith("_record_cont_ev"):
+        r = R.RecordLaunch(method, fun, *a, (), 200_000, None, None,
+                           EVENT_RECORD[1], True, lib,
+                           torch.cuda.current_stream(dev).cuda_stream, ev)
+
+        def fields():
+            out = dict(zip(ENSEMBLE_FIELDS, r.last()))
+            out.update(r.ev_out._asdict())
+            out["rows"] = written_rows(r)
+            out["n_rec"] = r.n_rec
+            return out
+        return (lambda: r.launch(init=True)), fields, r.ints[2]
+    box = {}
+
+    def run():
+        box["out"] = K.erk_ensemble_cuda(method, fun, *a, (), 200_000,
+                                         lib=lib, events=ev)
+
+    def fields():
+        o = box["out"]
+        return {**dict(zip(ENSEMBLE_FIELDS, o[:9])), **o[9]._asdict()}
+    return run, fields, None
+
+
+def event_sass(lib, dst):
+    """The SASS listing of ``lib``'s event and coefficient record
+    instantiations on Lorenz and the ball, to ``dst``: what the rows of
+    RK23's event modes are written out from."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    r = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                       text=True, timeout=300, check=True)
+    keep, out = False, []
+    for ln in r.stdout.splitlines():
+        if "Function :" in ln:
+            name = instantiation(ln.split("Function :")[1].strip())
+            keep = (name.startswith(("Lorenz/", "Ball/"))
+                    and ("/ev_" in name or name.endswith("record_cont")))
+        if keep:
+            out.append(ln)
+    dst.parent.mkdir(parents=True, exist_ok=True)
+    dst.write_text("\n".join(out) + "\n")
+    line("event_sass", library=Path(lib).name, path=str(dst),
+         lines=len(out))
+
+
+def event_split(build, dev, trees):
+    """Where an event-mode iteration spends its cycles (see EV_PARTS), for
+    each csrc tree of ``trees`` (``(label, path)``): a stamped copy under
+    ``_variants/<label>-ev-stamps/csrc`` and the tree as it is, built; each
+    ``EV_SPLIT_CASES`` case through both: the stamped build's outputs held
+    bit for bit to the tree's, each part's cycles a lane-attempt and its
+    share, and both builds' ``turn_ms`` (what the stamps cost) with the tree's cycles a warp-attempt
+    a scheduler."""
+    import ctypes
+
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+
+    root = Path(__file__).resolve().parent / "_variants"
+    names = sorted({K.KERNELS[m][1] for _, m, _, _ in EV_SPLIT_CASES})
+    for label, tree in trees:
+        stamped = root / f"{label}-ev-stamps" / "csrc"
+        ev_stamped_copy(Path(tree), stamped)
+        t = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(2 * len(names)) as ex:
+            fs = {(d, n): ex.submit(build.build, src_dir=d, name=n)
+                  for d in (stamped, Path(tree)) for n in names}
+            paths = {k: f.result() for k, f in fs.items()}
+            libs = {k: build.load(v) for k, v in paths.items()}
+        line("event_split_build", tree=label,
+             seconds=round(time.perf_counter() - t, 3))
+        if SASS_DIR is not None:
+            event_sass(paths[(Path(tree), "erk_rk23")],
+                       SASS_DIR / f"{label}-erk_rk23-events.sass")
+        sums = (ctypes.c_ulonglong * 10)()
+        for kernel, method, set_name, B in EV_SPLIT_CASES:
+            name = K.KERNELS[method][1]
+            lib_st, lib_v = libs[(stamped, name)], libs[(Path(tree), name)]
+            take = lib_st.ivp_ev_sums_take
+            take.argtypes, take.restype = [ctypes.c_void_p], ctypes.c_int
+            run_st, f_st, nstep_rec = event_split_run(kernel, method,
+                                                      set_name, B, lib_st, dev)
+            run_v, f_v, _ = event_split_run(kernel, method, set_name, B,
+                                            lib_v, dev)
+            build.check(take(sums), "ivp_ev_sums_take", lib_st)
+            run_st()
+            torch.cuda.synchronize()
+            build.check(take(sums), "ivp_ev_sums_take", lib_st)
+            parts = [int(x) for x in sums]
+            got = f_st()
+            run_v()
+            torch.cuda.synchronize()
+            ref = f_v()
+            diff = fields_lanes_differing(got, ref)
+            nstep = (nstep_rec if nstep_rec is not None else ref["nstep"])
+            wa = warp_attempts(nstep)
+            ms = {"tree": [], "stamped": []}
+            for r in range(EV_SPLIT_ROUNDS):
+                for w in (("tree", "stamped") if r % 2 == 0
+                          else ("stamped", "tree")):
+                    ms[w].append(turn_ms(run_v if w == "tree" else run_st))
+            mhz = sm_mhz()
+            med = {w: float(np.median(v)) for w, v in ms.items()}
+            n = max(parts[8], 1)
+            total = max(sum(parts[:8]), 1)
+            line("event_split", tree=label, kernel=kernel, set=set_name, B=B,
+                 **{p: round(parts[q] / n, 1) for q, p in enumerate(EV_PARTS)},
+                 **{f"{p}_share": round(parts[q] / total, 4)
+                    for q, p in enumerate(EV_PARTS)},
+                 sum_of_parts=round(total / n, 1), lane_attempts=parts[8],
+                 n_brent=int(ref["n_brent"].sum()),
+                 tree_ms=round(med["tree"], 4),
+                 stamped_ms=round(med["stamped"], 4),
+                 cycles_tree=round(med["tree"] * 1e-3 * mhz * 1e6 * 132 * 4
+                                   / wa, 1), sm_mhz=mhz,
+                 identical_to_tree=not any(diff.values()),
+                 lanes_differing=repr({k: v for k, v in diff.items() if v}))
+            del got, ref, run_st, run_v, f_st, f_v
+
+
 # stiff_split's instrumentation of radau.cu and bdf.cu, patched into a copy
 # of a csrc tree as cycle_split's is: each lane's clock64 at the bounds of
 # an attempt's parts (STIFF_PARTS), the cycles since its last stamp added to
@@ -1764,11 +1989,59 @@ __global__ void wide_random(unsigned long long* out, unsigned long long n) {
           (unsigned long long)__double_as_longlong(h), __float_as_uint(fx));
   }
 }
+// Brent's quotients (erk_common.cuh's brent_step) on Brent-shaped operands:
+// event values near 0 (exponents in [-540, 40], one fa2 in 16 a zero), the
+// secant's fc2 == fa2 with a2 == c2 on one draw in 4, brackets around a b2
+// of exponent in [-520, 520] at relative widths 2^[-64, 0] (tiny and huge
+// brackets), ee around xm.  brent_quotients: fb2 / fa2, fa2 / fc2 and
+// fb2 / fc2 through FastCtl<double>'s shared divisors against the IEEE
+// divisions, where its range test admits them; brent_step: the whole step
+// (d_new and whether the interpolation is taken, which holds p / q) on
+// FastCtl<double> against Ctl<double>, where ok.
+__global__ void brent_random(unsigned long long* out, unsigned long long n) {
+  for (unsigned long long i = blockIdx.x * (unsigned long long)blockDim.x +
+                               threadIdx.x;
+       i < n; i += (unsigned long long)gridDim.x * blockDim.x) {
+    const unsigned long long r1 = mix(5 * i + 101), r2 = mix(5 * i + 102),
+                             r3 = mix(5 * i + 103), r4 = mix(5 * i + 104),
+                             r5 = mix(5 * i + 105);
+    const double b2 = rand_double(r1, -520, 520);
+    const double wa = ldexp(rand_double(r2, -1, -1), -(int)(r2 >> 58));
+    const double wc = ldexp(rand_double(r3, -1, -1), -(int)(r3 >> 58));
+    const bool secant = (r4 & 3) == 0;
+    const double a2 = b2 + b2 * wa, c2 = secant ? a2 : b2 + b2 * wc;
+    const double fb2 = rand_double(r4, -540, 40);
+    const double fa2 = (r5 & 0xf) == 0 ? 0.0 : rand_double(r5, -540, 40);
+    const double fc2 = secant ? fa2 : rand_double(mix(r5), -540, 40);
+    const double xm = __dmul_rn(0.5, __dsub_rn(c2, b2));
+    const double tol1 = __dadd_rn(__dmul_rn(2.0 * 2.3e-16, fabs(b2)), 1e-12);
+    const double ee = xm * ldexp(1.0, (int)(r1 >> 60) - 6);
+    ivp::FastCtl<double> op;
+    const ivp::Divisor<double> dc = op.divisor(fc2), da = op.divisor(fa2);
+    const double qv = op.div_by(fa2, dc), rv = op.div_by(fb2, dc),
+                 sq = op.div_by(fb2, da);
+    tally(out, op.ok,
+          same_d(qv, fa2 / fc2) && same_d(rv, fb2 / fc2) &&
+              same_d(sq, fb2 / fa2),
+          (unsigned long long)__double_as_longlong(fa2),
+          (unsigned long long)__double_as_longlong(fc2));
+    ivp::FastCtl<double> fast;
+    ivp::Ctl<double> lib;
+    bool take_f, take_l;
+    const double df = ivp::brent_step(fast, a2, b2, c2, fa2, fb2, fc2, xm,
+                                      tol1, ee, take_f);
+    const double dl = ivp::brent_step(lib, a2, b2, c2, fa2, fb2, fc2, xm,
+                                      tol1, ee, take_l);
+    tally(out + 4, fast.ok, same_d(df, dl) && take_f == take_l,
+          (unsigned long long)__double_as_longlong(fb2),
+          (unsigned long long)__double_as_longlong(b2));
+  }
+}
 }  // namespace
 
 extern "C" int ivp_fast_paths(unsigned long long* out, unsigned long long n) {
-  // out: 13 checks x [admitted, differing, first input a, first input b].
-  cudaMemset(out, 0, 52 * sizeof(unsigned long long));
+  // out: 15 checks x [admitted, differing, first input a, first input b].
+  cudaMemset(out, 0, 60 * sizeof(unsigned long long));
   sqrt_all<<<1056, 256>>>(out);
   div_random<<<1056, 256>>>(out + 4, n);
   hdiv_random<<<1056, 256>>>(out + 8, n);
@@ -1779,6 +2052,7 @@ extern "C" int ivp_fast_paths(unsigned long long* out, unsigned long long n) {
   dknown_random<<<1056, 256>>>(out + 28, n);
   fsqrt_wide_all<<<1056, 256>>>(out + 32);
   wide_random<<<1056, 256>>>(out + 36, n);
+  brent_random<<<1056, 256>>>(out + 52, n);
   return (int)cudaDeviceSynchronize();
 }
 extern "C" const char* ivp_cuda_error_string(int e) {
@@ -1796,7 +2070,8 @@ def fast_paths(build, dev):
     on ``FAST_DRAWS`` random operands each; stiff_common.cuh's WideCtl
     paths: sqrt_wide on every float, and with div_wide and hdiv_wide on
     operands off the fast paths' ranges (in float and double, subnormal,
-    huge, infinite and NaN ones among them)."""
+    huge, infinite and NaN ones among them); erk_common.cuh's Brent
+    quotients and whole step (brent_step) on Brent-shaped operands."""
     import ctypes
 
     src = build.BUILD_DIR / "fast_paths_src"
@@ -1807,7 +2082,7 @@ def fast_paths(build, dev):
     lib = build.load(build.build(src_dir=src, name="fast_paths"))
     fn = lib.ivp_fast_paths
     fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_ulonglong], ctypes.c_int
-    out = torch.zeros(52, dtype=torch.int64, device=dev)
+    out = torch.zeros(60, dtype=torch.int64, device=dev)
     t1 = time.perf_counter()
     build.check(fn(out.data_ptr(), FAST_DRAWS), "ivp_fast_paths", lib)
     res = out.cpu().tolist()
@@ -1825,7 +2100,9 @@ def fast_paths(build, dev):
                                        ("fdiv_wide", FAST_DRAWS),
                                        ("ddiv_wide", FAST_DRAWS),
                                        ("dsqrt_wide", FAST_DRAWS),
-                                       ("hdiv_wide", FAST_DRAWS))):
+                                       ("hdiv_wide", FAST_DRAWS),
+                                       ("brent_quotients", FAST_DRAWS),
+                                       ("brent_step", FAST_DRAWS))):
         adm, bad, a, b = res[4 * q:4 * q + 4]
         line("fast_paths", op=what, inputs=drawn, admitted=adm,
              differing=bad, first_a=hex(a & (2**64 - 1)) if bad else None,
@@ -2653,16 +2930,20 @@ def event_ab_cases(dev, B=None, caps=AB_EVENTS_CAPS):
     (heights 2..20, t in [0, 8], 8 restarts; sampled with 2) and the Lorenz
     section on t in [0, 2] (every crossing; sampled with the third
     terminal), lean, sampled, and recorded in both record modes at each of
-    ``caps`` rows a chunk; and lean on the section: the third crossing
+    ``caps`` rows a chunk; lean on the section: the third crossing
     terminal, both directions, 2 occurrences a lane (overflow), and a
     step budget that stops each lane after about 60% of its attempts
-    (``AB_EVENTS_BUDGET``; ``method``: the kernel's)."""
+    (``AB_EVENTS_BUDGET``; ``method``: the kernel's); both sets recorded
+    with samples (the first of ``caps``); and with the controller in
+    double (every method but RK4): both sets lean, sampled, recorded and
+    recorded with samples."""
     import chip_smoke as cs
     from ivp_tpu_torch import events as E
     from ivp_tpu_torch import rhs
     from ivp_tpu_torch.events import EventArgs
     from ivp_tpu_torch.kernels import erk_ensemble as K
     from ivp_tpu_torch.kernels import erk_record as R
+    from ivp_tpu_torch.methods.erk import make_engine
 
     B = AB_EVENTS_B if B is None else B
     T = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
@@ -2673,18 +2954,18 @@ def event_ab_cases(dev, B=None, caps=AB_EVENTS_CAPS):
         T(np.linspace(0.0, cs.EVENT_CHECK_TF, 21)), (B, 21))}
     sec = E.lorenz_section
 
-    def lean(method, fun, a, ev, grid=None, max_steps=200_000):
+    def lean(method, fun, a, ev, grid=None, max_steps=200_000, params=None):
         def run(lib, stream):
             out = K.ensemble_launch(method, fun, *a, (), max_steps, grid,
-                                    None, lib, stream, ev)
+                                    params, lib, stream, ev)
             return {**dict(zip(ENSEMBLE_FIELDS, out[:9])),
                     **out[9]._asdict()}
         return run
 
-    def record(method, fun, a, ev, cap, cont):
+    def record(method, fun, a, ev, cap, cont, grid=None, params=None):
         def run(lib, stream):
             carry = {}
-            r = R.record_launches(method, fun, *a, (), 200_000, None, None,
+            r = R.record_launches(method, fun, *a, (), 200_000, grid, params,
                                   cap, cont, lib, stream, carry_out=carry,
                                   events=ev)
             out = {f: getattr(r, f) for f in r._fields
@@ -2732,6 +3013,41 @@ def event_ab_cases(dev, B=None, caps=AB_EVENTS_CAPS):
                          record(method, rhs.ball, ab, full, cap, cont)),
                         (f"section_record_cap{cap}", name,
                          record(method, rhs.lorenz, al, every, cap, cont))]
+        # The sampled record modes, and the controller in double (every
+        # mode but RK4's, which has none).
+        states = [("", None)] + ([] if method == "RK4" else [(
+            "_state", make_engine(method, True,
+                                  controller_precision="state")[1])])
+        for tag, params in states:
+            cap = caps[0]
+            if params is not None:
+                cases += [
+                    (f"ground_lean{tag}", f"{kern}_ev",
+                     lean(method, rhs.ball, ab, full, params=params)),
+                    (f"ground_sampled{tag}", f"{kern}_ev", lean(
+                        method, rhs.ball, ab,
+                        EventArgs((E.ground,), cs.BALL_CAP, 2),
+                        grids["ground"], params=params)),
+                    (f"section_lean{tag}", f"{kern}_ev",
+                     lean(method, rhs.lorenz, al, every, params=params)),
+                    (f"section_sampled{tag}", f"{kern}_ev", lean(
+                        method, rhs.lorenz, al,
+                        EventArgs((sec.replace(terminal=3),), cs.SECTION_CAP,
+                                  0), grids["section"], params=params))]
+            for cont in (False, True):
+                name = R.record_kernel(method, cont, True)
+                if params is not None:
+                    cases += [(f"ground_record{tag}_cap{cap}", name, record(
+                        method, rhs.ball, ab, full, cap, cont, params=params)),
+                        (f"section_record{tag}_cap{cap}", name, record(
+                            method, rhs.lorenz, al, every, cap, cont,
+                            params=params))]
+                cases += [(f"ground_sampled_record{tag}_cap{cap}", name,
+                           record(method, rhs.ball, ab, full, cap, cont,
+                                  grids["ground"], params)),
+                          (f"section_sampled_record{tag}_cap{cap}", name,
+                           record(method, rhs.lorenz, al, every, cap, cont,
+                                  grids["section"], params))]
         out += [(case, kernel, method, run) for case, kernel, run in cases]
     return out
 
@@ -2756,7 +3072,7 @@ def event_main_inputs(method, set_name, B, dev):
         (E.lorenz_section,), cs.SECTION_CAP, 0)
 
 
-def ab_events(build, dev, baseline, label):
+def ab_events(build, dev, baseline, label, methods=None, variants=()):
     """The event instantiations built from ``baseline`` against the
     package's: ``ab_events_bitwise``, the lanes differing in every output,
     event buffer and carry field (bits; a NaN equals any NaN) of each
@@ -2766,20 +3082,34 @@ def ab_events(build, dev, baseline, label):
     kernel alone by torch.profiler (old, new, new, old: ``kernel_ms``), with
     the bound by both counts (erk_ensemble.event_bound) and each side's
     share, and both sides' registers and spills of every event
-    instantiation."""
+    instantiation; then the recording ball (``ab_events_record``: one
+    launch of EVENT_RECORD alone with record_bound's share, and the solve
+    end to end, kernel and drain, in the same turns).  ``methods``: the
+    methods held (default all); ``variants``: ``-D`` define tuples of
+    builds of the package's sources of those methods, each held and timed
+    against ``baseline`` as the package is (labelled ``new:<defines>``)."""
     from ivp_tpu_torch.events import SETS
     from ivp_tpu_torch.kernels import erk_ensemble as K
 
+    methods = list(K.KERNELS) if methods is None else methods
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(4) as ex:
+    with concurrent.futures.ThreadPoolExecutor(
+            len(methods) * (1 + len(variants))) as ex:
         futs = {m: ex.submit(build.build, src_dir=baseline,
-                             name=K.KERNELS[m][1]) for m in K.KERNELS}
+                             name=K.KERNELS[m][1]) for m in methods}
+        vfuts = {(v, m): ex.submit(build.build, defines=v,
+                                   name=K.KERNELS[m][1])
+                 for v in variants for m in methods}
         paths = {m: f.result() for m, f in futs.items()}
+        vlibs = {}
+        for (v, m), f in vfuts.items():
+            vlibs.setdefault("new:" + "+".join(v), {})[m] = build.load(
+                f.result())
     old = {m: build.load(p) for m, p in paths.items()}
     line("ab_events_build", old=label,
          seconds=round(time.perf_counter() - t0, 3))
     for side, src in (("new", build.SRC_DIR), (label, baseline)):
-        for m in K.KERNELS:
+        for m in methods:
             p = build.library_path(src, (), K.KERNELS[m][1])
             for fn, regs, st, ld in build.ptxas_report(p):
                 inst = instantiation(fn)
@@ -2789,66 +3119,185 @@ def ab_events(build, dev, baseline, label):
                          spill_stores=st, spill_loads=ld)
     stream = torch.cuda.current_stream(dev).cuda_stream
     for case, kernel, m, run in event_ab_cases(dev):
-        new, ref = run(None, stream), run(old[m], stream)
-        torch.cuda.synchronize()
-        diff = fields_lanes_differing(new, ref)
-        line("ab_events_bitwise", old=label, kernel=kernel, case=case,
-             B=int(new["t"].shape[0]), identical=not any(diff.values()),
-             fields=len(diff),
-             lanes_differing=repr({k: v for k, v in diff.items() if v}),
-             mean_events=float(new["n_events"].double().mean()))
-        del new, ref
-    for method, set_name, Bs in EVENT_B:
-        for B in Bs:
-            fun, a, ev = event_main_inputs(method, set_name, B, dev)
-            run = {"new": lambda: K.erk_ensemble_cuda(
-                method, fun, *a, (), 200_000, events=ev),
-                "old": lambda: K.erk_ensemble_cuda(
-                method, fun, *a, (), 200_000, lib=old[method], events=ev)}
-            outs = {w: run[w]() for w in run}
+        if m not in methods:
+            continue
+        ref = run(old[m], stream)
+        sides = [("new", None)] + [(v, libs[m]) for v, libs in
+                                   vlibs.items()]
+        for side, lib in sides:
+            new = run(lib, stream)
             torch.cuda.synchronize()
-            diff = fields_lanes_differing(
-                *({**dict(zip(ENSEMBLE_FIELDS, o[:9])), **o[9]._asdict()}
-                  for o in (outs["new"], outs["old"])))
-            line("ab_events_bitwise", old=label,
-                 kernel=f"{K.KERNELS[method][0]}_ev",
-                 case=f"{set_name}_main", B=B,
+            diff = fields_lanes_differing(new, ref)
+            line("ab_events_bitwise", old=label, new=side, kernel=kernel,
+                 case=case, B=int(new["t"].shape[0]),
                  identical=not any(diff.values()), fields=len(diff),
                  lanes_differing=repr({k: v for k, v in diff.items() if v}),
-                 mean_events=float(outs["new"][9].n_events.double().mean()))
-            out = outs["new"]
-            del outs
-            ms = {"old": [], "new": []}
-            for r in range(AB_EVENTS_ROUNDS):
+                 mean_events=float(new["n_events"].double().mean()))
+            del new
+        del ref
+    for method, set_name, Bs in EVENT_B:
+        if method not in methods:
+            continue
+        for B in Bs:
+            fun, a, ev = event_main_inputs(method, set_name, B, dev)
+            mk = lambda lib: (lambda: K.erk_ensemble_cuda(
+                method, fun, *a, (), 200_000, lib=lib, events=ev))
+            news = {"new": mk(None)}
+            news.update({v: mk(libs[method]) for v, libs in vlibs.items()})
+            ref = mk(old[method])()
+            for side, new_run in news.items():
+                outs = {"new": new_run(), "old": ref}
+                torch.cuda.synchronize()
+                diff = fields_lanes_differing(
+                    *({**dict(zip(ENSEMBLE_FIELDS, o[:9])), **o[9]._asdict()}
+                      for o in (outs["new"], outs["old"])))
+                line("ab_events_bitwise", old=label, new=side,
+                     kernel=f"{K.KERNELS[method][0]}_ev",
+                     case=f"{set_name}_main", B=B,
+                     identical=not any(diff.values()), fields=len(diff),
+                     lanes_differing=repr({k: v for k, v in diff.items()
+                                           if v}),
+                     mean_events=float(outs["new"][9].n_events.double()
+                                       .mean()))
+                out = outs["new"]
+                del outs
+                run = {"new": new_run, "old": mk(old[method])}
+                ms = {"old": [], "new": []}
+                for r in range(AB_EVENTS_ROUNDS):
+                    for what in ("old", "new", "new", "old"):
+                        ms[what].append(turn_ms(run[what]))
+                med = {w: float(np.median(v)) for w, v in ms.items()}
+                prof = {"old": [], "new": []}
                 for what in ("old", "new", "new", "old"):
-                    ms[what].append(turn_ms(run[what]))
-            med = {w: float(np.median(v)) for w, v in ms.items()}
-            prof = {"old": [], "new": []}
-            for what in ("old", "new", "new", "old"):
-                prof[what].append(kernel_ms(run[what]))
-            pairs = zip(zip(ms["new"][::2], ms["new"][1::2]),
-                        zip(ms["old"][::2], ms["old"][1::2]))
-            b_ms, b_by, every = K.event_bound(method, fun, SETS[set_name],
-                                              out[4], out[5], out[9])
-            line("ab_events", old=label, kernel=f"{K.KERNELS[method][0]}_ev",
-                 set=set_name, B=B,
-                 old_ms=[round(x, 4) for x in ms["old"]],
-                 new_ms=[round(x, 4) for x in ms["new"]],
-                 old_median=round(med["old"], 4),
-                 new_median=round(med["new"], 4),
-                 new_over_old=round(med["new"] / med["old"], 4),
-                 rounds_new_won=f"{sum(sum(n) < sum(o) for n, o in pairs)}"
-                                f"/{AB_EVENTS_ROUNDS}",
-                 profiler_kernel_ms_old=[round(x, 4) for x in prof["old"]],
-                 profiler_kernel_ms_new=[round(x, 4) for x in prof["new"]],
-                 bound_ms=round(b_ms, 6), bound_by=b_by,
-                 share_new=round(b_ms / med["new"], 4),
-                 share_old=round(b_ms / med["old"], 4),
-                 bound_ms_rows_every_accept=round(every, 6),
-                 share_new_rows_every_accept=round(every / med["new"], 4),
-                 warp_efficiency=round(float(out[4].double().sum())
-                                       / (32 * warp_attempts(out[4])), 5))
-            del out, a
+                    prof[what].append(kernel_ms(run[what]))
+                pairs = zip(zip(ms["new"][::2], ms["new"][1::2]),
+                            zip(ms["old"][::2], ms["old"][1::2]))
+                b_ms, b_by, every = K.event_bound(method, fun,
+                                                  SETS[set_name], out[4],
+                                                  out[5], out[9])
+                line("ab_events", old=label, new=side,
+                     kernel=f"{K.KERNELS[method][0]}_ev",
+                     set=set_name, B=B,
+                     old_ms=[round(x, 4) for x in ms["old"]],
+                     new_ms=[round(x, 4) for x in ms["new"]],
+                     old_median=round(med["old"], 4),
+                     new_median=round(med["new"], 4),
+                     new_over_old=round(med["new"] / med["old"], 4),
+                     rounds_new_won=f"{sum(sum(n) < sum(o) for n, o in pairs)}"
+                                    f"/{AB_EVENTS_ROUNDS}",
+                     profiler_kernel_ms_old=[round(x, 4) for x in prof["old"]],
+                     profiler_kernel_ms_new=[round(x, 4) for x in prof["new"]],
+                     bound_ms=round(b_ms, 6), bound_by=b_by,
+                     share_new=round(b_ms / med["new"], 4),
+                     share_old=round(b_ms / med["old"], 4),
+                     bound_ms_rows_every_accept=round(every, 6),
+                     share_new_rows_every_accept=round(every / med["new"], 4),
+                     warp_efficiency=round(float(out[4].double().sum())
+                                           / (32 * warp_attempts(out[4])), 5))
+                del out
+            del ref, a
+    if "DOPRI5" in methods:
+        ab_events_record(dev, old["DOPRI5"], label)
+        for v, libs in vlibs.items():
+            ab_events_record(dev, old["DOPRI5"], label, libs["DOPRI5"], v)
+
+
+def written_rows(r):
+    """A RecordLaunch's rows as the launch wrote them: each lane's first
+    n_rec rows over the row's width (the pad and the rows past n_rec are
+    never written, NaN here)."""
+    W = 3 + r.n + r.C * r.n
+    valid = (torch.arange(r.cap, device=r.rows.device)[None]
+             < r.n_rec[:, None])
+    return torch.where(valid[:, :, None], r.rows[:, :, :W], float("nan"))
+
+
+def ab_events_record(dev, old_lib, label, new_lib=None, new_label="new"):
+    """The recording ball (chip_smoke.py's inputs, EVENT_RECORD's B and
+    rec_cap, ``dopri5_record_cont_ev``) through the package's build and
+    ``old_lib``: one launch alone (the first chunk, from y0) and the solve
+    end to end (every chunk's launch and the drain,
+    erk_record.record_launches), each held bit for bit (every output, row,
+    event buffer and carry field) and timed in ``AB_EVENTS_ROUNDS`` rounds
+    of old, new, new, old ``turn_ms``; the launch's share of record_bound
+    and its kernel by torch.profiler."""
+    from ivp_tpu_torch import rhs
+    from ivp_tpu_torch.events import SETS
+    from ivp_tpu_torch.kernels import erk_record as R
+
+    B, cap = EVENT_RECORD
+    fun, a, ev = event_main_inputs("DOPRI5", "ground", B, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    launches = {w: R.RecordLaunch("DOPRI5", fun, *a, (), 200_000, None, None,
+                                  cap, True, lib, stream, ev)
+                for w, lib in (("new", new_lib), ("old", old_lib))}
+
+    def solve(lib):
+        carry = {}
+        r = R.record_launches("DOPRI5", fun, *a, (), 200_000, None, None,
+                              cap, True, lib, stream, carry_out=carry,
+                              events=ev)
+        out = {f: getattr(r, f) for f in r._fields
+               if f not in ("events", "chunks")}
+        out.update(r.events._asdict())
+        out.update({f"carry_{k}": v for k, v in carry.items()})
+        out["chunks"] = torch.full((B,), r.chunks, device=dev)
+        return out
+
+    for w in launches:
+        launches[w].launch(init=True)
+    torch.cuda.synchronize()
+    one = {w: {**dict(zip(ENSEMBLE_FIELDS, r.last())), **r.ev_out._asdict(),
+               "rows": written_rows(r), "n_rec": r.n_rec}
+           for w, r in launches.items()}
+    diff = fields_lanes_differing(one["new"], one["old"])
+    line("ab_events_bitwise", old=label, new=new_label,
+         kernel="dopri5_record_cont_ev", case="ground_record_main_launch",
+         B=B, identical=not any(diff.values()), fields=len(diff),
+         lanes_differing=repr({k: v for k, v in diff.items() if v}))
+    full = {"new": solve(new_lib), "old": solve(old_lib)}
+    torch.cuda.synchronize()
+    diff = fields_lanes_differing(full["new"], full["old"])
+    line("ab_events_bitwise", old=label, new=new_label,
+         kernel="dopri5_record_cont_ev", case="ground_record_main_solve",
+         B=B, identical=not any(diff.values()), fields=len(diff),
+         lanes_differing=repr({k: v for k, v in diff.items() if v}),
+         chunks=int(full["new"]["chunks"][0]))
+    r = launches["new"]
+    b_ms, b_by = R.record_bound("DOPRI5", rhs.ball, r.ints[2], r.ints[3],
+                                r.n_rec, True,
+                                events=(SETS["ground"], r.ev_out))
+    del one, full
+    runs = {"launch": {w: (lambda r=r: r.launch(init=True))
+                       for w, r in launches.items()},
+            "solve": {"new": lambda: solve(new_lib),
+                      "old": lambda: solve(old_lib)}}
+    for what, run in runs.items():
+        ms = {"old": [], "new": []}
+        for _ in range(AB_EVENTS_ROUNDS):
+            for w in ("old", "new", "new", "old"):
+                ms[w].append(turn_ms(run[w]))
+        med = {w: float(np.median(v)) for w, v in ms.items()}
+        pairs = zip(zip(ms["new"][::2], ms["new"][1::2]),
+                    zip(ms["old"][::2], ms["old"][1::2]))
+        extra = {}
+        if what == "launch":
+            extra = dict(
+                profiler_kernel_ms_old=round(kernel_ms(run["old"]), 4),
+                profiler_kernel_ms_new=round(kernel_ms(run["new"]), 4),
+                bound_ms=round(b_ms, 6), bound_by=b_by,
+                share_new=round(b_ms / med["new"], 4),
+                share_old=round(b_ms / med["old"], 4),
+                rows=int(r.n_rec.sum()))
+        line("ab_events_record", old=label, new=new_label,
+             kernel="dopri5_record_cont_ev",
+             what=what, B=B, rec_cap=cap,
+             old_ms=[round(x, 4) for x in ms["old"]],
+             new_ms=[round(x, 4) for x in ms["new"]],
+             old_median=round(med["old"], 4), new_median=round(med["new"], 4),
+             new_over_old=round(med["new"] / med["old"], 4),
+             rounds_new_won=f"{sum(sum(n) < sum(o) for n, o in pairs)}"
+                            f"/{AB_EVENTS_ROUNDS}", **extra)
 
 
 def fields_lanes_differing(new, old):
@@ -4192,18 +4641,24 @@ def main():
                     choices=sorted(STAMP_METHOD),
                     help="the method cycle_split and cover_share measure")
     ap.add_argument("--ab-methods", default=None,
-                    help="methods whose erk kernels ab_erk holds and times "
-                         "(default: all)")
+                    help="methods whose erk kernels ab_erk and ab_events "
+                         "hold and time (default: all)")
+    ap.add_argument("--variants", default="",
+                    help="';'-separated builds of the package's erk sources "
+                         "that ab_events also holds and times, each "
+                         "'+'-joined -D defines (e.g. A=1+B=0;A=2)")
     opts = ap.parse_args()
     global SASS_DIR
     SASS_DIR = opts.sass_dir
     phases = (set(opts.phases.split(",")) if opts.phases else
               set(PHASES) - ({"ab_record", "ab_stiff", "ab_events",
                               "ab_resume", "rehearse", "ab_erk",
-                              "cycle_split", "stiff_split"} if opts.baseline else
+                              "cycle_split", "stiff_split",
+                              "event_split"} if opts.baseline else
                              {"ab", "ab_record", "ab_stiff", "ab_events",
                               "ab_resume", "rehearse", "ab_erk",
-                              "cycle_split", "stiff_split"}))
+                              "cycle_split", "stiff_split",
+                              "event_split"}))
     if not phases <= set(PHASES):
         ap.error(f"unknown phases {sorted(phases - set(PHASES))}")
     if phases & {"ab", "ab_record", "ab_stiff", "ab_events", "ab_erk",
@@ -4304,6 +4759,9 @@ def main():
         fast_paths(build, dev)
     if "cycle_split" in phases:
         cycle_split(build, dev, opts.baseline, opts.split_method)
+    if "event_split" in phases:
+        event_split(build, dev, [(baseline_label(b), b) for b in opts.baseline]
+                    + [("new", build.SRC_DIR)])
     if "stiff_split" in phases:
         stiff_split(build, dev, opts.baseline)
     if "stiff" in phases:
@@ -4317,7 +4775,10 @@ def main():
         if "ab_stiff" in phases:
             ab_stiff(build, dev, baseline, label)
         if "ab_events" in phases:
-            ab_events(build, dev, baseline, label)
+            ab_events(build, dev, baseline, label,
+                      opts.ab_methods.split(",") if opts.ab_methods else None,
+                      [tuple(v.split("+")) for v in
+                       opts.variants.split(";") if v])
         if "ab_resume" in phases:
             ab_resume(build, dev, baseline, label)
         if "resume_profile" in phases:
