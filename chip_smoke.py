@@ -16,8 +16,12 @@ B=16384 (DOP853, every crossing to t = 20, and the fifth terminal),
 ``solve_ivp`` with restarts, the host-loop bouncing ball against SciPy and
 the recording ball ensemble; then the stiff tier (csrc/radau.cu,
 csrc/bdf.cu): bench.py's stiff row uncut (VdP mu=1000, B=131072, Radau and
-BDF through ``build_resumable_solver``), Robertson's budgets, and the
-explicit resumable solver (``erk_kernel``'s resumable mode) at B=16384.
+BDF through ``build_resumable_solver``), Robertson's budgets, the stiff
+kernels' event modes (csrc/radau_ev.cu, csrc/bdf_ev.cu: VdP mu=1000 at
+B=131072 with its downward crossings, lean and sampled, the replenished
+decay's sawtooth at B=131072 with 10 restarts a lane, and ``solve_ivp``
+with events and dense output), and the explicit resumable solver
+(``erk_kernel``'s resumable mode) at B=16384.
 Every kernel is built from the
 sources here and held against its plain PyTorch version (on short spans at
 B=4096 over every mode and option, record modes over several chunks, and
@@ -2313,7 +2317,8 @@ def stiff_compare(name, got, ref, share, counts=(), arrays=("y",),
     same = torch.ones_like(got["status"], dtype=torch.bool)
     fr, errs, every, finite = {}, {}, {}, True
     for k in STIFF_COUNTERS + tuple(counts):
-        eq = got[k] == ref[k]
+        # (a count a lane and event, (B, E), equal in every event)
+        eq = (got[k] == ref[k]).reshape(same.shape[0], -1).all(dim=1)
         fr[k] = float(eq.double().mean())
         same &= eq
     for f in arrays:
@@ -2372,9 +2377,10 @@ def sampled_grid(B, dev):
 
 
 def stiff_vs_plain(dev):
-    """Each stiff kernel and controller type against its plain version on
-    the card (VdP mu=1000, B=4096, [0, 3000]), and Robertson with its
-    budgets."""
+    """Each stiff kernel against its plain version on the card under the
+    "state" controller (VdP mu=1000, B=4096, t in [0, 3000]; the float32
+    controller's lean kernels stiff_main_path holds over the same span at
+    the main path's B), and Robertson with its budgets."""
     from ivp_tpu_torch import rhs
     from ivp_tpu_torch.methods.jacobian import stiff_spec
 
@@ -2407,15 +2413,14 @@ def stiff_vs_plain(dev):
 
     y0 = torch.as_tensor(stiff_y0(CHECK_B), device=dev)
     for method in ("RADAU", "BDF"):
-        for cp in ("state", "float32"):
-            spec = stiff_spec(method, 2, None, {"controller_precision": cp})
-            got = stiff_call(method, rhs.vdp, y0, STIFF_TF, STIFF_TOL, spec,
-                             (STIFF_MU,))
-            ref = stiff_call(method, rhs.vdp, y0, STIFF_TF, STIFF_TOL, spec,
-                             (STIFF_MU,), plain=True)
-            torch.cuda.synchronize()
-            stiff_compare(f"{method.lower()}_{cp}_vs_plain_B{CHECK_B}", got,
-                          ref, STIFF_SHARE[cp])
+        spec = stiff_spec(method, 2, None, {"controller_precision": "state"})
+        got = stiff_call(method, rhs.vdp, y0, STIFF_TF, STIFF_TOL, spec,
+                         (STIFF_MU,))
+        ref = stiff_call(method, rhs.vdp, y0, STIFF_TF, STIFF_TOL, spec,
+                         (STIFF_MU,), plain=True)
+        torch.cuda.synchronize()
+        stiff_compare(f"{method.lower()}_state_vs_plain_B{CHECK_B}", got,
+                      ref, STIFF_SHARE["state"])
     yr = torch.as_tensor(robertson_y0(ROB_B), device=dev)
     for method in ("RADAU", "BDF"):
         spec = stiff_spec(method, 3, None, None)
@@ -2996,6 +3001,394 @@ def resumable_phase(dev):
     return rows
 
 
+# The stiff kernels' event modes (csrc/radau_ev.cu, csrc/bdf_ev.cu).  The
+# oscillator: VdP mu=1000 at bench.py's stiff row (B=131072, STIFF_TOL,
+# t in [0, 3000], stiff_y0) with events.vdp_crossing (two downward
+# crossings a lane, in the relaxation jumps near t = 807 and 2421, where the
+# steps are smallest), lean and with the 101-point grid.  The restarts:
+# events.replenish on decay at B=131072, each lane's rate k from a seed in
+# [10, 100] and its span ten of its periods, rtol 1e-8, atol 1e-10.  Held
+# lane by lane against the plain version on the card under the "state"
+# controller at the main path's B and y0: the oscillator over [0, 1000]
+# (each lane's first crossing; over [0, 3000] with Brent's lock-step
+# iterations the plain version takes longer than the 30 s a method
+# STIFF_PLAIN_B allows), the restarts over their whole spans; under the
+# float32 controller at CHECK_B lanes on the same spans, with the record
+# entries in chunks of REC_CAP_CHECK rows.
+STIFF_EV_CAP, STIFF_EV_PLAIN_TF = 4, 1000.0
+REPL_TOL, REPL_K, REPL_PERIODS = (1e-8, 1e-10), (10.0, 100.0), 10
+REPL_RESTARTS, REPL_CAP = 20, 16
+# solve_ivp's crossing times against SciPy's (Radau or BDF at rtol = atol =
+# 1e-10): within IVP_EV_T of the span, the global error of a solve at
+# STIFF_TOL's rtol 1e-4 over the relaxation jumps.
+IVP_EV_T = 1e-3
+EV_COUNTS = ("n_events", "n_restarts", "event_overflow")
+
+
+def replenish_inputs(B, dev, seed=5):
+    """``(y0, k, tf)`` of the restarts' lanes: y0 = 1, k uniform in
+    ``REPL_K`` from ``seed``, tf ``REPL_PERIODS`` periods ln 2 / k (1% past
+    the last refill)."""
+    rng = np.random.default_rng(seed)
+    k = rng.uniform(*REPL_K, B)
+    tf = REPL_PERIODS * np.log(2.0) / k * 1.01
+    T = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+    return T(np.ones((B, 1))), T(k), T(tf)
+
+
+def stiff_ev_inputs(which, B, dev, tf=None, grid_m=0):
+    """A stiff event solve's wrapper arguments: ``(fun, a, events, grid,
+    set)``, ``a`` from y0 to max_steps (stiff_ensemble's order), events an
+    EventArgs, for the oscillator over [0, tf] (default STIFF_TF; with
+    ``grid_m`` points from 0 to tf, else no grid) or the restarts."""
+    from ivp_tpu_torch import events as EV
+    from ivp_tpu_torch import rhs
+    from ivp_tpu_torch.events import event_args
+
+    if which == "crossing":
+        tf = STIFF_TF if tf is None else tf
+        y0 = torch.as_tensor(stiff_y0(B), device=dev)
+        a = solve_args(y0, tf, *STIFF_TOL, None, dev) + ((STIFF_MU,), 100000)
+        ev = event_args([EV.vdp_crossing], STIFF_EV_CAP, 0)
+        fun = rhs.vdp
+    else:
+        y0, k, tfs = replenish_inputs(B, dev)
+        z = torch.zeros_like(k)
+        a = (y0, z, tfs, tfs, None,
+             torch.full((B, 1), REPL_TOL[0], dtype=torch.float64, device=dev),
+             torch.full((B, 1), REPL_TOL[1], dtype=torch.float64, device=dev),
+             (k,), 100000)
+        ev = event_args([EV.replenish], REPL_CAP, REPL_RESTARTS)
+        fun = rhs.decay
+    grid = None
+    if grid_m:   # the oscillator's t_eval, as the solvers are given it
+        grid = torch.broadcast_to(torch.as_tensor(
+            np.linspace(0.0, tf, grid_m), device=dev), (B, grid_m))
+    return fun, a, ev, grid, EV.SETS[which]
+
+
+def ev_dict(out):
+    """stiff_ensemble's outputs with events as a dict, the event buffers'
+    fields included."""
+    d = ens_dict((*out[:9], *out[-2:]))
+    ev = out[9]
+    d.update(t_events=ev.t_events, y_events=ev.y_events,
+             n_events=ev.n_events, event_overflow=ev.event_overflow,
+             n_restarts=ev.n_restarts, n_brent=ev.n_brent)
+    return d
+
+
+def rec_ev_dict(r):
+    """A RecordResult with events as a dict: rec_dict's fields and the
+    event buffers'."""
+    d = rec_dict(r)
+    d.update(zip(("t_events", "y_events", "n_events", "event_overflow",
+                  "n_restarts", "n_brent"), r.events))
+    return d
+
+
+def ev_compare(name, got, ref, share, arrays=("y", "y_events")):
+    """stiff_compare of an event solve: status, every counter, the event
+    counts, restarts and overflow flags (and n_samples, n_rec where their
+    arrays are held) equal, ``arrays`` within STIFF_Y and the event times
+    within T_EVENT of their lane's time scale."""
+    counts = EV_COUNTS + (("n_samples",) if "y_samples" in arrays else ()) + (
+        ("n_rec",) if "rec_t" in arrays else ())
+    err = stiff_compare(name, got, ref, share, counts, arrays)
+    stiff_compare(f"{name}_event_times", got, ref, share, counts,
+                  ("t_events",), y_tol=T_EVENT)
+    return err
+
+
+def stiff_events_vs_plain(dev, method, which, rows):
+    """The kernel's event modes against the plain version on the card.
+    Under the "state" controller at the main path's B and y0 (the
+    oscillator over [0, STIFF_EV_PLAIN_TF], LEAN and SAMPLED on a 51-point
+    grid; the restarts over their spans, LEAN): one plain run (sampled for
+    the oscillator, whose sample mode changes no step) holds each mode;
+    its ms and the kernel's (CUDA events) go to ``rows`` as ``plain_ms``
+    and ``check_ms``.  Under the float32 controller at CHECK_B lanes (the
+    oscillator's y0 stiff_y0(CHECK_B) on the same span, the restarts' k
+    drawn at that B): one plain record run in chunks of REC_CAP_CHECK rows
+    with coefficients (and the oscillator's samples) holds LEAN, SAMPLED
+    and both RECORD entries, with and without coefficients, whose lanes
+    carry their event values, hit counts and restarts across each chunk's
+    end.  Raises ``max_abs_err`` in ``rows``."""
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+    from ivp_tpu_torch.kernels import erk_record as R
+    from ivp_tpu_torch.kernels import stiff_ensemble as S
+    from ivp_tpu_torch.methods.jacobian import stiff_spec
+
+    m = method.lower()
+    osc = which == "crossing"
+    modes = ("lean", "sampled") if osc else ("lean",)
+
+    def key(mode):
+        return f"{m}{'_sampled' if mode == 'sampled' else ''}_ev" + (
+            "" if osc else "_replenish")
+
+    def hold(mode, tag, got, ref, cp, arrays=()):
+        g = mode == "sampled" or (osc and mode.startswith("record"))
+        r = ref if g else {k: v for k, v in ref.items()
+                           if k not in ("y_samples", "n_samples")}
+        arrays = ("y", "y_events") + (("y_samples",) if g else ()) + arrays
+        err = ev_compare(f"{m}_{which}_{mode}_vs_plain_{tag}_{cp}", got, r,
+                         STIFF_SHARE[cp], arrays)
+        # (the record entry without coefficients is on no main path: its
+        # phase lines hold it)
+        if mode != "record":
+            row = rows.setdefault(
+                f"{m}_record_cont_ev" if mode == "record_cont" else
+                key(mode), {})
+            row["max_abs_err"] = max(row.get("max_abs_err", 0.0), err)
+            return row
+
+    # "state" at the main path's B.
+    cp = "state"
+    fun, a, ev, grid, _ = stiff_ev_inputs(
+        which, STIFF_B, dev, STIFF_EV_PLAIN_TF if osc else None,
+        MODES_M if osc else 0)
+    spec = stiff_spec(method, fun.n, None, {"controller_precision": cp})
+    t = time.perf_counter()
+    out, plain_ms = event_call(lambda: K.erk_ensemble_torch(
+        method, fun, *a, grid, spec, ev, counters=True))
+    ref = ev_dict((*out[:-1], *out[-1]))
+    phase(f"{m}_{which}_plain_B{STIFF_B}_{cp}", event_ms=plain_ms,
+          wall_s=round(time.perf_counter() - t, 3))
+    del out
+    for mode in modes:
+        g = grid if mode == "sampled" else None
+        out, check_ms = event_call(lambda: S.stiff_ensemble(
+            method, fun, *a, spec, 0.0, g, ev))
+        hold(mode, f"B{STIFF_B}", ev_dict(out), ref, cp).update(
+            plain_ms=plain_ms, check_ms=check_ms)
+        del out
+    del ref
+
+    # float32 at CHECK_B, the record entries in chunks.
+    cp = "float32"
+    fun, a, ev, grid, _ = stiff_ev_inputs(
+        which, CHECK_B, dev, STIFF_EV_PLAIN_TF if osc else None,
+        MODES_M if osc else 0)
+    spec = stiff_spec(method, fun.n, None, {"controller_precision": cp})
+    t = time.perf_counter()
+    plain = R.erk_record_torch(method, fun, *a, grid, spec,
+                               rec_cap=REC_CAP_CHECK, record_cont=True,
+                               events=ev)
+    ref = rec_ev_dict(plain)
+    phase(f"{m}_{which}_plain_record_B{CHECK_B}_{cp}", chunks=plain.chunks,
+          wall_s=round(time.perf_counter() - t, 3))
+    del plain
+    tag = f"B{CHECK_B}"
+    for mode in modes:
+        g = grid if mode == "sampled" else None
+        hold(mode, tag, ev_dict(S.stiff_ensemble(
+            method, fun, *a, spec, 0.0, g, ev)), ref, cp)
+    for cont in (True, False):
+        r = R.erk_record(method, fun, *a, grid, spec, rec_cap=REC_CAP_CHECK,
+                         record_cont=cont, events=ev)
+        mode = "record_cont" if cont else "record"
+        phase(f"{m}_{which}_{mode}_chunks_{tag}", chunks=r.chunks)
+        if r.chunks < 2:
+            raise AssertionError(f"{m} {which} {mode}: {r.chunks} chunk")
+        hold(mode, f"{tag}_rec{REC_CAP_CHECK}", rec_ev_dict(r), ref, cp,
+             REC_FIELDS[:4] + (REC_FIELDS[4:] if cont else ()))
+        del r
+
+
+def stiff_events_solve_ivp(dev, method, rows):
+    """``solve_ivp`` of one oscillator lane with ``events.vdp_crossing`` and
+    ``dense_output`` on the card (the RECORD event entry with
+    coefficients), against the plain version (``device="cpu"``: every
+    counter and the events; its time on the host, ``plain_ms``) and
+    SciPy's event times; its row into ``rows`` (``max_abs_err`` the
+    largest of its own and the record check's, stiff_events_vs_plain)."""
+    from scipy.integrate import solve_ivp as scipy_solve_ivp
+
+    from ivp_tpu_torch import events as EV
+    from ivp_tpu_torch import rhs, solve_ivp
+    from ivp_tpu_torch.kernels import erk_record as R
+    from ivp_tpu_torch.kernels import stiff_ensemble as S
+    from ivp_tpu_torch.methods.jacobian import stiff_spec
+
+    m = method.lower()
+    name = f"{m}_record_cont_ev"
+    y1 = stiff_y0(1)[0]
+    ivp = dict(method=method, args=(STIFF_MU,), rtol=STIFF_TOL[0],
+               atol=STIFF_TOL[1], dense_output=True,
+               events=[EV.vdp_crossing], event_capacity=STIFF_EV_CAP)
+    call = lambda: solve_ivp(rhs.vdp, (0.0, STIFF_TF), y1, **ivp)
+    walls = []
+    for i in range(3):
+        t = time.perf_counter()
+        r = call()
+        if i:
+            walls.append(time.perf_counter() - t)
+    (r, k_ms, _), launches = launches_of(
+        lambda: kernel_device_ms(call, match=f"{m}_kernel"))
+    t = time.perf_counter()
+    cpu = solve_ivp(rhs.vdp, (0.0, STIFF_TF), y1, device="cpu", **ivp)
+    plain_ms = 1e3 * (time.perf_counter() - t)
+    # The kernel's route again, whose event outputs give Brent's count to
+    # the bound.
+    fun, a, ev, _, ev_set = stiff_ev_inputs("crossing", 1, dev)
+    spec = stiff_spec(method, 2, None, None)
+    again = R.erk_record(method, fun, *a, None, spec, record_cont=True,
+                         events=ev)
+
+    def down(t, y):
+        return y[0]
+    down.direction = -1
+    sc = scipy_solve_ivp(
+        lambda t, y: [y[1], STIFF_MU * (1.0 - y[0] ** 2) * y[1] - y[0]],
+        (0.0, STIFF_TF), y1, method={"RADAU": "Radau", "BDF": "BDF"}[method],
+        rtol=1e-10, atol=1e-10, events=down)
+    same = {f: r[f] == cpu[f] for f in ("nfev", "njev", "nlu", "nstep",
+                                        "naccpt", "nrejct", "status",
+                                        "n_restarts")}
+    t_ev, t_cpu = np.asarray(r.t_events[0]), np.asarray(cpu.t_events[0])
+    t_sc = np.asarray(sc.t_events[0])
+    scale = max(1.0, float(np.abs(r.y).max()))
+    err_cpu = max(float(np.abs(r.y[:, -1] - cpu.y[:, -1]).max()) / scale,
+                  float(np.abs(np.asarray(r.y_events[0])
+                               - np.asarray(cpu.y_events[0])).max())
+                  / scale)
+    tev_err = float(np.abs(t_ev - t_cpu).max()) / STIFF_TF
+    sc_err = (float(np.abs(t_ev - t_sc).max()) / STIFF_TF
+              if t_sc.shape == t_ev.shape else float("inf"))
+    bound_ms, bound_by = S.stiff_bound(
+        method, rhs.vdp, again.nstep, again.naccpt, again.nrejct,
+        again.nfev, again.njev, again.nlu, n_rec=again.n_rec,
+        record_cont=True, events=(ev_set, again.events))
+    ok = (r.status == 0 and set(launches) == {name} and all(same.values())
+          and t_ev.shape == t_cpu.shape and t_ev.size >= 1
+          and err_cpu <= STIFF_Y and tev_err <= T_EVENT
+          and sc_err <= IVP_EV_T)
+    phase(f"{name}_solve_ivp_vdp", ok=ok, launches=launches,
+          kernel_ms=k_ms, wall_ms=1e3 * float(np.median(walls)),
+          plain_ms=plain_ms, counters_equal_cpu=same, events=t_ev.size,
+          err_vs_cpu=err_cpu, event_time_err_vs_cpu=tev_err,
+          event_time_err_vs_scipy=sc_err, bound_ms=bound_ms,
+          bound_by=bound_by)
+    if not ok:
+        raise AssertionError(f"solve_ivp {method} with events on the "
+                             f"card: {launches}, counters equal {same}, "
+                             f"errors {err_cpu}, {tev_err}, {sc_err}")
+    row = rows.setdefault(name, {})
+    row.update(launches=launches[name], ms=k_ms, plain_ms=plain_ms,
+               check_ms=k_ms, bound_ms=bound_ms, bound_by=bound_by,
+               bound_share=bound_ms / k_ms,
+               wall_ms=1e3 * float(np.median(walls)),
+               max_abs_err=max(row.get("max_abs_err", 0.0), err_cpu,
+                               tev_err))
+
+
+def stiff_events_main_path(dev):
+    """The stiff kernels' event modes at full width: the oscillator (lean and
+    sampled) and the restarts through ``build_ensemble_solver``, and
+    ``solve_ivp`` of one oscillator lane with ``dense_output`` (the RECORD
+    event entry), each method.  For each path: its launches (the counts
+    set to 0 just before the call and read just after), kernel ms alone
+    (torch.profiler), solve ms (CUDA events, the median of 2 after a
+    warm-up) and wall ms, the bound with the event work
+    (``stiff_bound(..., events=)``) and its share, a second run bit for
+    bit with the first (through the wrapper, whose event outputs give
+    Brent's count to the bound), every lane succeeded (or, restarting,
+    within its budget) with its events found; then each against its plain
+    version (``stiff_events_vs_plain``).  ``{row name: row}``."""
+    from scipy.integrate import solve_ivp as scipy_solve_ivp
+
+    from ivp_tpu_torch import Status, build_ensemble_solver, solve_ivp
+    from ivp_tpu_torch import events as EV
+    from ivp_tpu_torch import rhs
+    from ivp_tpu_torch.kernels import erk_record as R
+    from ivp_tpu_torch.kernels import stiff_ensemble as S
+    from ivp_tpu_torch.methods.jacobian import stiff_spec
+
+    rows = {}
+    B = STIFF_B
+    for method in ("RADAU", "BDF"):
+        m = method.lower()
+        paths = [("crossing", False), ("crossing", True), ("replenish", False)]
+        for which, sampled in paths:
+            osc = which == "crossing"
+            name = f"{m}{'_sampled' if sampled else ''}_ev" + (
+                "" if osc else "_replenish")
+            key = f"{m}{'_sampled' if sampled else ''}_ev"
+            fun, a, ev, grid, ev_set = stiff_ev_inputs(
+                which, B, dev, grid_m=SAMPLED_M if sampled else 0)
+            if osc:
+                solver = build_ensemble_solver(
+                    rhs.vdp, method, n=2, args=(STIFF_MU,),
+                    events=list(ev.events), event_capacity=ev.cap,
+                    t_eval=(np.linspace(0.0, STIFF_TF, SAMPLED_M)
+                            if sampled else None))
+                call = lambda: solver(a[0], 0.0, STIFF_TF, *STIFF_TOL)
+            else:
+                solver = build_ensemble_solver(
+                    rhs.decay, method, n=1, args=a[7], args_batched=True,
+                    events=list(ev.events), event_capacity=ev.cap,
+                    max_restarts=ev.max_restarts)
+                call = lambda: solver(a[0], 0.0, a[2], *REPL_TOL)
+            res, walls, ev_ms = timed_solves(lambda _: call(), [None] * 3)
+            del res
+            (res, k_ms, dev_ms), launches = launches_of(
+                lambda: kernel_device_ms(call, match=f"{m}_kernel"))
+            if set(launches) != {key}:
+                raise AssertionError(f"{name}: the solve launched "
+                                     f"{launches}")
+            # The second run, through the wrapper: bit for bit.
+            spec = stiff_spec(method, fun.n, None, None)
+            out = S.stiff_ensemble(method, fun, *a, spec, 0.0, grid, ev)
+            again = ev_dict(out)
+            # (an ensemble without restarts gives no n_restarts, as
+            # ivp_tpu's)
+            fields = STIFF_FINAL + tuple(
+                f for f in EV_COUNTS if not osc or f != "n_restarts"
+            ) + ("t_events", "y_events") + (
+                ("y_samples", "n_samples") if sampled else ())
+            first = {f: getattr(res, f) for f in fields}
+            bitwise(f"{name}_main_path_rerun_B{B}", first, again, fields)
+            bound_ms, bound_by = S.stiff_bound(
+                method, fun, res.nstep, res.naccpt, res.nrejct, res.nfev,
+                res.njev, res.nlu, n_samples=res.n_samples if sampled
+                else None, m=SAMPLED_M if sampled else 0,
+                events=(ev_set, out[9]))
+            n_ev = res.n_events[:, 0]
+            if osc:
+                ok = (bool((res.status == Status.SUCCESS).all())
+                      and bool((n_ev >= 1).all()))
+            else:
+                ok = (bool((res.status == Status.SUCCESS).all())
+                      and bool((res.n_restarts >= REPL_PERIODS - 1).all()))
+            ok = ok and bool(torch.isfinite(res.y).all()) and bool(
+                torch.isfinite(res.t_events).all())
+            if sampled:
+                ok = ok and bool((res.n_samples == SAMPLED_M).all())
+            solve_ms = float(np.median(ev_ms))
+            row = dict(launches=launches[key], ms=k_ms, solve_ms=solve_ms,
+                       wall_ms=1e3 * float(np.median(walls)),
+                       solve_less_kernel_ms=solve_ms - k_ms,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       bound_share=bound_ms / k_ms,
+                       mean_nstep=float(res.nstep.double().mean()),
+                       mean_events=float(n_ev.double().mean()),
+                       mean_restarts=float(res.n_restarts.double().mean())
+                       if not osc else 0.0,
+                       brent_evals=int(out[9].n_brent.sum()))
+            phase(f"{name}_main_path_B{B}", ok=ok, **row)
+            if not ok:
+                raise AssertionError(f"{name} main path: a lane did not end "
+                                     f"as expected")
+            rows[name] = row
+            del res, out, again, first
+        stiff_events_vs_plain(dev, method, "crossing", rows)
+        stiff_events_vs_plain(dev, method, "replenish", rows)
+
+        stiff_events_solve_ivp(dev, method, rows)
+    return rows
+
+
 def stiff_phase(dev):
     """The stiff kernels against their plain versions, ivp_tpu's numbers and
     the Robertson budgets, then the stiff main path; then the SAMPLED and
@@ -3014,6 +3407,9 @@ def stiff_phase(dev):
     t = time.perf_counter()
     modes = stiff_modes_main_paths(dev, finals, plains)
     phase("stiff_modes_main_paths", seconds=round(time.perf_counter() - t, 3))
+    t = time.perf_counter()
+    events = stiff_events_main_path(dev)
+    phase("stiff_events_main_path", seconds=round(time.perf_counter() - t, 3))
     replaces = {"radau": "ivp_tpu/methods/radau.py:348",
                 "bdf": "ivp_tpu/methods/bdf.py:312"}
     rows = [{"name": m, "route": "cuda",
@@ -3047,6 +3443,24 @@ def stiff_phase(dev):
             "blocks_per_sm": row["blocks_per_sm"],
             "stage_rows": row["stage_rows"],
             "stage_lane_bytes": row["stage_lane_bytes"]})
+    # The event modes replace ivp_tpu's XLA-fused driver loop with events
+    # and restarts (core/driver.py::step_body :203-280 around
+    # core/events.py::process_events); no TPU kernel stands behind them.
+    # plain_ms and check_ms are the plain version's and the kernel's at the
+    # vs-plain inputs (stiff_events_vs_plain: B=131072, the oscillator over
+    # [0, 1000], the "state" controller; solve_ivp's row: its one lane, the
+    # plain version on the host's CPU), ms the main path's kernel.
+    for name, row in events.items():
+        m = name.split("_")[0]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"ivp_tpu_torch/csrc/{m}_ev.cu",
+            "replaces": "ivp_tpu/core/driver.py:203",
+            "launches": row["launches"], "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "check_ms": row["check_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "bound_share": row["bound_share"],
+            "library_ms": None, "wall_ms": row["wall_ms"]})
     return rows
 
 
@@ -3224,6 +3638,7 @@ def main():
                 torch.as_tensor(y0n, device=dev))))
 
     # ---- 8. No silent fallback ----
+    from ivp_tpu_torch import events as EV
     from ivp_tpu_torch import solve_ivp
     from ivp_tpu_torch.batch import build_resumable_solver
 
@@ -3250,10 +3665,15 @@ def main():
             ("solve_ivp ball without events", lambda: solve_ivp(
                 rhs.ball, (0.0, 1.0), [2.0, 0.0])),
             # The stiff kernels run a CudaRHS with a Jacobian, n <= 8, the
-            # inverse backend, without events; the resumable solver the
-            # lean solve.
-            ("Radau with events on CUDA", lambda: build_ensemble_solver(
-                rhs.vdp, "Radau", n=2, events=[lambda t, y: y[:, 0]])(
+            # inverse backend, events of a declared set; the resumable
+            # solver the lean solve.
+            ("Radau with a plain callable event on CUDA", lambda:
+                build_ensemble_solver(
+                    rhs.vdp, "Radau", n=2, events=[lambda t, y: y[:, 0]])(
+                    vdp_y0(4), 0.0, 1.0, RTOL, ATOL)),
+            ("resumable BDF with events on CUDA", lambda:
+                build_resumable_solver(rhs.vdp, "BDF", n=2,
+                                       events=[EV.vdp_crossing])[0](
                     vdp_y0(4), 0.0, 1.0, RTOL, ATOL)),
             ("resumable Radau with t_eval on CUDA", lambda:
                 build_resumable_solver(rhs.vdp, "Radau", n=2,
@@ -3264,9 +3684,9 @@ def main():
                     vdp_y0(4), 0.0, 1.0, RTOL, ATOL)),
             ("Radau without a functor Jacobian", lambda: build_ensemble_solver(
                 rhs.lorenz, "Radau", n=3)(lorenz_y0(4), 0.0, 1.0, RTOL, ATOL)),
-            ("solve_ivp BDF with events on CUDA", lambda: solve_ivp(
-                rhs.vdp, (0.0, 1.0), [2.0, 0.0], method="BDF",
-                events=lambda t, y: y[0] - 1.0))):
+            ("solve_ivp BDF with a plain callable event on CUDA", lambda:
+                solve_ivp(rhs.vdp, (0.0, 1.0), [2.0, 0.0], method="BDF",
+                          events=lambda t, y: y[0] - 1.0))):
         try:
             call()
         except NotImplementedError as e:

@@ -25,7 +25,8 @@ contract), the resumable solver (:func:`build_resumable_solver`: the carry
 is the checkpoint) and an integer ``lane_chunk``.  The stiff methods run on
 the card to each lane's final state or with ``t_eval`` samples in one
 launch, recording in chunks, or resumably (kernels/stiff_ensemble.py,
-kernels/erk_record.py); with events they run on the CPU.  Options of later
+kernels/erk_record.py), each with events too but the resumable solver,
+which runs samples and events on the CPU.  Options of later
 slices raise NotImplementedError naming their ROADMAP item, and so does
 float32 on the card, all before anything is placed on a device.
 """
@@ -111,13 +112,11 @@ def _solver_params(method, n, jac, solver_options, need_cont):
                       **(solver_options or {}))[1]
 
 
-def _refuse_stiff_on_card(method, spec, fun, y0, device, events=False):
-    """What the stiff kernels do not run (``events``; and see
-    ``stiff_ensemble.check_card``) raises NotImplementedError on a CUDA
-    placement, before anything is placed."""
+def _refuse_stiff_on_card(method, spec, fun, y0, device):
+    """What the stiff kernels do not run (``stiff_ensemble.check_card``)
+    raises NotImplementedError on a CUDA placement, before anything is
+    placed."""
     if method in STIFF and placement(y0, device).type == "cuda":
-        if events:
-            raise NotImplementedError(STIFF_MODES_ON_CARD)
         S.check_card(spec, fun)
 
 
@@ -412,8 +411,7 @@ def build_ensemble_solver(fun, method="RK45", *, n, dtype=None, args=(),
         with it must name that device (ValueError otherwise)."""
         _refuse_f32_on_card(dtype, y0_batch, device)
         ev = event_args(ev_list, event_capacity, max_restarts)
-        _refuse_stiff_on_card(method, params, fun, y0_batch, device,
-                              ev is not None)
+        _refuse_stiff_on_card(method, params, fun, y0_batch, device)
         _refuse_events_on_card(fun, ev, y0_batch, device)
         y0 = _as_state(y0_batch, dtype, device)
         if y0.ndim != 2 or y0.shape[1] != n:
@@ -456,15 +454,10 @@ def build_ensemble_solver(fun, method="RK45", *, n, dtype=None, args=(),
              _norm_tol(rtol, B, n, dtype, dev, "rtol"),
              _norm_tol(atol, B, n, dtype, dev, "atol"), lane_args, max_steps)
         counters = {}
-        if method in STIFF and ev is None:
-            out = S.stiff_ensemble(method, *a, params, hmin, grid)
-            counters = dict(njev=out[9], nlu=out[10])
-            out = out[:9]
-        elif method in STIFF:   # events: the CPU route only
-            out = E.erk_ensemble_torch(method, *a, grid, params, ev,
-                                       hmin=hmin, counters=True)
-            counters = dict(njev=out[-1][0], nlu=out[-1][1])
-            out = out[:-1]
+        if method in STIFF:
+            out = S.stiff_ensemble(method, *a, params, hmin, grid, ev)
+            counters = dict(njev=out[-2], nlu=out[-1])
+            out = out[:-2]
         else:
             out = erk_ensemble(method, *a, grid, params, ev)
         kw = _event_fields(out[9] if ev is not None else None)
@@ -843,8 +836,7 @@ def build_recording_solver(fun, method="RK45", *, n, dtype=None, args=(),
     def solver(y0_batch, t0, tf, rtol, atol, device=None):
         _refuse_f32_on_card(dtype, y0_batch, device)
         ev = event_args(ev_list, event_capacity, max_restarts)
-        _refuse_stiff_on_card(method, params, fun, y0_batch, device,
-                              ev is not None)
+        _refuse_stiff_on_card(method, params, fun, y0_batch, device)
         _refuse_events_on_card(fun, ev, y0_batch, device)
         y0 = _as_state(y0_batch, dtype, device)
         if y0.ndim != 2 or y0.shape[1] != n:
@@ -900,11 +892,12 @@ def build_resumable_solver(fun, method="RK45", *, n, dtype=None, args=(),
       scalar; ``device`` as for :func:`build_ensemble_solver`'s solver;
     * ``resume(carry, ra) -> carry`` advances every lane by at most
       ``chunk_steps`` counted attempts (``carry.done`` says which lanes are
-      finished); the carry given is not changed.  RK23 counts only its
-      accepted attempts, as ivp_tpu's does, so a ``resume`` with
-      ``chunk_steps`` does not bound an RK23 launch whose lanes have a NaN
-      error estimate: such a lane is rejected on every attempt, and neither
-      route ends it (ROADMAP §3 fault 7);
+      finished); the carry given is not changed.  RK23 counts its
+      accepted attempts and, unlike ivp_tpu's, an attempt whose error
+      estimate is not finite (a stated deviation, ROADMAP §3 fault 7):
+      such a lane is rejected on every attempt, and ivp_tpu's never ends
+      it, where the port's ends at ``max_steps`` (NEED_LARGER_NMAX), so a
+      ``resume`` with ``chunk_steps`` bounds it as any other;
     * ``extract(carry) -> EnsembleResult``.
 
     ``carry`` is the plain driver's :class:`~ivp_tpu_torch.core.driver.Carry`
@@ -947,10 +940,7 @@ def build_resumable_solver(fun, method="RK45", *, n, dtype=None, args=(),
         ev = event_args(ev_list, event_capacity, max_restarts)
         card = placement(y0_batch, device).type == "cuda"
         if card and (ev is not None or sample_cap):
-            raise NotImplementedError(
-                "the resumable solver runs t_eval samples and events with "
-                "device='cpu'; on the card it runs the lean solve: ROADMAP "
-                "§1 item 16")
+            raise NotImplementedError(STIFF_MODES_ON_CARD)
         _refuse_stiff_on_card(method, params, fun, y0_batch, device)
         if card and not isinstance(fun, CudaRHS):
             raise NotImplementedError(E.NO_GPU_CALLABLE)

@@ -34,14 +34,28 @@ The sets declared here:
   restart ``[0, -0.8 v]`` (a bounce with restitution 0.8);
 * ``section`` (of ``rhs.lorenz``): the Poincaré section ``z - (rho - 1)``,
   downward, not terminal (``lorenz_section.replace(terminal=5)`` stops a
-  lane at its fifth crossing).
+  lane at its fifth crossing);
+* ``crossing`` (of ``rhs.vdp``, for Radau and BDF): the position ``y[0]``,
+  downward, not terminal: a relaxation oscillator's zero crossings, whose
+  times give its period and phase;
+* ``replenish`` (of ``rhs.decay``, for Radau and BDF): ``y[0] - 0.5``,
+  downward, terminal, restart ``y_new = 1``: a store refilled when it has
+  decayed to half (the sawtooth of a dosing or replenishment model).
+
+The explicit kernels run ``ground`` and ``section``, the stiff kernels
+``crossing`` and ``replenish``; another pairing raises NotImplementedError
+on the card from ``kernels/build.py::entry`` (its entry is not built).
 
 To add a set: write ``csrc/events/<set>.cuh`` (``E`` events of the functor
-``F``, ``value(e, t, y, args)`` and, where ``RESTARTS`` has event ``e``'s
-bit, ``restart(e, t, y, args, y_new)``), include it in
-``csrc/erk_common.cuh``, add its ``IVP_ERK_EVENT_ENTRY`` line to each
-``csrc/erk_*.cu``, give its counts to :data:`SETS` and declare its
-:class:`CudaEvent` objects here.
+``F``, ``value(e, t, y, args)`` and ``restart(e, t, y, args, y_new)``, which
+runs where ``RESTARTS`` has event ``e``'s bit), give its counts to
+:data:`SETS` and declare its :class:`CudaEvent` objects here.  For the
+explicit methods include it in ``csrc/erk_common.cuh`` and add its
+``IVP_ERK_EVENT_ENTRY`` line to each ``csrc/erk_*.cu``; for Radau and BDF
+include it in ``csrc/radau_ev.cu`` and ``csrc/bdf_ev.cu`` and add its
+``IVP_RADAU_EVENT_ENTRY`` and ``IVP_BDF_EVENT_ENTRY`` lines there (the
+functor's threads and blocks as its ``IVP_RADAU_ENTRY`` and
+``IVP_BDF_ENTRY`` lines give them).
 """
 from __future__ import annotations
 
@@ -126,9 +140,23 @@ def _section(t, y, sigma=10.0, rho=28.0, beta=8.0 / 3.0):
     return y[:, 2] - (rho - 1.0)
 
 
+def _crossing(t, y, mu=1.0):
+    return y[:, 0]
+
+
+def _replenish(t, y, k=1.0):
+    return y[:, 0] - 0.5
+
+
+def _replenish_restart(t, y):
+    return torch.ones_like(y)
+
+
 SETS = {
     "ground": EventSet("ground", _rhs.ball, 1, (0,), (1,)),
     "section": EventSet("section", _rhs.lorenz, 1, (2,), (0,)),
+    "crossing": EventSet("crossing", _rhs.vdp, 1, (0,), (0,)),
+    "replenish": EventSet("replenish", _rhs.decay, 1, (1,), (0,)),
 }
 
 # The ball's bounce: terminal on the way down, restarted with restitution
@@ -137,6 +165,12 @@ ground = CudaEvent("ground", 0, _rhs.ball, _ground, terminal=True,
                    direction=-1, restart=_ground_restart)
 # The Lorenz attractor's Poincaré section z = rho - 1, crossed downward.
 lorenz_section = CudaEvent("section", 0, _rhs.lorenz, _section, direction=-1)
+# Van der Pol's downward zero crossings of y[0].
+vdp_crossing = CudaEvent("crossing", 0, _rhs.vdp, _crossing, direction=-1)
+# The decay refilled to 1 when it reaches 0.5 on the way down: terminal,
+# restarted where the solve allows restarts.
+replenish = CudaEvent("replenish", 0, _rhs.decay, _replenish, terminal=True,
+                      direction=-1, restart=_replenish_restart)
 
 
 def as_list(events) -> list:

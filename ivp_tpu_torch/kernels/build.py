@@ -43,7 +43,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # without FMA contraction: each product and sum rounds once, as the plain
 # version's tensor operations do, so their step sequences follow it lane for
 # lane (csrc/stiff_common.cuh).
-SOURCE_FLAGS = {"radau": ("-fmad=false",), "bdf": ("-fmad=false",)}
+SOURCE_FLAGS = {name: ("-fmad=false",)
+                for name in ("radau", "bdf", "radau_ev", "bdf_ev")}
 
 # The source of the lean DOPRI5 kernel, and the default of every ``name``.
 DOPRI5 = "dopri5_ensemble"

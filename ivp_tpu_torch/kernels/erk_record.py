@@ -74,14 +74,12 @@ from .dopri5_ensemble import FP64_PEAK, HBM_RATE
 LAUNCHES = {f"{k}_record{c}{e}": 0 for k in ("dopri5", "dop853", "rk23", "rk4")
             for c in ("", "_cont") for e in ("", "_ev")}
 
-# The stiff methods' modes that wait for their kernels on the card.
+# What the resumable solver does not run on the card yet.
 STIFF_MODES_ON_CARD = (
-    "Radau and BDF on the card run the ensemble (final state or t_eval "
-    "samples), the recording ensemble, solve_ivp and the lean resumable "
-    "solver; with events they run with device='cpu' until the stiff "
-    "kernels' event modes land, and t_eval and events in the resumable "
-    "solver too: ROADMAP §1 item 16 (the stiff kernels' event modes; "
-    "samples and events in the resumable solver)")
+    "the resumable solver runs t_eval samples and events with device='cpu'; "
+    "on the card it runs the lean solve (the ensemble, the recording "
+    "ensemble and solve_ivp run samples and events there, Radau and BDF "
+    "too): ROADMAP §1 item 16 (samples and events in the resumable solver)")
 
 # method -> the LAUNCHES prefix
 _NAMES = {"DOPRI5": "dopri5", "DOP853": "dop853", "RK23": "rk23", "RK4": "rk4"}
@@ -394,13 +392,17 @@ def record_launches(method, fun: CudaRHS, y0, t0, tf, hmax, first_step, rtol,
 def stiff_record_launches(method, fun: CudaRHS, y0, t0, tf, hmax, first_step,
                           rtol, atol, args, max_steps, t_grid,
                           spec: StiffSpec, rec_cap, record_cont, hmin=0.0,
-                          lib=None, stream=None) -> RecordResult:
+                          lib=None, stream=None,
+                          events=None) -> RecordResult:
     """Radau's or BDF's record mode on ``y0``'s device: a lean carry and a
     :class:`~ivp_tpu_torch.kernels.stiff_ensemble.StiffLaunch` in RECORD
     mode (``lib``, default the package's build; ``stream`` as it takes it,
     0 for a g++ build on CPU tensors), launched from the carry to itself,
     the first launch from ``y0`` and ``t0``, through :func:`_drain`; with
-    a ``t_grid`` the samples too.  The result holds njev and nlu."""
+    a ``t_grid`` the samples too, with ``events`` (an EventArgs) the event
+    entry of their set (``lib`` then a build of csrc/<kernel>_ev.cu), its
+    event state kept on the device between chunks.  The result holds njev
+    and nlu."""
     method = method.upper()
     B, n = y0.shape
     dev = y0.device
@@ -409,15 +411,17 @@ def stiff_record_launches(method, fun: CudaRHS, y0, t0, tf, hmax, first_step,
     ra = run_args(tf, rtol, atol, hmax, hmin, max_steps, y0)
     modes = S.Modes(method, B, n, dev, t_grid, rec_cap, record_cont)
     first_step = S.nan_first_step(first_step, B, dev)
-    launch = (S.StiffLaunch(method, fun, ra, args, p, lib, modes) if B
-              else None)
+    launch = (S.StiffLaunch(method, fun, ra, args, p, lib, modes, events)
+              if B else None)
+    ev_out = (None if events is None else launch.ev_out if B else
+              E.event_buffers(events, B, n, dev)[0])
     pieces, counts, chunks = _drain(
         lambda first: launch(c, c, y0, t0, first_step, first, S.UNBOUNDED,
                              stream),
         modes.n_rec, modes.rows, c.status)
     last = (c.t, c.y, c.status, c.nfev, c.nstep, c.naccpt, c.nrejct,
             modes.y_samples, modes.n_samples)
-    return _assemble(pieces, B, n, modes.C, counts, last, chunks,
+    return _assemble(pieces, B, n, modes.C, counts, last, chunks, ev_out,
                      counters=(c.njev, c.nlu))
 
 
@@ -425,9 +429,9 @@ def erk_record(method, fun, y0, t0, tf, hmax, first_step, rtol, atol,
                args=(), max_steps=100_000, t_grid=None, params=None,
                rec_cap=1024, record_cont=False, events=None,
                hmin=0.0) -> RecordResult:
-    """Route by the device of ``y0``: CPU -> plain version, CUDA -> kernel.
-    A stiff solve (``params`` a StiffSpec) records with events on the CPU
-    only."""
+    """Route by the device of ``y0``: CPU -> plain version, CUDA -> kernel
+    (a stiff solve, ``params`` a StiffSpec, through
+    :func:`stiff_record_launches`)."""
     method = method.upper()
     a = (fun, y0, t0, tf, hmax, first_step, rtol, atol, args, max_steps,
          t_grid, params)
@@ -435,15 +439,14 @@ def erk_record(method, fun, y0, t0, tf, hmax, first_step, rtol, atol,
     if y0.device.type == "cpu":
         return erk_record_torch(method, *a, **kw, hmin=hmin)
     if isinstance(params, StiffSpec) and y0.device.type == "cuda":
-        if events is not None:
-            raise NotImplementedError(STIFF_MODES_ON_CARD)
         S.check_card(params, fun)
         if int(rec_cap) < 1:
             raise ValueError(f"rec_cap must be at least 1, got {rec_cap}")
         with torch.cuda.device(y0.device):
             stream = torch.cuda.current_stream(y0.device).cuda_stream
             return stiff_record_launches(method, *a, int(rec_cap),
-                                         record_cont, hmin, None, stream)
+                                         record_cont, hmin, None, stream,
+                                         events)
     if y0.device.type != "cuda":
         raise NotImplementedError(f"no route for device {y0.device}")
     if not isinstance(fun, CudaRHS):

@@ -41,8 +41,13 @@ record mode.  The route follows the device of ``y0``:
 On the card only the inverse linear backend runs (n <= 8), with the
 functor's Jacobian and float64 state; ``linear_mode="lu"``, a callable or
 constant ``jac``, n > 8 and float32 raise NotImplementedError (ROADMAP §1
-item 15) before anything is placed, as events do (item 16).  There is no
-fallback: a failed build or launch raises.
+item 15) before anything is placed.  With events (a declared event set of
+the CudaRHS, ivp_tpu_torch/events.py: ``crossing`` of ``rhs.vdp``,
+``replenish`` of ``rhs.decay``) each mode launches the set's event entry
+(``ivp_<kernel>_ev_<rhs>_<set>`` of csrc/radau_ev.cu and csrc/bdf_ev.cu,
+the kernels' template with the set, csrc/stiff_events.cuh), counted in
+``LAUNCHES`` as ``<kernel>[_sampled|_record|_record_cont]_ev``.  There is
+no fallback: a failed build or launch raises.
 
 :func:`stiff_bound` gives the least time an H100 could take for a solve
 from the float64 operations its lanes did (:func:`stiff_flops`) and the
@@ -63,10 +68,12 @@ from .dopri5_ensemble import FP64_PEAK, HBM_RATE, _check
 from . import erk_ensemble as E
 
 # Launches made by this process, per kernel and mode (``<kernel>``: lean;
-# ``_sampled``; ``_record``: steps, ``_record_cont``: with coefficients);
-# a StiffLaunch adds one per launch.  A caller may reset a count to 0.
-LAUNCHES = {f"{k}{m}": 0 for k in ("radau", "bdf")
-            for m in ("", "_sampled", "_record", "_record_cont")}
+# ``_sampled``; ``_record``: steps, ``_record_cont``: with coefficients;
+# each with ``_ev`` for its event mode); a StiffLaunch adds one per launch.
+# A caller may reset a count to 0.
+LAUNCHES = {f"{k}{m}{e}": 0 for k in ("radau", "bdf")
+            for m in ("", "_sampled", "_record", "_record_cont")
+            for e in ("", "_ev")}
 
 # csrc/stiff_common.cuh's modes.
 LEAN, SAMPLED, RECORD = 0, 1, 2
@@ -286,12 +293,17 @@ class StiffLaunch:
     launch passes the same is made once here (the batched RunArgs ``ra``
     checked, the functor's arguments, the options of the engine's
     RadauParams / BDFParams ``params``, the entry; with ``modes``, a
-    :class:`Modes`, the SAMPLED or RECORD entry writing there).  A call is
-    one launch from the carry ``c_in`` to the carry ``c`` (which may be the
-    same)."""
+    :class:`Modes`, the SAMPLED or RECORD entry writing there).  With
+    ``events`` (an EventArgs of the CudaRHS's declared set) the event entry
+    of the set (``ivp_<kernel>_ev_<rhs>_<set>`` of csrc/radau_ev.cu or
+    csrc/bdf_ev.cu; ``lib`` default the package's build of it) in the mode
+    ``modes`` gives, LEAN without: its outputs in ``ev_out`` (an
+    erk_ensemble.EventOut), and in RECORD the event values and hit counts
+    kept between chunks (``ev_keep``).  A call is one launch from the carry
+    ``c_in`` to the carry ``c`` (which may be the same)."""
 
     def __init__(self, method, fun: CudaRHS, ra, args, params, lib=None,
-                 modes: "Modes | None" = None):
+                 modes: "Modes | None" = None, events=None):
         method = method.upper()
         self.kernel = kernel = method.lower()
         self.method, self.fun = method, fun
@@ -304,7 +316,15 @@ class StiffLaunch:
         _check("rtol", ra.rtol, (B, fun.n), f64, dev)
         _check("atol", ra.atol, (B, fun.n), f64, dev)
         self.kargs = fun.kernel_args(args, B, dev)
-        self.lib = build.library(kernel) if lib is None else lib
+        self.events, self.ev_out, self.ev_keep = events, None, None
+        if events is not None:
+            self.ev_out, self.ev_keep = E.event_buffers(
+                events, B, fun.n, dev,
+                carry=modes is not None and modes.cap > 0)
+            ev_set, self.ev_arg = E.kernel_events(fun, events, self.ev_out,
+                                                  self.ev_keep)
+        self.lib = (build.library(kernel + ("" if events is None else "_ev"))
+                    if lib is None else lib)
         E.check_functor(self.lib, fun, self.kargs)
         if method == "RADAU":
             self.opts, self.carry_t, self.fields = (
@@ -319,6 +339,12 @@ class StiffLaunch:
         if modes is not None:
             argtypes.insert(-1, KernelModes)
             self.key, name = modes.key, f"ivp_{kernel}_modes_{fun.name}"
+        if events is not None:
+            if modes is None:
+                argtypes.insert(-1, KernelModes)
+            argtypes.insert(-1, E.KernelEvents)
+            self.key += "_ev"
+            name = f"ivp_{kernel}_ev_{fun.name}_{ev_set.name}"
         self.entry = build.entry(name, argtypes, lib=self.lib)
         self.run = KernelRun(ra.tend.data_ptr(), ra.rtol.data_ptr(),
                              ra.atol.data_ptr(), ra.hmax.data_ptr(),
@@ -366,6 +392,8 @@ class StiffLaunch:
             return
         ptr = lambda x: 0 if x is None else x.data_ptr()
         md = () if self.modes is None else (self.modes.arg,)
+        if self.events is not None:
+            md = (md or (KernelModes(),)) + (self.ev_arg,)
         err = self.entry(B, ptr(y0), ptr(t0), ptr(first_step), self.run,
                          self.kargs.data_ptr(), self.opts,
                          KernelDriver(*drv_in), self.carry_t(*carry_in),
@@ -414,35 +442,43 @@ def nan_first_step(first_step, B, dev):
 
 def stiff_ensemble_cuda(method, fun: CudaRHS, y0, t0, tf, hmax, first_step,
                         rtol, atol, args, max_steps, params, hmin,
-                        lib=None, stream=None, t_grid=None) -> Carry:
+                        lib=None, stream=None, t_grid=None,
+                        events=None) -> Carry:
     """One launch with no budget from a fresh carry: the final-state solve,
-    or with a ``(B, m)`` ``t_grid`` the SAMPLED one.  Returns the carry (its
-    ``t``, ``y``, status and counters are the result; with a grid its
-    ``sample_y`` and ``s_cursor`` hold the samples and their count)."""
+    or with a ``(B, m)`` ``t_grid`` the SAMPLED one; with ``events`` (an
+    EventArgs) the event entry of their set (``lib`` then a build of
+    csrc/<kernel>_ev.cu).  Returns the carry (its ``t``, ``y``, status and
+    counters are the result; with a grid its ``sample_y`` and ``s_cursor``
+    hold the samples and their count; with events its ``ev`` holds the
+    erk_ensemble.EventOut and ``n_restarts`` the restarts)."""
     method = method.upper()
     B, n = y0.shape
     c = empty_carry(method, B, n, controller_dtype(params), y0.device)
     ra = run_args(tf, rtol, atol, hmax, hmin, max_steps, y0)
     modes = None if t_grid is None else Modes(method, B, n, y0.device, t_grid)
-    StiffLaunch(method, fun, ra, args, params, lib, modes)(
-        c, c, y0, t0, nan_first_step(first_step, B, y0.device), True,
-        UNBOUNDED, stream)
+    launch = StiffLaunch(method, fun, ra, args, params, lib, modes, events)
+    launch(c, c, y0, t0, nan_first_step(first_step, B, y0.device), True,
+           UNBOUNDED, stream)
     if modes is not None:
         c = c._replace(sample_y=modes.y_samples, s_cursor=modes.n_samples)
+    if events is not None:
+        c = c._replace(ev=launch.ev_out, n_restarts=launch.ev_out.n_restarts)
     return c
 
 
 def stiff_ensemble(method, fun, y0, t0, tf, hmax, first_step, rtol, atol,
-                   args, max_steps, spec: StiffSpec, hmin=0.0, t_grid=None):
+                   args, max_steps, spec: StiffSpec, hmin=0.0, t_grid=None,
+                   events=None):
     """Route by the device of ``y0``: ``(t, y, status, nfev, nstep, naccpt,
     nrejct, y_samples, n_samples, njev, nlu)``, the samples None without a
-    ``t_grid`` ``(B, m)``."""
+    ``t_grid`` ``(B, m)``; with ``events`` (an EventArgs) their
+    erk_ensemble.EventOut before ``njev``."""
     method = method.upper()
     if y0.device.type == "cpu":
         out = E.erk_ensemble_torch(method, fun, y0, t0, tf, hmax, first_step,
                                    rtol, atol, args, max_steps, t_grid, spec,
-                                   None, hmin=hmin, counters=True)
-        return (*out[:9], *out[-1])
+                                   events, hmin=hmin, counters=True)
+        return (*out[:-1], *out[-1])
     if y0.device.type != "cuda":
         raise NotImplementedError(f"no route for device {y0.device}")
     check_card(spec, fun)
@@ -454,10 +490,12 @@ def stiff_ensemble(method, fun, y0, t0, tf, hmax, first_step, rtol, atol,
     with torch.cuda.device(y0.device):
         c = stiff_ensemble_cuda(method, fun, y0, t0, tf, hmax, first_step,
                                 rtol, atol, args, max_steps, spec.params(),
-                                torch.abs(hmin_b), t_grid=t_grid)
+                                torch.abs(hmin_b), t_grid=t_grid,
+                                events=events)
     samples = (c.sample_y, c.s_cursor) if t_grid is not None else (None, None)
+    ev = () if events is None else (c.ev,)
     return (c.t, c.y, c.status, c.nfev, c.nstep, c.naccpt, c.nrejct,
-            *samples, c.njev, c.nlu)
+            *samples, *ev, c.njev, c.nlu)
 
 
 # float64 operations of the stiff kernels, counted from csrc/radau.cu and
@@ -537,22 +575,57 @@ def stiff_flops(method, fun: CudaRHS, nstep, naccpt, nrejct, nfev, njev,
     return flops
 
 
+def stiff_event_work(method, fun: CudaRHS, ev_set, naccpt, out):
+    """``(flops, bytes)`` of an event-mode solve's event work, besides
+    :func:`stiff_flops`' (kernels/erk_ensemble.py::event_work for the
+    stiff kernels): each event function at every accepted step
+    (``naccpt``), one interpolant (``SAMPLE_FLOPS``) and one event function
+    a Brent evaluation (``out.n_brent``, the kernel's own count), and each
+    restart's map, event values and method init (Radau: one RHS evaluation
+    and the scale; BDF: two RHS evaluations, hinit, the Jacobian and D's
+    first rows); the bytes are the recorded occurrences (a time and a state
+    each) and each lane's counts, flags, restarts and Brent count.
+    ``out``: the solve's erk_ensemble.EventOut; ``ev_set``: its declared
+    set (events.SETS)."""
+    n, r = fun.n, E.RHS_FLOPS[fun.name]
+    tot = lambda x: float(torch.as_tensor(x).to(torch.float64).sum())
+    a, b = SAMPLE_FLOPS[method.upper()]
+    values = float(sum(ev_set.value_flops))
+    brent = a + b * n + max(ev_set.value_flops)
+    init = (r + 2 * n if method.upper() == "RADAU" else
+            2 * r + E.INIT_FLOPS_N * n + E.INIT_FLOPS + JAC_FLOPS[fun.name]
+            + 2 * n)
+    restart = max(ev_set.restart_flops) + values + init
+    flops = (tot(naccpt) * values + tot(out.n_brent) * brent
+             + tot(out.n_restarts) * restart)
+    B, ne = out.n_events.shape
+    nbytes = 8.0 * (1 + n) * tot(out.n_events) + B * (ne * (4 + 1) + 4 + 4)
+    return flops, nbytes
+
+
 def stiff_bound(method, fun: CudaRHS, nstep, naccpt, nrejct, nfev, njev,
                 nlu, peak=FP64_PEAK, rate=HBM_RATE, n_samples=None, m=0,
-                n_rec=None, record_cont=False):
+                n_rec=None, record_cont=False, events=None):
     """``(ms, bound_by)``: the least time a card with float64 rate ``peak``
     and memory rate ``rate`` could take for the solve, the larger of
     :func:`stiff_flops` (with ``n_samples`` the samples' work,
-    ``SAMPLE_FLOPS``) over ``peak`` and, over ``rate``, each lane's inputs
-    read once (y0, rtol, atol, t0, tf, hmax, hmin, first step, args; its
-    ``m`` grid times) and its outputs written once (t, y, status and six
-    counters; the samples emitted and their count; the ``n_rec`` rows of
-    ``erk_ensemble.record_width`` doubles)."""
+    ``SAMPLE_FLOPS``; with ``events``, ``(set, EventOut)``, the event work
+    of :func:`stiff_event_work`) over ``peak`` and, over ``rate``, each
+    lane's inputs read once (y0, rtol, atol, t0, tf, hmax, hmin, first
+    step, args; its ``m`` grid times) and its outputs written once (t, y,
+    status and six counters; the samples emitted and their count; the
+    ``n_rec`` rows of ``erk_ensemble.record_width`` doubles; the event
+    buffers)."""
     B, n = torch.as_tensor(nstep).numel(), fun.n
     tot = lambda x: float(torch.as_tensor(x).to(torch.float64).sum())
     flops = stiff_flops(method, fun, nstep, naccpt, nrejct, nfev, njev, nlu)
     lane = 8 * (3 * n + 5 + len(fun.defaults)) + 8 * (1 + n) + 4 * 7
     extra = 0.0
+    if events is not None:
+        ev_flops, ev_bytes = stiff_event_work(method, fun, events[0],
+                                              naccpt, events[1])
+        flops += ev_flops
+        extra += ev_bytes
     if n_samples is not None:
         a, b = SAMPLE_FLOPS[method.upper()]
         flops += tot(n_samples) * (a + b * n)

@@ -21,7 +21,7 @@ import torch
 
 from .. import tableaus as tab
 from ..types import Status
-from ..core.common import div_const, hinit, rowsum
+from ..core.common import div_const, sqrt_rn, hinit, rowsum
 from ..core.linalg import inv, lu_factor, lu_solve, matvec
 from .base import Engine, RunArgs, StepProposal
 from .radau import _w, backend_kind, cdtype
@@ -206,7 +206,7 @@ def make_bdf_attempt(jac_fn, p: BDFParams):
     maxit = p.newton_maxiter
 
     def rms(v):
-        return torch.sqrt(div_const(rowsum(v * v), n))
+        return sqrt_rn(div_const(rowsum(v * v), n))
 
     def attempt(rhs, t, y, naccpt, ms: BDFState, ra: RunArgs, p_):
         dtype, dev = y.dtype, y.device
@@ -220,7 +220,7 @@ def make_bdf_attempt(jac_fn, p: BDFParams):
         else:
             newton_tol = torch.maximum(
                 div_const(rtol_min, 10.0 * EPS, reverse=True),
-                torch.clamp_max(torch.sqrt(rtol_min), 0.03)).to(cdt)
+                torch.clamp_max(sqrt_rn(rtol_min), 0.03)).to(cdt)
 
         posneg, order, D = ms.posneg, ms.order, ms.D
         h_abs, n_equal = ms.h_abs, ms.n_equal

@@ -407,7 +407,12 @@ def rk23_attempt(rhs, t, y, naccpt, ms: ERKState, ra: RunArgs, p: ERKParams):
         y_new=torch.where(accepted[:, None], ynew, y),
         xold=t, h_used=h, cont=cont,
         nfev_inc=3, njev_inc=0, nlu_inc=0,
-        count_step=accepted, count_reject=(~accepted) & ~too_small,
+        # An attempt whose error estimate is not finite counts too, so that
+        # such a lane, rejected on every attempt, ends at max_steps as
+        # DOPRI5's does (ivp_tpu's RK23 counts accepted attempts only and
+        # never ends it: a stated deviation, ROADMAP §3 fault 7).
+        count_step=accepted | (~torch.isfinite(err) & ~too_small),
+        count_reject=(~accepted) & ~too_small,
         ms=ms_new,
     )
 

@@ -29,7 +29,7 @@ import torch
 
 from .. import tableaus as tab
 from ..types import Status
-from ..core.common import div_const, rowsum
+from ..core.common import div_const, sqrt_rn, rowsum
 from ..core.linalg import (inv, inv_complex, lu_factor, lu_factor_cpair,
                            lu_solve, lu_solve_cpair, matvec,
                            solve_complex_inv)
@@ -260,7 +260,7 @@ def make_radau_attempt(jac_fn, p: RadauParams):
             tolst = rtol_t[:, 0]
             newton_tol = torch.maximum(
                 div_const(tolst, 10.0 * p.uround, reverse=True),
-                torch.clamp_max(torch.sqrt(tolst), 0.03)).to(cdt)
+                torch.clamp_max(sqrt_rn(tolst), 0.03)).to(cdt)
 
         h, posneg = ms.h, ms.posneg
         hc = h[:, None]
@@ -343,12 +343,12 @@ def make_radau_attempt(jac_fn, p: RadauParams):
             q1 = r1.to(cdt) * inv_scal_c
             q2 = r2.to(cdt) * inv_scal_c
             q3 = r3.to(cdt) * inv_scal_c
-            dyno_n = torch.sqrt(div_const(
+            dyno_n = sqrt_rn(div_const(
                 _sumsq(q1) + _sumsq(q2) + _sumsq(q3), 3.0 * n))
 
             check = (it_n > 1) & (it_n < maxit)
             thq = dyno_n / torch.clamp_min(dynold, tiny)
-            theta_n = torch.where(it_n == 2, thq, torch.sqrt(
+            theta_n = torch.where(it_n == 2, thq, sqrt_rn(
                 thq * torch.clamp_min(thqold, tiny)))
             theta_n = torch.where(check, theta_n, theta)
             thqold_n = torch.where(check, thq, thqold)
@@ -407,7 +407,7 @@ def make_radau_attempt(jac_fn, p: RadauParams):
 
         def rms(v):
             vc = v.to(cdt) * inv_scal_c
-            return torch.clamp_min(torch.sqrt(div_const(_sumsq(vc), n)),
+            return torch.clamp_min(sqrt_rn(div_const(_sumsq(vc), n)),
                                    1e-10)
 
         err = rms(err_vec)
@@ -421,7 +421,7 @@ def make_radau_attempt(jac_fn, p: RadauParams):
         fac = torch.clamp_max(div_const(newt + 2.0 * maxit, cfac,
                                         reverse=True), p.safety)
         quot = torch.clamp_min(torch.clamp_max(
-            torch.sqrt(torch.sqrt(err)) / fac, facl), facr)
+            sqrt_rn(sqrt_rn(err)) / fac, facl), facr)
         hnew = h / quot.to(h.dtype)
         accepted = converged & (err <= 1.0) & ~sing & ~too_small
 
@@ -430,7 +430,7 @@ def make_radau_attempt(jac_fn, p: RadauParams):
             ratio = torch.clamp_max(
                 err * err / torch.clamp_min(ms.err_acc, 1e-30), 1e30)
             facgus = div_const((ms.h_acc / h).to(cdt)
-                               * torch.sqrt(torch.sqrt(ratio)), p.safety)
+                               * sqrt_rn(sqrt_rn(ratio)), p.safety)
             facgus = torch.clamp_min(torch.clamp_max(facgus, facl), facr)
             quot = torch.where(can_pred, torch.maximum(quot, facgus), quot)
             hnew = h / quot.to(h.dtype)

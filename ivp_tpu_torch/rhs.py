@@ -122,11 +122,19 @@ def _vdp_jac(t, y, mu=1.0):
     ], 1)
 
 
+def _lane_col(k):
+    """A per-lane ``(B,)`` arg as a column ``(B, 1)``, to scale each lane's
+    state; a number as it is."""
+    return k[:, None] if isinstance(k, torch.Tensor) and k.ndim == 1 else k
+
+
 def _decay(t, y, k=1.0):
-    return -k * y
+    return -_lane_col(k) * y
 
 
 def _decay_jac(t, y, k=1.0):
+    if isinstance(k, torch.Tensor):
+        return (-_lane_col(k)).to(y.dtype).expand(y.shape)[:, :, None].clone()
     return torch.full_like(y, -k)[:, :, None]
 
 

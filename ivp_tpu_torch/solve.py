@@ -30,8 +30,8 @@ Ported: ``"RK45"``/``"DOPRI5"``, ``"DOP853"``, ``"RK23"``, ``"RK4"``,
 ``first_step``, ``max_step``, ``min_step``, ``max_steps``, ``chunk_steps``,
 ``solver_options``, ``jac``, ``events``, ``event_capacity`` and
 ``max_restarts``; Radau and BDF run on the card with a CudaRHS that has a
-Jacobian (their kernels' record mode), with events on the CPU only (on the
-card: ROADMAP §1 item 16).  What a later slice brings raises NotImplementedError naming its
+Jacobian (their kernels' record mode), with events too (their event
+entries).  What a later slice brings raises NotImplementedError naming its
 ROADMAP item, checked before anything is placed on a device.
 ``vectorized`` is accepted and ignored.
 """
@@ -51,7 +51,7 @@ from .events import EventArgs, as_list, device_set, lane_events
 from .methods import get_engine
 from .methods.ddtier import resolve_auto_dtype
 from .methods.interp import get_interp
-from .kernels.erk_record import STIFF_MODES_ON_CARD, erk_record
+from .kernels.erk_record import erk_record
 from .kernels.stiff_ensemble import check_card
 from .methods.jacobian import stiff_spec
 from .methods.radau import STIFF_REST_ITEM
@@ -291,8 +291,6 @@ def solve_ivp(
                     int(max_restarts)) if ev_list else None)
     on_card = placement(y0, device).type == "cuda"
     if on_card:
-        if stiff and ev is not None:
-            raise NotImplementedError(STIFF_MODES_ON_CARD)
         if not isinstance(fun, CudaRHS):
             raise NotImplementedError(
                 "solve_ivp on the card runs a CudaRHS (ivp_tpu_torch.rhs); a "

@@ -264,7 +264,7 @@ PHASES = ("sass", "settle", "sweep", "turns", "profile", "occupancy", "erk",
           "erk_occupancy", "ab", "ab_record", "events", "stiff",
           "stiff_occupancy", "ab_stiff", "ab_events", "resume_profile",
           "ab_resume", "rehearse", "cover_share", "ab_erk", "cycle_split",
-          "fast_paths", "stiff_split", "event_split")
+          "fast_paths", "stiff_split", "event_split", "ab_stiff_events")
 # The stiff phase: lanes, turns.
 STIFF_B = (16384, 131072)
 # stiff_split: lanes, rounds of variant and stamped turns.
@@ -281,6 +281,10 @@ AB_STIFF_B = {"bench": 131072, "robertson": 1024, "decay": 4096,
 # instantiation (bdf_pick) and Radau Robertson its (128, 3).
 AB_STIFF_WIDE = {"robertson": 65536, "decay": 65536}
 AB_STIFF_ROUNDS = 5
+# ab_stiff_events: the bit-for-bit cases' lanes and record chunk, and the
+# rounds of old, new, new, old of each event main path at chip_smoke.py's
+# B (STIFF_B).
+AB_STIFF_EV_B, AB_STIFF_EV_CAP, AB_STIFF_EV_ROUNDS = 4096, 37, 3
 # The recording ball's record-event launch alone: (B, rec_cap).
 EVENT_RECORD = (16384, 256)
 # The events phase: each main-path event instantiation alone, (kernel, set,
@@ -463,6 +467,11 @@ def stiff_instantiation(mangled):
     b = re.match(r"[fd](?:Li(\d+)ELi(\d+)E(?:Li(\d)E)?)?", rest)
     bounds = f"/{b.group(1)}x{b.group(2)}" if b and b.group(1) else ""
     mode = f"/{STIFF_MODE_NAMES[int(b.group(3))]}" if b and b.group(3) else ""
+    # An event entry's set (radau_ev.cu, bdf_ev.cu) after the mode.
+    ev = re.match(r"(\d+)", rest[b.end():]) if b and b.group(3) else None
+    if ev:
+        k = b.end() + len(ev.group(1))
+        mode += f"/ev:{rest[k:k + int(ev.group(1))]}"
     return (f"{m.group(1)}/{functor}/{'f32' if rest[:1] == 'f' else 'f64'}"
             f"{bounds}{mode}")
 
@@ -1441,7 +1450,8 @@ STIFF_STAMPS = {
          "replace", True),
         (("  return (too_small || dead) ? STEP_SIZE_TOO_SMALL : RUNNING;\n",),
          "  IVP_STAMP(7);\n", "before", False),
-        (("    change_d<N, T>(s.at(K::D), L.order, factor);\n",),
+        (("    change_d<N, T>(s.at(K::D), L.order, factor);\n",
+          "      change_d<N, T>(s.at(K::D), L.order, factor);\n"),
          "    IVP_STAMP(8);\n    change_d<N, T>(s.at(K::D), L.order, factor);\n"
          "    IVP_STAMP(9);\n", "replace", True),
     ) + _STAMP_KERNEL,
@@ -1508,26 +1518,35 @@ def stiff_stamped_copy(src, dst):
         "constexpr int SINGULAR_MATRIX = 5;\n", STIFF_STAMP_HEAD, 1))
     for name, entries in (*STIFF_STAMPS.items(),
                           ("stiff_common.cuh", STIFF_STAMP_OUT)):
-        text = (dst / name).read_text()
+        # A kernel's source and, since the event entries, its template's
+        # header (<kernel>.cuh), where most anchors sit.
+        files = [f for f in (name[:-3] + ".cuh", name)
+                 if (dst / f).is_file()] if name.endswith(".cu") else [name]
+        texts = {f: (dst / f).read_text() for f in files}
         for anchors, new, where, optional in entries:
-            old = next((o for o in anchors if text.count(o) == 1), None)
-            if old is None:
+            hit = next(((f, o) for o in anchors for f in files
+                        if texts[f].count(o) == 1), None)
+            if hit is None:
                 if optional:
                     continue
                 raise RuntimeError(f"stiff_split: none of {anchors!r} is once "
-                                   f"in {name}")
+                                   f"in {files}")
+            f, old = hit
             indent = old[:len(old) - len(old.lstrip(" "))]
             first = old[:old.find("\n") + 1]
             new = {"before": (new if new.startswith(" ") else indent + new)
                    + old, "after": first + new + old[len(first):],
                    "replace": new}[where]
-            text = text.replace(old, new)
-        text = re.sub(r"if \(!fast\.ok(\(\))?", r"if (!fast.ok\1 && ivp_stamp_slow(11)",
-                      text)
-        text = text.replace("if (!wide.ok())", "if (!wide.ok() && ivp_stamp_slow(12))")
-        text = text.replace("    if (!done) {\n      LibOps<CT> lib;",
-                            "    if (!done && ivp_stamp_slow(12)) {\n      LibOps<CT> lib;")
-        (dst / name).write_text(text)
+            texts[f] = texts[f].replace(old, new)
+        for f, text in texts.items():
+            text = re.sub(r"if \(!fast\.ok(\(\))?",
+                          r"if (!fast.ok\1 && ivp_stamp_slow(11)", text)
+            text = text.replace("if (!wide.ok())",
+                                "if (!wide.ok() && ivp_stamp_slow(12))")
+            text = text.replace(
+                "    if (!done) {\n      LibOps<CT> lib;",
+                "    if (!done && ivp_stamp_slow(12)) {\n      LibOps<CT> lib;")
+            (dst / f).write_text(text)
 
 
 def stiff_regions(ins):
@@ -4131,6 +4150,155 @@ def ab_stiff(build, dev, baseline, label):
         del a, hmin
 
 
+def stiff_event_ab_cases(dev, B=AB_STIFF_EV_B):
+    """``[(case, method, controller, run(lib))]``: each stiff event entry
+    on chip_smoke.py's event inputs (``stiff_ev_inputs``) at ``B`` lanes,
+    through this tree's wrappers with the library ``lib`` (None: the
+    package's build): the oscillator over [0, 3000] lean, sampled (101
+    points) and recording (``AB_STIFF_EV_CAP`` rows a chunk, with
+    coefficients and without, with the samples), the restarts lean and
+    recording with coefficients, each method and controller type.
+    ``run`` returns ``{field: tensor}``: the final state, every counter, the
+    event buffers and counts, the samples, the rows and their counts."""
+    import chip_smoke as cs
+    from ivp_tpu_torch.kernels import erk_record as R
+    from ivp_tpu_torch.kernels import stiff_ensemble as S
+    from ivp_tpu_torch.methods.jacobian import stiff_spec
+
+    def ensemble(method, cp, which, m):
+        def run(lib):
+            fun, a, ev, grid, _ = cs.stiff_ev_inputs(which, B, dev, grid_m=m)
+            spec = stiff_spec(method, fun.n, None,
+                              {"controller_precision": cp})
+            return cs.ev_dict(_ens(S, method, fun, a, spec, lib, grid, ev))
+        return run
+
+    def record(method, cp, which, cont, m):
+        def run(lib):
+            fun, a, ev, grid, _ = cs.stiff_ev_inputs(which, B, dev, grid_m=m)
+            spec = stiff_spec(method, fun.n, None,
+                              {"controller_precision": cp})
+            r = R.stiff_record_launches(
+                method, fun, *a, grid, spec, AB_STIFF_EV_CAP, cont, 0.0, lib,
+                torch.cuda.current_stream(dev).cuda_stream, events=ev)
+            d = {f: getattr(r, f) for f in cs.STIFF_FINAL + cs.REC_FIELDS
+                 + ("n_rec", "y_samples", "n_samples")}
+            d.update(zip(("t_events", "y_events", "n_events",
+                          "event_overflow", "n_restarts", "n_brent"),
+                         r.events))
+            return d
+        return run
+
+    out = []
+    for method in ("RADAU", "BDF"):
+        for cp in ("float32", "state"):
+            tag = f"{method.lower()}_{cp}"
+            out += [(f"crossing_lean_{tag}", method, cp,
+                     ensemble(method, cp, "crossing", 0)),
+                    (f"crossing_sampled_{tag}", method, cp,
+                     ensemble(method, cp, "crossing", cs.SAMPLED_M)),
+                    (f"crossing_record_{tag}", method, cp,
+                     record(method, cp, "crossing", False, cs.SAMPLED_M)),
+                    (f"crossing_record_cont_{tag}", method, cp,
+                     record(method, cp, "crossing", True, cs.SAMPLED_M)),
+                    (f"replenish_lean_{tag}", method, cp,
+                     ensemble(method, cp, "replenish", 0)),
+                    (f"replenish_record_cont_{tag}", method, cp,
+                     record(method, cp, "replenish", True, 0))]
+    return out
+
+
+def _ens(S, method, fun, a, spec, lib, grid, ev):
+    """One stiff event ensemble launch from ``lib`` on the current stream:
+    stiff_ensemble's outputs with events."""
+    B = a[0].shape[0]
+    hmin = torch.zeros(B, dtype=torch.float64, device=a[0].device)
+    c = S.stiff_ensemble_cuda(method, fun, *a, spec.params(), hmin, lib=lib,
+                              t_grid=grid, events=ev)
+    return (c.t, c.y, c.status, c.nfev, c.nstep, c.naccpt, c.nrejct,
+            c.sample_y if grid is not None else None,
+            c.s_cursor if grid is not None else None, c.ev, c.njev, c.nlu)
+
+
+def ab_stiff_events(build, dev, baseline, label):
+    """The stiff kernels' event entries built from ``baseline`` (a ``csrc``
+    with radau_ev.cu and bdf_ev.cu, launched through this tree's wrappers)
+    against the package's: ``ab_stiff_events_bitwise`` lines, the lanes
+    differing in every output of each ``stiff_event_ab_cases`` case (bits;
+    NaN equals NaN; must be 0 for a change claimed bit for bit), then
+    ``AB_STIFF_EV_ROUNDS`` rounds of old, new, new, old ``turn_ms`` of the
+    event main paths' launches at chip_smoke.py's B (the oscillator lean
+    and sampled, the restarts; the float32 controller):
+    ``ab_stiff_events``.  A baseline without those sources is named in an
+    ``ab_stiff_events_skipped`` line."""
+    import chip_smoke as cs
+    from ivp_tpu_torch.kernels import stiff_ensemble as S
+    from ivp_tpu_torch.methods.jacobian import stiff_spec
+
+    names = ("radau_ev", "bdf_ev")
+    if not all((Path(baseline) / f"{n}.cu").is_file() for n in names):
+        line("ab_stiff_events_skipped", old=label,
+             reason="the baseline has no radau_ev.cu and bdf_ev.cu")
+        return
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(4) as ex:
+        futs = {n: ex.submit(build.build, src_dir=baseline, name=n)
+                for n in names}
+        new_futs = {n: ex.submit(build.build, name=n) for n in names}
+        old = {n.split("_")[0].upper(): build.load(f.result())
+               for n, f in futs.items()}
+        new_paths = {n: f.result() for n, f in new_futs.items()}
+    line("ab_stiff_events_build", old=label,
+         seconds=round(time.perf_counter() - t0, 3))
+    stiff_ptxas("new", new_paths)
+    for case, method, cp, run in stiff_event_ab_cases(dev):
+        new, ref = run(None), run(old[method])
+        torch.cuda.synchronize()
+        diff = fields_lanes_differing(new, ref)
+        line("ab_stiff_events_bitwise", old=label, kernel=method.lower(),
+             case=case, B=AB_STIFF_EV_B,
+             identical=all(v == 0 for v in diff.values()),
+             lanes_differing=repr(diff),
+             statuses=repr(dict(Counter(new["status"].cpu().tolist()))),
+             events=int(new["n_events"].sum()),
+             restarts=int(new["n_restarts"].sum()))
+        del new, ref
+    B = cs.STIFF_B
+    for which, m in (("crossing", 0), ("crossing", cs.SAMPLED_M),
+                     ("replenish", 0)):
+        fun, a, ev, grid, ev_set = cs.stiff_ev_inputs(which, B, dev,
+                                                      grid_m=m)
+        for method in ("RADAU", "BDF"):
+            spec = stiff_spec(method, fun.n, None, None)
+            run = {w: (lambda lib=lib: _ens(S, method, fun, a, spec, lib,
+                                            grid, ev))
+                   for w, lib in (("new", None), ("old", old[method]))}
+            ms = {"old": [], "new": []}
+            for r in range(AB_STIFF_EV_ROUNDS):
+                for w in ("old", "new", "new", "old"):
+                    ms[w].append(turn_ms(run[w]))
+            out = run["new"]()
+            torch.cuda.synchronize()
+            med = {w: float(np.median(v)) for w, v in ms.items()}
+            b_ms, b_by = S.stiff_bound(
+                method, fun, out[4], out[5], out[6], out[3], out[10],
+                out[11], n_samples=out[8], m=m, events=(ev_set, out[9]))
+            line("ab_stiff_events", old=label, kernel=method.lower(),
+                 row=f"{which}{'_sampled' if m else ''}_B{B}",
+                 old_ms=[round(x, 4) for x in ms["old"]],
+                 new_ms=[round(x, 4) for x in ms["new"]],
+                 old_median=round(med["old"], 4),
+                 new_median=round(med["new"], 4),
+                 new_over_old=round(med["new"] / med["old"], 4),
+                 bound_ms=round(b_ms, 6), bound_by=b_by,
+                 share_new=round(b_ms / med["new"], 4),
+                 brent_evals=int(out[9].n_brent.sum()),
+                 events=int(out[9].n_events.sum()),
+                 restarts=int(out[9].n_restarts.sum()))
+            del out
+        del a
+
+
 # ab_resume: rounds of old, new, new, old whole chunked solves; the lanes,
 # chunk and step budget of the decay cases (per-lane t0 and spans, some
 # backward, one of length 0; stiff lanes stop at the budget).
@@ -4245,9 +4413,10 @@ def resume_ab_cases(dev, B=None):
                     params(method, fun.n, cp), cs.RESUME_CHUNK, 100000))
     Bd, chunk, budget = AB_RESUME_DECAY
     fun, a, fargs = stiff_inputs("decay", B or Bd, dev)
-    # Not RK23: a backward lane of these overflows, and RK23 counts only
-    # accepted attempts, so a lane whose error estimate is NaN is rejected
-    # forever within one launch (the plain version loops too; ROADMAP §3).
+    # Not RK23: a backward lane of these overflows, and a build before the
+    # port's RK23 counted an attempt whose error estimate is not finite
+    # rejects that lane forever within one launch (ROADMAP §3 fault 7):
+    # ``rk23_decay_case`` runs it on this tree alone.
     for method in ("DOPRI5", "DOP853", "RK4"):
         out.append((f"{method.lower()}_decay", method, fun, a, fargs,
                     params(method, 1), chunk, budget))
@@ -4260,6 +4429,53 @@ def resume_ab_cases(dev, B=None):
                                       dev), (cs.STIFF_MU,),
                         params(method, 2, cp), 64, 100000))
     return out
+
+
+def rk23_decay_case(dev, B=None):
+    """RK23 on ``resume_ab_cases``' decay lanes (some overflow backward,
+    their error estimates NaN), as one of its cases: run on this tree's
+    build alone, where such a lane ends at the step budget (ROADMAP §3
+    fault 7), since a parent's loops there."""
+    from ivp_tpu_torch.batch import _solver_params
+
+    Bd, chunk, budget = AB_RESUME_DECAY
+    fun, a, fargs = stiff_inputs("decay", B or Bd, dev)
+    return ("rk23_decay", "RK23", fun, a, fargs,
+            _solver_params("RK23", 1, None, None, False), chunk, budget)
+
+
+def rk23_decay_alone(dev, new_side, stream=None, label="new"):
+    """``ab_resume_rk23_decay``: ``rk23_decay_case`` chunked through this
+    tree's resumable launches and, on the same lanes, through the plain
+    version's (``run_bounded``, chunk by chunk): every lane ends, and every
+    carry field's lanes differing between the two at the end (the
+    kernel's FMAs: a count, not a gate), with the statuses."""
+    from ivp_tpu_torch.core.driver import run_args
+    from ivp_tpu_torch.kernels import erk_ensemble as K
+
+    case, method, fun, a, args, params, chunk, max_steps = rk23_decay_case(
+        dev)
+    y0, t0, tf, hmax, fs, rtol, atol = a
+    ra = run_args(tf, rtol, atol, hmax, 0.0, max_steps, y0)
+    start, resume = card_route(new_side.RES, method, fun, args, params,
+                               None, stream)
+    c, launches = start(y0, t0, fs, ra), 1
+    while not bool(c.done.all()):
+        c = resume(c, ra, chunk)
+        launches += 1
+    init_carry, run_bounded = K.plain_driver(method, fun, y0, args, 0,
+                                             params, None, bounded=True,
+                                             unroll=1)
+    p = init_carry(t0, y0, fs, ra)
+    while not bool(p.done.all()):
+        p = run_bounded(p, ra, chunk)
+    same = {f: int((getattr(c, f) != getattr(p, f)).sum())
+            for f in ("status", "nfev", "nstep", "naccpt", "nrejct")}
+    line("ab_resume_rk23_decay", build=label, case=case, B=y0.shape[0],
+         chunk=chunk, launches=launches, all_done=bool(c.done.all()),
+         lanes_differing_from_plain=repr(same),
+         statuses=repr(dict(Counter(c.status.cpu().tolist()))))
+    return bool(c.done.all())
 
 
 def card_route(RES, method, fun, args, params, lib=None, stream=None):
@@ -4377,6 +4593,7 @@ def ab_resume(build, dev, baseline, label):
     cases = resume_ab_cases(dev)
     resume_bitwise(cases, lambda m: None, lambda m: old[src(m)], new_side,
                    old_side, None, label)
+    rk23_decay_alone(dev, new_side)
     for case, method, fun, a, args, params, chunk, max_steps in cases:
         match = (f"{method.lower()}_kernel" if method in ("RADAU", "BDF")
                  else "erk_kernel")
@@ -4654,16 +4871,17 @@ def main():
               set(PHASES) - ({"ab_record", "ab_stiff", "ab_events",
                               "ab_resume", "rehearse", "ab_erk",
                               "cycle_split", "stiff_split",
-                              "event_split"} if opts.baseline else
+                              "event_split", "ab_stiff_events"}
+                             if opts.baseline else
                              {"ab", "ab_record", "ab_stiff", "ab_events",
                               "ab_resume", "rehearse", "ab_erk",
                               "cycle_split", "stiff_split",
-                              "event_split"}))
+                              "event_split", "ab_stiff_events"}))
     if not phases <= set(PHASES):
         ap.error(f"unknown phases {sorted(phases - set(PHASES))}")
     if phases & {"ab", "ab_record", "ab_stiff", "ab_events", "ab_erk",
                  "ab_resume", "rehearse", "cycle_split",
-                 "stiff_split"} and not opts.baseline:
+                 "stiff_split", "ab_stiff_events"} and not opts.baseline:
         ap.error("the ab phases, rehearse, cycle_split and stiff_split need "
                  "--baseline")
     if phases == {"rehearse"}:
@@ -4770,10 +4988,12 @@ def main():
         resume_profile(dev)
     for baseline in (opts.baseline if phases & {
             "ab", "ab_record", "ab_stiff", "ab_events", "ab_resume",
-            "resume_profile", "ab_erk"} else ()):
+            "resume_profile", "ab_erk", "ab_stiff_events"} else ()):
         label = baseline_label(baseline)
         if "ab_stiff" in phases:
             ab_stiff(build, dev, baseline, label)
+        if "ab_stiff_events" in phases:
+            ab_stiff_events(build, dev, baseline, label)
         if "ab_events" in phases:
             ab_events(build, dev, baseline, label,
                       opts.ab_methods.split(",") if opts.ab_methods else None,

@@ -22,6 +22,7 @@ from ivp_tpu.methods.radau import RadauState as JRadauState  # noqa: E402
 
 import ivp_tpu_torch as it  # noqa: E402
 from ivp_tpu_torch import convert  # noqa: E402
+from ivp_tpu_torch import events as EV  # noqa: E402
 from ivp_tpu_torch.batch import build_resumable_solver  # noqa: E402
 
 import test_torch_stiff_cases as C  # noqa: E402
@@ -198,7 +199,10 @@ def _placed(*a, **k):
 
 @pytest.mark.parametrize("kw, item", [
     (dict(ST, t_eval=np.linspace(0.0, 1.0, 3)), "placed"),
-    (dict(ST, events=[lambda t, y: y[:, 0]]), "item 16"),
+    # A declared event set runs on the card (the kernels' event entries); a
+    # plain callable event refuses there (item 12).
+    (dict(ST, events=[lambda t, y: y[:, 0]]), "item 12"),
+    (dict(ST, events=[EV.vdp_crossing]), "placed"),
     (dict(ST, dense_output=True), "placed"),
     (dict(ST, record_trajectories=True), "placed"),
     (dict(ST, jac=lambda t, y: None), "item 15"),
@@ -234,13 +238,17 @@ def test_stiff_card_refuses_a_plain_rhs_and_large_n(monkeypatch):
     with pytest.raises(NotImplementedError, match="item 15"):
         it.build_ensemble_solver(it.rhs.lorenz, "BDF", n=3)(
             np.ones((4, 3)), 0.0, 1.0, 1e-6, 1e-8, device="cuda")
-    # solve_ivp with BDF runs on the card now: past its checks to placement;
-    # with events it still refuses (item 16).
+    # solve_ivp with BDF runs on the card now, with a declared event set
+    # too: past its checks to placement; with a plain callable event it
+    # refuses (item 12).
     monkeypatch.setattr(it.solve, "_place", _placed)
     with pytest.raises(Placed):
         it.solve_ivp(it.rhs.vdp, (0.0, 1.0), [2.0, 0.0], method="BDF",
                      device="cuda")
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(Placed):
+        it.solve_ivp(it.rhs.vdp, (0.0, 1.0), [2.0, 0.0], method="BDF",
+                     device="cuda", events=[EV.vdp_crossing])
+    with pytest.raises(NotImplementedError, match="item 12"):
         it.solve_ivp(it.rhs.vdp, (0.0, 1.0), [2.0, 0.0], method="BDF",
                      device="cuda", events=lambda t, y: y[0])
     start, _, _ = build_resumable_solver(it.rhs.vdp, "RK45", n=2,

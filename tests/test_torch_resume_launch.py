@@ -347,7 +347,7 @@ def test_resume_carry_matches_source():
 def test_stiff_entries_take_two_carries(kernel):
     """The stiff entries load one carry (d_in, c_in) and store another (d,
     c), as StiffLaunch passes them."""
-    text = (CSRC / f"{kernel}.cu").read_text()
+    text = (CSRC / f"{kernel}.cuh").read_text()   # the entry macro
     entry = re.search(rf'extern "C" int ivp_{kernel}_##NAME\((.*?)\)\s*\{{',
                       text, re.S).group(1).replace("\\", " ")
     names = [re.sub(r"^.*[\s*]", "", p.strip()) for p in entry.split(",")]

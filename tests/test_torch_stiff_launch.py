@@ -17,7 +17,9 @@ from ivp_tpu_torch import rhs  # noqa: E402
 from ivp_tpu_torch.kernels import stiff_ensemble as S  # noqa: E402
 
 CSRC = Path(S.__file__).resolve().parent.parent / "csrc"
-SOURCE = {"radau": CSRC / "radau.cu", "bdf": CSRC / "bdf.cu"}
+# Each kernel's source: its template (<kernel>.cuh) and its entry lines
+# without events (<kernel>.cu).
+SOURCE = {k: (CSRC / f"{k}.cuh", CSRC / f"{k}.cu") for k in ("radau", "bdf")}
 FUNS = (rhs.decay, rhs.vdp, rhs.robertson)          # N = 1, 2, 3
 CONTROLLERS = ("float32", "state")
 # The shared memory of one H100 SM, what one block may use of it, and what
@@ -26,6 +28,10 @@ SM_SMEM, BLOCK_MAX, BLOCK_RESERVED = 233472, 232448, 1024
 
 
 def _text(path):
+    """A source's text; of a tuple of paths, their texts one after
+    another."""
+    if isinstance(path, tuple):
+        return "".join(_text(p) for p in path)
     return Path(path).read_text()
 
 
@@ -95,6 +101,47 @@ def test_slot_bytes_fit_an_sm(kernel, fun):
     assert block <= BLOCK_MAX
     for mb in (min_blocks, one_round or min_blocks):
         assert mb * (block + BLOCK_RESERVED) <= SM_SMEM
+
+
+def _event_entries(kernel):
+    """{(rhs name, set): (threads, min blocks, one-round min blocks or
+    None)} of the event entry lines of <kernel>_ev.cu, and the event sets'
+    event counts (csrc/events/<set>.cuh)."""
+    macro = {"radau": "IVP_RADAU_EVENT_ENTRY",
+             "bdf": "IVP_BDF_EVENT_ENTRY"}[kernel]
+    out = {}
+    for m in re.finditer(rf"^{macro}\((\w+), (\w+), (\w+), (\w+)((?:, \d+)+)\)$",
+                         _text(CSRC / f"{kernel}_ev.cu"), re.M):
+        nums = [int(v) for v in m.group(5).split(",")[1:]]
+        ne = int(re.search(r"static constexpr int E = (\d+);",
+                           _text(CSRC / "events" / f"{m.group(3)}.cuh"))
+                 .group(1))
+        out[m.group(1), m.group(3)] = (*nums, None)[:3], ne
+    return out
+
+
+@pytest.mark.parametrize("kernel", sorted(SOURCE))
+def test_event_slot_bytes_fit_an_sm(kernel):
+    """Each event entry takes its functor's threads and min blocks (the
+    entry line without events), and its slots, the lane's cold state and
+    its event state (stiff_events.cuh's EvSlots: 4 doubles an event and
+    2), fit a block and the min blocks (and BDF's one-round ones) one SM;
+    the stiff event sets each have one: VdP's crossing, decay's
+    replenish."""
+    ev = _event_entries(kernel)
+    assert sorted(ev) == [("decay", "replenish"), ("vdp", "crossing")]
+    slots = re.search(r"DOUBLES = NE > 0 \? (\d+) \* NE \+ (\d+) : 0;",
+                      _text(CSRC / "stiff_events.cuh"))
+    per_event, fixed = int(slots.group(1)), int(slots.group(2))
+    funs = {f.name: f for f in FUNS}
+    for (name, _), (bounds, ne) in ev.items():
+        assert bounds == _entries(kernel)[name]
+        threads, min_blocks, one_round = bounds
+        lane = 8 * (_cold_doubles(kernel, funs[name].n) + per_event * ne
+                    + fixed)
+        assert lane * threads <= BLOCK_MAX
+        for mb in (min_blocks, one_round or min_blocks):
+            assert mb * (lane * threads + BLOCK_RESERVED) <= SM_SMEM
 
 
 @pytest.mark.parametrize("kernel", sorted(SOURCE))
